@@ -97,16 +97,63 @@ def _f32(x, device) -> torch.Tensor:
                            device=device)
 
 
+# Static per-topology tensors, uploaded once per device: a copy from
+# host memory makes the host wait for the card, so a hop must not repeat
+# it every round.  A cluster-hop entry holds its Topology, so the id in
+# its key cannot be reused while the entry lives; other entries are
+# keyed by their array's bytes.
+_GEOMETRY: Dict[tuple, object] = {}
+_GEOMETRY_MAX = 64
+
+
+def _cached(key, build):
+    if key not in _GEOMETRY:
+        if len(_GEOMETRY) >= _GEOMETRY_MAX:
+            _GEOMETRY.clear()
+        _GEOMETRY[key] = build()
+    return _GEOMETRY[key]
+
+
+def _const(x, device) -> torch.Tensor:
+    """A static float32 array on `device`, uploaded once per content."""
+    a = np.ascontiguousarray(x, np.float32)
+    return _cached(("const", a.tobytes(), a.shape, torch.device(device)),
+                   lambda: _f32(a, device))
+
+
 def _cluster_geometry(topo: Topology, cfg: OTAConfig,
                       device) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """Static cluster-hop geometry for the kernel backend.
+    """Static cluster-hop geometry for the kernel backend, built once per
+    topology, interference flag and device.
 
     Returns (amp [C_rx, U], own [C_rx, U], beta_bar [C]): per-rx channel
     amplitudes sqrt(beta[u -> c]), the own-cluster matched-filter mask,
     and the normalization sums.  ``interference=False`` zeroes the
     cross-cluster amplitudes.
     """
+    key = ("cluster", id(topo), cfg.interference, torch.device(device))
+    return _cached(key, lambda: (topo, _build_cluster_geometry(
+        topo, cfg, device)))[1]
+
+
+def _mac_geometry(beta: np.ndarray, device) -> Tuple[torch.Tensor,
+                                                      torch.Tensor,
+                                                      torch.Tensor]:
+    """(amp [1, U], w [1, U], sum beta) of a single-cell hop: amplitudes
+    sqrt(beta), unit matched-filter weights and the normalization sum,
+    built once per beta and device."""
+    b = np.ascontiguousarray(beta, np.float32).reshape(-1)
+
+    def build():
+        bt = _f32(b, device)
+        return (torch.sqrt(bt)[None, :].contiguous(),
+                torch.ones((1, b.size), device=device), bt.sum())
+
+    return _cached(("mac", b.tobytes(), torch.device(device)), build)
+
+
+def _build_cluster_geometry(topo: Topology, cfg: OTAConfig, device):
     C, M = topo.C, topo.M
     U = C * M
     beta = np.asarray(topo.beta_mu_is, np.float32).reshape(U, C)
@@ -210,9 +257,9 @@ class EquivalentBackend(ChannelBackend):
         K = float(topo.K)
         dev = deltas.device
         tx = pack_cx(deltas)                                     # [C, M, N]
-        beta = _f32(topo.beta_mu_is, dev)                    # [C', M, C_rx]
+        beta = _const(topo.beta_mu_is, dev)                  # [C', M, C_rx]
         beta_own = torch.stack([beta[c, :, c] for c in range(C)])  # [C, M]
-        bb = _f32(topo.beta_bar_c, dev)                          # [C]
+        bb = _const(topo.beta_bar_c, dev)                        # [C]
 
         k_eps, _, k_no = prng.split(key, 3)
         eps = prng.normal(k_eps, (C, M, N)) / math.sqrt(K)
@@ -242,7 +289,7 @@ class EquivalentBackend(ChannelBackend):
         U, twoN = deltas.shape
         N = twoN // 2
         tx = pack_cx(deltas)
-        b = _f32(beta, deltas.device)
+        b = _const(beta, deltas.device)
         b_bar = b.sum()
         k_eps, k_no = prng.split(key)
         eps = prng.normal(k_eps, (U, N)) / math.sqrt(K)
@@ -284,14 +331,11 @@ class FusedBackend(ChannelBackend):
         return unpack_cx(est)
 
     def mac(self, key, deltas, beta, K, sigma_h2, sigma_z2, P, cfg):
-        U, _ = deltas.shape
         tx = pack_cx(deltas)
-        b = _f32(beta, deltas.device)
-        amp = torch.sqrt(b)[None, :]
-        w = torch.ones((1, U), device=deltas.device)
+        amp, w, b_bar = _mac_geometry(beta, deltas.device)
         y = fused_combine(_seed_words(key), P * tx, amp, w, K=K,
                           sigma_h2=sigma_h2, sigma_z2=sigma_z2)[0]
-        return unpack_cx(y / K / (P * sigma_h2 * b.sum()))
+        return unpack_cx(y / K / (P * sigma_h2 * b_bar))
 
 
 register_backend(_NotPortedBackend("reference", "item 3 (channel layer)"))

@@ -47,9 +47,11 @@ def sgd(lr: Schedule) -> Optimizer:
 
 
 def _pow(base: float, t: torch.Tensor) -> torch.Tensor:
-    """float32 base ** t, as the reference's jitted round computes it."""
-    return torch.pow(torch.tensor(base, dtype=torch.float32,
-                                  device=t.device), t.to(torch.float32))
+    """float32 base ** t, as the reference's jitted round computes it.
+    The base is filled on t's device: uploading it from host memory
+    would make the host wait for the card on every step."""
+    return torch.pow(torch.full((), base, dtype=torch.float32,
+                                device=t.device), t.to(torch.float32))
 
 
 def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,

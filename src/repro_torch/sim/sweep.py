@@ -173,24 +173,29 @@ class SweepRunner:
 
         self._sync()
         t_drive = time.perf_counter()
-        for t in range(T):
-            P_t, P_is_t = power_schedule(
-                t, cfg.power_base, cfg.power_slope, cfg.power_is_factor,
-                cfg.power_low)
-            for s in range(S):
-                keys[s], sub = prng.split(keys[s])
-                states[s] = round_fn(states[s], sub, P_t, P_is_t)
-            if t % sc.eval_every == 0 or t == T - 1:
-                rounds.append(t + 1)
-                for s, st in enumerate(states):
-                    a, l = _eval(st["theta"])
-                    acc_t[s].append(a)
-                    loss_t[s].append(l)
-                    pe_t[s].append(float(st["power_edge"]
-                                          / max(float(st["n_edge_tx"]), 1.0)))
-                    pi_t[s].append(float(st["power_is"]
-                                         / max(float(st["n_is_tx"]), 1.0)))
-        self._sync()
+        # a named range for profilers; it starts and ends synchronized,
+        # so the device work inside it is exactly the rounds' and evals'
+        with torch.profiler.record_function("SweepRunner.drive"):
+            for t in range(T):
+                P_t, P_is_t = power_schedule(
+                    t, cfg.power_base, cfg.power_slope, cfg.power_is_factor,
+                    cfg.power_low)
+                for s in range(S):
+                    keys[s], sub = prng.split(keys[s])
+                    states[s] = round_fn(states[s], sub, P_t, P_is_t)
+                if t % sc.eval_every == 0 or t == T - 1:
+                    rounds.append(t + 1)
+                    for s, st in enumerate(states):
+                        a, l = _eval(st["theta"])
+                        acc_t[s].append(a)
+                        loss_t[s].append(l)
+                        pe_t[s].append(float(
+                            st["power_edge"]
+                            / max(float(st["n_edge_tx"]), 1.0)))
+                        pi_t[s].append(float(
+                            st["power_is"]
+                            / max(float(st["n_is_tx"]), 1.0)))
+            self._sync()
         drive_s = time.perf_counter() - t_drive
 
         final = None

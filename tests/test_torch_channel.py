@@ -85,6 +85,28 @@ def test_conventional_hop_matches_reference(cfg):
     _close(ref, got)
 
 
+def test_static_geometry_is_built_once_per_topology_and_device():
+    """The fused backend's amplitudes, masks and normalization sums are
+    uploaded once, not on every hop."""
+    _, tt = _topos(C=3, M=4)
+    cfg = tch.OTAConfig(mode="faithful", backend="fused")
+    dev = torch.device("cpu")
+    first = tch._cluster_geometry(tt, cfg, dev)
+    assert all(a is b for a, b in zip(first,
+                                      tch._cluster_geometry(tt, cfg, dev)))
+    no_int = tch._cluster_geometry(
+        tt, tch.OTAConfig(mode="faithful", backend="fused",
+                          interference=False), dev)
+    assert not torch.equal(no_int[0], first[0])
+    mac = tch._mac_geometry(tt.beta_is, dev)
+    assert all(a is b for a, b in zip(mac, tch._mac_geometry(tt.beta_is,
+                                                             dev)))
+    np.testing.assert_array_equal(mac[0].numpy()[0],
+                                  np.sqrt(tt.beta_is.astype(np.float32)))
+    assert mac[1].shape == (1, 3) and float(mac[2]) == pytest.approx(
+        float(tt.beta_is.astype(np.float32).sum()), rel=1e-6)
+
+
 def test_packing_is_planar_not_interleaved():
     x = torch.arange(6, dtype=torch.float32)
     y = tch.pack_cx(x)

@@ -29,6 +29,8 @@ SEED = np.array([0xC0FFEE, 42], np.int64)
     (2, 33, 16, 513, (0, 0, 0)),
     (1, 70, 100, 1000, (0, 0, 0)),
     (4, 256, 16, 3925, (0, 0, 0)),     # scale_u256 cluster hop
+    (1, 4, 16, 3925, (0, 0, 0)),       # scale_u256 IS->PS hop
+    (4, 20, 100, 3925, (0, 0, 0)),     # fig2 cluster hop (fused backend)
     (1, 4, 100, 3925, (0, 0, 0)),      # fig2 IS->PS hop
 ])
 def test_fused_mac_kernel_matches_plain_on_card(B, U, K, N, bases):

@@ -10,6 +10,10 @@ On the CPU the wrapper runs the plain PyTorch version; the CUDA kernel
 itself is held to that plain version on the card by
 ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
 """
+import functools
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +24,8 @@ from repro.kernels import fused_mac as j_fused_mac
 from repro.kernels import fused_mac_ref as j_fused_mac_ref
 from repro_torch.kernels import (canonical_block_u, fused_mac,
                                  fused_mac_plain, fused_mac_ref)
+
+fused_mac_module = importlib.import_module("repro_torch.kernels.fused_mac")
 
 # one intra-op thread: test workers run side by side, and torch's
 # default of one thread per core oversubscribes the CPU many times
@@ -61,10 +67,11 @@ def test_plain_matches_jax_kernel_and_oracle(B, U, K, N, bases):
     arrs = _inputs(B, U, N, B * 100 + U + K + N)
     kw = dict(K=K, sigma_h2=1.0, sigma_z2=2.0, rx_base=rb, u_base=ub,
               n_base=nb)
-    ref_kernel = j_fused_mac(jnp.asarray(SEED), *map(jnp.asarray, arrs),
-                             interpret=True, **kw)
-    ref_oracle = j_fused_mac_ref(jnp.asarray(SEED), *map(jnp.asarray, arrs),
-                                 **kw)
+    # jitted: one compile per shape instead of one per eager op
+    ref_kernel = jax.jit(functools.partial(j_fused_mac, interpret=True,
+                                           **kw))(jnp.asarray(SEED), *arrs)
+    ref_oracle = jax.jit(functools.partial(j_fused_mac_ref, **kw))(
+        jnp.asarray(SEED), *arrs)
     tens = [torch.as_tensor(a) for a in arrs]
     got = fused_mac(torch.as_tensor(SEED.astype(np.int64)), *tens, **kw)
     assert got[0].shape == (B, N) and got[0].dtype == torch.float32
@@ -109,6 +116,21 @@ def test_wrapper_rejects_bad_inputs(bad):
         t_re = t_re.to("meta")
     with pytest.raises(ValueError):
         fused_mac(SEED, t_re, t_im, amp, w, K=K, sigma_h2=1.0, sigma_z2=1.0)
+
+
+@pytest.mark.parametrize("seed,bases", [
+    ((0xC0FFEE, 42), (0, 0, 0)),
+    ((0xFFFFFFFF, 0x80000000), (2, 3, 5)),
+    ((7, 0x9E3779B9), (2 ** 32 - 1, 2 ** 31, 1))])
+def test_launch_words_are_the_uint32_bit_patterns(seed, bases):
+    """The kernel's 8 launch words: the seed words, then the counter
+    bases, then zeros, each as its uint32 bit pattern in int32."""
+    words = fused_mac_module._launch_words(
+        torch.tensor(seed, dtype=torch.int64), *bases, torch.device("cpu"))
+    want = np.array(list(seed) + list(bases) + [0, 0, 0],
+                    np.uint32).view(np.int32)
+    assert words.dtype == torch.int32 and words.shape == (8,)
+    assert words.tolist() == want.tolist()
 
 
 @pytest.mark.parametrize("M", [1, 5, 64, 1024, 2048, 4096, 3000])
