@@ -6,29 +6,45 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi); TF32 off for matmul
    and cuDNN, so float32 stays float32;
-2. build every CUDA kernel of the main path from the sources in this
-   checkout (``src/repro_torch/csrc``);
+2. build every CUDA kernel of the main paths from the sources in this
+   checkout (``src/repro_torch/csrc``), one nvcc per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at every
-   shape the main path gives it, with inputs built as the channel
-   backend builds them, plus a few edge shapes (max |y_kernel - y_plain|
+   shape the main paths give it, with inputs built as the channel
+   backends build them, plus a few edge shapes (max |y_kernel - y_plain|
    / max |y_plain| <= 1e-4, and two launches give identical bits);
-4. the main path through `repro_torch.sim.SweepRunner` on ``cuda`` at
-   full width: ``scale_u256`` as registered, ``fig2_iid`` at the
-   paper's sizes with the fused backend, and ``fig2_iid`` as registered
-   (equivalent backend), 2 seeds each; the kernel's launch count must
-   rise by exactly 2 per round per seed on the fused runs (one cluster
-   hop, one IS->PS hop) and every metric must be finite;
-5. the main path's output against a reference: ``scale_u256`` as
-   registered, run on the CPU (plain version) with the same seeds, must
-   agree with phase 4's run on the card (kernel);
-6. where the time goes: one seed of each phase-4 run through
+4. the main paths on ``cuda`` at full width, every launch count set to
+   0 just before each run and read just after:
+   - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
+     registered, ``fig2_iid`` at the paper's sizes with the fused
+     backend, and ``fig2_iid`` as registered (equivalent backend), 2
+     seeds each; `fused_mac` launches exactly twice per round per seed
+     on the fused runs (one cluster hop, one IS->PS hop);
+   - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
+     --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
+     `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
+     rounds times for conventional FL and never for the error-free
+     baselines, 92 in all;
+   - ``fig2_iid`` quick at faithful fidelity with the mode's default
+     ``reference`` backend, 2 seeds: no kernel launches;
+   every other count stays 0, and every metric must be finite;
+5. the main paths' output against a reference: ``scale_u256`` as
+   registered, and ``fig2_iid`` at the paper's sizes with the
+   ``slab_kernel`` backend for 2 rounds, run on the CPU (plain versions)
+   with the same seeds, must agree with their runs on the card
+   (kernels); ``fig2_iid`` as registered (no kernel) runs beside them
+   as the control;
+6. where the time goes: one seed of each SweepRunner run of phase 4,
+   and of ``fig2_iid`` with the slab backend, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
    wall ms per round from the runner's ``drive_seconds``, device time
    per round from the device ops inside the runner's
    ``SweepRunner.drive`` range;
-7. kernel and plain times with CUDA events at the scale_u256 and
-   scale_u1024 cluster-hop shapes, beside the least time the card could
-   take for the same work (see ``fused_mac_bound_ms``);
+7. kernel and plain times with CUDA events at the kernels' largest
+   main-path shapes (for `ota_combine` also the largest unbatched one),
+   beside the least time the card could take for the
+   same work (``fused_mac_bound_ms``, ``ota_combine_bound_ms``), and the
+   whole slab cluster hop (emulated draw of the slab and the combine)
+   against the fused hop at the scale_u256 shape;
 8. one JSON line of kernel records, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -37,6 +53,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import subprocess
@@ -52,11 +69,13 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
+KERNELS = ("fused_mac", "ota_combine")
 # H100 SXM peaks at the full 700 W power limit and the 1.98 GHz boost
 # clock: 132 SMs; per SM and clock 64 INT32 lanes, 128 FP32 lanes
 # (67 TFLOP/s float32 outside the tensor cores, counting an FMA as 2)
 # and 16 special-function lanes; 3.35 TB/s of HBM3.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_FLOP_PER_S = 132 * 128 * 2 * 1.98e9
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 # per complex draw: one threefry2x32 block (20 rounds of add, rotate,
@@ -81,6 +100,20 @@ def fused_mac_bound_ms(B: int, U: int, K: int, N: int):
     t_bytes = 4 * (2 * U * N + 2 * B * U + 2 * B * N) / HBM_BYTES_PER_S
     bound_by = "operations" if max(t_int, t_sfu) >= t_bytes else "bytes"
     return 1e3 * max(t_int, t_sfu, t_bytes), bound_by
+
+
+def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
+    """Least time for one ota_combine call on this card: the larger of
+    its bytes over HBM's rate and its float32 operations over the FP32
+    peak.  Bytes: h (8 x B*U*K*N), t (8 x U*N), z (8 x B*K*N) and w
+    (4 x B*U) read once, y (8 x B*N) written once.  Operations: 12 per h
+    element (r += h t and mf += w h, as 6 FMAs) and 8 per (b, k, n)
+    (conj(mf) r, as 4 FMAs)."""
+    t_bytes = (8 * B * U * K * N + 8 * U * N + 8 * B * K * N + 4 * B * U
+               + 8 * B * N) / HBM_BYTES_PER_S
+    t_ops = (12 * B * U * K * N + 8 * B * K * N) / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
 
 
 def kernel_inputs(B, U, K, N, seed, dev):
@@ -132,6 +165,81 @@ def hop_inputs(sc, hop: str, seed: int, dev):
                 block_u=block_u)
 
 
+def slab_inputs(sc, hop: str, seed: int, dev):
+    """`ota_combine`'s operands at one hop of `sc`'s round, built by
+    `SlabKernelBackend` itself from random deltas at a round's scale, the
+    topology, the round-0 power and the model's 2N: (h, t, z, w), with
+    the unbatched layout and all-ones weights on a single-cell hop."""
+    from repro_torch import prng
+    from repro_torch.core import aggregation, channel
+    from repro_torch.core.topology import power_schedule
+
+    topo = sc.make_topology()
+    cfg = sc.whfl_config()
+    P_t, P_is_t = (torch.tensor(p, dtype=torch.float32) for p in
+                   power_schedule(0, cfg.power_base, cfg.power_slope,
+                                  cfg.power_is_factor, cfg.power_low))
+    two_n = aggregation.make_flat_spec(
+        sc.task_fns()[0](prng.PRNGKey(seed))).two_n
+    g = torch.Generator().manual_seed(seed)
+    key = prng.PRNGKey(seed, dev)
+    slab = channel.SlabKernelBackend
+    C, M = topo.C, topo.M
+    if hop == "cluster":
+        deltas = (1e-2 * torch.randn(C, M, two_n, generator=g)).to(dev)
+        return slab.cluster_inputs(key, deltas, topo, P_t, cfg.ota)
+    if hop == "is_ps":
+        U, beta, P = C, topo.beta_is, P_is_t
+    else:                                               # conventional
+        U, beta, P = C * M, np.asarray(topo.beta_mu_ps).reshape(-1), P_t
+    deltas = (1e-2 * torch.randn(U, two_n, generator=g)).to(dev)
+    h, t, z = slab.mac_inputs(key, deltas, beta, topo.K_ps, topo.sigma_h2,
+                              topo.sigma_z2, P)
+    return h, t, z, torch.ones(U, device=dev)
+
+
+def edge_slab(B, U, K, N, seed, dev):
+    """Random combine operands; B = None gives the unbatched layout."""
+    g = torch.Generator().manual_seed(seed)
+    lead = () if B is None else (B,)
+    cx = lambda *shape: torch.randn(*shape, dtype=torch.complex64,
+                                    generator=g).to(dev)
+    return (cx(*lead, U, K, N), cx(U, N), cx(*lead, K, N),
+            torch.randn(*lead, U, generator=g).to(dev))
+
+
+def compare_runs(on_card, on_cpu) -> dict:
+    """The card's run against the CPU's: max relative loss gap, max
+    accuracy gap, and the final model's gap over its largest entry."""
+    theta = on_cpu.final_state["theta"]
+    return {
+        "loss_max_rel": float(np.max(np.abs(np.subtract(on_card.loss,
+                                                        on_cpu.loss))
+                                     / np.abs(on_cpu.loss))),
+        "acc_max_abs": float(np.max(np.abs(np.subtract(on_card.acc,
+                                                       on_cpu.acc)))),
+        "theta_max_rel": max(
+            float((on_card.final_state["theta"][k].cpu() - theta[k]).abs()
+                  .max() / theta[k].abs().max()) for k in theta)}
+
+
+def expected_slab_launches(doc: dict) -> int:
+    """`ota_combine` launches a Fig. 2 driver document implies: per seed,
+    rounds x (I + 1) for W-HFL (I cluster hops and one IS->PS hop per
+    round), rounds for conventional FL, none for the ideal baselines."""
+    total = 0
+    for rec in doc["scenarios"]:
+        sc, rounds = rec["scenario"], rec["rounds"][-1]
+        if sc["ota_mode"] == "ideal":
+            per_seed = 0
+        elif sc["mode"] == "conventional":
+            per_seed = rounds
+        else:
+            per_seed = rounds * (sc["I"] + 1)
+        total += per_seed * len(rec["seeds"])
+    return total
+
+
 def device_profile(runner, sc) -> dict:
     """One seed of `sc` through `runner.run_scenario`, warm, then under
     `torch.profiler`: wall ms per round from ``drive_seconds``, and the
@@ -167,12 +275,14 @@ def device_profile(runner, sc) -> dict:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / T
         by_name[e.name][1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())
+    rows = lambda items: [{"op": k[:72], "ms_per_round": ms,
+                           "calls_per_round": n / T} for k, (ms, n) in items]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     out.update(device_ms_per_round=device_ms,
                device_busy_share=device_ms / wall_ms,
-               device_ops_per_round=len(ops) / T,
-               top=[{"op": k[:72], "ms_per_round": ms, "calls_per_round": n / T}
-                    for k, (ms, n) in top])
+               device_ops_per_round=len(ops) / T, top=rows(top),
+               kernels=rows((k, v) for k, v in by_name.items()
+                            if any(f"{n}_kernel" in k for n in KERNELS)))
     return out
 
 
@@ -182,7 +292,9 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, fused_mac, fused_mac_plain
+    from repro_torch.core import channel
+    from repro_torch.kernels import (build, fused_mac, fused_mac_plain,
+                                     ota_combine, ota_combine_plain)
     from repro_torch.sim import SweepRunner, get_scenario
 
     # -- phase 1: the card -------------------------------------------------
@@ -199,21 +311,24 @@ def main() -> int:
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "python": sys.version.split()[0]})
 
-    # -- phase 2: build ----------------------------------------------------
+    # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.perf_counter()
-    build.load("fused_mac")
-    build_s, nvcc_log = build.build_info("fused_mac")
-    log({"phase": "build", "kernel": "fused_mac",
-         "seconds": round(time.perf_counter() - t0, 3),
-         "nvcc_seconds": round(build_s, 3),
-         "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
-                   if "registers" in ln or "spill" in ln]})
+    build.load_all(list(KERNELS))
+    wall = round(time.perf_counter() - t0, 3)
+    for name in KERNELS:
+        build_s, nvcc_log = build.build_info(name)
+        log({"phase": "build", "kernel": name, "seconds": wall,
+             "nvcc_seconds": round(build_s, 3),
+             "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
+                       if "registers" in ln or "spill" in ln]})
 
-    # -- phase 3: kernel vs plain at the main path's shapes ----------------
+    # -- phase 3: kernels vs plain versions at the main paths' shapes -------
     seed = torch.tensor([0xC0FFEE, 42], dtype=torch.int64, device=dev)
     fig2 = get_scenario("fig2_iid").replace(total_IT=5)
     fig2_fused = fig2.replace(ota_mode="faithful", ota_backend="fused")
+    fig2_slab = fig2.replace(ota_mode="faithful", ota_backend="slab_kernel")
     u256 = get_scenario("scale_u256")
+    u256_slab = u256.replace(ota_backend="slab_kernel")
     cases = [("edge", (0, 0, 0), kernel_inputs(1, 1, 1, 64, 0, dev)),
              ("edge", (2, 3, 5), kernel_inputs(3, 5, 7, 130, 1, dev)),
              ("edge", (0, 0, 0), kernel_inputs(1, 70, 100, 1000, 2, dev))]
@@ -222,7 +337,23 @@ def main() -> int:
                                    (fig2_fused, "is_ps")]):
         cases.append((f"{sc.name} {hop}", (0, 0, 0),
                       hop_inputs(sc, hop, 10 + i, dev)))
-    max_abs = max_rel = 0.0
+    errors = {name: 0.0 for name in KERNELS}
+
+    def check(name, label, shape, y1, y2, want):
+        """Hold two launches' results to the plain version's."""
+        same = all(torch.equal(a, b) for a, b in zip(y1, y2))
+        err = max(float((a - b).abs().max()) for a, b in zip(y1, want))
+        scale = float(torch.complex(*want).abs().max()
+                      if len(want) == 2 else want[0].abs().max())
+        rel = err / scale if scale > 0 else err
+        errors[name] = max(errors[name], err)
+        log({"phase": "kernel_vs_plain", "kernel": name, "case": label,
+             "shape_BUKN": list(shape), "max_abs_err": err,
+             "max_rel_err": rel, "bitwise_repeat": same})
+        if not (same and rel <= TOL and math.isfinite(rel)):
+            raise SystemExit(f"{name} disagrees with its plain version at "
+                             f"{label} {shape}: rel {rel}, repeat {same}")
+
     for label, (rb, ub, nb), inp in cases:
         args = inp["args"]
         B, U = args[2].shape
@@ -234,77 +365,141 @@ def main() -> int:
         y2 = fused_mac(seed, *args, **kw)
         want = fused_mac_plain(seed, *args, block_u=inp["block_u"], **kw)
         torch.cuda.synchronize()
-        same = torch.equal(y1[0], y2[0]) and torch.equal(y1[1], y2[1])
-        err = max(float((y1[0] - want[0]).abs().max()),
-                  float((y1[1] - want[1]).abs().max()))
-        scale = float(torch.complex(*want).abs().max())
-        rel = err / scale if scale > 0 else err
-        max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
-        log({"phase": "kernel_vs_plain", "kernel": "fused_mac",
-             "case": label, "shape_BUKN": [B, U, K, N],
-             "bases": [rb, ub, nb], "max_abs_err": err, "max_rel_err": rel,
-             "bitwise_repeat": same})
-        if not (same and rel <= TOL and math.isfinite(rel)):
-            raise SystemExit(f"fused_mac disagrees with its plain version "
-                             f"at {label} {(B, U, K, N)}: rel {rel}, "
-                             f"repeat {same}")
+        check("fused_mac", f"{label} bases {[rb, ub, nb]}", (B, U, K, N),
+              y1, y2, want)
 
-    # -- phase 4: the main path --------------------------------------------
-    runs = [("scale_u256", u256, True), ("fig2_iid_fused", fig2_fused, True),
-            ("fig2_iid", fig2, False)]
-    main_launches = 0
-    on_card = None
-    for label, sc, fused in runs:
-        fused_mac.launches = 0
-        res = SweepRunner([sc], seeds=2, device="cuda",
-                          keep_state=label == "scale_u256").run()[0]
-        launches = fused_mac.launches
-        on_card = res if label == "scale_u256" else on_card
-        rounds = res.rounds[-1]
-        want = 2 * rounds * len(res.seeds) if fused else 0
+    slab_cases = [(f"{sc.name} {hop}", lambda sc=sc, hop=hop, i=i:
+                   slab_inputs(sc, hop, 20 + i, dev))
+                  for i, (sc, hop) in enumerate([
+                      (fig2_slab, "cluster"), (fig2_slab, "is_ps"),
+                      (fig2_slab.replace(mode="conventional"),
+                       "conventional"), (u256_slab, "cluster")])]
+    for i, (U, K, N) in enumerate([(1, 1, 64), (4, 7, 130), (3, 33, 513)]):
+        for B in (None, 3):
+            slab_cases.append((f"edge B={B or 1}", lambda B=B, U=U, K=K,
+                               N=N, i=i: edge_slab(B, U, K, N, 30 + i, dev)))
+    for label, make in slab_cases:
+        args = make()
+        shape = tuple(args[0].shape) if args[0].dim() == 4 else (
+            1, *args[0].shape)
+        y1 = ota_combine(*args)
+        torch.cuda.synchronize()
+        y2 = ota_combine(*args)
+        want = ota_combine_plain(*args)
+        torch.cuda.synchronize()
+        check("ota_combine", label, shape, (y1,), (y2,), (want,))
+        del args, y1, y2, want
+
+    # -- phase 4: the main paths -------------------------------------------
+    counters = {"fused_mac": fused_mac, "ota_combine": ota_combine}
+    main_launches = {name: 0 for name in KERNELS}
+
+    def counted(run):
+        """`run()` with every launch count set to 0 just before it; the
+        counts just after."""
+        for fn in counters.values():
+            fn.launches = 0
+        out = run()
+        return out, {name: fn.launches for name, fn in counters.items()}
+
+    def finite(res) -> bool:
         metrics = [getattr(res, k) for k in ("acc", "loss", "edge_power",
                                              "is_power")]
-        finite = bool(np.all(np.isfinite(np.asarray(metrics, np.float64))))
-        rps = rounds / res.exec_info["drive_seconds"]
+        return bool(np.all(np.isfinite(np.asarray(metrics, np.float64))))
+
+    def expect(label, launches, want, ok=True):
+        log({"phase": "main_path_launches", "run": label,
+             "kernel_launches": launches, "expected_launches": want,
+             "finite": ok})
+        if launches != want or not ok:
+            raise SystemExit(f"main path {label}: launches {launches} "
+                             f"(want {want}), finite {ok}")
+        for name, n in launches.items():
+            main_launches[name] += n
+
+    runs = [("scale_u256", u256, True), ("fig2_iid_fused", fig2_fused, True),
+            ("fig2_iid", fig2, False)]
+    for label, sc, fused in runs:
+        res, launches = counted(lambda sc=sc: SweepRunner(
+            [sc], seeds=2, device="cuda",
+            keep_state=label == "scale_u256").run()[0])
+        if label == "scale_u256":
+            u256_on_card = res
+        rounds = res.rounds[-1]
         log({"phase": "main_path", "run": label, "scenario": sc.name,
              "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
              "ota": f"{sc.ota_mode}/{sc.ota_backend}",
              "seeds": res.seeds, "rounds": rounds,
-             "rounds_per_sec": rps,
+             "rounds_per_sec": rounds / res.exec_info["drive_seconds"],
              "drive_seconds": res.exec_info["drive_seconds"],
              "final_acc": [a[-1] for a in res.acc],
-             "final_loss": [v[-1] for v in res.loss],
-             "kernel_launches": launches, "expected_launches": want,
-             "finite": finite})
-        if launches != want or not finite:
-            raise SystemExit(f"main path {label}: launches {launches} "
-                             f"(want {want}), finite {finite}")
-        main_launches += launches
+             "final_loss": [v[-1] for v in res.loss]})
+        expect(label, launches, {
+            "fused_mac": 2 * rounds * len(res.seeds) if fused else 0,
+            "ota_combine": 0}, finite(res))
 
-    # -- phase 5: the main path's output against a reference ---------------
-    t0 = time.perf_counter()
-    on_cpu = SweepRunner([u256], seeds=2, device="cpu",
-                         keep_state=True).run()[0]
-    loss_rel = float(np.max(np.abs(np.subtract(on_card.loss, on_cpu.loss))
-                            / np.abs(on_cpu.loss)))
-    acc_gap = float(np.max(np.abs(np.subtract(on_card.acc, on_cpu.acc))))
-    theta_rel = max(
-        float((on_card.final_state["theta"][k].cpu()
-               - on_cpu.final_state["theta"][k]).abs().max()
-              / on_cpu.final_state["theta"][k].abs().max())
-        for k in on_cpu.final_state["theta"])
-    log({"phase": "reference", "scenario": u256.name,
-         "what": "kernel on the card vs plain version on the CPU",
-         "seeds": on_cpu.seeds, "rounds": on_cpu.rounds[-1],
-         "loss_max_rel": loss_rel, "acc_max_abs": acc_gap,
-         "theta_max_rel": theta_rel, "n_test": u256.n_test,
-         "cpu_seconds": time.perf_counter() - t0})
-    if not (loss_rel <= TOL and acc_gap <= 2.0 / u256.n_test
-            and theta_rel <= THETA_RTOL):
-        raise SystemExit("the card's run disagrees with the CPU reference")
+    spec = importlib.util.spec_from_file_location(
+        "whfl_mnist_torch", ROOT / "examples" / "whfl_mnist_torch.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    argv = ["--ota", "faithful", "--backend", "slab_kernel", "--IT", "8",
+            "--seeds", "2"]
+    doc, launches = counted(lambda: driver.main(argv))
+    for rec in doc["scenarios"]:
+        r = rec["rounds"][-1]
+        log({"phase": "main_path", "run": "fig2_driver_slab",
+             "argv": argv, "scenario": rec["scenario"]["name"],
+             "ota": f"{rec['scenario']['ota_mode']}/"
+                    f"{rec['scenario']['ota_backend']}",
+             "seeds": rec["seeds"], "rounds": r,
+             "rounds_per_sec": r / rec["exec"]["drive_seconds"],
+             "final_acc": [a[-1] for a in rec["metrics"]["acc"]]})
+    want = expected_slab_launches(doc)
+    if want != 92:
+        raise SystemExit(f"the Fig. 2 driver's schemes imply {want} "
+                         f"ota_combine launches, not 92")
+    expect("fig2_driver_slab", launches,
+           {"fused_mac": 0, "ota_combine": want},
+           all(np.all(np.isfinite(np.asarray(rec["metrics"][k], np.float64)))
+               for rec in doc["scenarios"] for k in rec["metrics"]))
+
+    fig2_ref = get_scenario("fig2_iid").replace(ota_mode="faithful")
+    res, launches = counted(lambda: SweepRunner(
+        [fig2_ref], seeds=2, quick=True, device="cuda").run()[0])
+    log({"phase": "main_path", "run": "fig2_iid_reference_quick",
+         "ota": "faithful/reference", "seeds": res.seeds,
+         "rounds": res.rounds[-1],
+         "final_acc": [a[-1] for a in res.acc]})
+    expect("fig2_iid_reference_quick", launches,
+           {"fused_mac": 0, "ota_combine": 0}, finite(res))
+
+    # -- phase 5: the main paths' output against a reference ---------------
+    # fig2_iid as registered (no kernel) is the control: Adam turns any
+    # difference between the card's and the CPU's arithmetic into a
+    # larger gap in the model than SGD does
+    for label, sc in (("scale_u256", u256),
+                      ("fig2_iid_slab", fig2_slab.replace(total_IT=2)),
+                      ("fig2_iid", fig2.replace(total_IT=2))):
+        card_res = u256_on_card if label == "scale_u256" else SweepRunner(
+            [sc], seeds=2, device="cuda", keep_state=True).run()[0]
+        t0 = time.perf_counter()
+        cpu_res = SweepRunner([sc], seeds=2, device="cpu",
+                              keep_state=True).run()[0]
+        gaps = compare_runs(card_res, cpu_res)
+        log({"phase": "reference", "scenario": sc.name,
+             "ota": f"{sc.ota_mode}/{sc.ota_backend}",
+             "what": "the card (kernels) vs the CPU (plain versions)",
+             "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
+             "n_test": sc.n_test, "cpu_seconds": time.perf_counter() - t0})
+        if not (gaps["loss_max_rel"] <= TOL
+                and gaps["acc_max_abs"] <= 2.0 / sc.n_test
+                and gaps["theta_max_rel"] <= THETA_RTOL):
+            raise SystemExit(f"{label}: the card's run disagrees with the "
+                             f"CPU reference")
 
     # -- phase 6: where the time goes --------------------------------------
-    for label, sc, _ in runs:
+    for label, sc in [(label, sc) for label, sc, _ in runs] + [
+            ("fig2_iid_slab", fig2_slab)]:
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
 
@@ -321,38 +516,80 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def in_turns(kern, plain, k_reps, p_reps):
+        """plain, kernel, kernel, plain, within one process."""
+        p1 = time_ms(plain, p_reps)
+        k1 = time_ms(kern, k_reps)
+        k2 = time_ms(kern, k_reps)
+        p2 = time_ms(plain, p_reps)
+        return [k1, k2], [p1, p2]
+
     timings = {}
     for label, (B, U, K, N), bu in (("scale_u256", (4, 256, 16, 3925), 64),
                                     ("scale_u1024", (8, 1024, 16, 3925),
                                      128)):
         args = kernel_inputs(B, U, K, N, 7, dev)["args"]
         kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0)
-        kern = lambda: fused_mac(seed, *args, **kw)
-        plain = lambda: fused_mac_plain(seed, *args, block_u=bu, **kw)
-        # in turns, within one process: plain, kernel, kernel, plain
-        p1 = time_ms(plain, 3)
-        k1 = time_ms(kern, 20)
-        k2 = time_ms(kern, 20)
-        p2 = time_ms(plain, 3)
+        ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
+                          lambda: fused_mac_plain(seed, *args, block_u=bu,
+                                                  **kw), 20, 3)
         bound, bound_by = fused_mac_bound_ms(B, U, K, N)
-        timings[label] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                              bound_ms=bound, bound_by=bound_by)
+        timings["fused_mac", label] = dict(
+            ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
+            bound_by=bound_by, shape_BUKN=[B, U, K, N])
         log({"phase": "times", "kernel": "fused_mac", "shape": label,
-             "shape_BUKN": [B, U, K, N], "kernel_ms": [k1, k2],
-             "plain_ms": [p1, p2], "bound_ms": bound, "bound_by": bound_by,
-             "card": card})
+             "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
+             "bound_ms": bound, "bound_by": bound_by, "card": card})
+        del args
+
+    for label, sc, hop in (
+            ("fig2_iid cluster", fig2_slab, "cluster"),
+            ("fig2_iid conventional", fig2_slab.replace(mode="conventional"),
+             "conventional"),                         # unbatched, as B = 1
+            ("scale_u256 cluster", u256_slab, "cluster")):
+        args = slab_inputs(sc, hop, 40, dev)
+        h = args[0]
+        B, U, K, N = h.shape if h.dim() == 4 else (1, *h.shape)
+        ks, ps = in_turns(lambda: ota_combine(*args),
+                          lambda: ota_combine_plain(*args), 20, 5)
+        bound, bound_by = ota_combine_bound_ms(B, U, K, N)
+        timings["ota_combine", label] = dict(
+            ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
+            bound_by=bound_by, shape_BUKN=[B, U, K, N])
+        log({"phase": "times", "kernel": "ota_combine", "shape": label,
+             "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
+             "bound_ms": bound, "bound_by": bound_by, "card": card})
+        del args
+
+    # the whole cluster hop at the scale_u256 shape: the slab backend
+    # (emulated draw of the slab, then the combine) against the fused one
+    from repro_torch import prng
+    topo = u256.make_topology()
+    g = torch.Generator().manual_seed(50)
+    deltas = (1e-2 * torch.randn(topo.C, topo.M, 7850, generator=g)).to(dev)
+    key = prng.PRNGKey(50, dev)
+    P = torch.tensor(1.0)
+    hop = {b: (lambda b=b: channel.cluster_ota(
+        key, deltas, topo, P, channel.OTAConfig(backend=b)))
+        for b in ("slab_kernel", "fused")}
+    slab_ms, fused_ms = in_turns(hop["slab_kernel"], hop["fused"], 3, 20)
+    log({"phase": "times", "what": "cluster hop, slab vs fused",
+         "shape_BUKN": [topo.C, topo.C * topo.M, topo.K, 3925],
+         "slab_hop_ms": slab_ms, "fused_hop_ms": fused_ms, "card": card})
 
     # -- phase 8: the records ----------------------------------------------
-    t = timings["scale_u256"]
+    records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
+                None),
+               ("ota_combine", "fig2_iid cluster",
+                "src/repro/kernels/ota_combine.py:121",
+                "src/repro/kernels/ota_combine.py:31")]
     log({"kernels": [{
-        "name": "fused_mac", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_mac.cu",
-        "replaces": "src/repro/kernels/fused_mac.py:158",
-        "launches": main_launches, "max_abs_err": max_abs,
-        "max_rel_err": max_rel, "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None,
-        "shape_BUKN": [4, 256, 16, 3925]}]})
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+        **({"also_replaces": also} if also else {}),
+        "launches": main_launches[name], "max_abs_err": errors[name],
+        "library_ms": None, **timings[name, shape]}
+        for name, shape, replaces, also in records]})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
     return 0

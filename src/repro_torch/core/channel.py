@@ -11,11 +11,18 @@ The receive fold is implemented by pluggable **channel backends**
 - ``equivalent`` — closed-form surrogate: the first/second moments of
   eq. (11)/(19) applied as per-entry Gaussian perturbations, drawn with
   the `jax.random` emulation so a key gives the reference's draws.
+- ``reference`` — the paper's model, exactly: an einsum fold over
+  antenna chunks that draws per-(user, antenna, symbol) channels chunk
+  by chunk with the emulation.  The ground truth the others are gated
+  on; it runs no kernel.
+- ``slab_kernel`` — faithful path: draws the full [C_rx, U, K, N]
+  channel slab with the emulation and runs the matched-filter combine
+  (`repro_torch.kernels.mf_combine`, the Hopper kernel
+  ``csrc/ota_combine.cu`` on the card) for all rx stations at once.
+  O(C_rx * U * K * N) memory.
 - ``fused`` — faithful path: fading and noise are derived inside the
   Hopper kernel from the counter PRNG (`repro_torch.kernels.fused_mac`);
   no channel tensor ever exists.
-- ``reference`` and ``slab_kernel`` are registered but not ported yet;
-  they raise and name the ROADMAP item that brings them.
 
 ``mode="ideal"`` bypasses the channel entirely and wins over any backend.
 
@@ -34,7 +41,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.topology import Topology
-from repro_torch.kernels import canonical_block_u, fused_combine
+from repro_torch.kernels import (canonical_block_u, fused_combine,
+                                 mf_combine)
 
 
 @dataclass(frozen=True)
@@ -47,6 +55,14 @@ class OTAConfig:
 
 
 _MODE_DEFAULT_BACKEND = {"faithful": "reference", "equivalent": "equivalent"}
+
+
+def _chunk(K: int, ck: int) -> int:
+    """Largest divisor of K that is <= ck."""
+    ck = max(1, min(ck, K))
+    while K % ck:
+        ck -= 1
+    return ck
 
 
 def resolve_backend(cfg: OTAConfig) -> str:
@@ -167,6 +183,12 @@ def _build_cluster_geometry(topo: Topology, cfg: OTAConfig, device):
             _f32(topo.beta_bar_c, device))
 
 
+def _own(h: torch.Tensor) -> torch.Tensor:
+    """h: [C', M, C_rx, a, n] -> own-cluster channel sums [C, a, n]."""
+    idx = torch.arange(h.shape[0], device=h.device)
+    return h[idx, :, idx].sum(dim=1)          # h[idx, :, idx]: [C, M, a, n]
+
+
 # ---------------------------------------------------------------------------
 # backend protocol + registry
 # ---------------------------------------------------------------------------
@@ -217,23 +239,65 @@ def list_backends() -> Dict[str, ChannelBackend]:
     return dict(BACKENDS)
 
 
-class _NotPortedBackend(ChannelBackend):
-    """A backend of the JAX package the port has not reached yet."""
+# ---------------------------------------------------------------------------
+# "reference": einsum fold over antenna chunks (the ground truth)
+# ---------------------------------------------------------------------------
 
-    def __init__(self, name: str, roadmap: str):
-        self.name = name
-        self.roadmap = roadmap
+class ReferenceBackend(ChannelBackend):
+    """The paper's model folded chunk by chunk over antennas with complex
+    einsums: exact, O(U * chunk * N) live memory per step.  The chunks
+    run in key order, each from its own key of ``split(key, n_steps)``,
+    as the reference's `lax.scan` runs them.
 
-    def _raise(self):
-        raise NotImplementedError(
-            f"channel backend {self.name!r} is not ported yet "
-            f"(ROADMAP queue A, {self.roadmap})")
+    Normalization (eq. 12): divide by P_t sigma_h^2 SUM_m beta, which
+    makes the estimate the beta-weighted cluster mean in expectation
+    (the reasoning is in the JAX package's `ReferenceBackend`).  All
+    faithful backends share it.
+    """
+
+    name = "reference"
 
     def cluster(self, key, deltas, topo, P_t, cfg):
-        self._raise()
+        C, M, twoN = deltas.shape
+        N = twoN // 2
+        dev = deltas.device
+        tx = pack_cx(deltas)                                     # [C, M, N]
+        beta = _const(topo.beta_mu_is, dev)                  # [C', M, C_rx]
+        if not cfg.interference:
+            # zero out cross-cluster path gains
+            beta = beta * torch.eye(C, device=dev)[:, None, :]
+        amp = torch.sqrt(beta)[:, :, :, None, None]
+        beta_bar_c = _const(topo.beta_bar_c, dev)                # [C]
+        K = topo.K
+        ck = _chunk(K, cfg.antenna_chunk)
+        acc = torch.zeros((C, N), dtype=torch.complex64, device=dev)
+        for kk in prng.split(key, K // ck):
+            k1, k2 = prng.split(kk)
+            # h[c', m, c_rx, a, n] = sqrt(beta) g, g ~ CN(0, sigma_h2)
+            h = amp * _cn(k1, (C, M, C, ck, N), topo.sigma_h2)
+            z = _cn(k2, (C, ck, N), topo.sigma_z2)
+            # received per rx cluster and antenna (eq. 8)
+            y = P_t * torch.einsum("umcan,umn->can", h, tx) + z
+            # own-cluster matched filter: sum_m h[c, m, c, a, n] (eq. 9)
+            acc = acc + torch.einsum("can,can->cn", torch.conj(_own(h)), y)
+        scale = 1.0 / (P_t * topo.sigma_h2 * beta_bar_c)
+        return unpack_cx(acc / K * scale[:, None])
 
     def mac(self, key, deltas, beta, K, sigma_h2, sigma_z2, P, cfg):
-        self._raise()
+        U, twoN = deltas.shape
+        N = twoN // 2
+        tx = pack_cx(deltas)                                     # [U, N]
+        amp, _, b_bar = _mac_geometry(beta, deltas.device)
+        amp = amp[0][:, None, None]
+        ck = _chunk(K, cfg.antenna_chunk)
+        acc = torch.zeros((N,), dtype=torch.complex64, device=deltas.device)
+        for kk in prng.split(key, K // ck):
+            k1, k2 = prng.split(kk)
+            h = amp * _cn(k1, (U, ck, N), sigma_h2)
+            z = _cn(k2, (ck, N), sigma_z2)
+            y = P * torch.einsum("uan,un->an", h, tx) + z
+            acc = acc + torch.einsum("an,an->n", torch.conj(h.sum(dim=0)), y)
+        return unpack_cx(acc / K / (P * sigma_h2 * b_bar))
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +372,58 @@ class EquivalentBackend(ChannelBackend):
 
 
 # ---------------------------------------------------------------------------
+# "slab_kernel": materialized channels + the matched-filter combine kernel
+# ---------------------------------------------------------------------------
+
+class SlabKernelBackend(ChannelBackend):
+    """Faithful path: draws the full channel slab with the emulation,
+    then runs the matched-filter combine for all rx stations in one
+    kernel launch.  Memory is O(C_rx * U * K * N): the throughput
+    baseline the fused backend removes.  The same draws as the JAX
+    package's ``slab_kernel`` backend."""
+
+    name = "slab_kernel"
+
+    @staticmethod
+    def cluster_inputs(key, deltas, topo, P_t, cfg):
+        """The combine's operands on the cluster hop: (h [C, U, K, N],
+        P_t * tx [U, N], z [C, K, N], own-cluster weights [C, U])."""
+        C, M, twoN = deltas.shape
+        U, N = C * M, twoN // 2
+        tx = pack_cx(deltas).reshape(U, N)
+        amp, own, _ = _cluster_geometry(topo, cfg, deltas.device)
+        k1, k2 = prng.split(key)
+        g = _cn(k1, (C, U, topo.K, N), topo.sigma_h2)   # independent per rx
+        h = amp[:, :, None, None] * g
+        z = _cn(k2, (C, topo.K, N), topo.sigma_z2)
+        return h, P_t * tx, z, own
+
+    @staticmethod
+    def mac_inputs(key, deltas, beta, K, sigma_h2, sigma_z2, P):
+        """The combine's operands on a single-cell hop: (h [U, K, N],
+        P * tx [U, N], z [K, N]); the weights are all ones."""
+        tx = pack_cx(deltas)
+        U, N = tx.shape
+        amp, _, _ = _mac_geometry(beta, deltas.device)
+        k1, k2 = prng.split(key)
+        h = amp[0][:, None, None] * _cn(k1, (U, K, N), sigma_h2)
+        z = _cn(k2, (K, N), sigma_z2)
+        return h, P * tx, z
+
+    def cluster(self, key, deltas, topo, P_t, cfg):
+        _, _, bb = _cluster_geometry(topo, cfg, deltas.device)
+        y = mf_combine(*self.cluster_inputs(key, deltas, topo, P_t, cfg))
+        est = y / topo.K / (P_t * topo.sigma_h2 * bb[:, None])
+        return unpack_cx(est)
+
+    def mac(self, key, deltas, beta, K, sigma_h2, sigma_z2, P, cfg):
+        _, _, b_bar = _mac_geometry(beta, deltas.device)
+        y = mf_combine(*self.mac_inputs(key, deltas, beta, K, sigma_h2,
+                                        sigma_z2, P))
+        return unpack_cx(y / K / (P * sigma_h2 * b_bar))
+
+
+# ---------------------------------------------------------------------------
 # "fused": on-the-fly channel generation inside the kernel
 # ---------------------------------------------------------------------------
 
@@ -338,9 +454,9 @@ class FusedBackend(ChannelBackend):
         return unpack_cx(y / K / (P * sigma_h2 * b_bar))
 
 
-register_backend(_NotPortedBackend("reference", "item 3 (channel layer)"))
+register_backend(ReferenceBackend())
 register_backend(EquivalentBackend())
-register_backend(_NotPortedBackend("slab_kernel", "item 8 (slab backend)"))
+register_backend(SlabKernelBackend())
 register_backend(FusedBackend())
 
 

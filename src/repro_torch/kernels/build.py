@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -76,11 +77,21 @@ def build(name: str) -> Tuple[Path, float, str]:
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
+def load_all(names: List[str]) -> None:
+    """Build the missing libraries of ``csrc/<name>.cu`` for every name,
+    one nvcc process per source, all started together, and load them."""
+    todo = [n for n in dict.fromkeys(names) if n not in _LOADED]
+    if not todo:
+        return
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        built = list(pool.map(build, todo))
+    for name, (path, seconds, log) in zip(todo, built):
+        _LOADED[name] = (ctypes.CDLL(str(path)), seconds, log)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _LOADED:
-        path, seconds, log = build(name)
-        _LOADED[name] = (ctypes.CDLL(str(path)), seconds, log)
+    load_all([name])
     return _LOADED[name][0]
 
 

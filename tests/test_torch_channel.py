@@ -126,12 +126,9 @@ def test_backend_registry_and_resolution():
         tch.get_backend("bogus")
 
 
-@pytest.mark.parametrize("backend", ["reference", "slab_kernel"])
-def test_unported_backends_raise(backend):
+def test_orthogonal_cluster_hop_is_not_ported_yet():
+    """Participation's orthogonalized hop comes with ROADMAP item 7."""
     _, tt = _topos(C=2, M=2)
     d = torch.zeros((2, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.cluster_ota(prng.PRNGKey(0), d, tt, torch.tensor(1.0),
-                        tch.OTAConfig(backend=backend))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tch.orthogonal_cluster_ota(prng.PRNGKey(0), d, tt, 1.0)

@@ -7,15 +7,17 @@ machine that has only PyTorch; there, skip the JAX-side conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1e-4 of the largest output magnitude (the JAX package's own
-kernel gate); the kernel and its plain version draw the same channels
-and differ only in float summation order.  Two launches must give
-identical bits: the kernel sums in a fixed order and uses no atomics.
+kernel gate); a kernel and its plain version see the same channels
+(drawn alike, or handed in) and differ only in float summation order.
+Two launches must give identical bits: the kernels sum in a fixed order
+and use no atomics.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_mac, fused_mac_plain
+from repro_torch.kernels import (fused_mac, fused_mac_plain, ota_combine,
+                                 ota_combine_plain)
 
 TOL = 1e-4
 SEED = np.array([0xC0FFEE, 42], np.int64)
@@ -66,3 +68,56 @@ def test_fused_mac_rejects_other_devices():
     a = torch.ones((1, 2), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_mac(SEED, t, t, a, a, K=2, sigma_h2=1.0, sigma_z2=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,U,K,N", [
+    (None, 1, 1, 64),
+    (3, 1, 1, 64),
+    (None, 4, 7, 130),
+    (3, 4, 7, 130),
+    (None, 3, 33, 513),
+    (3, 3, 33, 513),
+    (4, 20, 100, 3925),     # fig2 cluster hop (slab backend)
+    (None, 4, 100, 3925),   # fig2 IS->PS hop
+    (None, 20, 100, 3925),  # fig2 conventional hop
+    (4, 256, 16, 3925),     # scale_u256 cluster hop (slab backend)
+])
+def test_ota_combine_kernel_matches_plain_on_card(B, U, K, N):
+    """B = None is the unbatched layout, which runs as B = 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(U * 1000 + K * 10 + N)
+    lead = () if B is None else (B,)
+    cx = lambda *shape: torch.randn(*shape, dtype=torch.complex64,
+                                    generator=g).to("cuda")
+    args = (cx(*lead, U, K, N), cx(U, N), cx(*lead, K, N),
+            torch.randn(*lead, U, generator=g).to("cuda"))
+    before = ota_combine.launches
+    y1 = ota_combine(*args)
+    y2 = ota_combine(*args)
+    torch.cuda.synchronize()
+    assert ota_combine.launches == before + 2
+    assert torch.equal(y1, y2)
+    want = ota_combine_plain(*args)
+    assert y1.shape == want.shape == (*lead, N)
+    assert float((y1 - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_ota_combine_refuses_strided_views_on_card():
+    """A `.real`-style or transposed view of a slab is refused, not
+    copied: the kernel reads contiguous interleaved complex64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    h = torch.zeros((2, 3, 4, 64), dtype=torch.complex64, device="cuda")
+    t = torch.zeros((3, 64), dtype=torch.complex64, device="cuda")
+    z = torch.zeros((2, 4, 64), dtype=torch.complex64, device="cuda")
+    w = torch.ones((2, 3), device="cuda")
+    before = ota_combine.launches
+    for args in ((h.transpose(2, 3).contiguous().transpose(2, 3), t, z, w),
+                 (h, t, z, w.t().contiguous().t()),
+                 (h, t.conj(), z, w)):
+        with pytest.raises(ValueError):
+            ota_combine(*args)
+    assert ota_combine.launches == before

@@ -228,7 +228,8 @@ def test_port_imports_neither_jax_nor_reference():
     files = [os.path.join(d, f) for d, _, fs in os.walk(root)
              for f in fs if f.endswith(".py")]
     repo = os.path.dirname(SRC)
-    files.append(os.path.join(repo, "chip_smoke.py"))
+    files += [os.path.join(repo, "chip_smoke.py"),
+              os.path.join(repo, "examples", "whfl_mnist_torch.py")]
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
