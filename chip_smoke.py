@@ -16,9 +16,10 @@ Phases, in order; any failure exits non-zero:
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
      registered, ``fig2_iid`` at the paper's sizes with the fused
-     backend, and ``fig2_iid`` as registered (equivalent backend), 2
-     seeds each; `fused_mac` launches exactly twice per round per seed
-     on the fused runs (one cluster hop, one IS->PS hop);
+     backend and with faithful fidelity's default ``reference`` backend
+     (no kernel), and ``fig2_iid`` as registered (equivalent backend),
+     2 seeds each; `fused_mac` launches exactly twice per round per
+     seed on the fused runs (one cluster hop, one IS->PS hop);
    - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
      --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
      `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
@@ -29,12 +30,14 @@ Phases, in order; any failure exits non-zero:
    every other count stays 0, and every metric must be finite;
 5. the main paths' output against a reference: ``scale_u256`` as
    registered, and ``fig2_iid`` at the paper's sizes with the
-   ``slab_kernel`` backend for 2 rounds, run on the CPU (plain versions)
-   with the same seeds, must agree with their runs on the card
-   (kernels); ``fig2_iid`` as registered (no kernel) runs beside them
-   as the control;
-6. where the time goes: one seed of each SweepRunner run of phase 4,
-   and of ``fig2_iid`` with the slab backend, through
+   ``slab_kernel`` and the ``reference`` backends for 2 rounds, run on
+   the CPU (plain versions) with the same seeds, must agree with their
+   runs on the card (kernels, and cuBLAS's complex products without
+   TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
+   the control;
+6. where the time goes: one seed of each SweepRunner run of phase 4
+   (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
+   slab backend, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
    wall ms per round from the runner's ``drive_seconds``, device time
    per round from the device ops inside the runner's
@@ -208,6 +211,14 @@ def edge_slab(B, U, K, N, seed, dev):
             torch.randn(*lead, U, generator=g).to(dev))
 
 
+def ota_label(sc) -> str:
+    """``mode/backend`` of a scenario, with the mode's default named."""
+    from repro_torch.core import channel
+    if sc.ota_mode == "ideal":
+        return "ideal"
+    return f"{sc.ota_mode}/" + channel.resolve_backend(sc.whfl_config().ota)
+
+
 def compare_runs(on_card, on_cpu) -> dict:
     """The card's run against the CPU's: max relative loss gap, max
     accuracy gap, and the final model's gap over its largest entry."""
@@ -338,6 +349,7 @@ def main() -> int:
         cases.append((f"{sc.name} {hop}", (0, 0, 0),
                       hop_inputs(sc, hop, 10 + i, dev)))
     errors = {name: 0.0 for name in KERNELS}
+    rel_errors = {name: 0.0 for name in KERNELS}
 
     def check(name, label, shape, y1, y2, want):
         """Hold two launches' results to the plain version's."""
@@ -347,6 +359,7 @@ def main() -> int:
                       if len(want) == 2 else want[0].abs().max())
         rel = err / scale if scale > 0 else err
         errors[name] = max(errors[name], err)
+        rel_errors[name] = max(rel_errors[name], rel)
         log({"phase": "kernel_vs_plain", "kernel": name, "case": label,
              "shape_BUKN": list(shape), "max_abs_err": err,
              "max_rel_err": rel, "bitwise_repeat": same})
@@ -417,8 +430,9 @@ def main() -> int:
         for name, n in launches.items():
             main_launches[name] += n
 
+    fig2_ref = fig2.replace(ota_mode="faithful")          # reference backend
     runs = [("scale_u256", u256, True), ("fig2_iid_fused", fig2_fused, True),
-            ("fig2_iid", fig2, False)]
+            ("fig2_iid_reference", fig2_ref, False), ("fig2_iid", fig2, False)]
     for label, sc, fused in runs:
         res, launches = counted(lambda sc=sc: SweepRunner(
             [sc], seeds=2, device="cuda",
@@ -428,7 +442,7 @@ def main() -> int:
         rounds = res.rounds[-1]
         log({"phase": "main_path", "run": label, "scenario": sc.name,
              "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
-             "ota": f"{sc.ota_mode}/{sc.ota_backend}",
+             "ota": ota_label(sc),
              "seeds": res.seeds, "rounds": rounds,
              "rounds_per_sec": rounds / res.exec_info["drive_seconds"],
              "drive_seconds": res.exec_info["drive_seconds"],
@@ -463,7 +477,6 @@ def main() -> int:
            all(np.all(np.isfinite(np.asarray(rec["metrics"][k], np.float64)))
                for rec in doc["scenarios"] for k in rec["metrics"]))
 
-    fig2_ref = get_scenario("fig2_iid").replace(ota_mode="faithful")
     res, launches = counted(lambda: SweepRunner(
         [fig2_ref], seeds=2, quick=True, device="cuda").run()[0])
     log({"phase": "main_path", "run": "fig2_iid_reference_quick",
@@ -479,6 +492,7 @@ def main() -> int:
     # larger gap in the model than SGD does
     for label, sc in (("scale_u256", u256),
                       ("fig2_iid_slab", fig2_slab.replace(total_IT=2)),
+                      ("fig2_iid_reference", fig2_ref.replace(total_IT=2)),
                       ("fig2_iid", fig2.replace(total_IT=2))):
         card_res = u256_on_card if label == "scale_u256" else SweepRunner(
             [sc], seeds=2, device="cuda", keep_state=True).run()[0]
@@ -487,7 +501,7 @@ def main() -> int:
                               keep_state=True).run()[0]
         gaps = compare_runs(card_res, cpu_res)
         log({"phase": "reference", "scenario": sc.name,
-             "ota": f"{sc.ota_mode}/{sc.ota_backend}",
+             "ota": ota_label(sc),
              "what": "the card (kernels) vs the CPU (plain versions)",
              "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
              "n_test": sc.n_test, "cpu_seconds": time.perf_counter() - t0})
@@ -498,7 +512,10 @@ def main() -> int:
                              f"CPU reference")
 
     # -- phase 6: where the time goes --------------------------------------
-    for label, sc in [(label, sc) for label, sc, _ in runs] + [
+    # the reference backend issues ~60k ops a round (a 20-step fold per
+    # hop), so it is profiled over 2 rounds to keep the trace small
+    for label, sc in [(label, sc.replace(total_IT=2) if sc is fig2_ref
+                       else sc) for label, sc, _ in runs] + [
             ("fig2_iid_slab", fig2_slab)]:
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
@@ -588,6 +605,7 @@ def main() -> int:
         "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
         **({"also_replaces": also} if also else {}),
         "launches": main_launches[name], "max_abs_err": errors[name],
+        "max_rel_err": rel_errors[name],
         "library_ms": None, **timings[name, shape]}
         for name, shape, replaces, also in records]})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
