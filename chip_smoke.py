@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero:
    checkout (``src/repro_torch/csrc``), one nvcc per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
-   backends build them, plus a few edge shapes (max |y_kernel - y_plain|
-   / max |y_plain| <= 1e-4, and two launches give identical bits);
+   backends and the sharded round build them, plus a few edge shapes
+   (max |y_kernel - y_plain| / max |y_plain| <= 1e-4, and two launches
+   give identical bits); `fused_mac_partials` then
+   `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
+   every such shape and at the scale_u65536 1x1 one (kernels only);
 4. the main paths on ``cuda`` at full width, every launch count set to
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
@@ -27,6 +30,16 @@ Phases, in order; any failure exits non-zero:
      baselines, 92 in all;
    - ``fig2_iid`` quick at faithful fidelity with the mode's default
      ``reference`` backend, 2 seeds: no kernel launches;
+   - the sharded engine through the sweep CLI (``--exec sharded``):
+     ``scale_u256`` (2 seeds) on meshes 1x1, 2x4 and 3x5 (padded to
+     6x65) with ``--combine u_sharded`` and on 2x4 with ``gathered``,
+     ``scale_u16384`` on 1x1 with both combines and ``scale_u65536`` as
+     registered on 1x1 with ``u_sharded``: per round and seed
+     `fused_mac_partials` launches mc x mu times, `fused_partials_reduce`
+     mu times and `fused_mac` once (u_sharded), or `fused_mac`
+     mc x mu + 1 times (gathered); each scale_u256 run's final model is
+     held against the single engine's, bit for bit where it is, with
+     the largest gap printed where it is not;
    every other count stays 0, and every metric must be finite;
 5. the main paths' output against a reference: ``scale_u256`` as
    registered, and ``fig2_iid`` at the paper's sizes with the
@@ -34,20 +47,25 @@ Phases, in order; any failure exits non-zero:
    the CPU (plain versions) with the same seeds, must agree with their
    runs on the card (kernels, and cuBLAS's complex products without
    TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
-   the control;
+   the control; ``scale_u256`` on the sharded engine (2x4, u_sharded)
+   the same way;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
    slab backend, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
    wall ms per round from the runner's ``drive_seconds``, device time
    per round from the device ops inside the runner's
-   ``SweepRunner.drive`` range;
+   ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
+   (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
+   (2x4, u_sharded) on the sharded engine;
 7. kernel and plain times with CUDA events at the kernels' largest
    main-path shapes (for `ota_combine` also the largest unbatched one),
    beside the least time the card could take for the
-   same work (``fused_mac_bound_ms``, ``ota_combine_bound_ms``), and the
-   whole slab cluster hop (emulated draw of the slab and the combine)
-   against the fused hop at the scale_u256 shape;
+   same work (``fused_mac_bound_ms``, ``ota_combine_bound_ms``,
+   ``partials_bound_ms``, ``reduce_bound_ms``), the whole slab cluster
+   hop (emulated draw of the slab and the combine) against the fused hop
+   at the scale_u256 shape, and the u-sharded cluster hop against the
+   gathered one at the scale_u16384 shape;
 8. one JSON line of kernel records, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,7 +90,12 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
-KERNELS = ("fused_mac", "ota_combine")
+SOURCES = ("fused_mac", "ota_combine")          # csrc/<name>.cu
+# each kernel's record name -> (source, its __global__ function)
+KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
+           "ota_combine": ("ota_combine", "ota_combine_kernel"),
+           "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
+           "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel")}
 # H100 SXM peaks at the full 700 W power limit and the 1.98 GHz boost
 # clock: 132 SMs; per SM and clock 64 INT32 lanes, 128 FP32 lanes
 # (67 TFLOP/s float32 outside the tensor cores, counting an FMA as 2)
@@ -92,17 +115,38 @@ def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def fused_mac_bound_ms(B: int, U: int, K: int, N: int):
-    """Least time for one fused_mac call on this card: the larger of
-    its operations over the peak rates and its bytes over HBM's rate.
-    Draws: B*U*K*N channel + B*K*N noise; bytes: t (2 x U*N), amp and w
-    (2 x B*U) read once, y (2 x B*N) written once, all float32."""
-    draws = B * U * K * N + B * K * N
+def _draws_bound(draws: int, nbytes: int):
+    """Least time on this card for `draws` counter-PRNG draws and
+    `nbytes` moved: the larger of the draws' operations over the int32
+    and special-function peaks and the bytes over HBM's rate, in ms."""
     t_int = draws * INT32_OPS_PER_DRAW / INT32_OPS_PER_S
     t_sfu = draws * SFU_OPS_PER_DRAW / SFU_OPS_PER_S
-    t_bytes = 4 * (2 * U * N + 2 * B * U + 2 * B * N) / HBM_BYTES_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     bound_by = "operations" if max(t_int, t_sfu) >= t_bytes else "bytes"
     return 1e3 * max(t_int, t_sfu, t_bytes), bound_by
+
+
+def fused_mac_bound_ms(B: int, U: int, K: int, N: int):
+    """Least time for one fused_mac call.  Draws: B*U*K*N channel +
+    B*K*N noise; bytes: t (2 x U*N), amp and w (2 x B*U) read once, y
+    (2 x B*N) written once, all float32."""
+    return _draws_bound(B * U * K * N + B * K * N,
+                        4 * (2 * U * N + 2 * B * U + 2 * B * N))
+
+
+def partials_bound_ms(B: int, U: int, K: int, N: int, G: int):
+    """Least time for one fused_mac_partials call: B*U*K*N channel draws
+    (no noise); bytes: t (2 x U*N), amp and w (2 x B*U) read once, the
+    four partial sums (4 x B*G*K*N) written once, all float32."""
+    return _draws_bound(B * U * K * N,
+                        4 * (2 * U * N + 2 * B * U + 4 * B * G * K * N))
+
+
+def reduce_bound_ms(B: int, G: int, K: int, N: int):
+    """Least time for one fused_partials_reduce call: B*K*N noise draws;
+    bytes: the four partial sums (4 x B*G*K*N) read once, y (2 x B*N)
+    written once, all float32."""
+    return _draws_bound(B * K * N, 4 * (4 * B * G * K * N + 2 * B * N))
 
 
 def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
@@ -166,6 +210,46 @@ def hop_inputs(sc, hop: str, seed: int, dev):
     return dict(args=(t.real.contiguous(), t.imag.contiguous(), amp, w),
                 K=K, sigma_h2=topo.sigma_h2, sigma_z2=topo.sigma_z2,
                 block_u=block_u)
+
+
+def tile_inputs(sc, mesh, ci: int, ui: int, seed: int, dev):
+    """`fused_mac_partials`' inputs at shard (ci, ui) of `sc`'s u-sharded
+    cluster hop on `mesh`, built as
+    `repro_torch.exec.round.make_fused_cluster_hop` builds them: the
+    shard's user tile and symbols of P * pack(deltas) from random deltas
+    at a round's scale, the padded topology's amplitudes and own-cluster
+    weights of that tile, the round-0 power, and the tile origin as the
+    counter bases (rx_base, u_base, n_base)."""
+    import torch.nn.functional as F
+    from repro_torch import prng
+    from repro_torch.core import aggregation, channel
+    from repro_torch.core.topology import pad_plan, power_schedule
+    from repro_torch.exec.round import _tile
+    from repro_torch.kernels import canonical_block_u
+
+    topo = sc.make_topology()
+    cfg = sc.whfl_config()
+    P_t, _ = power_schedule(0, cfg.power_base, cfg.power_slope,
+                            cfg.power_is_factor, cfg.power_low)
+    two_n = aggregation.make_flat_spec(
+        sc.task_fns()[0](prng.PRNGKey(seed))).two_n
+    C, M, N = topo.C, topo.M, two_n // 2
+    plan = pad_plan(C, M, mesh)
+    U_loc = plan.Cp // mesh[0] * M
+    N_loc = -(-N // mesh[1])
+    r0, c0 = ci * U_loc, ui * N_loc
+    amp, own, _ = channel._cluster_geometry(topo, cfg.ota, dev)
+    cols = lambda x: F.pad(plan.pad_rx(x), (0, (plan.Cp - C) * M))[
+        :, r0:r0 + U_loc].contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    deltas = 1e-2 * torch.randn(C, M, two_n, generator=g, device=dev)
+    t = (torch.as_tensor(P_t, dtype=torch.float32)
+         * channel.pack_cx(deltas).reshape(C * M, N))
+    return dict(args=(_tile(t.real, r0, r0 + U_loc, c0, c0 + N_loc),
+                      _tile(t.imag, r0, r0 + U_loc, c0, c0 + N_loc),
+                      cols(amp), cols(own)),
+                K=topo.K, sigma_h2=topo.sigma_h2, sigma_z2=topo.sigma_z2,
+                block_u=canonical_block_u(M), bases=(0, r0, c0))
 
 
 def slab_inputs(sc, hop: str, seed: int, dev):
@@ -293,7 +377,7 @@ def device_profile(runner, sc) -> dict:
                device_busy_share=device_ms / wall_ms,
                device_ops_per_round=len(ops) / T, top=rows(top),
                kernels=rows((k, v) for k, v in by_name.items()
-                            if any(f"{n}_kernel" in k for n in KERNELS)))
+                            if any(fn in k for _, fn in KERNELS.values())))
     return out
 
 
@@ -304,9 +388,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import channel
-    from repro_torch.kernels import (build, fused_mac, fused_mac_plain,
+    from repro_torch.exec import (ShardedSweepRunner, make_device_mesh,
+                                  make_fused_cluster_hop, parse_mesh)
+    from repro_torch.kernels import (build, fused_mac, fused_mac_partials,
+                                     fused_mac_partials_plain,
+                                     fused_mac_plain, fused_partials_reduce,
+                                     fused_partials_reduce_plain,
                                      ota_combine, ota_combine_plain)
-    from repro_torch.sim import SweepRunner, get_scenario
+    from repro_torch.sim import SweepRunner, get_scenario, sweep
 
     # -- phase 1: the card -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -324,11 +413,13 @@ def main() -> int:
 
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.perf_counter()
-    build.load_all(list(KERNELS))
+    build.load_all(list(SOURCES))
     wall = round(time.perf_counter() - t0, 3)
-    for name in KERNELS:
+    for name in SOURCES:
         build_s, nvcc_log = build.build_info(name)
-        log({"phase": "build", "kernel": name, "seconds": wall,
+        log({"phase": "build", "source": f"csrc/{name}.cu",
+             "kernels": [k for k, (src, _) in KERNELS.items()
+                         if src == name], "seconds": wall,
              "nvcc_seconds": round(build_s, 3),
              "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
                        if "registers" in ln or "spill" in ln]})
@@ -352,12 +443,18 @@ def main() -> int:
     rel_errors = {name: 0.0 for name in KERNELS}
 
     def check(name, label, shape, y1, y2, want):
-        """Hold two launches' results to the plain version's."""
+        """Hold two launches' results to the plain version's: a (re, im)
+        pair against its complex magnitude, other outputs each against
+        its own largest entry."""
         same = all(torch.equal(a, b) for a, b in zip(y1, y2))
-        err = max(float((a - b).abs().max()) for a, b in zip(y1, want))
-        scale = float(torch.complex(*want).abs().max()
-                      if len(want) == 2 else want[0].abs().max())
-        rel = err / scale if scale > 0 else err
+        errs = [float((a - b).abs().max()) for a, b in zip(y1, want)]
+        err = max(errs)
+        if len(want) == 2:
+            scale = float(torch.complex(*want).abs().max())
+            rel = err / scale if scale > 0 else err
+        else:
+            rel = max(e / float(b.abs().max()) if float(b.abs().max()) > 0
+                      else e for e, b in zip(errs, want))
         errors[name] = max(errors[name], err)
         rel_errors[name] = max(rel_errors[name], rel)
         log({"phase": "kernel_vs_plain", "kernel": name, "case": label,
@@ -372,11 +469,11 @@ def main() -> int:
         B, U = args[2].shape
         K, N = inp["K"], args[0].shape[1]
         kw = dict(K=K, sigma_h2=inp["sigma_h2"], sigma_z2=inp["sigma_z2"],
-                  rx_base=rb, u_base=ub, n_base=nb)
+                  rx_base=rb, u_base=ub, n_base=nb, block_u=inp["block_u"])
         y1 = fused_mac(seed, *args, **kw)
         torch.cuda.synchronize()
         y2 = fused_mac(seed, *args, **kw)
-        want = fused_mac_plain(seed, *args, block_u=inp["block_u"], **kw)
+        want = fused_mac_plain(seed, *args, **kw)
         torch.cuda.synchronize()
         check("fused_mac", f"{label} bases {[rb, ub, nb]}", (B, U, K, N),
               y1, y2, want)
@@ -403,8 +500,67 @@ def main() -> int:
         check("ota_combine", label, shape, (y1,), (y2,), (want,))
         del args, y1, y2, want
 
+    # the partial combine at the u-sharded hop's shapes: each kernel
+    # against its plain version, and partials + fold against fused_mac
+    # bit for bit (at scale_u65536 the kernels only: its plain version
+    # takes ~20 s a call, and phase 7 times it once)
+    u16384 = get_scenario("scale_u16384")
+    u65536 = get_scenario("scale_u65536")
+
+    def edge_tile():
+        inp = kernel_inputs(3, 40, 7, 130, 3, dev)
+        return {**inp, "block_u": 8, "bases": (2, 40, 5)}
+
+    partial_cases = [
+        ("scale_u256 1x1", lambda: tile_inputs(u256, (1, 1), 0, 0, 60, dev),
+         True),
+        ("scale_u256 2x4 tile (1, 1)",
+         lambda: tile_inputs(u256, (2, 4), 1, 1, 61, dev), True),
+        ("scale_u16384 1x1",
+         lambda: tile_inputs(u16384, (1, 1), 0, 0, 62, dev), True),
+        ("edge", edge_tile, True),
+        ("scale_u65536 1x1",
+         lambda: tile_inputs(u65536, (1, 1), 0, 0, 63, dev), False)]
+    for label, make, with_plain in partial_cases:
+        inp = make()
+        args, (rb, ub, nb) = inp["args"], inp["bases"]
+        B, U = args[2].shape
+        K, N, bu = inp["K"], args[0].shape[1], inp["block_u"]
+        kw = dict(K=K, sigma_h2=inp["sigma_h2"], rx_base=rb, u_base=ub,
+                  n_base=nb, block_u=bu)
+        fold = dict(K=K, sigma_z2=inp["sigma_z2"], rx_base=rb, n_base=nb)
+        p1 = fused_mac_partials(seed, *args, **kw)
+        torch.cuda.synchronize()
+        p2 = fused_mac_partials(seed, *args, **kw)
+        y1 = fused_partials_reduce(seed, *p1, **fold)
+        torch.cuda.synchronize()
+        y2 = fused_partials_reduce(seed, *p2, **fold)
+        y = fused_mac(seed, *args, sigma_z2=inp["sigma_z2"], **kw)
+        torch.cuda.synchronize()
+        shape = (B, U, K, N)
+        if with_plain:
+            check("fused_mac_partials", f"{label} block_u {bu}", shape, p1,
+                  p2, fused_mac_partials_plain(seed, *args, **kw))
+            check("fused_partials_reduce", label, (B, U // bu, K, N), y1, y2,
+                  fused_partials_reduce_plain(seed, *p1, **fold))
+        elif not all(torch.equal(a, b) for a, b in zip(p1 + y1, p2 + y2)):
+            raise SystemExit(f"the partial kernels' bits differ between "
+                             f"two launches at {label}")
+        same = all(torch.equal(a, b) for a, b in zip(y1, y))
+        log({"phase": "partials_and_reduce_vs_fused_mac", "case": label,
+             "shape_BUKN": list(shape), "block_u": bu,
+             "bases": [rb, ub, nb], "bitwise_equal": same,
+             "max_abs_gap": max(float((a - b).abs().max())
+                                for a, b in zip(y1, y))})
+        if not same:
+            raise SystemExit(f"partials + reduce differ from fused_mac at "
+                             f"{label}")
+        del inp, args, p1, p2, y1, y2, y
+
     # -- phase 4: the main paths -------------------------------------------
-    counters = {"fused_mac": fused_mac, "ota_combine": ota_combine}
+    counters = {"fused_mac": fused_mac, "ota_combine": ota_combine,
+                "fused_mac_partials": fused_mac_partials,
+                "fused_partials_reduce": fused_partials_reduce}
     main_launches = {name: 0 for name in KERNELS}
 
     def counted(run):
@@ -421,6 +577,7 @@ def main() -> int:
         return bool(np.all(np.isfinite(np.asarray(metrics, np.float64))))
 
     def expect(label, launches, want, ok=True):
+        want = {name: want.get(name, 0) for name in KERNELS}
         log({"phase": "main_path_launches", "run": label,
              "kernel_launches": launches, "expected_launches": want,
              "finite": ok})
@@ -486,21 +643,83 @@ def main() -> int:
     expect("fig2_iid_reference_quick", launches,
            {"fused_mac": 0, "ota_combine": 0}, finite(res))
 
+    # the sharded engine through the sweep CLI
+    sharded_runs = [("scale_u256", "1x1", "u_sharded", 2),
+                    ("scale_u256", "2x4", "u_sharded", 2),
+                    ("scale_u256", "3x5", "u_sharded", 2),    # 6x65 padded
+                    ("scale_u256", "2x4", "gathered", 2),
+                    ("scale_u16384", "1x1", "u_sharded", 1),
+                    ("scale_u16384", "1x1", "gathered", 1),
+                    ("scale_u65536", "1x1", "u_sharded", 1)]
+    for name, mesh, combine, seeds in sharded_runs:
+        label = f"{name} {mesh} {combine}"
+        argv = ["--scenarios", name, "--seeds", str(seeds), "--exec",
+                "sharded", "--mesh", mesh, "--combine", combine]
+        doc, launches = counted(lambda: sweep.main(argv))
+        rec = doc["scenarios"][0]
+        rounds, I = rec["rounds"][-1], rec["scenario"]["I"]
+        hops = rounds * len(rec["seeds"])          # rounds x seeds
+        mc, mu = parse_mesh(mesh)
+        want = ({"fused_mac_partials": hops * I * mc * mu,
+                 "fused_partials_reduce": hops * I * mu, "fused_mac": hops}
+                if combine == "u_sharded" else
+                {"fused_mac": hops * (I * mc * mu + 1)})
+        log({"phase": "main_path", "run": f"sharded {label}",
+             "argv": argv, "exec": rec["exec"], "seeds": rec["seeds"],
+             "rounds": rounds,
+             "rounds_per_sec": rounds / rec["exec"]["drive_seconds"],
+             "final_acc": [a[-1] for a in rec["metrics"]["acc"]],
+             "final_loss": [v[-1] for v in rec["metrics"]["loss"]]})
+        expect(f"sharded {label}", launches, want, bool(all(
+            np.all(np.isfinite(np.asarray(v, np.float64)))
+            for v in rec["metrics"].values())))
+        if name != "scale_u256":
+            continue
+        # the same run with its final state, against the single engine
+        res = ShardedSweepRunner([u256], seeds=2, mesh=mesh,
+                                 combine=combine, keep_state=True,
+                                 device="cuda").run()[0]
+        if (mesh, combine) == ("2x4", "u_sharded"):
+            u256_sharded_on_card = res
+        theta = u256_on_card.final_state["theta"]
+        gap = max(float((res.final_state["theta"][k] - theta[k]).abs()
+                        .max()) for k in theta)
+        log({"phase": "sharded_vs_single", "run": label,
+             "what": "final model and metrics, sharded vs single engine, "
+                     "both on the card",
+             "theta_bitwise_equal": all(
+                 torch.equal(res.final_state["theta"][k], theta[k])
+                 for k in theta),
+             "metrics_bitwise_equal": all(
+                 getattr(res, k) == getattr(u256_on_card, k)
+                 for k in ("acc", "loss", "edge_power", "is_power")),
+             "theta_max_abs_gap": gap,
+             "theta_max_rel_gap": gap / max(float(theta[k].abs().max())
+                                            for k in theta)})
+
     # -- phase 5: the main paths' output against a reference ---------------
     # fig2_iid as registered (no kernel) is the control: Adam turns any
     # difference between the card's and the CPU's arithmetic into a
     # larger gap in the model than SGD does
-    for label, sc in (("scale_u256", u256),
-                      ("fig2_iid_slab", fig2_slab.replace(total_IT=2)),
-                      ("fig2_iid_reference", fig2_ref.replace(total_IT=2)),
-                      ("fig2_iid", fig2.replace(total_IT=2))):
-        card_res = u256_on_card if label == "scale_u256" else SweepRunner(
-            [sc], seeds=2, device="cuda", keep_state=True).run()[0]
+    single = lambda sc, device: SweepRunner([sc], seeds=2, device=device,
+                                            keep_state=True).run()[0]
+    u256_sharded = lambda sc, device: ShardedSweepRunner(
+        [sc], seeds=2, mesh="2x4", combine="u_sharded", device=device,
+        keep_state=True).run()[0]
+    for label, sc, run, card_res in (
+            ("scale_u256", u256, single, u256_on_card),
+            ("scale_u256 sharded 2x4 u_sharded", u256, u256_sharded,
+             u256_sharded_on_card),
+            ("fig2_iid_slab", fig2_slab.replace(total_IT=2), single, None),
+            ("fig2_iid_reference", fig2_ref.replace(total_IT=2), single,
+             None),
+            ("fig2_iid", fig2.replace(total_IT=2), single, None)):
+        if card_res is None:
+            card_res = run(sc, "cuda")
         t0 = time.perf_counter()
-        cpu_res = SweepRunner([sc], seeds=2, device="cpu",
-                              keep_state=True).run()[0]
+        cpu_res = run(sc, "cpu")
         gaps = compare_runs(card_res, cpu_res)
-        log({"phase": "reference", "scenario": sc.name,
+        log({"phase": "reference", "run": label, "scenario": sc.name,
              "ota": ota_label(sc),
              "what": "the card (kernels) vs the CPU (plain versions)",
              "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
@@ -519,10 +738,22 @@ def main() -> int:
             ("fig2_iid_slab", fig2_slab)]:
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
+    for label, sc, mesh in (("sharded scale_u65536 1x1 u_sharded", u65536,
+                             "1x1"),
+                            ("sharded scale_u256 2x4 u_sharded", u256,
+                             "2x4")):
+        torch.cuda.reset_peak_memory_stats()
+        prof = device_profile(ShardedSweepRunner(
+            [sc], seeds=1, mesh=mesh, combine="u_sharded", device="cuda"),
+            sc)
+        log({"phase": "profile", "run": label, "card": card,
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+             **prof})
 
     # -- phase 7: kernel times ---------------------------------------------
-    def time_ms(fn, reps):
-        fn()
+    def time_ms(fn, reps, warm=True):
+        if warm:
+            fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -533,12 +764,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def in_turns(kern, plain, k_reps, p_reps):
+    def in_turns(kern, plain, k_reps, p_reps, warm_plain=True):
         """plain, kernel, kernel, plain, within one process."""
-        p1 = time_ms(plain, p_reps)
+        p1 = time_ms(plain, p_reps, warm_plain)
         k1 = time_ms(kern, k_reps)
         k2 = time_ms(kern, k_reps)
-        p2 = time_ms(plain, p_reps)
+        p2 = time_ms(plain, p_reps, warm_plain)
         return [k1, k2], [p1, p2]
 
     timings = {}
@@ -546,10 +777,9 @@ def main() -> int:
                                     ("scale_u1024", (8, 1024, 16, 3925),
                                      128)):
         args = kernel_inputs(B, U, K, N, 7, dev)["args"]
-        kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0)
+        kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0, block_u=bu)
         ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
-                          lambda: fused_mac_plain(seed, *args, block_u=bu,
-                                                  **kw), 20, 3)
+                          lambda: fused_mac_plain(seed, *args, **kw), 20, 3)
         bound, bound_by = fused_mac_bound_ms(B, U, K, N)
         timings["fused_mac", label] = dict(
             ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
@@ -594,15 +824,70 @@ def main() -> int:
          "shape_BUKN": [topo.C, topo.C * topo.M, topo.K, 3925],
          "slab_hop_ms": slab_ms, "fused_hop_ms": fused_ms, "card": card})
 
+    # the partial combine at its largest main-path shape, scale_u65536 on
+    # a 1x1 mesh; its plain version takes ~20 s a call, so each turn of
+    # it is one call, not warmed up
+    inp = tile_inputs(u65536, (1, 1), 0, 0, 70, dev)
+    args, bu = inp["args"], inp["block_u"]
+    B, U = args[2].shape
+    K, N = inp["K"], args[0].shape[1]
+    G = U // bu
+    kw = dict(K=K, sigma_h2=inp["sigma_h2"], block_u=bu)
+    fold = dict(K=K, sigma_z2=inp["sigma_z2"])
+    ks, ps = in_turns(lambda: fused_mac_partials(seed, *args, **kw),
+                      lambda: fused_mac_partials_plain(seed, *args, **kw),
+                      3, 1, warm_plain=False)
+    parts = fused_mac_partials(seed, *args, **kw)
+    rks, rps = in_turns(lambda: fused_partials_reduce(seed, *parts, **fold),
+                        lambda: fused_partials_reduce_plain(seed, *parts,
+                                                            **fold), 20, 3)
+    for name, kms, pms, (bound, bound_by), shape in (
+            ("fused_mac_partials", ks, ps,
+             partials_bound_ms(B, U, K, N, G), [B, U, K, N]),
+            ("fused_partials_reduce", rks, rps, reduce_bound_ms(B, G, K, N),
+             [B, G, K, N])):
+        timings[name, "scale_u65536 1x1"] = dict(
+            ms=sum(kms) / 2, plain_ms=sum(pms) / 2, bound_ms=bound,
+            bound_by=bound_by, shape=shape)
+        log({"phase": "times", "kernel": name, "shape": "scale_u65536 1x1",
+             "shape_BUKN" if name == "fused_mac_partials" else "shape_BGKN":
+             shape, "block_u": bu, "kernel_ms": kms, "plain_ms": pms,
+             "bound_ms": bound, "bound_by": bound_by, "card": card})
+    del inp, args, parts
+
+    # the whole cluster hop at the scale_u16384 shape on a 1x1 mesh:
+    # u-sharded (partials + fold) against gathered (fused_mac)
+    topo = u16384.make_topology()
+    mesh = make_device_mesh("1x1", dev)
+    g = torch.Generator(device=dev).manual_seed(51)
+    deltas = 1e-2 * torch.randn(topo.C, topo.M, 7850, generator=g,
+                                device=dev)
+    key = prng.PRNGKey(51, dev)
+    P = torch.tensor(1.0, device=dev)
+    hop = {c: (lambda f=make_fused_cluster_hop(
+        topo, u16384.whfl_config().ota, mesh, 3925, c): f(key, deltas, P))
+        for c in ("u_sharded", "gathered")}
+    u_ms, g_ms = in_turns(hop["u_sharded"], hop["gathered"], 5, 5)
+    log({"phase": "times", "what": "cluster hop, u_sharded vs gathered",
+         "shape_BUKN": [topo.C, topo.C * topo.M, topo.K, 3925],
+         "u_sharded_hop_ms": u_ms, "gathered_hop_ms": g_ms, "card": card})
+    del deltas, hop
+
     # -- phase 8: the records ----------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",
                 "src/repro/kernels/ota_combine.py:121",
-                "src/repro/kernels/ota_combine.py:31")]
+                "src/repro/kernels/ota_combine.py:31"),
+               ("fused_mac_partials", "scale_u65536 1x1",
+                "src/repro/kernels/fused_mac.py:312", None),
+               # a jnp helper in the JAX package, a kernel here
+               ("fused_partials_reduce", "scale_u65536 1x1",
+                "src/repro/kernels/fused_mac.py:467", None)]
     log({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+        "source": f"src/repro_torch/csrc/{KERNELS[name][0]}.cu",
+        "replaces": replaces,
         **({"also_replaces": also} if also else {}),
         "launches": main_launches[name], "max_abs_err": errors[name],
         "max_rel_err": rel_errors[name],

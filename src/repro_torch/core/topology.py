@@ -11,7 +11,10 @@ normalized distance in [0.5, 3] from the PS; MUs uniformly in an annulus
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
+
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -117,6 +120,90 @@ def uniform_topology(
     return Topology(C=C, M=M, K=K, K_ps=K_ps, p=p, sigma_h2=sigma_h2,
                     sigma_z2=sigma_z2, d_mu_is=d_mu_is, d_is_ps=d_is_ps,
                     d_mu_ps=d_mu_ps)
+
+
+# ---------------------------------------------------------------------------
+# inactive-user padding: run any (C, M) workload on any mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PadPlan:
+    """How a (C clusters, M users/cluster) workload pads up to a mesh.
+
+    A mesh with (mc, mu) shards per axis can only block-shard a grid
+    whose axes it divides; `pad_plan` rounds (C, M) up to the smallest
+    such grid (Cp, Mp) and this plan describes the embedding: real
+    entries occupy the leading ``[:C, :M]`` block, everything else is
+    *inactive* -- padded users train on zero dummy shards, transmit with
+    amplitude 0 and carry aggregation weight 0, padded clusters are
+    extra receiving stations whose matched filter is identically zero.
+    Padding an already-divisible workload is the identity
+    (``is_identity``).  The pad methods take torch tensors.
+    """
+
+    C: int                      # real clusters
+    M: int                      # real users per cluster
+    Cp: int                     # padded clusters (multiple of mesh axis)
+    Mp: int                     # padded users per cluster
+
+    @property
+    def is_identity(self) -> bool:
+        return (self.Cp, self.Mp) == (self.C, self.M)
+
+    def user_perm(self) -> np.ndarray:
+        """Padded-grid flat index of every real user, in the engines'
+        row-major (cluster-major) user order: real user ``u = c*M + m``
+        sits at flat padded index ``c*Mp + m``."""
+        c = np.arange(self.C)[:, None]
+        m = np.arange(self.M)[None, :]
+        return (c * self.Mp + m).reshape(-1)
+
+    def pad_users(self, x, fill=0):
+        """Pad the leading (C, M) axes of `x` to (Cp, Mp) with `fill`
+        (inactive users: zero data shards, amp = w = 0)."""
+        if self.is_identity:
+            return x
+        return _pad_lead(x, (self.Cp - self.C, self.Mp - self.M), fill)
+
+    def unpad_users(self, x):
+        """Slice the real [C, M, ...] block back out of a padded array."""
+        return x if self.is_identity else x[: self.C, : self.M]
+
+    def pad_rx(self, x, fill=0):
+        """Pad a per-cluster (receiving-station) leading axis [C, ...]
+        to [Cp, ...]; inactive stations get `fill` (amplitude/weight
+        rows 0; normalization sums 1 to keep the rescale finite)."""
+        if self.Cp == self.C:
+            return x
+        return _pad_lead(x, (self.Cp - self.C,), fill)
+
+
+def _pad_lead(x: torch.Tensor, extra: Sequence[int], fill) -> torch.Tensor:
+    """Append `extra[i]` entries of `fill` to leading axis i of `x`."""
+    out = torch.full((*(n + e for n, e in zip(x.shape, extra)),
+                      *x.shape[len(extra):]), fill, dtype=x.dtype,
+                     device=x.device)
+    out[tuple(slice(0, n) for n in x.shape[:len(extra)])] = x
+    return out
+
+
+def pad_plan(C: int, M: int, mesh_shape: Sequence[int]) -> PadPlan:
+    """The minimal `PadPlan` embedding (C, M) into a (mc, mu)-shard
+    mesh: each axis rounds up to the next multiple of its shard count."""
+    mc, mu = (int(s) for s in mesh_shape)
+    if min(C, M, mc, mu) < 1:
+        raise ValueError(
+            f"pad_plan needs positive sizes, got (C={C}, M={M}) on "
+            f"mesh {mc}x{mu}")
+    up = lambda n, k: (n + k - 1) // k * k
+    return PadPlan(C=C, M=M, Cp=up(C, mc), Mp=up(M, mu))
+
+
+def pad_topology(topo: "Topology", mesh_shape: Sequence[int]) -> PadPlan:
+    """`pad_plan` for a concrete `Topology`.  The topology itself
+    (distances, fading) is never padded: every OTA hop computes on the
+    real (C, M) block, so padding is a pure layout change."""
+    return pad_plan(topo.C, topo.M, mesh_shape)
 
 
 def power_schedule(t, base: float = 1.0, slope: float = 1e-2,

@@ -1,7 +1,8 @@
 // Fused OTA matched-filter combine with in-kernel channel generation,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): the full combine, its per-u-block partial sums,
+// and the pinned-order fold of those partial sums.
 //
-// Replaces the Pallas TPU kernel `_fused_kernel` of
+// `fused_mac_kernel` replaces the Pallas TPU kernel `_fused_kernel` of
 // src/repro/kernels/fused_mac.py (wrapper `fused_mac`).  It computes
 //
 //   y[b, n] = sum_k conj(sum_u w[b,u] h[b,u,k,n])
@@ -17,22 +18,45 @@
 // with rx = rx_base + b and Kstride = roundup(K, 128); each word pair
 // feeds Box-Muller on its top 24 bits.
 //
-// What bounds it on this card: operations, not bytes.  Every one of the
-// B*U*K*N + B*K*N complex draws costs one threefry2x32 block (about 75
-// int32 add/rotate/xor operations) plus a log, a sqrt, a sin and a cos;
-// the only bytes moved are t, amp, w (read) and y (written).
+// `fused_partials_kernel` replaces the Pallas TPU kernel
+// `_fused_partial_kernel` (wrapper `fused_mac_partials`): per u-block g
+// of `block_u` users it writes the block's pre-contraction sums
+//   pr[b,g,k,n] = sum_{u in g} h[b,u,k,n] t[u,n]
+//   pm[b,g,k,n] = sum_{u in g} w[b,u] h[b,u,k,n]
+// with no noise.  `fused_reduce_kernel` is the JAX package's jnp helper
+// `fused_partials_reduce`: it draws z, folds the blocks g = 0..G-1 into
+// r = z + sum pr and mf = sum pm in ascending order and contracts over
+// k.  A caller that owns only a tile of the user axis (the u-sharded
+// cluster hop) emits its blocks with `fused_partials_kernel`, and the
+// fold of every tile's blocks in global block order gives `fused_mac`'s
+// y bit for bit: all three kernels share the per-block sum
+// (`block_sums`), the noise draw and the finalize (`add_conj_product`,
+// `store_row_sum`), each written with explicit round-to-nearest
+// intrinsics so that nvcc cannot contract a product and a sum into an
+// FMA in one kernel and not in another.  `fused_mac_kernel` folds its
+// own blocks in the same order: r starts at z, mf at 0, and each
+// block's sum (from 0, u ascending) is added to them in turn.
 //
-// Design: the TPU kernel walks its U grid axis in order and carries the
+// What bounds them on this card: operations, not bytes.  Every one of
+// the B*U*K*N (+ B*K*N noise) complex draws costs one threefry2x32
+// block (about 75 int32 add/rotate/xor operations) plus a log, a sqrt,
+// a sin and a cos; the bytes moved are t, amp, w (read) and y or the
+// partial sums (written).  The fold is bound by bytes: it reads the
+// 4 x B*G*K*N partial sums once and draws only B*K*N noise values.
+//
+// Design: the TPU kernels walk their U grid axis in order and carry the
 // received signal r and matched filter mf in VMEM scratch.  Hopper
 // blocks run in no order, so that sequential axis becomes a loop inside
-// each thread instead: one block per (32 symbols, rx station), 8 thread
-// rows over the antennas.  A thread owns the (b, k, n) cells
-// k = ty, ty+8, ...; for each it starts r at z and mf at 0, loops over u
-// in ascending order keeping both in registers, and adds conj(mf) * r to
-// its running sum.  A fixed-order sum over the 8 rows in shared memory
-// gives y[b, n].  No atomics and no device buffer besides y, so every
-// launch gives the same bits.  Precise libm (no fast math): logf, sqrtf
-// and sincosf match the plain PyTorch version to a few ULP.
+// each thread instead: one block per (32 symbols, rx station) with 8
+// thread rows over the antennas for the combine and the fold, and one
+// block per (32 symbols, u-block, rx station) with up to 8 rows for the
+// partial sums.  A thread owns the cells k = ty, ty+8, ... and keeps its
+// sums in registers; the combine and the fold add conj(mf) * r to a
+// running sum, and a fixed-order sum over the 8 rows in shared memory
+// gives y[b, n].  Every output cell is written by exactly one thread:
+// no atomics and no device buffer besides the outputs, so every launch
+// gives the same bits.  Precise libm (no fast math): logf, sqrtf and
+// sincosf match the plain PyTorch version to a few ULP.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -78,13 +102,94 @@ __device__ __forceinline__ void cx_normal(uint32_t k0, uint32_t k1,
                                           float sigma, float& re,
                                           float& im) {
   threefry2x32(k0, k1, x0, x1);
-  const float u1 = 1.0f - static_cast<float>(x0 >> 8) * kU24;  // (0, 1]
-  const float u2 = static_cast<float>(x1 >> 8) * kU24;         // [0, 1)
-  const float r = sqrtf(-2.0f * logf(u1));
+  const float u1 = __fsub_rn(                                  // (0, 1]
+      1.0f, __fmul_rn(static_cast<float>(x0 >> 8), kU24));
+  const float u2 = __fmul_rn(static_cast<float>(x1 >> 8), kU24);  // [0, 1)
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
   float s, c;
-  sincosf(kTwoPi * u2, &s, &c);
-  re = sigma * (r * c);
-  im = sigma * (r * s);
+  sincosf(__fmul_rn(kTwoPi, u2), &s, &c);
+  re = __fmul_rn(sigma, __fmul_rn(r, c));
+  im = __fmul_rn(sigma, __fmul_rn(r, s));
+}
+
+// The threefry keys of rx station rx_base + b: (s0 + rx*GOLDEN) and the
+// channel and noise streams' second words.
+struct Keys {
+  uint32_t k0, chan, noise;
+};
+
+__device__ __forceinline__ Keys stream_keys(const uint32_t* words, int b) {
+  const uint32_t rx = words[2] + static_cast<uint32_t>(b);
+  return {words[0] + rx * kGolden, words[1] + 1u * kStream,
+          words[1] + 2u * kStream};
+}
+
+// One u-block's sums at one (rx, k, n) cell, each from 0 over the users
+// u0 <= u < u1 in ascending order: pr = sum h t, pm = sum w h.
+struct Sums {
+  float pr_re, pr_im, pm_re, pm_im;
+};
+
+__device__ __forceinline__ Sums block_sums(
+    const Keys& key, uint32_t kstride, uint32_t u_base, int k, uint32_t nn,
+    int n, int N, int u0, int u1, const float* __restrict__ amp_b,
+    const float* __restrict__ w_b, const float* __restrict__ t_re,
+    const float* __restrict__ t_im, float sigma_h) {
+  Sums s = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int u = u0; u < u1; ++u) {
+    const uint32_t x0 = (static_cast<uint32_t>(u) + u_base) * kstride +
+                        static_cast<uint32_t>(k);
+    float g_re, g_im;
+    cx_normal(key.k0, key.chan, x0, nn, sigma_h, g_re, g_im);
+    const float a = amp_b[u];
+    const float wa = __fmul_rn(w_b[u], a);
+    const float h_re = __fmul_rn(a, g_re);
+    const float h_im = __fmul_rn(a, g_im);
+    const float tr = t_re[static_cast<size_t>(u) * N + n];
+    const float ti = t_im[static_cast<size_t>(u) * N + n];
+    s.pr_re = __fadd_rn(s.pr_re,
+                        __fsub_rn(__fmul_rn(h_re, tr), __fmul_rn(h_im, ti)));
+    s.pr_im = __fadd_rn(s.pr_im,
+                        __fadd_rn(__fmul_rn(h_re, ti), __fmul_rn(h_im, tr)));
+    s.pm_re = __fadd_rn(s.pm_re, __fmul_rn(wa, g_re));
+    s.pm_im = __fadd_rn(s.pm_im, __fmul_rn(wa, g_im));
+  }
+  return s;
+}
+
+// acc += conj(mf) * r for one antenna row.
+__device__ __forceinline__ void add_conj_product(float& acc_re,
+                                                 float& acc_im, float mf_re,
+                                                 float mf_im, float r_re,
+                                                 float r_im) {
+  acc_re = __fadd_rn(acc_re,
+                     __fadd_rn(__fmul_rn(mf_re, r_re), __fmul_rn(mf_im, r_im)));
+  acc_im = __fadd_rn(acc_im,
+                     __fsub_rn(__fmul_rn(mf_re, r_im), __fmul_rn(mf_im, r_re)));
+}
+
+// y[n] = the sum of the block's kTK thread rows' running sums, in row
+// order, through shared memory.  Every thread of the block calls it.
+__device__ __forceinline__ void store_row_sum(float acc_re, float acc_im,
+                                              int n, int N,
+                                              float* __restrict__ y_re,
+                                              float* __restrict__ y_im) {
+  __shared__ float s_re[kTK][kTN];
+  __shared__ float s_im[kTK][kTN];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  s_re[ty][tx] = acc_re;
+  s_im[ty][tx] = acc_im;
+  __syncthreads();
+  if (ty == 0 && n < N) {
+    float yr = 0.0f, yi = 0.0f;
+    for (int j = 0; j < kTK; ++j) {
+      yr = __fadd_rn(yr, s_re[j][tx]);
+      yi = __fadd_rn(yi, s_im[j][tx]);
+    }
+    y_re[n] = yr;
+    y_im[n] = yi;
+  }
 }
 
 __global__ void __launch_bounds__(kTN * kTK)
@@ -94,86 +199,170 @@ fused_mac_kernel(const uint32_t* __restrict__ words,
                  const float* __restrict__ amp,
                  const float* __restrict__ w,
                  float* __restrict__ y_re, float* __restrict__ y_im,
-                 int U, int K, int N, uint32_t kstride, float sigma_h,
-                 float sigma_z) {
-  __shared__ float s_re[kTK][kTN];
-  __shared__ float s_im[kTK][kTN];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
+                 int U, int K, int N, int block_u, uint32_t kstride,
+                 float sigma_h, float sigma_z) {
   const int b = blockIdx.y;
-  const int n = blockIdx.x * kTN + tx;
-
-  const uint32_t rx = words[2] + static_cast<uint32_t>(b);
-  const uint32_t u_base = words[3];
-  const uint32_t key0 = words[0] + rx * kGolden;
-  const uint32_t chan_key1 = words[1] + 1u * kStream;
-  const uint32_t noise_key1 = words[1] + 2u * kStream;
-
+  const int n = blockIdx.x * kTN + threadIdx.x;
+  const Keys key = stream_keys(words, b);
   float acc_re = 0.0f, acc_im = 0.0f;
   if (n < N) {
     const uint32_t nn = static_cast<uint32_t>(n) + words[4];
     const float* amp_b = amp + static_cast<size_t>(b) * U;
     const float* w_b = w + static_cast<size_t>(b) * U;
-    for (int k = ty; k < K; k += kTK) {
+    for (int k = threadIdx.y; k < K; k += kTK) {
       float r_re, r_im;
-      cx_normal(key0, noise_key1, static_cast<uint32_t>(k), nn, sigma_z,
+      cx_normal(key.k0, key.noise, static_cast<uint32_t>(k), nn, sigma_z,
                 r_re, r_im);
       float mf_re = 0.0f, mf_im = 0.0f;
-      for (int u = 0; u < U; ++u) {
-        const uint32_t x0 =
-            (static_cast<uint32_t>(u) + u_base) * kstride +
-            static_cast<uint32_t>(k);
-        float g_re, g_im;
-        cx_normal(key0, chan_key1, x0, nn, sigma_h, g_re, g_im);
-        const float a = amp_b[u];
-        const float wa = w_b[u] * a;
-        const float h_re = a * g_re;
-        const float h_im = a * g_im;
-        const float tr = t_re[static_cast<size_t>(u) * N + n];
-        const float ti = t_im[static_cast<size_t>(u) * N + n];
-        r_re += h_re * tr - h_im * ti;
-        r_im += h_re * ti + h_im * tr;
-        mf_re += wa * g_re;
-        mf_im += wa * g_im;
+      for (int u0 = 0; u0 < U; u0 += block_u) {
+        const Sums s = block_sums(key, kstride, words[3], k, nn, n, N, u0,
+                                  min(u0 + block_u, U), amp_b, w_b, t_re,
+                                  t_im, sigma_h);
+        r_re = __fadd_rn(r_re, s.pr_re);
+        r_im = __fadd_rn(r_im, s.pr_im);
+        mf_re = __fadd_rn(mf_re, s.pm_re);
+        mf_im = __fadd_rn(mf_im, s.pm_im);
       }
-      acc_re += mf_re * r_re + mf_im * r_im;
-      acc_im += mf_re * r_im - mf_im * r_re;
+      add_conj_product(acc_re, acc_im, mf_re, mf_im, r_re, r_im);
     }
   }
-  s_re[ty][tx] = acc_re;
-  s_im[ty][tx] = acc_im;
-  __syncthreads();
-  if (ty == 0 && n < N) {
-    float yr = 0.0f, yi = 0.0f;
-    for (int j = 0; j < kTK; ++j) {
-      yr += s_re[j][tx];
-      yi += s_im[j][tx];
-    }
-    y_re[static_cast<size_t>(b) * N + n] = yr;
-    y_im[static_cast<size_t>(b) * N + n] = yi;
+  store_row_sum(acc_re, acc_im, n, N, y_re + static_cast<size_t>(b) * N,
+                y_im + static_cast<size_t>(b) * N);
+}
+
+// Grid (N / 32, G, B); blockDim.y = min(8, K) rows over the antennas.
+__global__ void __launch_bounds__(kTN * kTK)
+fused_partials_kernel(const uint32_t* __restrict__ words,
+                      const float* __restrict__ t_re,
+                      const float* __restrict__ t_im,
+                      const float* __restrict__ amp,
+                      const float* __restrict__ w,
+                      float* __restrict__ pr_re, float* __restrict__ pr_im,
+                      float* __restrict__ pm_re, float* __restrict__ pm_im,
+                      int U, int K, int N, int block_u, uint32_t kstride,
+                      float sigma_h) {
+  const int n = blockIdx.x * kTN + threadIdx.x;
+  if (n >= N) return;
+  const int g = blockIdx.y;
+  const int G = gridDim.y;
+  const int b = blockIdx.z;
+  const Keys key = stream_keys(words, b);
+  const uint32_t nn = static_cast<uint32_t>(n) + words[4];
+  const float* amp_b = amp + static_cast<size_t>(b) * U;
+  const float* w_b = w + static_cast<size_t>(b) * U;
+  const int u0 = g * block_u;
+  for (int k = threadIdx.y; k < K; k += blockDim.y) {
+    const Sums s = block_sums(key, kstride, words[3], k, nn, n, N, u0,
+                              u0 + block_u, amp_b, w_b, t_re, t_im, sigma_h);
+    const size_t o =
+        ((static_cast<size_t>(b) * G + g) * K + k) * static_cast<size_t>(N) +
+        n;
+    pr_re[o] = s.pr_re;
+    pr_im[o] = s.pr_im;
+    pm_re[o] = s.pm_re;
+    pm_im[o] = s.pm_im;
   }
+}
+
+// Grid (N / 32, B), 8 rows over the antennas, as `fused_mac_kernel`.
+__global__ void __launch_bounds__(kTN * kTK)
+fused_reduce_kernel(const uint32_t* __restrict__ words,
+                    const float* __restrict__ pr_re,
+                    const float* __restrict__ pr_im,
+                    const float* __restrict__ pm_re,
+                    const float* __restrict__ pm_im,
+                    float* __restrict__ y_re, float* __restrict__ y_im,
+                    int G, int K, int N, float sigma_z) {
+  const int b = blockIdx.y;
+  const int n = blockIdx.x * kTN + threadIdx.x;
+  const Keys key = stream_keys(words, b);
+  float acc_re = 0.0f, acc_im = 0.0f;
+  if (n < N) {
+    const uint32_t nn = static_cast<uint32_t>(n) + words[4];
+    for (int k = threadIdx.y; k < K; k += kTK) {
+      float r_re, r_im;
+      cx_normal(key.k0, key.noise, static_cast<uint32_t>(k), nn, sigma_z,
+                r_re, r_im);
+      float mf_re = 0.0f, mf_im = 0.0f;
+      for (int g = 0; g < G; ++g) {
+        const size_t o = ((static_cast<size_t>(b) * G + g) * K + k) *
+                             static_cast<size_t>(N) + n;
+        r_re = __fadd_rn(r_re, pr_re[o]);
+        r_im = __fadd_rn(r_im, pr_im[o]);
+        mf_re = __fadd_rn(mf_re, pm_re[o]);
+        mf_im = __fadd_rn(mf_im, pm_im[o]);
+      }
+      add_conj_product(acc_re, acc_im, mf_re, mf_im, r_re, r_im);
+    }
+  }
+  store_row_sum(acc_re, acc_im, n, N, y_re + static_cast<size_t>(b) * N,
+                y_im + static_cast<size_t>(b) * N);
+}
+
+uint32_t k_stride(int K) {
+  return static_cast<uint32_t>((K + 127) / 128 * 128);
 }
 
 }  // namespace
 
-// words: uint32 [8] on the device = (s0, s1, rx_base, u_base, n_base, 0,
-// 0, 0); t_re, t_im: float32 [U, N]; amp, w: float32 [B, U]; y_re, y_im:
-// float32 [B, N].  All contiguous.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() as an int.
+// The entry points below take device pointers to contiguous tensors and
+// `words`, uint32 [8] on the device = (s0, s1, rx_base, u_base, n_base,
+// 0, 0, 0).  Each launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() as an int.
+
+// t_re, t_im: float32 [U, N]; amp, w: float32 [B, U]; y_re, y_im:
+// float32 [B, N].  block_u >= 1.
 extern "C" int fused_mac_launch(const void* words, const void* t_re,
                                 const void* t_im, const void* amp,
                                 const void* w, void* y_re, void* y_im,
-                                int B, int U, int K, int N, float sigma_h,
-                                float sigma_z, void* stream) {
+                                int B, int U, int K, int N, int block_u,
+                                float sigma_h, float sigma_z, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  const uint32_t kstride =
-      static_cast<uint32_t>((K + 127) / 128 * 128);
   const dim3 block(kTN, kTK);
   const dim3 grid((N + kTN - 1) / kTN, B);
   fused_mac_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(t_re),
       static_cast<const float*>(t_im), static_cast<const float*>(amp),
       static_cast<const float*>(w), static_cast<float*>(y_re),
-      static_cast<float*>(y_im), U, K, N, kstride, sigma_h, sigma_z);
+      static_cast<float*>(y_im), U, K, N, block_u, k_stride(K), sigma_h,
+      sigma_z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t_re, t_im: float32 [U, N]; amp, w: float32 [B, U]; pr_re, pr_im,
+// pm_re, pm_im: float32 [B, U / block_u, K, N].  U % block_u == 0.
+extern "C" int fused_mac_partials_launch(
+    const void* words, const void* t_re, const void* t_im, const void* amp,
+    const void* w, void* pr_re, void* pr_im, void* pm_re, void* pm_im, int B,
+    int U, int K, int N, int block_u, float sigma_h, void* stream) {
+  const int G = U / block_u;
+  if (B <= 0 || N <= 0 || G <= 0) return 0;
+  const dim3 block(kTN, K < kTK ? K : kTK);
+  const dim3 grid((N + kTN - 1) / kTN, G, B);
+  fused_partials_kernel<<<grid, block, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const float*>(t_re),
+      static_cast<const float*>(t_im), static_cast<const float*>(amp),
+      static_cast<const float*>(w), static_cast<float*>(pr_re),
+      static_cast<float*>(pr_im), static_cast<float*>(pm_re),
+      static_cast<float*>(pm_im), U, K, N, block_u, k_stride(K), sigma_h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pr_re, pr_im, pm_re, pm_im: float32 [B, G, K, N]; y_re, y_im: float32
+// [B, N].
+extern "C" int fused_partials_reduce_launch(
+    const void* words, const void* pr_re, const void* pr_im,
+    const void* pm_re, const void* pm_im, void* y_re, void* y_im, int B,
+    int G, int K, int N, float sigma_z, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const dim3 block(kTN, kTK);
+  const dim3 grid((N + kTN - 1) / kTN, B);
+  fused_reduce_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<const float*>(pr_re), static_cast<const float*>(pr_im),
+      static_cast<const float*>(pm_re), static_cast<const float*>(pm_im),
+      static_cast<float*>(y_re), static_cast<float*>(y_im), G, K, N,
+      sigma_z);
   return static_cast<int>(cudaGetLastError());
 }

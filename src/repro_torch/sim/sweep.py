@@ -1,4 +1,4 @@
-"""Multi-seed scenario sweeps on one device.
+"""Multi-seed scenario sweeps.
 
 `SweepRunner` runs ``S seeds x M scenarios``: per scenario it builds the
 W-HFL round (`repro_torch.core.whfl.make_round_fn`) once and drives every
@@ -10,6 +10,10 @@ round keys from ``split`` of ``PRNGKey(s + 1)``).
 
     python -m repro_torch.sim.sweep --scenarios fig2_iid --seeds 2 \
         --out sweep.json
+
+``--exec sharded --mesh CxU [--combine u_sharded]`` drives the same
+sweep through the sharded engine (`repro_torch.exec.ShardedSweepRunner`),
+which overrides the runner's engine hooks.
 
 The entry points run on the CUDA card unless the caller asks for
 another device (``device="cpu"``, ``--device cpu``); without a card
@@ -128,7 +132,27 @@ class SweepRunner:
         if batch not in ("vmap", "map"):
             raise ValueError(f"batch must be 'vmap' or 'map', got {batch!r}")
 
-    def _exec_info(self) -> Dict:
+    # -- engine hooks (overridden by repro_torch.exec.ShardedSweepRunner) --
+
+    def _init_states(self, params, opt, topo):
+        """Per-seed initial round states.  The sharded engine sizes the
+        per-user ``opt`` axes to its mesh's padded (Cp, Mp) grid."""
+        return [init_round_state(p, opt, topo.C, topo.M) for p in params]
+
+    def _build_round(self, loss_fn, opt, topo, cfg, spec, X, Y):
+        """The per-seed round ``round_fn(state, key, P_t, P_is_t)``."""
+        return make_round_fn(loss_fn, opt, topo, cfg, spec, X, Y)
+
+    def _finalize_state(self, state, topo):
+        """The seed-stacked state view stored as ``final_state``.  The
+        sharded engine strips its inactive-user padding here."""
+        return state
+
+    def _exec_info(self, topo=None, two_n=None) -> Dict:
+        """Execution-engine metadata recorded with every result;
+        `topo`/`two_n` let the sharded engine add its padded shape and
+        symbol-buffer bytes.  ``device_count`` is the number of torch
+        devices the engine runs on."""
         return {"name": "single", "mesh": None, "device_count": 1,
                 "batch": "map", "device": device_name(self.device),
                 "driver": "stepwise"}
@@ -148,11 +172,11 @@ class SweepRunner:
 
         params = [init_fn(prng.PRNGKey(s, dev)) for s in self.seeds]
         spec = agg.make_flat_spec(params[0])
-        states = [init_round_state(p, opt, topo.C, topo.M) for p in params]
+        states = self._init_states(params, opt, topo)
         keys = [prng.PRNGKey(s + 1, dev) for s in self.seeds]
-        round_fn = make_round_fn(loss_fn, opt, topo, cfg, spec,
-                                 torch.as_tensor(X, device=dev),
-                                 torch.as_tensor(Y, device=dev))
+        round_fn = self._build_round(loss_fn, opt, topo, cfg, spec,
+                                     torch.as_tensor(X, device=dev),
+                                     torch.as_tensor(Y, device=dev))
         xte_d = torch.as_tensor(xte, device=dev)
         yte_d = torch.as_tensor(yte, device=dev)
 
@@ -200,12 +224,14 @@ class SweepRunner:
 
         final = None
         if self.keep_state:
-            final = tree_map(lambda *xs: torch.stack(xs), *states)
+            final = self._finalize_state(
+                tree_map(lambda *xs: torch.stack(xs), *states), topo)
         return SweepResult(
             scenario=sc, seeds=self.seeds, rounds=rounds, acc=acc_t,
             loss=loss_t, edge_power=pe_t, is_power=pi_t, n_traces=0,
             seconds=time.perf_counter() - t0,
-            exec_info={**self._exec_info(), "drive_seconds": drive_s},
+            exec_info={**self._exec_info(topo, spec.two_n),
+                       "drive_seconds": drive_s},
             final_state=final)
 
     def run(self) -> List[SweepResult]:
@@ -285,6 +311,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--batch", default="map", choices=["vmap", "map"],
                     help="the reference's seed-batch mode; the port runs "
                          "seeds as a loop, i.e. map, and records that")
+    ap.add_argument("--exec", default="single", dest="exec_name",
+                    choices=["single", "sharded"],
+                    help="execution engine: single (one pass over all "
+                         "users) or sharded (a --mesh of shards, each "
+                         "training its own users and launching the "
+                         "cluster-hop kernels on its own tile; on one "
+                         "card the shards run one after the other)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="shard mesh CxU for --exec sharded, e.g. 2x4 "
+                         "(clusters x users-per-cluster shards); the "
+                         "axes need NOT divide the scenario's (C, M) -- "
+                         "inactive users are padded in with amp = w = 0")
+    ap.add_argument("--combine", default="gathered",
+                    choices=["gathered", "u_sharded"],
+                    help="fused cluster-hop distribution for --exec "
+                         "sharded: gathered (default) runs the full "
+                         "combine over all U users per shard; u_sharded "
+                         "keeps each cluster-shard's own user tile, runs "
+                         "the partial-combine kernel and folds the "
+                         "per-tile sums in pinned global u-block order")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
     ap.add_argument("--out", default=None, help="write JSON document here")
@@ -305,10 +351,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     seeds = ([int(s) for s in args.seed_list.split(",")]
              if args.seed_list else args.seeds)
+    # lazy import: repro_torch.exec builds on this module
+    from repro_torch.exec import make_runner
     try:
-        runner = SweepRunner(args.scenarios.split(","), seeds=seeds,
-                             quick=args.quick, batch=args.batch,
-                             device=args.device)
+        runner = make_runner(args.exec_name, args.scenarios.split(","),
+                             seeds=seeds, quick=args.quick,
+                             batch=args.batch, mesh=args.mesh,
+                             combine=args.combine, device=args.device)
     except (KeyError, ValueError, RuntimeError) as e:
         ap.error(str(e.args[0] if e.args else e))
     results = runner.run()

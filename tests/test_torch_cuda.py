@@ -10,13 +10,18 @@ Tolerance: 1e-4 of the largest output magnitude (the JAX package's own
 kernel gate); a kernel and its plain version see the same channels
 (drawn alike, or handed in) and differ only in float summation order.
 Two launches must give identical bits: the kernels sum in a fixed order
-and use no atomics.
+and use no atomics.  For the same reason the partial combine and its
+fold give `fused_mac`'s output bit for bit: the three kernels share the
+per-block sum, the noise draw and the finalize.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (fused_mac, fused_mac_plain, ota_combine,
+from repro_torch.kernels import (fused_mac, fused_mac_partials,
+                                 fused_mac_partials_plain, fused_mac_plain,
+                                 fused_partials_reduce,
+                                 fused_partials_reduce_plain, ota_combine,
                                  ota_combine_plain)
 
 TOL = 1e-4
@@ -121,3 +126,67 @@ def test_ota_combine_refuses_strided_views_on_card():
         with pytest.raises(ValueError):
             ota_combine(*args)
     assert ota_combine.launches == before
+
+
+PARTIAL_SHAPES = [              # B, U, K, N, block_u, (rx, u, n bases)
+    (2, 16, 4, 130, 4, (0, 0, 0)),
+    (3, 40, 7, 130, 8, (2, 40, 5)),      # ragged K and N
+    (4, 256, 16, 3925, 64, (0, 0, 0)),   # scale_u256, 1x1 mesh
+    (4, 128, 16, 982, 64, (0, 128, 982)),  # scale_u256, a 2x4 tile
+    (16, 1024, 4, 3925, 1024, (0, 0, 0)),  # a scale_u16384 tile
+]
+
+
+def _partial_inputs(B, U, N, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(a, device="cuda") for a in (
+        rng.standard_normal((U, N)).astype(np.float32),
+        rng.standard_normal((U, N)).astype(np.float32),
+        rng.uniform(0.5, 2.0, (B, U)).astype(np.float32),
+        rng.integers(0, 2, (B, U)).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,U,K,N,bu,bases", PARTIAL_SHAPES)
+def test_partial_kernels_match_plain_and_fused_mac_on_card(B, U, K, N, bu,
+                                                          bases):
+    """Each new kernel within 1e-4 of its plain version with identical
+    bits over two launches, and partials + fold == fused_mac, bit for
+    bit, over the tile and split into two tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rb, ub, nb = bases
+    tens = _partial_inputs(B, U, N, B + U + K + N)
+    seed = torch.as_tensor(SEED, device="cuda")
+    kw = dict(K=K, sigma_h2=1.0, rx_base=rb, u_base=ub, n_base=nb,
+              block_u=bu)
+    fold = dict(K=K, sigma_z2=2.0, rx_base=rb, n_base=nb)
+    before = (fused_mac_partials.launches, fused_partials_reduce.launches)
+    p1 = fused_mac_partials(seed, *tens, **kw)
+    p2 = fused_mac_partials(seed, *tens, **kw)
+    y1 = fused_partials_reduce(seed, *p1, **fold)
+    y2 = fused_partials_reduce(seed, *p2, **fold)
+    torch.cuda.synchronize()
+    assert (fused_mac_partials.launches, fused_partials_reduce.launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+    assert all(torch.equal(a, b) for a, b in zip(y1, y2))
+    want_p = fused_mac_partials_plain(seed, *tens, **kw)
+    for a, b in zip(p1, want_p):
+        assert a.shape == (B, U // bu, K, N)
+        assert float((a - b).abs().max()) <= TOL * float(b.abs().max())
+    want_y = fused_partials_reduce_plain(seed, *p1, **fold)
+    scale = float(torch.complex(*want_y).abs().max())
+    assert max(float((a - b).abs().max())
+               for a, b in zip(y1, want_y)) <= TOL * scale
+    y = fused_mac(seed, *tens, sigma_z2=2.0, **kw)
+    assert torch.equal(y[0], y1[0]) and torch.equal(y[1], y1[1])
+    if U // bu >= 2:
+        h = U // bu // 2 * bu
+        halves = [fused_mac_partials(
+            seed, tens[0][i:j].contiguous(), tens[1][i:j].contiguous(),
+            tens[2][:, i:j].contiguous(), tens[3][:, i:j].contiguous(),
+            **{**kw, "u_base": ub + i}) for i, j in ((0, h), (h, U))]
+        cat = [torch.cat([a, b], dim=1) for a, b in zip(*halves)]
+        yt = fused_partials_reduce(seed, *cat, **fold)
+        assert torch.equal(yt[0], y[0]) and torch.equal(yt[1], y[1])
