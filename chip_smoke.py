@@ -7,14 +7,17 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi); TF32 off for matmul
    and cuDNN, so float32 stays float32;
 2. build every CUDA kernel of the main paths from the sources in this
-   checkout (``src/repro_torch/csrc``), one nvcc per source, all at once;
+   checkout (``src/repro_torch/csrc``), one nvcc per source, all at once,
+   and count each draw kernel's instructions per draw by pipe in its SASS
+   (`repro_torch.kernels.sass`: the operations its bound counts);
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
    (max |y_kernel - y_plain| / max |y_plain| <= 1e-4, and two launches
    give identical bits); `fused_mac_partials` then
    `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
-   every such shape and at the scale_u65536 1x1 one (kernels only);
+   every such shape and at the scale_u65536 1x1 one (there the plain
+   versions run in phase 7);
 4. the main paths on ``cuda`` at full width, every launch count set to
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
@@ -62,7 +65,9 @@ Phases, in order; any failure exits non-zero:
    main-path shapes (for `ota_combine` also the largest unbatched one),
    beside the least time the card could take for the
    same work (``fused_mac_bound_ms``, ``ota_combine_bound_ms``,
-   ``partials_bound_ms``, ``reduce_bound_ms``), the whole slab cluster
+   ``partials_bound_ms``, ``reduce_bound_ms``); at scale_u65536 1x1 both
+   partial kernels are also held to the output of the plain calls
+   timed there, as in phase 3; the whole slab cluster
    hop (emulated draw of the slab and the combine) against the fused hop
    at the scale_u256 shape, and the u-sharded cluster hop against the
    gathered one at the scale_u16384 shape;
@@ -97,56 +102,57 @@ KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
            "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel")}
 # H100 SXM peaks at the full 700 W power limit and the 1.98 GHz boost
-# clock: 132 SMs; per SM and clock 64 INT32 lanes, 128 FP32 lanes
-# (67 TFLOP/s float32 outside the tensor cores, counting an FMA as 2)
-# and 16 special-function lanes; 3.35 TB/s of HBM3.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-FP32_FLOP_PER_S = 132 * 128 * 2 * 1.98e9
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# clock: 132 SMs, 128 FP32 lanes each (67 TFLOP/s float32 outside the
+# tensor cores, counting an FMA as 2); 3.35 TB/s of HBM3.  A draw's
+# operations per pipe are counted in this run's SASS of the kernel
+# (`repro_torch.kernels.sass`, whose table gives each pipe's rate).
+SMS, CLOCK_HZ = 132, 1.98e9
+FP32_FLOP_PER_S = SMS * 128 * 2 * CLOCK_HZ
 HBM_BYTES_PER_S = 3.35e12
-# per complex draw: one threefry2x32 block (20 rounds of add, rotate,
-# xor plus 5 key injections and the counter: about 75 int32 ops) and
-# Box-Muller's log, sqrt, sin and cos
-INT32_OPS_PER_DRAW = 75
-SFU_OPS_PER_DRAW = 4
+OP_PIPES = ("alu", "fmaheavy", "fma", "xu")
 
 
 def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def _draws_bound(draws: int, nbytes: int):
+def _draws_bound(draws: int, nbytes: int, cycles: dict):
     """Least time on this card for `draws` counter-PRNG draws and
-    `nbytes` moved: the larger of the draws' operations over the int32
-    and special-function peaks and the bytes over HBM's rate, in ms."""
-    t_int = draws * INT32_OPS_PER_DRAW / INT32_OPS_PER_S
-    t_sfu = draws * SFU_OPS_PER_DRAW / SFU_OPS_PER_S
+    `nbytes` moved, in ms: the larger of the draws' operations on their
+    busiest pipe (`cycles`: SM clocks per draw by pipe, from the
+    kernel's SASS) and the bytes over HBM's rate.  Also the time the
+    same instructions take to issue at one per scheduler and clock."""
+    t_ops = draws * max(cycles[p] for p in OP_PIPES) / (SMS * CLOCK_HZ)
+    t_issue = draws * cycles["issue"] / (SMS * CLOCK_HZ)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    bound_by = "operations" if max(t_int, t_sfu) >= t_bytes else "bytes"
-    return 1e3 * max(t_int, t_sfu, t_bytes), bound_by
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), bound_by, 1e3 * max(t_issue, t_bytes)
 
 
-def fused_mac_bound_ms(B: int, U: int, K: int, N: int):
+def fused_mac_bound_ms(B: int, U: int, K: int, N: int, cycles: dict):
     """Least time for one fused_mac call.  Draws: B*U*K*N channel +
     B*K*N noise; bytes: t (2 x U*N), amp and w (2 x B*U) read once, y
     (2 x B*N) written once, all float32."""
     return _draws_bound(B * U * K * N + B * K * N,
-                        4 * (2 * U * N + 2 * B * U + 2 * B * N))
+                        4 * (2 * U * N + 2 * B * U + 2 * B * N), cycles)
 
 
-def partials_bound_ms(B: int, U: int, K: int, N: int, G: int):
+def partials_bound_ms(B: int, U: int, K: int, N: int, G: int,
+                      cycles: dict):
     """Least time for one fused_mac_partials call: B*U*K*N channel draws
     (no noise); bytes: t (2 x U*N), amp and w (2 x B*U) read once, the
     four partial sums (4 x B*G*K*N) written once, all float32."""
     return _draws_bound(B * U * K * N,
-                        4 * (2 * U * N + 2 * B * U + 4 * B * G * K * N))
+                        4 * (2 * U * N + 2 * B * U + 4 * B * G * K * N),
+                        cycles)
 
 
-def reduce_bound_ms(B: int, G: int, K: int, N: int):
+def reduce_bound_ms(B: int, G: int, K: int, N: int, cycles: dict):
     """Least time for one fused_partials_reduce call: B*K*N noise draws;
     bytes: the four partial sums (4 x B*G*K*N) read once, y (2 x B*N)
     written once, all float32."""
-    return _draws_bound(B * K * N, 4 * (4 * B * G * K * N + 2 * B * N))
+    return _draws_bound(B * K * N, 4 * (4 * B * G * K * N + 2 * B * N),
+                        cycles)
 
 
 def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
@@ -394,7 +400,7 @@ def main() -> int:
                                      fused_mac_partials_plain,
                                      fused_mac_plain, fused_partials_reduce,
                                      fused_partials_reduce_plain,
-                                     ota_combine, ota_combine_plain)
+                                     ota_combine, ota_combine_plain, sass)
     from repro_torch.sim import SweepRunner, get_scenario, sweep
 
     # -- phase 1: the card -------------------------------------------------
@@ -423,6 +429,18 @@ def main() -> int:
              "nvcc_seconds": round(build_s, 3),
              "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
                        if "registers" in ln or "spill" in ln]})
+    # each draw kernel's operations per draw, by pipe, from its SASS
+    report = sass.analyse(sass.disassemble(build.library_path("fused_mac")),
+                          build.build_info("fused_mac")[1])
+    cycles = {}
+    for name, (src, fn) in KERNELS.items():
+        if src != "fused_mac":
+            continue
+        rec = report.get(fn)
+        if rec is None or "cycles_per_draw" not in rec:
+            raise SystemExit(f"no draw loop found in the SASS of {fn}")
+        cycles[name] = rec["cycles_per_draw"]
+        log({"phase": "sass", "kernel": name, "function": fn, **rec})
 
     # -- phase 3: kernels vs plain versions at the main paths' shapes -------
     seed = torch.tensor([0xC0FFEE, 42], dtype=torch.int64, device=dev)
@@ -434,9 +452,12 @@ def main() -> int:
     cases = [("edge", (0, 0, 0), kernel_inputs(1, 1, 1, 64, 0, dev)),
              ("edge", (2, 3, 5), kernel_inputs(3, 5, 7, 130, 1, dev)),
              ("edge", (0, 0, 0), kernel_inputs(1, 70, 100, 1000, 2, dev))]
+    u16384 = get_scenario("scale_u16384")
+    u65536 = get_scenario("scale_u65536")
     for i, (sc, hop) in enumerate([(u256, "cluster"), (u256, "is_ps"),
                                    (fig2_fused, "cluster"),
-                                   (fig2_fused, "is_ps")]):
+                                   (fig2_fused, "is_ps"),
+                                   (u16384, "is_ps"), (u65536, "is_ps")]):
         cases.append((f"{sc.name} {hop}", (0, 0, 0),
                       hop_inputs(sc, hop, 10 + i, dev)))
     errors = {name: 0.0 for name in KERNELS}
@@ -502,10 +523,9 @@ def main() -> int:
 
     # the partial combine at the u-sharded hop's shapes: each kernel
     # against its plain version, and partials + fold against fused_mac
-    # bit for bit (at scale_u65536 the kernels only: its plain version
-    # takes ~20 s a call, and phase 7 times it once)
-    u16384 = get_scenario("scale_u16384")
-    u65536 = get_scenario("scale_u65536")
+    # bit for bit (at scale_u65536 the kernels only here: its plain
+    # version takes ~20 s a call, so phase 7 holds both kernels to it on
+    # the call it times)
 
     def edge_tile():
         inp = kernel_inputs(3, 40, 7, 130, 3, dev)
@@ -780,13 +800,15 @@ def main() -> int:
         kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0, block_u=bu)
         ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
                           lambda: fused_mac_plain(seed, *args, **kw), 20, 3)
-        bound, bound_by = fused_mac_bound_ms(B, U, K, N)
+        bound, bound_by, issue = fused_mac_bound_ms(B, U, K, N,
+                                                    cycles["fused_mac"])
         timings["fused_mac", label] = dict(
             ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
             bound_by=bound_by, shape_BUKN=[B, U, K, N])
         log({"phase": "times", "kernel": "fused_mac", "shape": label,
              "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
-             "bound_ms": bound, "bound_by": bound_by, "card": card})
+             "bound_ms": bound, "bound_by": bound_by, "issue_ms": issue,
+             "card": card})
         del args
 
     for label, sc, hop in (
@@ -826,7 +848,8 @@ def main() -> int:
 
     # the partial combine at its largest main-path shape, scale_u65536 on
     # a 1x1 mesh; its plain version takes ~20 s a call, so each turn of
-    # it is one call, not warmed up
+    # it is one call, not warmed up, and the last turn's output is the
+    # one both kernels are held to here
     inp = tile_inputs(u65536, (1, 1), 0, 0, 70, dev)
     args, bu = inp["args"], inp["block_u"]
     B, U = args[2].shape
@@ -834,17 +857,40 @@ def main() -> int:
     G = U // bu
     kw = dict(K=K, sigma_h2=inp["sigma_h2"], block_u=bu)
     fold = dict(K=K, sigma_z2=inp["sigma_z2"])
-    ks, ps = in_turns(lambda: fused_mac_partials(seed, *args, **kw),
-                      lambda: fused_mac_partials_plain(seed, *args, **kw),
-                      3, 1, warm_plain=False)
-    parts = fused_mac_partials(seed, *args, **kw)
-    rks, rps = in_turns(lambda: fused_partials_reduce(seed, *parts, **fold),
-                        lambda: fused_partials_reduce_plain(seed, *parts,
-                                                            **fold), 20, 3)
-    for name, kms, pms, (bound, bound_by), shape in (
+    kept = {}
+
+    def keep(key, fn):
+        """fn(), with its output kept under `key` (the last call's)."""
+        def run():
+            kept[key] = fn()
+        return run
+
+    ks, ps = in_turns(
+        lambda: fused_mac_partials(seed, *args, **kw),
+        keep("partials", lambda: fused_mac_partials_plain(seed, *args,
+                                                          **kw)),
+        3, 1, warm_plain=False)
+    p1 = fused_mac_partials(seed, *args, **kw)
+    torch.cuda.synchronize()
+    p2 = fused_mac_partials(seed, *args, **kw)
+    rks, rps = in_turns(
+        lambda: fused_partials_reduce(seed, *p1, **fold),
+        keep("reduce", lambda: fused_partials_reduce_plain(seed, *p1,
+                                                           **fold)), 20, 3)
+    y1 = fused_partials_reduce(seed, *p1, **fold)
+    torch.cuda.synchronize()
+    y2 = fused_partials_reduce(seed, *p1, **fold)
+    torch.cuda.synchronize()
+    check("fused_mac_partials", f"scale_u65536 1x1 block_u {bu}",
+          (B, U, K, N), p1, p2, kept["partials"])
+    check("fused_partials_reduce", "scale_u65536 1x1", (B, G, K, N), y1, y2,
+          kept["reduce"])
+    for name, kms, pms, (bound, bound_by, issue), shape in (
             ("fused_mac_partials", ks, ps,
-             partials_bound_ms(B, U, K, N, G), [B, U, K, N]),
-            ("fused_partials_reduce", rks, rps, reduce_bound_ms(B, G, K, N),
+             partials_bound_ms(B, U, K, N, G, cycles["fused_mac_partials"]),
+             [B, U, K, N]),
+            ("fused_partials_reduce", rks, rps,
+             reduce_bound_ms(B, G, K, N, cycles["fused_partials_reduce"]),
              [B, G, K, N])):
         timings[name, "scale_u65536 1x1"] = dict(
             ms=sum(kms) / 2, plain_ms=sum(pms) / 2, bound_ms=bound,
@@ -852,8 +898,9 @@ def main() -> int:
         log({"phase": "times", "kernel": name, "shape": "scale_u65536 1x1",
              "shape_BUKN" if name == "fused_mac_partials" else "shape_BGKN":
              shape, "block_u": bu, "kernel_ms": kms, "plain_ms": pms,
-             "bound_ms": bound, "bound_by": bound_by, "card": card})
-    del inp, args, parts
+             "bound_ms": bound, "bound_by": bound_by, "issue_ms": issue,
+             "card": card})
+    del inp, args, p1, p2, y1, y2, kept
 
     # the whole cluster hop at the scale_u16384 shape on a 1x1 mesh:
     # u-sharded (partials + fold) against gathered (fused_mac)

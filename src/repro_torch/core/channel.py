@@ -420,12 +420,19 @@ class SlabKernelBackend(ChannelBackend):
         _, _, b_bar = _mac_geometry(beta, deltas.device)
         y = mf_combine(*self.mac_inputs(key, deltas, beta, K, sigma_h2,
                                         sigma_z2, P))
-        return unpack_cx(y / K / (P * sigma_h2 * b_bar))
+        return fused_estimate(y, K, P, sigma_h2, b_bar)
 
 
 # ---------------------------------------------------------------------------
 # "fused": on-the-fly channel generation inside the kernel
 # ---------------------------------------------------------------------------
+
+def fused_estimate(y, K: int, P, sigma_h2: float, b_bar) -> torch.Tensor:
+    """The fused combine's complex y [..., N] -> the unpacked estimate
+    [..., 2N]: y / K / (P sigma_h2 b_bar), the matched filter's
+    normalization (b_bar broadcasts against y's leading axes)."""
+    return unpack_cx(y / K / (P * sigma_h2 * b_bar))
+
 
 class FusedBackend(ChannelBackend):
     """Faithful path for large U: channels and noise are derived inside
@@ -443,15 +450,14 @@ class FusedBackend(ChannelBackend):
         y = fused_combine(_seed_words(key), P_t * tx, amp, own, K=K,
                           sigma_h2=topo.sigma_h2, sigma_z2=topo.sigma_z2,
                           block_u=canonical_block_u(M))
-        est = y / K / (P_t * topo.sigma_h2 * bb[:, None])
-        return unpack_cx(est)
+        return fused_estimate(y, K, P_t, topo.sigma_h2, bb[:, None])
 
     def mac(self, key, deltas, beta, K, sigma_h2, sigma_z2, P, cfg):
         tx = pack_cx(deltas)
         amp, w, b_bar = _mac_geometry(beta, deltas.device)
         y = fused_combine(_seed_words(key), P * tx, amp, w, K=K,
                           sigma_h2=sigma_h2, sigma_z2=sigma_z2)[0]
-        return unpack_cx(y / K / (P * sigma_h2 * b_bar))
+        return fused_estimate(y, K, P, sigma_h2, b_bar)
 
 
 register_backend(ReferenceBackend())

@@ -96,51 +96,46 @@ def make_local_train(loss_fn: Callable, opt: Optimizer,
     return local_train
 
 
-def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
-                  cfg: WHFLConfig, spec: agg.FlatSpec, X: torch.Tensor,
-                  Y: torch.Tensor) -> Callable:
-    """Build the per-round function ``round_fn(state, key, P_t, P_is_t)
-    -> state``.
+def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
+                    users_train: Callable, cluster_estimate: Callable,
+                    n_rx: int) -> Callable:
+    """The W-HFL round every engine runs, ``round_fn(state, key, P_t,
+    P_is_t) -> state``: the conventional baseline, or `cfg.I` cluster
+    iterations and the IS -> PS hop.  An engine supplies how its users
+    train and how its cluster hop runs:
 
-    X [C, M, n, ...] and Y [C, M, n] are the users' shards on the run's
-    device.  P_t and P_is_t enter as float32 scalars, as they enter the
-    reference's jitted round.
+    - ``users_train(theta_IS, opt_state, key, step) -> (flat, opt_state,
+      energy)``: every real user's local training from its cluster's
+      model in the [n_rx]-stacked `theta_IS`; flat [C, M, 2N] deltas,
+      energy [C, M] their symbol energies (`agg.user_energy`);
+    - ``cluster_estimate(key, flat, P_t) -> [n_rx, 2N]``: the cluster
+      hop, each rx station's estimate of its cluster's mean delta.
+
+    `n_rx` is C, or more where an engine pads clusters in; only the
+    first C cluster models transmit to the PS.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; known: "
                          f"{', '.join(MODES)}")
-    C, M = topo.C, topo.M
-    U = C * M
-    Xu = X.reshape(U, *X.shape[2:])
-    Yu = Y.reshape(U, *Y.shape[2:])
-    local_train = make_local_train(loss_fn, opt, cfg)
-
-    def users_train(theta_IS, opt_state, key, step):
-        """theta_IS: [C]-stacked cluster models -> flat deltas [C,M,2N]."""
-        keys = prng.split(key, U)
-        th_u = tree_map(lambda x: x[:, None].expand(C, M, *x.shape[1:])
-                        .reshape(U, *x.shape[1:]), theta_IS)
-        st_u = tree_map(lambda x: x.reshape(U, *x.shape[2:]), opt_state)
-        deltas, st_u = local_train(th_u, st_u, Xu, Yu, keys, step)
-        flat = agg.flatten(spec, deltas).reshape(C, M, -1)
-        return flat, tree_map(lambda x: x.reshape(C, M, *x.shape[1:]), st_u)
+    C, N = topo.C, spec.two_n // 2
 
     def round_fn(state, key, P_t, P_is_t):
         P_t = torch.as_tensor(P_t, dtype=torch.float32)
         P_is_t = torch.as_tensor(P_is_t, dtype=torch.float32)
         theta = state["theta"]
         step = state["t"]
-        theta_IS = tree_map(lambda x: x.expand(C, *x.shape), theta)
+        theta_IS = tree_map(lambda x: x.expand(n_rx, *x.shape), theta)
 
         if cfg.mode == "conventional":
             k1, k2 = prng.split(key)
-            flat, opt_state = users_train(theta_IS, state["opt"], k1, step)
+            flat, opt_state, pw = users_train(theta_IS, state["opt"], k1,
+                                              step)
             est = conventional_ota(k2, flat, topo, P_t, cfg.ota)
             return {**state, "theta": apply_updates(
                         theta, agg.unflatten(spec, est)),
                     "opt": opt_state, "t": step + 1,
                     "power_edge": state["power_edge"]
-                    + agg.symbol_power(flat, P_t),
+                    + agg.symbol_power_from_energy(pw, P_t, N),
                     "n_edge_tx": state["n_edge_tx"] + 1.0}
 
         # --- W-HFL ---
@@ -149,13 +144,13 @@ def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
         p_edge = torch.zeros((), device=step.device)
         for i in range(cfg.I):
             k1, k2 = prng.split(keys[i])
-            flat, opt_state = users_train(theta_IS, opt_state, k1, step)
-            est = cluster_ota(k2, flat, topo, P_t, cfg.ota)     # [C, 2N]
+            flat, opt_state, pw = users_train(theta_IS, opt_state, k1, step)
+            est = cluster_estimate(k2, flat, P_t)            # [n_rx, 2N]
             theta_IS = apply_updates(theta_IS, agg.unflatten(spec, est))
-            p_edge = p_edge + agg.symbol_power(flat, P_t)
+            p_edge = p_edge + agg.symbol_power_from_energy(pw, P_t, N)
 
         is_deltas = agg.flatten(
-            spec, tree_map(lambda a, b: a - b, theta_IS, theta))
+            spec, tree_map(lambda a, b: a[:C] - b, theta_IS, theta))
         est = global_ota(keys[-1], is_deltas, topo, P_is_t, cfg.ota)
         return {**state,
                 "theta": apply_updates(theta, agg.unflatten(spec, est)),
@@ -167,6 +162,40 @@ def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
                 "n_is_tx": state["n_is_tx"] + 1.0}
 
     return round_fn
+
+
+def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
+                  cfg: WHFLConfig, spec: agg.FlatSpec, X: torch.Tensor,
+                  Y: torch.Tensor) -> Callable:
+    """Build the single engine's per-round function ``round_fn(state,
+    key, P_t, P_is_t) -> state`` (`make_round_body`): all C*M users
+    train in one vmapped pass, and the cluster hop is `cluster_ota`.
+
+    X [C, M, n, ...] and Y [C, M, n] are the users' shards on the run's
+    device.  P_t and P_is_t enter as float32 scalars, as they enter the
+    reference's jitted round.
+    """
+    C, M = topo.C, topo.M
+    U = C * M
+    Xu = X.reshape(U, *X.shape[2:])
+    Yu = Y.reshape(U, *Y.shape[2:])
+    local_train = make_local_train(loss_fn, opt, cfg)
+
+    def users_train(theta_IS, opt_state, key, step):
+        keys = prng.split(key, U)
+        th_u = tree_map(lambda x: x[:, None].expand(C, M, *x.shape[1:])
+                        .reshape(U, *x.shape[1:]), theta_IS)
+        st_u = tree_map(lambda x: x.reshape(U, *x.shape[2:]), opt_state)
+        deltas, st_u = local_train(th_u, st_u, Xu, Yu, keys, step)
+        flat = agg.flatten(spec, deltas).reshape(C, M, -1)
+        return (flat, tree_map(lambda x: x.reshape(C, M, *x.shape[1:]),
+                               st_u), agg.user_energy(flat))
+
+    def cluster_estimate(key, flat, P_t):
+        return cluster_ota(key, flat, topo, P_t, cfg.ota)
+
+    return make_round_body(topo, cfg, spec, users_train, cluster_estimate,
+                           n_rx=C)
 
 
 def eval_windows(T: int, eval_every: int) -> list:

@@ -38,11 +38,14 @@
 // block's sum (from 0, u ascending) is added to them in turn.
 //
 // What bounds them on this card: operations, not bytes.  Every one of
-// the B*U*K*N (+ B*K*N noise) complex draws costs one threefry2x32
-// block (about 75 int32 add/rotate/xor operations) plus a log, a sqrt,
-// a sin and a cos; the bytes moved are t, amp, w (read) and y or the
-// partial sums (written).  The fold is bound by bytes: it reads the
-// 4 x B*G*K*N partial sums once and draws only B*K*N noise values.
+// the B*U*K*N (+ B*K*N noise) complex draws issues one threefry2x32
+// block (rotates, xors and adds), Box-Muller's polynomial log and
+// sincos, one reciprocal square root and the sums: about 190
+// instructions on the u loop, the ALU pipe's share the largest
+// (`python -m repro_torch.kernels.sass` counts them by pipe).  The
+// bytes moved are t, amp, w (read) and y or the partial sums
+// (written).  The fold is bound by bytes: it reads the 4 x B*G*K*N
+// partial sums once and draws only B*K*N noise values.
 //
 // Design: the TPU kernels walk their U grid axis in order and carry the
 // received signal r and matched filter mf in VMEM scratch.  Hopper
@@ -124,35 +127,42 @@ __device__ __forceinline__ Keys stream_keys(const uint32_t* words, int b) {
           words[1] + 2u * kStream};
 }
 
-// One u-block's sums at one (rx, k, n) cell, each from 0 over the users
-// u0 <= u < u1 in ascending order: pr = sum h t, pm = sum w h.
+// One u-block's sums at one (rx, k, n) cell, each from 0 over the
+// users u0 <= u < u1 in ascending order: pr = sum h t, pm = sum w h.
 struct Sums {
   float pr_re, pr_im, pm_re, pm_im;
 };
 
+// Each user advances the channel counter by `kstride` and the symbol
+// pointers by one row of N.
 __device__ __forceinline__ Sums block_sums(
     const Keys& key, uint32_t kstride, uint32_t u_base, int k, uint32_t nn,
     int n, int N, int u0, int u1, const float* __restrict__ amp_b,
     const float* __restrict__ w_b, const float* __restrict__ t_re,
     const float* __restrict__ t_im, float sigma_h) {
   Sums s = {0.0f, 0.0f, 0.0f, 0.0f};
+  uint32_t x0 = (static_cast<uint32_t>(u0) + u_base) * kstride +
+                static_cast<uint32_t>(k);
+  const float* tr_u = t_re + static_cast<size_t>(u0) * N + n;
+  const float* ti_u = t_im + static_cast<size_t>(u0) * N + n;
   for (int u = u0; u < u1; ++u) {
-    const uint32_t x0 = (static_cast<uint32_t>(u) + u_base) * kstride +
-                        static_cast<uint32_t>(k);
     float g_re, g_im;
     cx_normal(key.k0, key.chan, x0, nn, sigma_h, g_re, g_im);
     const float a = amp_b[u];
     const float wa = __fmul_rn(w_b[u], a);
     const float h_re = __fmul_rn(a, g_re);
     const float h_im = __fmul_rn(a, g_im);
-    const float tr = t_re[static_cast<size_t>(u) * N + n];
-    const float ti = t_im[static_cast<size_t>(u) * N + n];
+    const float tr = *tr_u;
+    const float ti = *ti_u;
     s.pr_re = __fadd_rn(s.pr_re,
                         __fsub_rn(__fmul_rn(h_re, tr), __fmul_rn(h_im, ti)));
     s.pr_im = __fadd_rn(s.pr_im,
                         __fadd_rn(__fmul_rn(h_re, ti), __fmul_rn(h_im, tr)));
     s.pm_re = __fadd_rn(s.pm_re, __fmul_rn(wa, g_re));
     s.pm_im = __fadd_rn(s.pm_im, __fmul_rn(wa, g_im));
+    x0 += kstride;
+    tr_u += N;
+    ti_u += N;
   }
   return s;
 }
@@ -192,7 +202,11 @@ __device__ __forceinline__ void store_row_sum(float acc_re, float acc_im,
   }
 }
 
-__global__ void __launch_bounds__(kTN * kTK)
+// Six blocks per SM: without the bound ptxas takes 48 registers (five
+// blocks) and the combine runs slower at the main path's shapes; with
+// it, 40 registers and a few local-memory words per k row, none on the
+// u loop.
+__global__ void __launch_bounds__(kTN * kTK, 6)
 fused_mac_kernel(const uint32_t* __restrict__ words,
                  const float* __restrict__ t_re,
                  const float* __restrict__ t_im,

@@ -36,13 +36,10 @@ ENGINES = ("single", "sharded")
 def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
                 *, seeds=1, quick: bool = False, batch: str = "map",
                 mesh: Union[str, tuple] = "1x1", keep_state: bool = False,
-                combine: str = "gathered", device=None,
-                driver: str = "stepwise") -> SweepRunner:
-    """Engine factory behind the ``--exec`` CLI flag."""
-    if driver != "stepwise":
-        raise NotImplementedError(
-            f"driver {driver!r} is not ported yet (ROADMAP queue A, "
-            f"item 5); the port drives rounds stepwise")
+                combine: str = "gathered", device=None) -> SweepRunner:
+    """Engine factory behind the ``--exec`` CLI flag.  Both engines
+    drive rounds stepwise; the chunked driver is not ported yet
+    (`make_sharded_chunk_fn`)."""
     if exec_name == "single":
         if combine != "gathered":
             raise ValueError(

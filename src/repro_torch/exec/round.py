@@ -52,14 +52,15 @@ from repro_torch import prng
 from repro_torch.core import aggregation as agg
 from repro_torch.core.channel import (OTAConfig, _cluster_geometry,
                                       _seed_words, cluster_ota,
-                                      conventional_ota, global_ota,
-                                      pack_cx, resolve_backend, unpack_cx)
+                                      fused_estimate, pack_cx,
+                                      resolve_backend)
 from repro_torch.core.topology import Topology
-from repro_torch.core.whfl import MODES, WHFLConfig, make_local_train
+from repro_torch.core.whfl import (WHFLConfig, make_local_train,
+                                   make_round_body)
 from repro_torch.exec.mesh import Mesh, pad_plan_for
 from repro_torch.kernels import (canonical_block_u, fused_mac,
                                  fused_mac_partials, fused_partials_reduce)
-from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_map
 
 COMBINES = ("gathered", "u_sharded")
@@ -159,7 +160,7 @@ def make_fused_cluster_hop(topo: Topology, ota: OTAConfig, mesh: Mesh,
                     n_base=c0)
                 ys.append(torch.complex(y_re, y_im))
             y = torch.cat(ys, dim=1)[:, :N]                   # [Cp, N]
-        return unpack_cx(y / K / (P_t * topo.sigma_h2 * bb[:, None]))
+        return fused_estimate(y, K, P_t, topo.sigma_h2, bb[:, None])
 
     return hop
 
@@ -171,18 +172,18 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
     """Build ``round_fn(state, key, P_t, P_is_t) -> state`` running one
     W-HFL round sharded over `mesh`.
 
-    The same contract as `repro_torch.core.whfl.make_round_fn`, for a
-    state whose ``opt`` axes are sized to the mesh's padded (Cp, Mp)
-    grid (``init_round_state(params, opt, plan.Cp, plan.Mp)``; the
-    sharded runner does this).  X [C, M, n, ...] and Y [C, M, n] are the
+    The round body is the single engine's
+    (`repro_torch.core.whfl.make_round_body`); this engine supplies its
+    per-shard training and its cluster hop.  The same contract as
+    `repro_torch.core.whfl.make_round_fn`, for a state whose ``opt``
+    axes are sized to the mesh's padded (Cp, Mp) grid
+    (``init_round_state(params, opt, plan.Cp, plan.Mp)``; the sharded
+    runner does this).  X [C, M, n, ...] and Y [C, M, n] are the
     users' shards on the mesh's device.
     """
     if combine not in COMBINES:
         raise ValueError(f"unknown combine {combine!r}; known: "
                          f"{', '.join(COMBINES)}")
-    if cfg.mode not in MODES:
-        raise ValueError(f"unknown mode {cfg.mode!r}; known: "
-                         f"{', '.join(MODES)}")
     C, M = topo.C, topo.M
     plan = pad_plan_for(mesh, C, M)
     mc, mu = mesh.shape
@@ -212,10 +213,16 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
         return torch.cat([torch.cat([grid[ci, ui] for ui in range(mu)], 1)
                           for ci in range(mc)], 0)
 
+    def real(x):
+        """The real users' [C, M, ...] block of a padded grid, laid out as
+        the single engine lays it out."""
+        return plan.unpad_users(x).contiguous()
+
     def users_train(theta_IS, opt_state, key, step):
         """Every shard trains its own users from the [Cp]-stacked
-        cluster models.  Returns (flat deltas [Cp, Mp, 2N], opt state
-        [Cp, Mp, ...], symbol energies [Cp, Mp])."""
+        cluster models.  Returns the real users' flat deltas [C, M, 2N],
+        the opt state [Cp, Mp, ...] and the real users' symbol energies
+        [C, M]."""
         keys = plan.pad_users(prng.split(key, C * M).reshape(C, M, 2))
         flats, states, energies = {}, {}, {}
         for ci, ui in shards:
@@ -233,65 +240,17 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
                 lambda x: x.reshape(C_loc, M_loc, *x.shape[1:]), st)
         opt_state = tree_map(lambda *xs: assemble(dict(zip(shards, xs))),
                              *(states[s] for s in shards))
-        return assemble(flats), opt_state, assemble(energies)
-
-    def real(x):
-        """The real users' [C, M, ...] block, laid out as the single
-        engine lays it out."""
-        return plan.unpad_users(x).contiguous()
-
-    def edge_power(energies, P_t):
-        return agg.symbol_power_from_energy(real(energies), P_t, N)
+        return (real(assemble(flats)), opt_state,
+                real(assemble(energies)))
 
     def cluster_estimate(key, flat, P_t):
         """[Cp, 2N]: the real rows are the single engine's estimate."""
         if fused_hop is not None:
-            return fused_hop(key, real(flat), P_t)
-        return plan.pad_rx(cluster_ota(key, real(flat), topo, P_t, cfg.ota))
+            return fused_hop(key, flat, P_t)
+        return plan.pad_rx(cluster_ota(key, flat, topo, P_t, cfg.ota))
 
-    def round_fn(state, key, P_t, P_is_t):
-        P_t = torch.as_tensor(P_t, dtype=torch.float32)
-        P_is_t = torch.as_tensor(P_is_t, dtype=torch.float32)
-        theta = state["theta"]
-        step = state["t"]
-        theta_IS = tree_map(lambda x: x.expand(plan.Cp, *x.shape), theta)
-
-        if cfg.mode == "conventional":
-            k1, k2 = prng.split(key)
-            flat, opt_state, pw = users_train(theta_IS, state["opt"], k1,
-                                              step)
-            est = conventional_ota(k2, real(flat), topo, P_t, cfg.ota)
-            return {**state, "theta": apply_updates(
-                        theta, agg.unflatten(spec, est)),
-                    "opt": opt_state, "t": step + 1,
-                    "power_edge": state["power_edge"] + edge_power(pw, P_t),
-                    "n_edge_tx": state["n_edge_tx"] + 1.0}
-
-        # --- W-HFL ---
-        keys = prng.split(key, cfg.I + 1)
-        opt_state = state["opt"]
-        p_edge = torch.zeros((), device=step.device)
-        for i in range(cfg.I):
-            k1, k2 = prng.split(keys[i])
-            flat, opt_state, pw = users_train(theta_IS, opt_state, k1, step)
-            est = cluster_estimate(k2, flat, P_t)             # [Cp, 2N]
-            theta_IS = apply_updates(theta_IS, agg.unflatten(spec, est))
-            p_edge = p_edge + edge_power(pw, P_t)
-
-        # only the real clusters transmit to the PS
-        is_deltas = agg.flatten(spec, tree_map(
-            lambda a, b: a[:C] - b, theta_IS, theta))
-        est = global_ota(keys[-1], is_deltas, topo, P_is_t, cfg.ota)
-        return {**state,
-                "theta": apply_updates(theta, agg.unflatten(spec, est)),
-                "opt": opt_state, "t": step + 1,
-                "power_edge": state["power_edge"] + p_edge,
-                "n_edge_tx": state["n_edge_tx"] + float(cfg.I),
-                "power_is": state["power_is"]
-                + agg.symbol_power(is_deltas, P_is_t),
-                "n_is_tx": state["n_is_tx"] + 1.0}
-
-    return round_fn
+    return make_round_body(topo, cfg, spec, users_train, cluster_estimate,
+                           n_rx=plan.Cp)
 
 
 def make_sharded_chunk_fn(*args, **kwargs):

@@ -1,0 +1,159 @@
+"""Time two or more versions of ``csrc/fused_mac.cu`` against each other
+on one card, in turns.
+
+    PYTHONPATH=src python -m repro_torch.kernels.ab OLD.cu NEW.cu
+
+(an older version comes from ``git show <rev>:src/repro_torch/csrc/
+fused_mac.cu > OLD.cu``, in a directory the chip copy carries).  Each
+source is built with the package's nvcc flags, and its `fused_mac`
+launch is timed with CUDA events at the main path's shapes, in the
+order A, B, ..., B, A; where every source has the partial combine, so
+is `fused_mac_partials` at the scale_u65536 1x1 shape.  Prints one JSON
+line per shape (times, and whether each version's output equals the
+first's bit for bit), one per kernel with its SASS report
+(`repro_torch.kernels.sass`), and the card's name and power limit.
+Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build, sass
+
+# (B, U, K, N, block_u): scale_u256's and scale_u1024's cluster hops and
+# scale_u16384's gathered hop on a 1x1 mesh
+MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
+              (16, 16384, 4, 3925, 1024)]
+PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def build_source(src: Path, out_dir: Path):
+    """(library, nvcc log, whether `fused_mac_launch` takes block_u)."""
+    lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(lib), str(src)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    text = src.read_text()
+    head = text[text.index('"C" int fused_mac_launch'):]
+    takes_block_u = "block_u" in head[:head.index(")")]
+    return lib, proc.stdout + proc.stderr, takes_block_u
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def inputs(B, U, N, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    t_re = (1e-2 * torch.randn(U, N, generator=g)).to(dev)
+    t_im = (1e-2 * torch.randn(U, N, generator=g)).to(dev)
+    amp = (0.2 + torch.rand(B, U, generator=g)).to(dev)
+    return t_re, t_im, amp, torch.ones(B, U, device=dev)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("sources", nargs="+", type=Path)
+    ap.add_argument("--reps", type=int, default=20)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab: this comparison needs a CUDA card")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    words = torch.tensor([0xC0FFEE, 42, 0, 0, 0, 0, 0, 0],
+                         dtype=torch.int32, device=dev)
+    names = [f"{i}:{s}" for i, s in enumerate(a.sources)]
+    built = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, src in zip(names, a.sources):
+            lib, log, takes_bu = build_source(src, Path(tmp))
+            dis = sass.disassemble(lib)
+            built[name] = (ctypes.CDLL(str(lib)), takes_bu)
+            for kernel, rec in sass.analyse(dis, log).items():
+                rec.pop("per_draw_by_opcode", None)
+                print(json.dumps({"source": name, "kernel": kernel, **rec}),
+                      flush=True)
+    order = names + names[::-1]
+
+    for B, U, K, N, bu in MAC_SHAPES:
+        t_re, t_im, amp, w = inputs(B, U, N, 0, dev)
+
+        def call(name):
+            lib, takes_bu = built[name]
+            fn = lib.fused_mac_launch
+            fn.restype = _I
+            y = torch.empty(2, B, N, device=dev)
+            args = [words, t_re, t_im, amp, w, y[0], y[1], B, U, K, N,
+                    *([bu] if takes_bu else []), 0.70710677, 0.70710677]
+            fn.argtypes = [_P] * 7 + [_I] * (5 if takes_bu else 4) + \
+                [_F] * 2 + [_P]
+            err = fn(*[x.data_ptr() if isinstance(x, torch.Tensor) else x
+                       for x in args], stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return y
+
+        reps = a.reps if U < 16384 else max(a.reps // 4, 1)
+        ms = {n: [] for n in names}
+        for n in order:
+            ms[n].append(time_ms(lambda: call(n), reps))
+        first = call(names[0])
+        print(json.dumps({"kernel": "fused_mac", "shape_BUKN": [B, U, K, N],
+                          "block_u": bu, "ms": ms, "bitwise_equal_first": {
+                              n: torch.equal(call(n), first)
+                              for n in names}}), flush=True)
+
+    if all(hasattr(lib, "fused_mac_partials_launch")
+           for lib, _ in built.values()):
+        B, U, K, N, bu = PARTIALS_SHAPE
+        t_re, t_im, amp, w = inputs(B, U, N, 1, dev)
+
+        def pcall(name):
+            fn = built[name][0].fused_mac_partials_launch
+            fn.restype = _I
+            fn.argtypes = [_P] * 9 + [_I] * 5 + [_F, _P]
+            p = torch.empty(4, B, U // bu, K, N, device=dev)
+            err = fn(*[x.data_ptr() for x in (words, t_re, t_im, amp, w,
+                                               *p)],
+                     B, U, K, N, bu, 0.70710677, stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return p
+
+        ms = {n: [] for n in names}
+        for n in order:
+            ms[n].append(time_ms(lambda: pcall(n), 3))
+        first = pcall(names[0])
+        print(json.dumps({"kernel": "fused_mac_partials",
+                          "shape_BUKN": [B, U, K, N], "block_u": bu,
+                          "ms": ms, "bitwise_equal_first": {
+                              n: torch.equal(pcall(n), first)
+                              for n in names}}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -363,9 +363,6 @@ def test_cli_rejects_bad_engine_options(argv):
 
 def test_unported_sharded_options_raise():
     with pytest.raises(NotImplementedError, match="item 5"):
-        make_runner("sharded", ["scale_u256"], device="cpu",
-                    driver="chunked")
-    with pytest.raises(NotImplementedError, match="item 5"):
         make_sharded_chunk_fn()
     with pytest.raises(NotImplementedError, match="item 7"):
         ShardedSweepRunner(["fig2_drop10"], quick=True, device="cpu",
