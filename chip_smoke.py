@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi); TF32 off for matmul
    and cuDNN, so float32 stays float32;
 2. build every CUDA kernel of the main paths from the sources in this
-   checkout (``src/repro_torch/csrc``), one nvcc per source, all at once,
-   and count each draw kernel's instructions per draw by pipe in its SASS
+   checkout (``src/repro_torch/csrc``), one nvcc per source, all at once
+   (ptxas' registers and spills logged per kernel instance), and count
+   each draw kernel's instructions per draw by pipe in its SASS
    (`repro_torch.kernels.sass`: the operations its bound counts);
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
@@ -17,7 +18,12 @@ Phases, in order; any failure exits non-zero:
    give identical bits); `fused_mac_partials` then
    `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
    every such shape and at the scale_u65536 1x1 one (there the plain
-   versions run in phase 7);
+   versions run in phase 7); `flash_mha` (through `flash_attention`)
+   against its plain version at qwen2-0.5b's prefill shape (B 4, L 4096,
+   bf16 and f32), the hd-128 shapes of qwen2-1.5b and qwen3-4b (B 1,
+   L 4096) and ``tests/test_flash_attn.py``'s shapes: f32 within 1e-5
+   of max |o|, bf16 within that plus one bf16 ULP of each value (both
+   sides round once from float32), two launches identical;
 4. the main paths on ``cuda`` at full width, every launch count set to
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
@@ -43,6 +49,16 @@ Phases, in order; any failure exits non-zero:
      mc x mu + 1 times (gathered); each scale_u256 run's final model is
      held against the single engine's, bit for bit where it is, with
      the largest gap printed where it is not;
+   - dense-LM serving (`repro_torch.launch.serve`) of qwen2-0.5b as
+     registered (24 layers, d 896, vocab 151936, bf16 compute, f32
+     weights from a seed): `build_prefill_step` on 4 prompts of 4,096
+     tokens (prefill_32k cut from batch 32 x 32,768), exactly 24
+     `flash_mha` launches by the count and in the profiler; one warm
+     `build_decode_step` step against `cache_specs`' prefilled cache
+     (decode_32k cut from batch 128 to 8, cache 32,768), then 8
+     requests answered: a 32-token prompt streamed into an empty
+     cache, 16 greedy tokens; ``examples/serve_decode_torch.py`` at its
+     defaults (no kernel: it streams its prompt through the decode);
    every other count stays 0, and every metric must be finite;
 5. the main paths' output against a reference: ``scale_u256`` as
    registered, and ``fig2_iid`` at the paper's sizes with the
@@ -51,7 +67,11 @@ Phases, in order; any failure exits non-zero:
    runs on the card (kernels, and cuBLAS's complex products without
    TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
    the control; ``scale_u256`` on the sharded engine (2x4, u_sharded)
-   the same way;
+   the same way; qwen2-0.5b's full-width `prefill_logits` (B 1,
+   L 256, f32 compute) on the card (kernel) against the CPU (plain
+   version, the same weights copied off the card) within 1e-4 of
+   max |logit|, and its streamed decode (B 2, T 64, f32) against its
+   prefill on the card within rtol = atol = 5e-3;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
    slab backend, through
@@ -60,7 +80,9 @@ Phases, in order; any failure exits non-zero:
    per round from the device ops inside the runner's
    ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
    (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
-   (2x4, u_sharded) on the sharded engine;
+   (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
+   (B 4, L 4096) and one warm decode step (B 8, cache 32,768): device
+   ms, busy share, the kernel's share, device ops per call;
 7. kernel and plain times with CUDA events at the kernels' largest
    main-path shapes (for `ota_combine` also the largest unbatched one),
    beside the least time the card could take for the
@@ -70,15 +92,20 @@ Phases, in order; any failure exits non-zero:
    timed there, as in phase 3; the whole slab cluster
    hop (emulated draw of the slab and the combine) against the fused hop
    at the scale_u256 shape, and the u-sharded cluster hop against the
-   gathered one at the scale_u16384 shape;
-8. one JSON line of kernel records, then the last line
-   ``{"ok": true, "device": {...}}``.
+   gathered one at the scale_u16384 shape; `flash_mha` at qwen2-0.5b's
+   prefill shape and at prefill_32k's length (B 1, L 32,768, one
+   layer) against its plain version, the library's
+   `scaled_dot_product_attention` (timed as a yardstick only, with the
+   backend it chose) and ``flash_bound_ms``;
+8. the run's seconds, one JSON line of kernel records, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -95,12 +122,13 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
-SOURCES = ("fused_mac", "ota_combine")          # csrc/<name>.cu
+SOURCES = ("fused_mac", "ota_combine", "flash_attn")  # csrc/<name>.cu
 # each kernel's record name -> (source, its __global__ function)
 KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "ota_combine": ("ota_combine", "ota_combine_kernel"),
            "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
-           "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel")}
+           "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel"),
+           "flash_mha": ("flash_attn", "flash_attn_kernel")}
 # H100 SXM peaks at the full 700 W power limit and the 1.98 GHz boost
 # clock: 132 SMs, 128 FP32 lanes each (67 TFLOP/s float32 outside the
 # tensor cores, counting an FMA as 2); 3.35 TB/s of HBM3.  A draw's
@@ -110,6 +138,13 @@ SMS, CLOCK_HZ = 132, 1.98e9
 FP32_FLOP_PER_S = SMS * 128 * 2 * CLOCK_HZ
 HBM_BYTES_PER_S = 3.35e12
 OP_PIPES = ("alu", "fmaheavy", "fma", "xu")
+# dense bf16 tensor-core peak of an H100 SXM at 700 W (NVIDIA's data sheet)
+BF16_FLOP_PER_S = 989e12
+FLASH_F32_RTOL = 1e-5
+LM_ARCH = "qwen2-0.5b"
+# tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
+JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
+                    (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
 
 
 def log(obj) -> None:
@@ -167,6 +202,357 @@ def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
     t_ops = (12 * B * U * K * N + 8 * B * K * N) / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
+
+
+def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
+                   causal: bool, itemsize: int):
+    """Least time for one flash attention call on this card: the larger
+    of its operations at the dense bf16 tensor-core peak and its bytes
+    over HBM's rate.  Operations: 4 * hd per kept (query, key) pair (q.k
+    and p.v, a multiply-add counted as 2) for each of B * H query rows
+    of a position; kept pairs: min(l + 1, S) at position l when causal,
+    else S.  Bytes: q and o (B*L*H*hd each) and k and v (B*S*KV*hd
+    each), once."""
+    if not causal:
+        pairs = L * S
+    elif S >= L:
+        pairs = L * (L + 1) // 2
+    else:
+        pairs = S * (S + 1) // 2 + (L - S) * S
+    t_ops = 4 * hd * B * H * pairs / BF16_FLOP_PER_S
+    t_bytes = itemsize * (2 * B * L * H * hd + 2 * B * S * KV * hd) / (
+        HBM_BYTES_PER_S)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in bf16 ULPs between two bf16 tensors."""
+    def ordered(x):
+        w = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(w < 0, -(w & 0x7FFF), w)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
+    """Two bf16 tensors, each rounded once from a float32 result, whose
+    float32 results lie within `rtol` of max |want|: every pair within
+    that gap plus one bf16 ULP of the larger magnitude.  (A strict 1-ULP
+    rule fails near zero, where the float32 gap spans many ULPs.)"""
+    big = torch.maximum(got.abs(), want.abs()).contiguous()
+    ulp = (big.view(torch.int16) + 1).view(torch.bfloat16).float() - (
+        big.float())
+    gap = (got.float() - want.float()).abs()
+    return bool((gap <= rtol * want.float().abs().max() + ulp).all())
+
+
+def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
+    """Random q [B, L, H, hd], k and v [B, L, KV, hd] on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+
+
+def lm_profile(fn) -> dict:
+    """`fn()` (one serving step, ending in a synchronize) warm, timed on
+    the host clock, then under `torch.profiler`: device ms, busy share,
+    the flash kernel's share and the device ops of one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    t0 = time.perf_counter()
+    fn()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in ops:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    device_ms = sum(ms for ms, _ in by_name.values())
+    flash_ms = sum(ms for k, (ms, _) in by_name.items()
+                   if KERNELS["flash_mha"][1] in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "flash_mha_ms": flash_ms, "flash_mha_share": flash_ms / device_ms,
+            "device_ops_per_call": len(ops),
+            "top": [{"op": k[:72], "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def flash_kernels_in(prof) -> int:
+    """The flash_mha kernels a `torch.profiler` trace saw on the card."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and KERNELS["flash_mha"][1] in e.name)
+
+
+def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
+             requests=(8, 32, 16)) -> dict:
+    """Phase 4's dense-LM serving path through `repro_torch.launch.serve`:
+    `cfg`'s weights from a seed on `dev`; a prefill at `pre_shape` (one
+    `flash_mha` launch per layer, by the count and in the profiler,
+    finite last-position logits and greedy tokens in the vocabulary);
+    one warm decode step against `cache_specs`' prefilled cache at
+    `dec_shape` (no kernel); then `requests` = (n, prompt tokens, new
+    tokens): n prompts streamed into an empty cache, then greedy tokens.
+    Returns what phases 5 to 7 reuse."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+    torch.cuda.synchronize()
+    served = serve.compute_params(params, cfg)
+    log({"phase": "main_path", "run": f"{cfg.name} init", "arch": cfg.name,
+         "n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+         "vocab": cfg.vocab, "heads": cfg.n_heads,
+         "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+         "compute_dtype": cfg.compute_dtype,
+         "n_params": sum(t.numel() for _, t in tree_leaves(params)),
+         "init_seconds": time.perf_counter() - t0})
+
+    prefill_step, batch_specs = serve.build_prefill_step(cfg, pre_shape,
+                                                         device=dev.type)
+    spec = batch_specs()["tokens"]
+    pre_tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
+                              cfg.vocab).to(spec.dtype)
+
+    def run_prefill():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = prefill_step(served, {"tokens": pre_tokens})
+            torch.cuda.synchronize()
+        return out, flash_kernels_in(prof)
+
+    t0 = time.perf_counter()
+    (logits, traced), launches = counted(run_prefill)
+    greedy = logits.argmax(-1)
+    log({"phase": "main_path", "run": f"{cfg.name} prefill",
+         "cut": cuts["prefill"], "shape_BL": list(spec.shape),
+         "seconds_cold": time.perf_counter() - t0,
+         "flash_mha_in_profiler": traced, "greedy": greedy.tolist(),
+         "max_abs_logit": float(logits.abs().max())})
+    if traced != cfg.n_layers:
+        raise SystemExit(f"the profiler saw {traced} flash_mha kernels in "
+                         f"the prefill, not {cfg.n_layers}")
+    expect(f"{cfg.name} prefill", launches, {"flash_mha": cfg.n_layers},
+           tuple(logits.shape) == (spec.shape[0], cfg.vocab)
+           and bool(torch.isfinite(logits).all())
+           and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
+
+    serve_step, token_specs = serve.build_decode_step(cfg, dec_shape,
+                                                      device=dev.type)
+    specs = serve.cache_specs(cfg, dec_shape)["attn"]
+    cache = {"attn": {
+        "k": torch.zeros(specs["k"].shape, dtype=specs["k"].dtype,
+                         device=dev),
+        "v": torch.zeros(specs["v"].shape, dtype=specs["v"].dtype,
+                         device=dev),
+        "pos": torch.full(specs["pos"].shape, dec_shape.seq_len - 1,
+                          dtype=specs["pos"].dtype, device=dev)}}
+    tok = torch.zeros(tuple(token_specs().shape), dtype=torch.int32,
+                      device=dev)
+
+    def one_step():
+        out = serve_step(served, cache, tok)
+        torch.cuda.synchronize()
+        return out
+
+    one_step()
+    t0 = time.perf_counter()
+    (logits, _), launches = counted(one_step)
+    log({"phase": "main_path", "run": f"{cfg.name} decode step",
+         "cut": cuts["decode"], "cache_k_shape": list(specs["k"].shape),
+         "cache_bytes": 2 * cache["attn"]["k"].numel()
+         * cache["attn"]["k"].element_size(),
+         "warm_step_ms": 1e3 * (time.perf_counter() - t0), "card": card})
+    expect(f"{cfg.name} decode step", launches, {},
+           bool(torch.isfinite(logits).all()))
+
+    n, prompt_len, new_tokens = requests
+
+    def answer():
+        for t in cache["attn"].values():
+            t.zero_()
+        state = cache
+        prompts = prng.randint(prng.PRNGKey(3, dev), (n, prompt_len), 0,
+                               cfg.vocab).to(torch.int32)
+        for t in range(prompt_len):
+            out, state = serve_step(served, state, prompts[:, t:t + 1])
+        new = []
+        for _ in range(new_tokens):
+            new.append(out.argmax(-1).to(torch.int32)[:, None])
+            out, state = serve_step(served, state, new[-1])
+        torch.cuda.synchronize()
+        return out, torch.cat(new, dim=1)
+
+    t0 = time.perf_counter()
+    (logits, answers), launches = counted(answer)
+    wall = time.perf_counter() - t0
+    steps = prompt_len + new_tokens
+    log({"phase": "main_path", "run": f"{cfg.name} {n} requests",
+         "prompt_tokens": prompt_len, "new_tokens": new_tokens,
+         "steps": steps, "seconds": wall,
+         "tokens_per_second": n * steps / wall,
+         "answers": answers[:2].tolist()})
+    expect(f"{cfg.name} {n} requests", launches, {},
+           bool(torch.isfinite(logits).all()) and bool(
+               ((answers >= 0) & (answers < cfg.vocab)).all()))
+    return {"cfg": cfg, "params": params, "served": served,
+            "prefill_step": prefill_step, "pre_tokens": pre_tokens,
+            "serve_step": serve_step, "dec_shape": dec_shape}
+
+
+def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
+    """Phase 5 for the LM: `prefill_logits` at batch 1 and `prefill_len`
+    tokens, float32 compute, on `dev` (flash_mha) against the CPU (its
+    plain version) on the same weights copied off the card, within TOL
+    of max |logit|; then the streamed decode of `decode` = (B, T) tokens
+    against the prefill of the same tokens on `dev`, float32, within
+    rtol = atol = 5e-3 (tests/test_arch_smoke.py's bound)."""
+    from repro_torch import prng
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+
+    f32 = cfg.with_(compute_dtype="float32")
+    toks = prng.randint(prng.PRNGKey(4, dev), (1, prefill_len), 0,
+                        cfg.vocab).to(torch.int32)
+    on_card = lm.prefill_logits(params, {"tokens": toks}, f32).cpu()
+    t0 = time.perf_counter()
+    on_cpu = lm.prefill_logits(tree_map(lambda t: t.cpu(), params),
+                               {"tokens": toks.cpu()}, f32)
+    gap = float((on_card - on_cpu).abs().max())
+    rel = gap / float(on_cpu.abs().max())
+    log({"phase": "reference", "run": f"{cfg.name} prefill_logits B1 "
+         f"L{prefill_len} f32", "what": "the card (flash_mha) vs the CPU "
+         "(its plain version), the same weights", "max_abs_gap": gap,
+         "max_rel_gap": rel, "cpu_seconds": time.perf_counter() - t0})
+    if not rel <= TOL:
+        raise SystemExit(f"{cfg.name} prefill on the card disagrees with "
+                         f"the CPU: {rel} of max |logit|")
+
+    B, T = decode
+    toks = prng.randint(prng.PRNGKey(5, dev), (B, T), 0,
+                        cfg.vocab).to(torch.int32)
+    want = lm.prefill_logits(params, {"tokens": toks}, f32)
+    state = lm.init_decode_cache(f32, B, T, device=dev)
+    state["attn"]["pos"].zero_()
+    for t in range(T):
+        got, state = lm.decode_step(params, state,
+                                    {"tokens": toks[:, t:t + 1]}, f32)
+    gap = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, rtol=5e-3, atol=5e-3))
+    log({"phase": "reference", "run": f"{cfg.name} decode vs prefill B{B} "
+         f"T{T} f32", "what": "streamed decode (plain attention) vs prefill "
+         "(flash_mha), both on the card", "max_abs_gap": gap,
+         "max_rel_gap": gap / float(want.abs().max()),
+         "allclose_5e-3": close})
+    if not close:
+        raise SystemExit(f"{cfg.name}: streamed decode disagrees with the "
+                         f"prefill by {gap}")
+
+
+def lm_profiles(run: dict, dev, card) -> None:
+    """Phase 6 for the LM: one warm prefill of phase 4's batch and one
+    warm decode step against a prefilled cache of phase 4's decode
+    shape, each through `lm_profile`."""
+    from repro_torch.models import lm
+
+    cfg, served, shape = run["cfg"], run["served"], run["dec_shape"]
+
+    def prefill_call():
+        run["prefill_step"](served, {"tokens": run["pre_tokens"]})
+        torch.cuda.synchronize()
+
+    cache = lm.init_decode_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device=dev)
+    tok = torch.zeros((shape.global_batch, 1), dtype=torch.int32, device=dev)
+
+    def decode_call():
+        run["serve_step"](served, cache, tok)
+        torch.cuda.synchronize()
+
+    B, L = run["pre_tokens"].shape
+    for label, fn in ((f"{cfg.name} prefill B{B} L{L}", prefill_call),
+                      (f"{cfg.name} decode step B{shape.global_batch} "
+                       f"S{shape.seq_len}", decode_call)):
+        log({"phase": "profile", "run": label, "card": card,
+             **lm_profile(fn)})
+
+
+def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
+                check_flash) -> dict:
+    """Phase 7 for flash_mha at `shape` = (B, L, H, KV, hd), causal,
+    bf16: the kernel and its plain version in turns (`reps` = kernel
+    and plain repetitions), the kernel held to the last plain output;
+    the library's `scaled_dot_product_attention` on the [B, H, L, hd]
+    layout (a yardstick, never on the path; the backend it dispatches to
+    and the kernels the profiler saw are logged) and `flash_bound_ms`.
+    Returns the kernel record's times."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    B, L, H, KV, hd = shape
+    q, k, v = flash_inputs(B, L, H, KV, hd, torch.bfloat16, 90, dev)
+    kept = {}
+
+    def plain():
+        kept["o"] = flash_attention_plain(q, k, v)
+
+    k_reps, p_reps = reps
+    ks, ps = in_turns(lambda: flash_attention(q, k, v), plain, k_reps,
+                      p_reps, warm_plain=p_reps > 1)
+    o1, o2 = flash_attention(q, k, v), flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    check_flash(f"{label} (timed)", shape, torch.bfloat16, True, o1, o2,
+                kept["o"])
+    qs, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib = [time_ms(sdpa, k_reps), time_ms(sdpa, k_reps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        o_lib = sdpa()
+        torch.cuda.synchronize()
+    kernels = sorted({e.name[:80] for e in prof.events()
+                      if e.device_type == DeviceType.CUDA})
+    # the backend SDPA dispatches to for these inputs (its own choice)
+    backend = SDPBackend(torch._fused_sdp_choice(
+        qs, kt, vt, None, 0.0, True, scale=None, enable_gqa=True)).name
+    bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, True, 2)
+    ms = sum(ks) / 2
+    log({"phase": "times", "kernel": "flash_mha", "shape": label,
+         "shape_BLHKVhd": list(shape), "dtype": "bfloat16",
+         "kernel_ms": ks, "plain_ms": ps, "library_ms": lib,
+         "library_call": "scaled_dot_product_attention(is_causal=True, "
+                         "enable_gqa=True) on [B, H, L, hd]",
+         "library_backend": backend, "library_kernels": kernels,
+         "library_vs_kernel_max_abs_gap": float(
+             (o_lib.transpose(1, 2).reshape(o1.shape).float()
+              - o1.float()).abs().max()),
+         "kernel_tflops": 4 * hd * B * H * L * (L + 1) / 2 / ms / 1e9,
+         "bound_ms": bound, "bound_by": bound_by, "card": card})
+    return dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
+                bound_by=bound_by, library_ms=sum(lib) / 2,
+                shape=list(shape))
 
 
 def kernel_inputs(B, U, K, N, seed, dev):
@@ -388,6 +774,7 @@ def device_profile(runner, sc) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a CUDA "
               "card", file=sys.stderr)
@@ -396,7 +783,9 @@ def main() -> int:
     from repro_torch.core import channel
     from repro_torch.exec import (ShardedSweepRunner, make_device_mesh,
                                   make_fused_cluster_hop, parse_mesh)
-    from repro_torch.kernels import (build, fused_mac, fused_mac_partials,
+    from repro_torch.kernels import (build, flash_attention,
+                                     flash_attention_plain, flash_mha,
+                                     fused_mac, fused_mac_partials,
                                      fused_mac_partials_plain,
                                      fused_mac_plain, fused_partials_reduce,
                                      fused_partials_reduce_plain,
@@ -428,7 +817,8 @@ def main() -> int:
                          if src == name], "seconds": wall,
              "nvcc_seconds": round(build_s, 3),
              "ptxas": [ln.strip() for ln in nvcc_log.splitlines()
-                       if "registers" in ln or "spill" in ln]})
+                       if "registers" in ln or "spill" in ln
+                       or "entry function" in ln]})
     # each draw kernel's operations per draw, by pipe, from its SASS
     report = sass.analyse(sass.disassemble(build.library_path("fused_mac")),
                           build.build_info("fused_mac")[1])
@@ -577,10 +967,54 @@ def main() -> int:
                              f"{label}")
         del inp, args, p1, p2, y1, y2, y
 
+    # flash attention at the serving path's shapes and the JAX tests'
+    def check_flash(label, shape, dtype, causal, o1, o2, want):
+        """Two launches' outputs against the plain version's: f32 within
+        FLASH_F32_RTOL of max |o|, bf16 within that plus one bf16 ULP
+        (`bf16_close`)."""
+        same = torch.equal(o1, o2)
+        err = float((o1.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        ulps = bf16_ulps(o1, want) if dtype == torch.bfloat16 else None
+        errors["flash_mha"] = max(errors["flash_mha"], err)
+        rel_errors["flash_mha"] = max(rel_errors["flash_mha"], rel)
+        log({"phase": "kernel_vs_plain", "kernel": "flash_mha",
+             "case": label, "shape_BLHKVhd": list(shape),
+             "dtype": str(dtype).split(".")[-1], "causal": causal,
+             "max_abs_err": err, "max_rel_err": rel, "max_bf16_ulps": ulps,
+             "bitwise_repeat": same})
+        ok = (bf16_close(o1, want, FLASH_F32_RTOL) if ulps is not None
+              else rel <= FLASH_F32_RTOL)
+        if not (same and ok and math.isfinite(rel)):
+            raise SystemExit(f"flash_mha disagrees with its plain version "
+                             f"at {label} {shape}: rel {rel}, bf16 ulps "
+                             f"{ulps}, repeat {same}")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_cases = [
+        (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), bf16, True),
+        (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), f32, True),
+        ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), bf16, True),
+        ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), f32, True),
+        ("qwen3-4b prefill B1 L4096", (1, 4096, 32, 8, 128), bf16, True),
+        ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
+        ("test_flash_attn", shape, f32, causal)
+        for shape in JAX_FLASH_SHAPES for causal in (True, False)]
+    for i, (label, shape, dtype, causal) in enumerate(flash_cases):
+        q, k, v = flash_inputs(*shape, dtype, 80 + i, dev)
+        o1 = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o2 = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check_flash(label, shape, dtype, causal, o1, o2, want)
+        del q, k, v, o1, o2, want
+
     # -- phase 4: the main paths -------------------------------------------
     counters = {"fused_mac": fused_mac, "ota_combine": ota_combine,
                 "fused_mac_partials": fused_mac_partials,
-                "fused_partials_reduce": fused_partials_reduce}
+                "fused_partials_reduce": fused_partials_reduce,
+                "flash_mha": flash_mha}
     main_launches = {name: 0 for name in KERNELS}
 
     def counted(run):
@@ -717,6 +1151,29 @@ def main() -> int:
              "theta_max_rel_gap": gap / max(float(theta[k].abs().max())
                                             for k in theta)})
 
+    # dense-LM serving: qwen2-0.5b at full width, weights from a seed
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    qwen = get_config(LM_ARCH)
+    lm_run = serve_lm(
+        qwen, dev, card, counted, expect,
+        dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=4,
+                            seq_len=4096),
+        dataclasses.replace(INPUT_SHAPES["decode_32k"], global_batch=8),
+        cuts={"prefill": "prefill_32k: batch 32 -> 4, length 32768 -> 4096",
+              "decode": "decode_32k: batch 128 -> 8, cache 32768"})
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    res, launches = counted(lambda: example.main([]))
+    log({"phase": "main_path", "run": "serve_decode_torch example",
+         "argv": [], "tokens_shape": list(res["tokens"].shape),
+         "prefill_ms_per_token": res["prefill_ms_per_token"],
+         "decode_ms_per_token": res["decode_ms_per_token"]})
+    expect("serve_decode_torch example", launches, {},
+           bool(torch.isfinite(res["logits"]).all()))
+
     # -- phase 5: the main paths' output against a reference ---------------
     # fig2_iid as registered (no kernel) is the control: Adam turns any
     # difference between the card's and the CPU's arithmetic into a
@@ -750,7 +1207,14 @@ def main() -> int:
             raise SystemExit(f"{label}: the card's run disagrees with the "
                              f"CPU reference")
 
+    lm_reference(qwen, lm_run["params"], dev, prefill_len=256,
+                 decode=(2, 64))
+
     # -- phase 6: where the time goes --------------------------------------
+    # the LM first: its weights are freed before the sharded runs' peak
+    # device memory is read
+    lm_profiles(lm_run, dev, card)
+    del lm_run
     # the reference backend issues ~60k ops a round (a 20-step fold per
     # hop), so it is profiled over 2 rounds to keep the trace small
     for label, sc in [(label, sc.replace(total_IT=2) if sc is fig2_ref
@@ -920,6 +1384,14 @@ def main() -> int:
          "u_sharded_hop_ms": u_ms, "gathered_hop_ms": g_ms, "card": card})
     del deltas, hop
 
+    for label, shape, reps in (
+            (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), (10, 3)),
+            (f"{LM_ARCH} prefill_32k B1 L32768", (1, 32768, 14, 2, 64),
+             (3, 1))):
+        timings["flash_mha", label] = flash_times(label, shape, reps, dev,
+                                                  card, in_turns, time_ms,
+                                                  check_flash)
+
     # -- phase 8: the records ----------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
@@ -930,7 +1402,11 @@ def main() -> int:
                 "src/repro/kernels/fused_mac.py:312", None),
                # a jnp helper in the JAX package, a kernel here
                ("fused_partials_reduce", "scale_u65536 1x1",
-                "src/repro/kernels/fused_mac.py:467", None)]
+                "src/repro/kernels/fused_mac.py:467", None),
+               ("flash_mha", f"{LM_ARCH} prefill B4 L4096",
+                "src/repro/kernels/flash_attn.py:39", None)]
+    log({"phase": "done", "seconds": time.perf_counter() - t_start,
+         "card": card})
     log({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/csrc/{KERNELS[name][0]}.cu",

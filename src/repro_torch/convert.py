@@ -5,7 +5,10 @@ the port keeps nested dicts of tensors with the same leaf names.  These
 helpers take the reference's trees as numpy arrays (``jax.device_get``
 of them), so both packages can start from identical weights, and bring
 the port's trees back for comparison.  uint32 words (PRNG keys) become
-the port's int64 word tensors.
+the port's int64 word tensors; bfloat16 arrays (numpy's `ml_dtypes`
+type, which `torch.tensor` refuses) become bfloat16 tensors with the
+same bits, and come back as float32 arrays (numpy has no bfloat16 of
+its own).
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ def _tensor(x, device=None) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":        # exact both ways
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
     return torch.tensor(a, device=device)
 
 
@@ -45,4 +51,5 @@ def to_numpy(tree):
     """A nested dict of tensors -> the same dict of numpy arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,3 +1,6 @@
+from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attention_plain, flash_mha,
+                                            flash_mha_plain)
 from repro_torch.kernels.fused_mac import (canonical_block_u, fused_mac,
                                            fused_mac_partials,
                                            fused_mac_partials_plain,
@@ -13,4 +16,6 @@ __all__ = ["fused_combine", "mf_combine", "fused_mac", "fused_mac_plain",
            "fused_mac_ref", "fused_mac_partials", "fused_mac_partials_plain",
            "fused_noise", "fused_partials_reduce",
            "fused_partials_reduce_plain", "ota_combine", "ota_combine_plain",
-           "fused_channels", "assert_draw_invariance", "canonical_block_u"]
+           "fused_channels", "assert_draw_invariance", "canonical_block_u",
+           "flash_mha", "flash_mha_plain", "flash_attention",
+           "flash_attention_plain"]

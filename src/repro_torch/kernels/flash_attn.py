@@ -1,0 +1,248 @@
+"""Flash attention: causal or bidirectional online-softmax attention,
+with the G = H / KV query heads of each KV head folded into the row axis.
+
+    flash_mha:       q [N, Lq, hd]; k, v [N, S, hd] -> [N, Lq, hd]
+    flash_attention: q [B, L, H, hd]; k, v [B, S, KV, hd] -> [B, L, H*hd]
+
+Row r of the folded axis sits at position r % seq_len; with ``causal``
+a key j is kept for it when j <= r % seq_len.  Scores are
+(q . k) * (1 / sqrt(hd)), float32; masked scores are NEG_INF = -1e30
+(not -inf) and the final divide floors the denominator at 1e-30, the
+JAX package's constants.  Inputs are float32 or bfloat16, upcast to
+float32; the output is in q's dtype.
+
+Two implementations of that one function live here:
+
+- `flash_mha` and `flash_attention`, the wrappers: on CUDA tensors they
+  launch the hand-written Hopper kernel ``csrc/flash_attn.cu`` (and
+  count the launch in ``flash_mha.launches``, for both wrappers); on
+  CPU tensors they run the plain versions.  They choose by the device
+  of their inputs and by nothing else.  The kernel tiles with its own
+  compiled sizes (128 threads a block: 128, 128, 64 or 32 query rows
+  and 64, 64, 64 or 32 keys a tile at hd 16, 32, 64, 128), so on the
+  card ``q_block`` and ``kv_block`` are ignored.  It reads the model's
+  [B, L, H, hd] layout through strides: `flash_attention` makes no
+  folded copy on the card.
+- `flash_mha_plain` and `flash_attention_plain`, the plain PyTorch
+  versions: the same loop nest as the Pallas kernel in interpret mode
+  (``q_block`` x ``kv_block`` tiles, key tiles in ascending order, the
+  same recurrence and constants), vectorized over N.  The CPU tests
+  hold them to the JAX kernel; the card's smoke run holds the kernel
+  to them.
+
+Both skip a key tile whose first key lies past every position of the q
+tile, by the exact test (the Pallas kernel's ``first_q_pos + QB - 1`` is
+conservative when a q tile straddles two fold groups).  The bits are
+the same: the causal row has seen key 0 in tile 0 by then, so a fully
+masked tile leaves (m, l, acc) unchanged.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MIN_DENOMINATOR = 1e-30
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _scale(hd: int) -> float:
+    return 1.0 / math.sqrt(hd)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           layout: str) -> None:
+    """Shapes, dtypes, contiguity and devices the kernel takes, checked
+    on every device so a CPU run refuses what the card would."""
+    want = 3 if layout == "folded" else 4
+    if q.dim() != want or k.dim() != want or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"want q, k, v of {want} dims with k.shape == "
+                         f"v.shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS or k.shape[-1] != hd:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS} on q, k and "
+                         f"v, got {q.shape[-1]}, {k.shape[-1]}")
+    if q.shape[0] != k.shape[0]:
+        raise ValueError(f"q and k disagree on the batch: {q.shape[0]} vs "
+                         f"{k.shape[0]}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in _DTYPES or x.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share one dtype of "
+                             f"{list(_DTYPES)}, got {name} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides "
+                             f"{x.stride()} for shape {tuple(x.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The kernel's C entry point, built and typed once per process."""
+    fn = build.load("flash_attn").flash_attn_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_void_p])
+    return fn
+
+
+def _launch(q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
+            S: int, strides) -> None:
+    """Launch the kernel on the current stream; `strides` are the
+    element strides (batch, row, head) of q, k, v and o."""
+    for x in (q, k, v, o):
+        if x.data_ptr() % 16:
+            raise ValueError("flash attention's kernel reads 16-byte "
+                             "aligned rows; got a tensor at an offset")
+    arr = (ctypes.c_longlong * 12)(*strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), _DTYPES[q.dtype], q.shape[-1],
+                           int(causal), NB, KV, G, L, S, arr,
+                           _scale(q.shape[-1]), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_mha.launches += 1
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_block: int = 256, kv_block: int = 256,
+              seq_len: int = 0) -> torch.Tensor:
+    """q: [N, Lq, hd]; k, v: [N, S, hd] (heads folded into N) ->
+    [N, Lq, hd] in q's dtype.
+
+    `seq_len` is the true sequence length when the row axis folds
+    several query heads (row r sits at position r % seq_len, and Lq must
+    be a multiple of it); 0 means rows == positions.  The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    _check(q, k, v, "folded")
+    N, Lq, hd = q.shape
+    S = k.shape[1]
+    L = seq_len or Lq
+    if Lq % L:
+        raise ValueError(f"Lq={Lq} is not a multiple of seq_len={L}")
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, causal=causal, q_block=q_block,
+                               kv_block=kv_block, seq_len=seq_len)
+    o = torch.empty_like(q)
+    # folded row r = g * L + l of pair n lies at n*Lq*hd + g*L*hd + l*hd
+    rows = (Lq * hd, hd, L * hd)
+    keys = (S * hd, hd, 0)
+    _launch(q, k, v, o, causal=causal, NB=N, KV=1, G=Lq // L, L=L, S=S,
+            strides=rows + keys + keys + rows)
+    return o
+
+
+flash_mha.launches = 0
+
+
+def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_block: int = 256,
+                    kv_block: int = 256, seq_len: int = 0) -> torch.Tensor:
+    """The kernel's function in torch ops on any device: the Pallas
+    kernel's loop nest (q tiles of ``q_block`` rows, key tiles of
+    ``kv_block`` keys in ascending order, the online-softmax recurrence
+    in float32), vectorized over N.  Ragged Lq and S end in short
+    tiles."""
+    N, Lq, hd = q.shape
+    S = k.shape[1]
+    L = seq_len or Lq
+    QB, KB = min(q_block, Lq), min(kv_block, S)
+    scale = _scale(hd)
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(q)
+    for q0 in range(0, Lq, QB):
+        q1 = min(q0 + QB, Lq)
+        qt = qf[:, q0:q1]
+        q_pos = torch.arange(q0, q1, device=dev) % L
+        max_pos = (q1 - 1) % L if q0 // L == (q1 - 1) // L else L - 1
+        acc = torch.zeros((N, q1 - q0, hd), dtype=torch.float32, device=dev)
+        m = torch.full((N, q1 - q0, 1), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        den = torch.zeros((N, q1 - q0, 1), dtype=torch.float32, device=dev)
+        for k0 in range(0, S, KB):
+            if causal and k0 > max_pos:
+                break
+            k1 = min(k0 + KB, S)
+            s = (qt @ kf[:, k0:k1].transpose(1, 2)) * scale
+            if causal:
+                k_pos = torch.arange(k0, k1, device=dev)
+                s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            e = torch.exp(s - m_new)
+            den = den * corr + e.sum(-1, keepdim=True)
+            m = m_new
+            acc = acc * corr + e @ vf[:, k0:k1]
+        out[:, q0:q1] = (acc / den.clamp_min(MIN_DENOMINATOR)).to(q.dtype)
+    return out
+
+
+def _fold(q, k, v):
+    """[B, L, H, hd], [B, S, KV, hd] -> [B*KV, G*L, hd], [B*KV, S, hd]
+    (the JAX wrapper's transposed copies)."""
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = (q.reshape(B, L, KV, G, hd).permute(0, 2, 3, 1, 4)
+          .reshape(B * KV, G * L, hd))
+    kf = k.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    return qf, kf, vf
+
+
+def _check_gqa(q, k) -> None:
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"H={q.shape[2]} query heads do not fold over "
+                         f"KV={k.shape[2]} heads")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_block: int = 256,
+                    kv_block: int = 256) -> torch.Tensor:
+    """GQA wrapper. q: [B, L, H, hd]; k, v: [B, S, KV, hd] ->
+    [B, L, H*hd] in q's dtype.  Query head h = kv * G + g attends to KV
+    head kv, G = H / KV.  The CUDA kernel (reading this layout in place)
+    for CUDA tensors, the plain version for CPU tensors."""
+    _check(q, k, v, "model")
+    _check_gqa(q, k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
+                                     kv_block=kv_block)
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    rows = (L * H * hd, H * hd, hd)
+    keys = (S * KV * hd, KV * hd, hd)
+    _launch(q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L, S=S,
+            strides=rows + keys + keys + rows)
+    return o.reshape(B, L, H * hd)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_block: int = 256,
+                          kv_block: int = 256) -> torch.Tensor:
+    """`flash_attention` through the fold, `flash_mha_plain` and the
+    unfold, as the JAX wrapper composes them."""
+    _check_gqa(q, k)
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    of = flash_mha_plain(*_fold(q, k, v), causal=causal, q_block=q_block,
+                         kv_block=kv_block, seq_len=L)
+    return (of.reshape(B, KV, G, L, hd).permute(0, 3, 1, 2, 4)
+            .reshape(B, L, H * hd))

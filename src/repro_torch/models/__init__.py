@@ -1,3 +1,3 @@
-from repro_torch.models import paper_models
+from repro_torch.models import lm, paper_models
 
-__all__ = ["paper_models"]
+__all__ = ["lm", "paper_models"]

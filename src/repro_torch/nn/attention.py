@@ -1,0 +1,170 @@
+"""GQA attention: prefill through the flash_mha kernel, and single-token
+decode against a KV cache (the port of `repro.nn.attention`).
+
+Features per the assigned architecture pool: grouped KV heads, optional
+QKV bias (Qwen2), optional qk RMSNorm (Qwen3), NeoX / partial ("2-D",
+ChatGLM) RoPE.  Prefill computes the attention with
+`repro_torch.kernels.flash_attention` (the hand-written CUDA kernel on
+the card, its plain version on the CPU), for the JAX package's
+``attn_impl`` "blocked" and "online" alike: both compute the same
+softmax attention there, so the port's `AttnConfig` has no ``impl``
+(nor the sharding knob ``seq_shard``).  A sliding window in prefill,
+and ``scores_f32=False`` (an XLA memory knob no registered config
+sets), are not ported and raise.
+
+The JAX package tags activations with logical sharding axes
+(`repro.sharding.logical`); the port runs on one card with no sharding
+rules, so it has no counterpart.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels import flash_attention
+from repro_torch.nn import core
+from repro_torch.nn.rope import apply_rope
+
+NEG_INF = -1e30
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_style: str = "neox"  # "neox" | "partial" | "none"
+    rope_theta: float = 10000.0
+    window: Optional[int] = None  # sliding window (None = full causal)
+    causal: bool = True  # False -> bidirectional (encoder stacks)
+    q_block: int = 512  # the plain flash version's query tile
+    scores_f32: bool = True
+    kv_block: int = 1024  # the plain flash version's key tile
+
+
+def init(key: torch.Tensor, cfg: AttnConfig, dtype=torch.float32):
+    kq, kk, kv, ko = prng.split(key, 4)
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": core.dense_init(kq, D, H * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "wk": core.dense_init(kk, D, KV * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "wv": core.dense_init(kv, D, KV * hd, bias=cfg.qkv_bias, dtype=dtype),
+        "wo": core.dense_init(ko, H * hd, D, dtype=dtype,
+                              scale=1.0 / math.sqrt(H * hd)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = core.rmsnorm_init(hd, dtype=dtype, device=key.device)
+        p["k_norm"] = core.rmsnorm_init(hd, dtype=dtype, device=key.device)
+    return p
+
+
+def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
+    B, L, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = core.dense(p["wq"], x).reshape(B, L, H, hd)
+    k = core.dense(p["wk"], x).reshape(B, L, KV, hd)
+    v = core.dense(p["wv"], x).reshape(B, L, KV, hd)
+    if cfg.qk_norm:
+        q = core.rmsnorm(p["q_norm"], q)
+        k = core.rmsnorm(p["k_norm"], k)
+    if cfg.rope_style != "none":
+        q = apply_rope(q, positions, theta=cfg.rope_theta, style=cfg.rope_style)
+        k = apply_rope(k, positions, theta=cfg.rope_theta, style=cfg.rope_style)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
+    """Plain attention. q: [B,Lq,H,hd]; k,v: [B,S,KV,hd]; mask:
+    [B,Lq,S] bool (True = keep).  Scores in q's dtype, then float32 for
+    the mask and the softmax, whose weights go back to q's dtype."""
+    if not cfg.scores_f32:
+        raise NotImplementedError(
+            "scores_f32=False (bf16 scores) is not ported (ROADMAP queue A "
+            "item 13)")
+    B, Lq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Lq, KV, G, hd)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("blkgd,bskd->bklgs", qg, k) * scale
+    scores = scores.float().masked_fill(~mask[:, None, :, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bklgs,bskd->blkgd", w, v)
+    return out.reshape(B, Lq, H * hd)
+
+
+def prefill(p, x: torch.Tensor, positions: torch.Tensor,
+            cfg: AttnConfig) -> torch.Tensor:
+    """Full-sequence attention through the flash_mha kernel.
+
+    x: [B, L, D]; positions: [B, L], which must be arange(L) in every
+    row, as the model's prefill gives them: RoPE reads `positions`, and
+    the kernel masks by row index (key j kept for query i when j <= i).
+    Returns [B, L, D]."""
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "sliding-window prefill is not ported (ROADMAP queue A item 13)")
+    if not cfg.scores_f32:
+        raise NotImplementedError(
+            "scores_f32=False (bf16 scores) is not ported (ROADMAP queue A "
+            "item 13)")
+    q, k, v = _qkv(p, x, positions, cfg)
+    out = flash_attention(q, k, v, causal=cfg.causal, q_block=cfg.q_block,
+                          kv_block=cfg.kv_block)
+    return core.dense(p["wo"], out)
+
+
+def decode(p, x: torch.Tensor, cache, cfg: AttnConfig):
+    """Single-token decode against a KV cache, in plain torch.
+
+    x: [B, 1, D].  cache: {"k","v": [B, S, KV, hd], "pos": [B] int32
+    count of tokens already in the cache}.  With a sliding window,
+    S == window and slots are written round-robin.
+
+    The new k and v are written into the cache's tensors IN PLACE
+    (`index_copy_` at each row's slot, where the JAX package blends a
+    one-hot mask: for finite values the same bits), so the returned
+    cache's "k" and "v" are the input's tensors, updated; "pos" is a new
+    tensor.  Callers that need the old cache keep a copy."""
+    ck, cv = cache["k"], cache["v"]
+    B, S, KV, hd = ck.shape
+    pos = cache["pos"]  # [B]
+    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    slot = pos % S if cfg.window is not None else torch.clamp(pos, max=S - 1)
+    rows = torch.arange(B, device=pos.device) * S + slot.long()
+    ck.view(B * S, KV, hd).index_copy_(0, rows, k[:, 0])
+    cv.view(B * S, KV, hd).index_copy_(0, rows, v[:, 0])
+    # positions held in each slot
+    slot_idx = torch.arange(S, dtype=torch.int32, device=pos.device)[None, :]
+    cur = pos[:, None]
+    if cfg.window is not None:
+        # slot i holds the latest position p <= pos with p % S == i
+        k_pos = cur - torch.remainder(cur - slot_idx, S)
+        valid = k_pos >= torch.clamp(cur - (S - 1), min=0)
+        k_pos = torch.where(valid, k_pos, -1)
+    else:
+        k_pos = torch.where(slot_idx <= cur, slot_idx, -1)
+    mask = (k_pos >= 0)[:, None, :]  # [B,1,S]
+    out = _sdpa(q, ck, cv, mask, cfg)
+    y = core.dense(p["wo"], out)
+    return y, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+def init_cache(batch: int, cfg: AttnConfig, seq_len: int,
+               dtype=torch.bfloat16, prefilled: int = 0, device=None):
+    S = min(seq_len, cfg.window) if cfg.window is not None else seq_len
+    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch,), prefilled, dtype=torch.int32,
+                          device=device),
+    }

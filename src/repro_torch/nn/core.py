@@ -1,0 +1,75 @@
+"""Minimal functional NN library (the port of `repro.nn.core`).
+
+Parameters are plain nested dicts of tensors.  The JAX package's
+initializers return `Px` leaves (an array and its logical sharding
+axes) that `split_params` separates; the port runs on one card with no
+sharding rules, so its initializers return the values that
+``split_params(...)[0]`` returns there, and nothing else.
+
+`_normal` draws through `repro_torch.prng.normal`, the bit-exact
+`jax.random` emulation, so one integer seed gives the JAX package's
+weights: the same key words, and normals within a few ULP.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch import prng
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def _normal(key: torch.Tensor, shape: Sequence[int], scale: float,
+            dtype: torch.dtype) -> torch.Tensor:
+    return (scale * prng.normal(key, shape)).to(dtype)
+
+
+def dense_init(key: torch.Tensor, d_in: int, d_out: int, *,
+               bias: bool = False, dtype: torch.dtype = torch.float32,
+               scale: Optional[float] = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal(key, (d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=key.device)
+    return p
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's dtype, the bias added in the product's dtype."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def rmsnorm_init(d: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, returned in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def embedding_init(key: torch.Tensor, vocab: int, d: int, *,
+                   dtype: torch.dtype = torch.float32):
+    return {"table": _normal(key, (vocab, d), 0.02, dtype)}
+
+
+def embed(p, ids: torch.Tensor, dtype: Optional[torch.dtype] = None
+          ) -> torch.Tensor:
+    """Rows `ids` of the table, cast to `dtype`.  The JAX package casts
+    the whole table and then takes the rows; a cast is elementwise, so
+    taking the rows first gives the same bits and casts only them."""
+    rows = p["table"][ids]
+    return rows if dtype is None else rows.to(dtype)

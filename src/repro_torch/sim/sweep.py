@@ -37,6 +37,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.topology import power_schedule
 from repro_torch.core.whfl import init_round_state, make_round_fn
 from repro_torch.optim import adam, sgd
+from repro_torch.device import resolve_device
 from repro_torch.sim.scenario import Scenario, get_scenario, list_scenarios
 from repro_torch.tree import tree_map
 
@@ -49,17 +50,6 @@ BENCH_SCHEMA_VERSION = "repro.bench.sweep/v1"
 RECORD_KEYS = ("scenario", "seeds", "rounds", "metrics", "final",
                "n_traces", "seconds", "exec", "telemetry")
 METRIC_KEYS = ("acc", "loss", "edge_power", "is_power")
-
-
-def resolve_device(device: Optional[str]) -> torch.device:
-    """The run's device: CUDA unless the caller names another.  Raises
-    when CUDA is asked for (or defaulted to) and there is no card."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the port runs on the card by default; "
-            "pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
 
 
 def device_name(dev: torch.device) -> str:

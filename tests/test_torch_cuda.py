@@ -9,6 +9,11 @@ machine that has only PyTorch; there, skip the JAX-side conftest:
 Tolerance: 1e-4 of the largest output magnitude (the JAX package's own
 kernel gate); a kernel and its plain version see the same channels
 (drawn alike, or handed in) and differ only in float summation order.
+Flash attention: float32 outputs within 1e-5 of max |o|; bfloat16
+outputs within that plus one bf16 ULP of each value, since both sides
+compute in float32 and round once (near zero the float32 gap spans
+many ULPs, so a strict 1-ULP rule fails for any change of summation
+order).
 Two launches must give identical bits: the kernels sum in a fixed order
 and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
@@ -18,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (fused_mac, fused_mac_partials,
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 flash_mha, flash_mha_plain, fused_mac,
+                                 fused_mac_partials,
                                  fused_mac_partials_plain, fused_mac_plain,
                                  fused_partials_reduce,
                                  fused_partials_reduce_plain, ota_combine,
@@ -190,3 +197,89 @@ def test_partial_kernels_match_plain_and_fused_mac_on_card(B, U, K, N, bu,
         cat = [torch.cat([a, b], dim=1) for a, b in zip(*halves)]
         yt = fused_partials_reduce(seed, *cat, **fold)
         assert torch.equal(yt[0], y[0]) and torch.equal(yt[1], y[1])
+
+
+FLASH_SHAPES = [                  # B, L, H, KV, hd
+    (2, 64, 4, 2, 16),
+    (1, 32, 2, 1, 16),            # a q tile straddles fold groups
+    (2, 96, 6, 2, 32),
+    (1, 128, 8, 8, 64),
+    (1, 256, 2, 2, 128),
+    (2, 50, 6, 2, 32),            # ragged rows and keys
+    (1, 77, 14, 2, 64),
+    (1, 200, 4, 1, 128),
+    (4, 4096, 14, 2, 64),         # qwen2-0.5b prefill, B 4, L 4096
+    (1, 4096, 12, 2, 128),        # qwen2-1.5b prefill, B 1, L 4096
+]
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Within 1e-5 of max |want| plus one bf16 ULP of the larger value."""
+    big = torch.maximum(got.abs(), want.abs()).contiguous()
+    ulp = (big.view(torch.int16) + 1).view(torch.bfloat16).float() - (
+        big.float())
+    gap = (got.float() - want.float()).abs()
+    return bool((gap <= 1e-5 * want.float().abs().max() + ulp).all())
+
+
+def _flash_inputs(B, L, H, KV, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*s, generator=g).to("cuda", dtype)
+            for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+
+
+def _flash_close(got, want):
+    if got.dtype == torch.bfloat16:
+        return bf16_close(got, want)
+    return float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_on_card(B, L, H, KV, hd, dtype, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _flash_inputs(B, L, H, KV, hd, dtype, B + L + H + hd)
+    before = flash_mha.launches
+    o1 = flash_attention(q, k, v, causal=causal)
+    o2 = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 2
+    assert o1.shape == (B, L, H * hd) and o1.dtype == dtype
+    assert torch.equal(o1, o2)
+    assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_folded_layout_on_card(dtype):
+    """The folded [N, G*L, hd] layout with seq_len: the kernel reads it
+    through other strides than the model layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(*s, generator=g).to("cuda", dtype)
+               for s in ((4, 150, 64), (4, 50, 64), (4, 50, 64)))
+    o = flash_mha(q, k, v, seq_len=50)
+    torch.cuda.synchronize()
+    assert _flash_close(o, flash_mha_plain(q, k, v, seq_len=50))
+    assert torch.equal(o, flash_mha(q, k, v, seq_len=50))
+
+
+@pytest.mark.cuda
+def test_flash_refuses_offsets_and_strided_views_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q = torch.zeros((1, 8, 2, 16), device="cuda")
+    kv = torch.zeros((1, 8, 1, 16), device="cuda")
+    before = flash_mha.launches
+    shifted = torch.zeros(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(shifted, kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv,
+                        kv)
+    assert flash_mha.launches == before

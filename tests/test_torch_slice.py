@@ -229,7 +229,8 @@ def test_port_imports_neither_jax_nor_reference():
              for f in fs if f.endswith(".py")]
     repo = os.path.dirname(SRC)
     files += [os.path.join(repo, "chip_smoke.py"),
-              os.path.join(repo, "examples", "whfl_mnist_torch.py")]
+              os.path.join(repo, "examples", "whfl_mnist_torch.py"),
+              os.path.join(repo, "examples", "serve_decode_torch.py")]
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -241,6 +242,17 @@ def test_port_imports_neither_jax_nor_reference():
         import repro_torch.convert, repro_torch.kernels.build
         import repro_torch.sim.sweep as s
         s.SweepRunner(["scale_u256"], quick=True, device="cpu")
+        import torch
+        from repro_torch import prng
+        from repro_torch.configs import INPUT_SHAPES, get_config
+        from repro_torch.launch import serve
+        from repro_torch.models import lm
+        cfg = get_config("qwen2-0.5b").reduced()
+        step, _ = serve.build_prefill_step(cfg, INPUT_SHAPES["prefill_32k"],
+                                           device="cpu")
+        logits = step(lm.init_params(prng.PRNGKey(0), cfg),
+                      {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+        assert logits.shape == (1, cfg.vocab)
         print("ok", sorted(m for m, v in sys.modules.items() if v is not None
                            and m.split(".")[0] in ("jax", "repro")))
     """)
