@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
    checkout (``src/repro_torch/csrc``), one nvcc per source, all at once
    (ptxas' registers and spills logged per kernel instance), and count
    each draw kernel's instructions per draw by pipe in its SASS
-   (`repro_torch.kernels.sass`: the operations its bound counts);
+   (`repro_torch.kernels.sass`: the operations its bound counts); the
+   tensor-core flash kernel's two instances (hd 64, 128) must hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their SASS;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
@@ -18,12 +20,16 @@ Phases, in order; any failure exits non-zero:
    give identical bits); `fused_mac_partials` then
    `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
    every such shape and at the scale_u65536 1x1 one (there the plain
-   versions run in phase 7); `flash_mha` (through `flash_attention`)
-   against its plain version at qwen2-0.5b's prefill shape (B 4, L 4096,
-   bf16 and f32), the hd-128 shapes of qwen2-1.5b and qwen3-4b (B 1,
-   L 4096) and ``tests/test_flash_attn.py``'s shapes: f32 within 1e-5
-   of max |o|, bf16 within that plus one bf16 ULP of each value (both
-   sides round once from float32), two launches identical;
+   versions run in phase 7); flash attention (through `flash_attention`,
+   on the kernel `flash_route` picks, which alone must count both
+   launches: bf16 at hd 64/128 on the tensor cores, ``flash_mha_wgmma``,
+   the rest on the CUDA cores, ``flash_mha``) against its plain version
+   at qwen2-0.5b's prefill shape (B 4, L 4096, bf16 and f32), its heads
+   at L 200 (128-row tiles straddle fold groups), the hd-128 shapes of
+   qwen2-1.5b (also bidirectional) and qwen3-4b and
+   ``tests/test_flash_attn.py``'s shapes: f32 within 1e-5 of max |o|,
+   bf16 within that plus one bf16 ULP of each value (both sides round
+   once from float32), two launches identical;
 4. the main paths on ``cuda`` at full width, every launch count set to
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
@@ -53,7 +59,9 @@ Phases, in order; any failure exits non-zero:
      registered (24 layers, d 896, vocab 151936, bf16 compute, f32
      weights from a seed): `build_prefill_step` on 4 prompts of 4,096
      tokens (prefill_32k cut from batch 32 x 32,768), exactly 24
-     `flash_mha` launches by the count and in the profiler; one warm
+     launches of the tensor-core flash kernel and none of the CUDA-core
+     one, by the count and in the profiler; the same prefill at float32
+     compute, 24 of the CUDA-core kernel and none of the other; one warm
      `build_decode_step` step against `cache_specs`' prefilled cache
      (decode_32k cut from batch 128 to 8, cache 32,768), then 8
      requests answered: a 32-token prompt streamed into an empty
@@ -82,7 +90,7 @@ Phases, in order; any failure exits non-zero:
    (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
    (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
    (B 4, L 4096) and one warm decode step (B 8, cache 32,768): device
-   ms, busy share, the kernel's share, device ops per call;
+   ms, busy share, each flash kernel's share, device ops per call;
 7. kernel and plain times with CUDA events at the kernels' largest
    main-path shapes (for `ota_combine` also the largest unbatched one),
    beside the least time the card could take for the
@@ -92,11 +100,12 @@ Phases, in order; any failure exits non-zero:
    timed there, as in phase 3; the whole slab cluster
    hop (emulated draw of the slab and the combine) against the fused hop
    at the scale_u256 shape, and the u-sharded cluster hop against the
-   gathered one at the scale_u16384 shape; `flash_mha` at qwen2-0.5b's
-   prefill shape and at prefill_32k's length (B 1, L 32,768, one
-   layer) against its plain version, the library's
-   `scaled_dot_product_attention` (timed as a yardstick only, with the
-   backend it chose) and ``flash_bound_ms``;
+   gathered one at the scale_u16384 shape; the tensor-core flash kernel
+   at qwen2-0.5b's prefill shape and at prefill_32k's length (B 1,
+   L 32,768, one layer), and the CUDA-core one at the prefill shape in
+   float32, each against its plain version, the library's
+   `scaled_dot_product_attention` on the same inputs (timed as a
+   yardstick only, with the backend it chose) and ``flash_bound_ms``;
 8. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -122,13 +131,18 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
-SOURCES = ("fused_mac", "ota_combine", "flash_attn")  # csrc/<name>.cu
+SOURCES = ("fused_mac", "ota_combine", "flash_attn",
+           "flash_attn_wgmma")                             # csrc/<name>.cu
 # each kernel's record name -> (source, its __global__ function)
 KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "ota_combine": ("ota_combine", "ota_combine_kernel"),
            "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
            "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel"),
-           "flash_mha": ("flash_attn", "flash_attn_kernel")}
+           "flash_mha": ("flash_attn", "flash_attn_kernel"),
+           "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel")}
+# the flash wrappers' route (`flash_route`: the source) -> the record
+FLASH_RECORDS = {src: name for name, (src, _) in KERNELS.items()
+                 if src.startswith("flash_attn")}
 # H100 SXM peaks at the full 700 W power limit and the 1.98 GHz boost
 # clock: 132 SMs, 128 FP32 lanes each (67 TFLOP/s float32 outside the
 # tensor cores, counting an FMA as 2); 3.35 TB/s of HBM3.  A draw's
@@ -207,19 +221,22 @@ def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
 def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
                    causal: bool, itemsize: int):
     """Least time for one flash attention call on this card: the larger
-    of its operations at the dense bf16 tensor-core peak and its bytes
-    over HBM's rate.  Operations: 4 * hd per kept (query, key) pair (q.k
-    and p.v, a multiply-add counted as 2) for each of B * H query rows
-    of a position; kept pairs: min(l + 1, S) at position l when causal,
-    else S.  Bytes: q and o (B*L*H*hd each) and k and v (B*S*KV*hd
-    each), once."""
+    of its operations at the peak rate for the inputs' type and its
+    bytes over HBM's rate.  Operations: 4 * hd per kept (query, key)
+    pair (q.k and p.v, a multiply-add counted as 2) for each of B * H
+    query rows of a position; kept pairs: min(l + 1, S) at position l
+    when causal, else S.  Rate: the dense bf16 tensor-core peak for
+    bf16 (itemsize 2); the float32 peak outside the tensor cores for
+    float32 (TF32 would break the float32 gate).  Bytes: q and o
+    (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
     if not causal:
         pairs = L * S
     elif S >= L:
         pairs = L * (L + 1) // 2
     else:
         pairs = S * (S + 1) // 2 + (L - S) * S
-    t_ops = 4 * hd * B * H * pairs / BF16_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_ops = 4 * hd * B * H * pairs / rate
     t_bytes = itemsize * (2 * B * L * H * hd + 2 * B * S * KV * hd) / (
         HBM_BYTES_PER_S)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -256,7 +273,7 @@ def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
 def lm_profile(fn) -> dict:
     """`fn()` (one serving step, ending in a synchronize) warm, timed on
     the host clock, then under `torch.profiler`: device ms, busy share,
-    the flash kernel's share and the device ops of one call."""
+    each flash kernel's share and the device ops of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -275,30 +292,37 @@ def lm_profile(fn) -> dict:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         by_name[e.name][1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())
-    flash_ms = sum(ms for k, (ms, _) in by_name.items()
-                   if KERNELS["flash_mha"][1] in k)
+    flash = {}
+    for name in FLASH_RECORDS.values():
+        ms = sum(t for k, (t, _) in by_name.items() if KERNELS[name][1] in k)
+        flash.update({f"{name}_ms": ms, f"{name}_share": ms / device_ms})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms,
-            "flash_mha_ms": flash_ms, "flash_mha_share": flash_ms / device_ms,
+            "device_busy_share": device_ms / wall_ms, **flash,
             "device_ops_per_call": len(ops),
             "top": [{"op": k[:72], "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
 
 
-def flash_kernels_in(prof) -> int:
-    """The flash_mha kernels a `torch.profiler` trace saw on the card."""
+def flash_kernels_in(prof) -> dict:
+    """{record: launches} of each flash kernel a `torch.profiler` trace
+    saw on the card."""
     from torch.autograd import DeviceType
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and KERNELS["flash_mha"][1] in e.name)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {name: sum(KERNELS[name][1] in k for k in names)
+            for name in FLASH_RECORDS.values()}
 
 
 def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
              requests=(8, 32, 16)) -> dict:
     """Phase 4's dense-LM serving path through `repro_torch.launch.serve`:
-    `cfg`'s weights from a seed on `dev`; a prefill at `pre_shape` (one
-    `flash_mha` launch per layer, by the count and in the profiler,
-    finite last-position logits and greedy tokens in the vocabulary);
+    `cfg`'s weights from a seed on `dev`; a prefill at `pre_shape` at
+    `cfg`'s bf16 compute (one launch of the tensor-core flash kernel per
+    layer and none of the CUDA-core one, by the count and in the
+    profiler, finite last-position logits and greedy tokens in the
+    vocabulary), then the same prefill at float32 compute (the other
+    route: one CUDA-core launch per layer, no tensor-core one);
     one warm decode step against `cache_specs`' prefilled cache at
     `dec_shape` (no kernel); then `requests` = (n, prompt tokens, new
     tokens): n prompts streamed into an empty cache, then greedy tokens.
@@ -322,34 +346,45 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
          "n_params": sum(t.numel() for _, t in tree_leaves(params)),
          "init_seconds": time.perf_counter() - t0})
 
-    prefill_step, batch_specs = serve.build_prefill_step(cfg, pre_shape,
-                                                         device=dev.type)
-    spec = batch_specs()["tokens"]
-    pre_tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
+    f32 = cfg.with_(compute_dtype="float32")
+    for label, run_cfg, run_params, record in (
+            (f"{cfg.name} prefill", cfg, served, "flash_mha_wgmma"),
+            (f"{cfg.name} prefill f32", f32, serve.compute_params(params, f32),
+             "flash_mha")):
+        step, batch_specs = serve.build_prefill_step(run_cfg, pre_shape,
+                                                     device=dev.type)
+        spec = batch_specs()["tokens"]
+        tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
                               cfg.vocab).to(spec.dtype)
 
-    def run_prefill():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = prefill_step(served, {"tokens": pre_tokens})
-            torch.cuda.synchronize()
-        return out, flash_kernels_in(prof)
+        def run_prefill():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = step(run_params, {"tokens": tokens})
+                torch.cuda.synchronize()
+            return out, flash_kernels_in(prof)
 
-    t0 = time.perf_counter()
-    (logits, traced), launches = counted(run_prefill)
-    greedy = logits.argmax(-1)
-    log({"phase": "main_path", "run": f"{cfg.name} prefill",
-         "cut": cuts["prefill"], "shape_BL": list(spec.shape),
-         "seconds_cold": time.perf_counter() - t0,
-         "flash_mha_in_profiler": traced, "greedy": greedy.tolist(),
-         "max_abs_logit": float(logits.abs().max())})
-    if traced != cfg.n_layers:
-        raise SystemExit(f"the profiler saw {traced} flash_mha kernels in "
-                         f"the prefill, not {cfg.n_layers}")
-    expect(f"{cfg.name} prefill", launches, {"flash_mha": cfg.n_layers},
-           tuple(logits.shape) == (spec.shape[0], cfg.vocab)
-           and bool(torch.isfinite(logits).all())
-           and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
+        t0 = time.perf_counter()
+        (logits, traced), launches = counted(run_prefill)
+        greedy = logits.argmax(-1)
+        log({"phase": "main_path", "run": label, "cut": cuts["prefill"],
+             "shape_BL": list(spec.shape),
+             "compute_dtype": run_cfg.compute_dtype,
+             "seconds_cold": time.perf_counter() - t0,
+             "flash_kernels_in_profiler": traced, "greedy": greedy.tolist(),
+             "max_abs_logit": float(logits.abs().max())})
+        want = {name: cfg.n_layers if name == record else 0
+                for name in FLASH_RECORDS.values()}
+        if traced != want:
+            raise SystemExit(f"the profiler saw flash kernels {traced} in "
+                             f"{label}, not {want}")
+        expect(label, launches, {record: cfg.n_layers},
+               tuple(logits.shape) == (spec.shape[0], cfg.vocab)
+               and bool(torch.isfinite(logits).all())
+               and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
+        if record == "flash_mha_wgmma":
+            prefill_step, pre_tokens = step, tokens
+        del logits, greedy
 
     serve_step, token_specs = serve.build_decode_step(cfg, dec_shape,
                                                       device=dev.type)
@@ -416,8 +451,9 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
 
 def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
     """Phase 5 for the LM: `prefill_logits` at batch 1 and `prefill_len`
-    tokens, float32 compute, on `dev` (flash_mha) against the CPU (its
-    plain version) on the same weights copied off the card, within TOL
+    tokens, float32 compute, on `dev` (the CUDA-core flash kernel)
+    against the CPU (its plain version) on the same weights copied off
+    the card, within TOL
     of max |logit|; then the streamed decode of `decode` = (B, T) tokens
     against the prefill of the same tokens on `dev`, float32, within
     rtol = atol = 5e-3 (tests/test_arch_smoke.py's bound)."""
@@ -491,15 +527,16 @@ def lm_profiles(run: dict, dev, card) -> None:
              **lm_profile(fn)})
 
 
-def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
-                check_flash) -> dict:
-    """Phase 7 for flash_mha at `shape` = (B, L, H, KV, hd), causal,
-    bf16: the kernel and its plain version in turns (`reps` = kernel
-    and plain repetitions), the kernel held to the last plain output;
-    the library's `scaled_dot_product_attention` on the [B, H, L, hd]
-    layout (a yardstick, never on the path; the backend it dispatches to
-    and the kernels the profiler saw are logged) and `flash_bound_ms`.
-    Returns the kernel record's times."""
+def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
+                flash_pair, check_flash) -> tuple:
+    """Phase 7 for flash attention at `shape` = (B, L, H, KV, hd),
+    causal, in `dtype`: the kernel `flash_route` picks and its plain
+    version in turns (`reps` = kernel and plain repetitions), the kernel
+    held to the last plain output; the library's
+    `scaled_dot_product_attention` on the [B, H, L, hd] layout (a
+    yardstick, never on the path; the backend it dispatches to and the
+    kernels the profiler saw are logged) and `flash_bound_ms`.  Returns
+    (the kernel's record, its times)."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.nn.attention import SDPBackend
@@ -508,7 +545,7 @@ def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
     from repro_torch.kernels import flash_attention, flash_attention_plain
 
     B, L, H, KV, hd = shape
-    q, k, v = flash_inputs(B, L, H, KV, hd, torch.bfloat16, 90, dev)
+    q, k, v = flash_inputs(B, L, H, KV, hd, dtype, 90, dev)
     kept = {}
 
     def plain():
@@ -517,9 +554,8 @@ def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
     k_reps, p_reps = reps
     ks, ps = in_turns(lambda: flash_attention(q, k, v), plain, k_reps,
                       p_reps, warm_plain=p_reps > 1)
-    o1, o2 = flash_attention(q, k, v), flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    check_flash(f"{label} (timed)", shape, torch.bfloat16, True, o1, o2,
+    name, o1, o2 = flash_pair(q, k, v, True)
+    check_flash(name, f"{label} (timed)", shape, dtype, True, o1, o2,
                 kept["o"])
     qs, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
@@ -537,10 +573,11 @@ def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
     # the backend SDPA dispatches to for these inputs (its own choice)
     backend = SDPBackend(torch._fused_sdp_choice(
         qs, kt, vt, None, 0.0, True, scale=None, enable_gqa=True)).name
-    bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, True, 2)
+    bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, True,
+                                     q.element_size())
     ms = sum(ks) / 2
-    log({"phase": "times", "kernel": "flash_mha", "shape": label,
-         "shape_BLHKVhd": list(shape), "dtype": "bfloat16",
+    log({"phase": "times", "kernel": name, "shape": label,
+         "shape_BLHKVhd": list(shape), "dtype": str(dtype).split(".")[-1],
          "kernel_ms": ks, "plain_ms": ps, "library_ms": lib,
          "library_call": "scaled_dot_product_attention(is_causal=True, "
                          "enable_gqa=True) on [B, H, L, hd]",
@@ -550,9 +587,9 @@ def flash_times(label, shape, reps, dev, card, in_turns, time_ms,
               - o1.float()).abs().max()),
          "kernel_tflops": 4 * hd * B * H * L * (L + 1) / 2 / ms / 1e9,
          "bound_ms": bound, "bound_by": bound_by, "card": card})
-    return dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
-                bound_by=bound_by, library_ms=sum(lib) / 2,
-                shape=list(shape))
+    return name, dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
+                      bound_by=bound_by, library_ms=sum(lib) / 2,
+                      shape=list(shape))
 
 
 def kernel_inputs(B, U, K, N, seed, dev):
@@ -785,7 +822,8 @@ def main() -> int:
                                   make_fused_cluster_hop, parse_mesh)
     from repro_torch.kernels import (build, flash_attention,
                                      flash_attention_plain, flash_mha,
-                                     fused_mac, fused_mac_partials,
+                                     flash_route, fused_mac,
+                                     fused_mac_partials,
                                      fused_mac_partials_plain,
                                      fused_mac_plain, fused_partials_reduce,
                                      fused_partials_reduce_plain,
@@ -831,6 +869,29 @@ def main() -> int:
             raise SystemExit(f"no draw loop found in the SASS of {fn}")
         cycles[name] = rec["cycles_per_draw"]
         log({"phase": "sass", "kernel": name, "function": fn, **rec})
+    # the tensor-core flash kernel runs on wgmma (HGMMA) fed by TMA
+    # (UTMALDG): each template instance, in this run's SASS
+    src, fn = KERNELS["flash_mha_wgmma"]
+    funcs = {k: v for k, v in sass.parse(sass.disassemble(
+        build.library_path(src))).items() if sass.short_name(k) == fn}
+    resources = sass.ptxas_resources(build.build_info(src)[1])
+    for mangled, instrs in funcs.items():
+        ops = defaultdict(int)
+        for ins in instrs:
+            ops[ins.base] += 1
+        counts = {op: ops[op] for op in ("HGMMA", "UTMALDG", "LDL", "STL",
+                                         "MUFU")}
+        log({"phase": "sass", "kernel": "flash_mha_wgmma",
+             "function": mangled, "instructions": len(instrs),
+             "hgmma_shapes": sorted({i.op for i in instrs
+                                     if i.base == "HGMMA"}),
+             **counts, **resources.get(mangled, {})})
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise SystemExit(f"{mangled} has no HGMMA or no UTMALDG in its "
+                             f"SASS: {counts}")
+    if len(funcs) != 2:
+        raise SystemExit(f"want the hd 64 and 128 instances of {fn}, found "
+                         f"{list(funcs)}")
 
     # -- phase 3: kernels vs plain versions at the main paths' shapes -------
     seed = torch.tensor([0xC0FFEE, 42], dtype=torch.int64, device=dev)
@@ -967,8 +1028,34 @@ def main() -> int:
                              f"{label}")
         del inp, args, p1, p2, y1, y2, y
 
+    # each kernel's launch count: (wrapper, attribute)
+    counters = {"fused_mac": (fused_mac, "launches"),
+                "ota_combine": (ota_combine, "launches"),
+                "fused_mac_partials": (fused_mac_partials, "launches"),
+                "fused_partials_reduce": (fused_partials_reduce, "launches"),
+                "flash_mha": (flash_mha, "launches"),
+                "flash_mha_wgmma": (flash_mha, "wgmma_launches")}
+
     # flash attention at the serving path's shapes and the JAX tests'
-    def check_flash(label, shape, dtype, causal, o1, o2, want):
+    def flash_counts():
+        return {name: getattr(*counters[name])
+                for name in FLASH_RECORDS.values()}
+
+    def flash_pair(q, k, v, causal):
+        """Two launches, and the record of the kernel that served both:
+        the one `flash_route` names, and it alone (by the counts)."""
+        name = FLASH_RECORDS[flash_route(q)]
+        before = flash_counts()
+        o1 = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o2 = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if flash_counts() != {**before, name: before[name] + 2}:
+            raise SystemExit(f"flash_attention launched {flash_counts()} "
+                             f"from {before}, not 2 of {name}")
+        return name, o1, o2
+
+    def check_flash(name, label, shape, dtype, causal, o1, o2, want):
         """Two launches' outputs against the plain version's: f32 within
         FLASH_F32_RTOL of max |o|, bf16 within that plus one bf16 ULP
         (`bf16_close`)."""
@@ -976,9 +1063,9 @@ def main() -> int:
         err = float((o1.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
         ulps = bf16_ulps(o1, want) if dtype == torch.bfloat16 else None
-        errors["flash_mha"] = max(errors["flash_mha"], err)
-        rel_errors["flash_mha"] = max(rel_errors["flash_mha"], rel)
-        log({"phase": "kernel_vs_plain", "kernel": "flash_mha",
+        errors[name] = max(errors[name], err)
+        rel_errors[name] = max(rel_errors[name], rel)
+        log({"phase": "kernel_vs_plain", "kernel": name,
              "case": label, "shape_BLHKVhd": list(shape),
              "dtype": str(dtype).split(".")[-1], "causal": causal,
              "max_abs_err": err, "max_rel_err": rel, "max_bf16_ulps": ulps,
@@ -986,7 +1073,7 @@ def main() -> int:
         ok = (bf16_close(o1, want, FLASH_F32_RTOL) if ulps is not None
               else rel <= FLASH_F32_RTOL)
         if not (same and ok and math.isfinite(rel)):
-            raise SystemExit(f"flash_mha disagrees with its plain version "
+            raise SystemExit(f"{name} disagrees with its plain version "
                              f"at {label} {shape}: rel {rel}, bf16 ulps "
                              f"{ulps}, repeat {same}")
 
@@ -997,33 +1084,33 @@ def main() -> int:
         ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), bf16, True),
         ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), f32, True),
         ("qwen3-4b prefill B1 L4096", (1, 4096, 32, 8, 128), bf16, True),
+        # 128-row tiles that hold rows of two heads (7 x 200 folded rows)
+        (f"{LM_ARCH} heads L200 (fold straddles tiles)",
+         (2, 200, 14, 2, 64), bf16, True),
+        ("qwen2-1.5b heads bidirectional", (1, 1000, 12, 2, 128), bf16,
+         False),
         ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
         ("test_flash_attn", shape, f32, causal)
         for shape in JAX_FLASH_SHAPES for causal in (True, False)]
     for i, (label, shape, dtype, causal) in enumerate(flash_cases):
         q, k, v = flash_inputs(*shape, dtype, 80 + i, dev)
-        o1 = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        o2 = flash_attention(q, k, v, causal=causal)
+        name, o1, o2 = flash_pair(q, k, v, causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        check_flash(label, shape, dtype, causal, o1, o2, want)
+        check_flash(name, label, shape, dtype, causal, o1, o2, want)
         del q, k, v, o1, o2, want
 
     # -- phase 4: the main paths -------------------------------------------
-    counters = {"fused_mac": fused_mac, "ota_combine": ota_combine,
-                "fused_mac_partials": fused_mac_partials,
-                "fused_partials_reduce": fused_partials_reduce,
-                "flash_mha": flash_mha}
     main_launches = {name: 0 for name in KERNELS}
 
     def counted(run):
         """`run()` with every launch count set to 0 just before it; the
         counts just after."""
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         out = run()
-        return out, {name: fn.launches for name, fn in counters.items()}
+        return out, {name: getattr(fn, attr)
+                     for name, (fn, attr) in counters.items()}
 
     def finite(res) -> bool:
         metrics = [getattr(res, k) for k in ("acc", "loss", "edge_power",
@@ -1384,13 +1471,16 @@ def main() -> int:
          "u_sharded_hop_ms": u_ms, "gathered_hop_ms": g_ms, "card": card})
     del deltas, hop
 
-    for label, shape, reps in (
-            (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), (10, 3)),
-            (f"{LM_ARCH} prefill_32k B1 L32768", (1, 32768, 14, 2, 64),
-             (3, 1))):
-        timings["flash_mha", label] = flash_times(label, shape, reps, dev,
-                                                  card, in_turns, time_ms,
-                                                  check_flash)
+    for label, shape, dtype, reps in (
+            (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), bf16,
+             (20, 3)),
+            (f"{LM_ARCH} prefill_32k B1 L32768", (1, 32768, 14, 2, 64), bf16,
+             (10, 1)),
+            (f"{LM_ARCH} prefill f32 B4 L4096", (4, 4096, 14, 2, 64), f32,
+             (10, 3))):
+        name, times = flash_times(label, shape, dtype, reps, dev, card,
+                                  in_turns, time_ms, flash_pair, check_flash)
+        timings[name, label] = times
 
     # -- phase 8: the records ----------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
@@ -1403,7 +1493,11 @@ def main() -> int:
                # a jnp helper in the JAX package, a kernel here
                ("fused_partials_reduce", "scale_u65536 1x1",
                 "src/repro/kernels/fused_mac.py:467", None),
-               ("flash_mha", f"{LM_ARCH} prefill B4 L4096",
+               # both flash kernels replace the one Pallas kernel: bf16 at
+               # hd 64/128 on the tensor cores, the rest on the CUDA cores
+               ("flash_mha_wgmma", f"{LM_ARCH} prefill B4 L4096",
+                "src/repro/kernels/flash_attn.py:39", None),
+               ("flash_mha", f"{LM_ARCH} prefill f32 B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None)]
     log({"phase": "done", "seconds": time.perf_counter() - t_start,
          "card": card})

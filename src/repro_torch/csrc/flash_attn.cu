@@ -2,7 +2,10 @@
 // grouped KV heads, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
-// `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`).
+// `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
+// for float32 at every head dim and bfloat16 at 16 and 32; bfloat16 at
+// 64 and 128 (the serving path's prefill) runs on the tensor cores in
+// csrc/flash_attn_wgmma.cu.
 // For every (batch b, KV head kv) pair n and every query row r of the
 // folded row axis (r = g * L + l: the G = H / KV query heads of kv
 // folded over the L positions), with position l = r mod L:
@@ -20,13 +23,13 @@
 // float32 (precise expf, no fast math).
 //
 // What bounds it on this card: operations.  A causal prefill does
-// 4 * head_dim flops per kept (query, key) pair against 2 bytes per
-// element of q, k, v and o read or written once: about 1,800 flops per
-// byte at qwen2-0.5b's B 4 x L 4096, so the tensor cores' dense bf16
-// rate sets the bound.  This first kernel runs on the CUDA cores in
-// float32, whose peak is 1/15 of that rate on an H100 SXM at 700 W (67
-// against 989 TFLOP/s, NVIDIA's data sheet): the redesign with wgmma,
-// TMA and warp specialisation is later work.
+// 4 * head_dim flops per kept (query, key) pair against 4 bytes per
+// float32 element of q, k, v and o read or written once: about 900
+// flops per byte at qwen2-0.5b's B 4 x L 4096.  Its float32 inputs
+// stay on the CUDA cores (67 TFLOP/s on an H100 SXM at 700 W, NVIDIA's
+// data sheet), since the tensor cores would take them as TF32 and miss
+// the float32 gate; bf16 at hd 16 and 32 runs here too, narrower than
+// the tensor-core kernel's 64-wide column blocks.
 //
 // Design.  The TPU kernel walks a sequential (N, q tile, k tile) grid
 // and carries (acc, m, l) in VMEM scratch across the k axis.  Here one
@@ -54,6 +57,8 @@
 //   [B, L, H, head_dim] layout needs no folded copy;
 // - fixed summation order, no atomics: two launches give the same bits.
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -263,21 +268,26 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 32:
       return launch<32, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
                            stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
-                           stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
   }
+  // bfloat16 at hd 64 and 128 runs on the tensor cores
+  // (csrc/flash_attn_wgmma.cu): no instance here
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 64:
+        return launch<64, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
+                             stream);
+      case 128:
+        return launch<128, T>(q, k, v, o, causal, NB, KV, G, L, S, st,
+                              scale, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: NB * G * L query rows; k, v: NB * S keys; all of head_dim `hd`
-// (16, 32, 64 or 128), float32 (dtype 0) or bfloat16 (dtype 1).  Pair n
+// q, o: NB * G * L query rows; k, v: NB * S keys; all of head_dim `hd`:
+// float32 (dtype 0) at 16, 32, 64 or 128, bfloat16 (dtype 1) at 16 or 32.  Pair n
 // = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),

@@ -1,6 +1,7 @@
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_plain, flash_mha,
                                             flash_mha_plain)
+from repro_torch.kernels.flash_attn import route as flash_route
 from repro_torch.kernels.fused_mac import (canonical_block_u, fused_mac,
                                            fused_mac_partials,
                                            fused_mac_partials_plain,
@@ -18,4 +19,4 @@ __all__ = ["fused_combine", "mf_combine", "fused_mac", "fused_mac_plain",
            "fused_partials_reduce_plain", "ota_combine", "ota_combine_plain",
            "fused_channels", "assert_draw_invariance", "canonical_block_u",
            "flash_mha", "flash_mha_plain", "flash_attention",
-           "flash_attention_plain"]
+           "flash_attention_plain", "flash_route"]

@@ -1,16 +1,18 @@
-"""Time two or more versions of ``csrc/fused_mac.cu`` against each other
-on one card, in turns.
+"""Time two or more versions of ``csrc/fused_mac.cu`` (or of
+``csrc/flash_attn_wgmma.cu``) against each other on one card, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab OLD.cu NEW.cu
 
 (an older version comes from ``git show <rev>:src/repro_torch/csrc/
 fused_mac.cu > OLD.cu``, in a directory the chip copy carries).  Each
-source is built with the package's nvcc flags, and its `fused_mac`
-launch is timed with CUDA events at the main path's shapes, in the
-order A, B, ..., B, A; where every source has the partial combine, so
-is `fused_mac_partials` at the scale_u65536 1x1 shape.  Prints one JSON
-line per shape (times, and whether each version's output equals the
-first's bit for bit), one per kernel with its SASS report
+source is built with the package's nvcc flags, and each entry point
+that every source has is timed with CUDA events at the main path's
+shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
+`fused_mac_partials` at the scale_u65536 1x1 shape, the tensor-core
+flash kernel at qwen2-0.5b's prefill shape and at prefill_32k's length
+(bf16, causal).  Prints one JSON line per shape (times, and whether
+each version's output equals the first's bit for bit, with the largest
+gap where it does not), one per kernel with its SASS report
 (`repro_torch.kernels.sass`), and the card's name and power limit.
 Needs a CUDA card and nvcc.
 """
@@ -33,11 +35,14 @@ from repro_torch.kernels import build, sass
 MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
               (16, 16384, 4, 3925, 1024)]
 PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
+# (B, L, H, KV, hd): qwen2-0.5b's prefill and prefill_32k's length
+FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 32768, 14, 2, 64)]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build_source(src: Path, out_dir: Path):
-    """(library, nvcc log, whether `fused_mac_launch` takes block_u)."""
+    """(library, nvcc log, whether `fused_mac_launch`, where the source
+    has it, takes block_u)."""
     lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
                            str(lib), str(src)], capture_output=True,
@@ -45,8 +50,8 @@ def build_source(src: Path, out_dir: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     text = src.read_text()
-    head = text[text.index('"C" int fused_mac_launch'):]
-    takes_block_u = "block_u" in head[:head.index(")")]
+    at = text.find('"C" int fused_mac_launch')
+    takes_block_u = at >= 0 and "block_u" in text[at:text.index(")", at)]
     return lib, proc.stdout + proc.stderr, takes_block_u
 
 
@@ -94,8 +99,9 @@ def main(argv=None) -> int:
                 print(json.dumps({"source": name, "kernel": kernel, **rec}),
                       flush=True)
     order = names + names[::-1]
+    has = lambda fn: all(hasattr(lib, fn) for lib, _ in built.values())
 
-    for B, U, K, N, bu in MAC_SHAPES:
+    for B, U, K, N, bu in MAC_SHAPES if has("fused_mac_launch") else ():
         t_re, t_im, amp, w = inputs(B, U, N, 0, dev)
 
         def call(name):
@@ -123,8 +129,7 @@ def main(argv=None) -> int:
                               n: torch.equal(call(n), first)
                               for n in names}}), flush=True)
 
-    if all(hasattr(lib, "fused_mac_partials_launch")
-           for lib, _ in built.values()):
+    if has("fused_mac_partials_launch"):
         B, U, K, N, bu = PARTIALS_SHAPE
         t_re, t_im, amp, w = inputs(B, U, N, 1, dev)
 
@@ -149,6 +154,42 @@ def main(argv=None) -> int:
                           "ms": ms, "bitwise_equal_first": {
                               n: torch.equal(pcall(n), first)
                               for n in names}}), flush=True)
+    for B, L, H, KV, hd in FLASH_SHAPES if has("flash_attn_wgmma_launch") \
+            else ():
+        g = torch.Generator().manual_seed(2)
+        q, k, v = (torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+                   for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+        strides = (ctypes.c_longlong * 12)(
+            L * H * hd, H * hd, hd, L * KV * hd, KV * hd, hd,
+            L * KV * hd, KV * hd, hd, L * H * hd, H * hd, hd)
+
+        def fcall(name):
+            fn = built[name][0].flash_attn_wgmma_launch
+            fn.restype = _I
+            fn.argtypes = [_P] * 4 + [_I] * 7 + [
+                ctypes.POINTER(ctypes.c_longlong), _F, _P]
+            o = torch.empty_like(q)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     hd, 1, B * KV, KV, H // KV, L, L, strides,
+                     hd ** -0.5, stream)
+            if err:
+                raise RuntimeError(f"{name}: error {err}")
+            return o
+
+        reps = a.reps if L <= 4096 else max(a.reps // 4, 1)
+        ms = {n: [] for n in names}
+        for n in order:
+            ms[n].append(time_ms(lambda: fcall(n), reps))
+        first = fcall(names[0])
+        outs = {n: fcall(n) for n in names}
+        print(json.dumps({
+            "kernel": "flash_attn_wgmma", "shape_BLHKVhd": [B, L, H, KV, hd],
+            "ms": ms,
+            "bitwise_equal_first": {n: torch.equal(o, first)
+                                    for n, o in outs.items()},
+            "max_abs_gap_first": {n: float((o.float() - first.float())
+                                           .abs().max())
+                                  for n, o in outs.items()}}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -11,30 +11,36 @@ a key j is kept for it when j <= r % seq_len.  Scores are
 JAX package's constants.  Inputs are float32 or bfloat16, upcast to
 float32; the output is in q's dtype.
 
-Two implementations of that one function live here:
+Three implementations of that one function live here, and `route`
+picks one from the input tensors alone:
 
-- `flash_mha` and `flash_attention`, the wrappers: on CUDA tensors they
-  launch the hand-written Hopper kernel ``csrc/flash_attn.cu`` (and
-  count the launch in ``flash_mha.launches``, for both wrappers); on
-  CPU tensors they run the plain versions.  They choose by the device
-  of their inputs and by nothing else.  The kernel tiles with its own
-  compiled sizes (128 threads a block: 128, 128, 64 or 32 query rows
-  and 64, 64, 64 or 32 keys a tile at hd 16, 32, 64, 128), so on the
-  card ``q_block`` and ``kv_block`` are ignored.  It reads the model's
-  [B, L, H, hd] layout through strides: `flash_attention` makes no
-  folded copy on the card.
-- `flash_mha_plain` and `flash_attention_plain`, the plain PyTorch
-  versions: the same loop nest as the Pallas kernel in interpret mode
-  (``q_block`` x ``kv_block`` tiles, key tiles in ascending order, the
-  same recurrence and constants), vectorized over N.  The CPU tests
-  hold them to the JAX kernel; the card's smoke run holds the kernel
-  to them.
+- ``"flash_attn_wgmma"``: bfloat16 at hd 64 or 128 on a CUDA card, the
+  hand-written Hopper kernel ``csrc/flash_attn_wgmma.cu`` (tensor cores:
+  wgmma, TMA-fed K/V ring, warp specialisation; 128 query rows and 128
+  keys a tile), counted in ``flash_mha.wgmma_launches``.  This is the
+  serving path's prefill.
+- ``"flash_attn"``: every other CUDA input (float32 at any hd, bfloat16
+  at hd 16 or 32), the CUDA-core kernel ``csrc/flash_attn.cu`` (float32
+  arithmetic throughout: tensor cores would mean TF32 for float32
+  inputs), counted in ``flash_mha.launches``.
+- ``"plain"``: CPU tensors, `flash_mha_plain` and
+  `flash_attention_plain`, the plain PyTorch versions: the same loop
+  nest as the Pallas kernel in interpret mode (``q_block`` x
+  ``kv_block`` tiles, key tiles in ascending order, the same recurrence
+  and constants), vectorized over N.  The CPU tests hold them to the
+  JAX kernel; the card's smoke run holds both kernels to them.
 
-Both skip a key tile whose first key lies past every position of the q
-tile, by the exact test (the Pallas kernel's ``first_q_pos + QB - 1`` is
-conservative when a q tile straddles two fold groups).  The bits are
-the same: the causal row has seen key 0 in tile 0 by then, so a fully
-masked tile leaves (m, l, acc) unchanged.
+Both kernels tile with their own compiled sizes, so on the card
+``q_block`` and ``kv_block`` are ignored; both read the model's
+[B, L, H, hd] layout through strides (no folded copy).  A kernel that
+fails to build or launch raises: nothing falls back to the other
+kernel or to the plain version.
+
+All three skip a key tile whose first key lies past every position of
+the q tile, by the exact test (the Pallas kernel's ``first_q_pos + QB -
+1`` is conservative when a q tile straddles two fold groups).  The bits
+are the same: the causal row has seen key 0 in tile 0 by then, so a
+fully masked tile leaves (m, l, acc) unchanged.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MIN_DENOMINATOR = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,12 +93,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {q.device}")
 
 
+def route(q: torch.Tensor) -> str:
+    """The implementation that serves `q` (and its k and v, which
+    `_check` holds to q's device, dtype and head dim), from q's device
+    type, dtype and head dim alone: ``"plain"`` on the CPU,
+    ``"flash_attn_wgmma"`` for bfloat16 at hd 64 or 128 on a CUDA card,
+    ``"flash_attn"`` for any other CUDA input.  The kernels' names are
+    their sources under ``csrc/``."""
+    if q.device.type == "cpu":
+        return "plain"
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
+        return "flash_attn_wgmma"
+    return "flash_attn"
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The kernel's C entry point, built and typed once per process."""
-    fn = build.load("flash_attn").flash_attn_launch
+def _kernel_fn(name: str):
+    """Kernel `name`'s C entry point, built and typed once per process.
+    The CUDA-core kernel takes the dtype code after o; the wgmma kernel
+    is bfloat16 only."""
+    fn = getattr(build.load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    ints = 8 if name == "flash_attn" else 7
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     return fn
@@ -99,23 +123,28 @@ def _kernel_fn():
 
 def _launch(q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
             S: int, strides) -> None:
-    """Launch the kernel on the current stream; `strides` are the
-    element strides (batch, row, head) of q, k, v and o."""
+    """Launch the kernel `route` picks on the current stream; `strides`
+    are the element strides (batch, row, head) of q, k, v and o."""
     for x in (q, k, v, o):
         if x.data_ptr() % 16:
             raise ValueError("flash attention's kernel reads 16-byte "
                              "aligned rows; got a tensor at an offset")
+    name = route(q)
+    dtype = [_DTYPES[q.dtype]] if name == "flash_attn" else []
     arr = (ctypes.c_longlong * 12)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), _DTYPES[q.dtype], q.shape[-1],
-                           int(causal), NB, KV, G, L, S, arr,
-                           _scale(q.shape[-1]), stream)
+        err = _kernel_fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), *dtype, q.shape[-1],
+                               int(causal), NB, KV, G, L, S, arr,
+                               _scale(q.shape[-1]), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
-                           f"{err}")
-    flash_mha.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: error {err} "
+                           f"(the codes of csrc/{name}.cu's entry point)")
+    if name == "flash_attn":
+        flash_mha.launches += 1
+    else:
+        flash_mha.wgmma_launches += 1
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -126,15 +155,15 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     `seq_len` is the true sequence length when the row axis folds
     several query heads (row r sits at position r % seq_len, and Lq must
-    be a multiple of it); 0 means rows == positions.  The CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    be a multiple of it); 0 means rows == positions.  The kernel `route`
+    picks for CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, "folded")
     N, Lq, hd = q.shape
     S = k.shape[1]
     L = seq_len or Lq
     if Lq % L:
         raise ValueError(f"Lq={Lq} is not a multiple of seq_len={L}")
-    if q.device.type == "cpu":
+    if route(q) == "plain":
         return flash_mha_plain(q, k, v, causal=causal, q_block=q_block,
                                kv_block=kv_block, seq_len=seq_len)
     o = torch.empty_like(q)
@@ -146,7 +175,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
-flash_mha.launches = 0
+flash_mha.launches = 0          # csrc/flash_attn.cu (CUDA cores)
+flash_mha.wgmma_launches = 0    # csrc/flash_attn_wgmma.cu (tensor cores)
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -216,11 +246,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_block: int = 256) -> torch.Tensor:
     """GQA wrapper. q: [B, L, H, hd]; k, v: [B, S, KV, hd] ->
     [B, L, H*hd] in q's dtype.  Query head h = kv * G + g attends to KV
-    head kv, G = H / KV.  The CUDA kernel (reading this layout in place)
-    for CUDA tensors, the plain version for CPU tensors."""
+    head kv, G = H / KV.  The kernel `route` picks (reading this layout
+    in place) for CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, "model")
     _check_gqa(q, k)
-    if q.device.type == "cpu":
+    if route(q) == "plain":
         return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
                                      kv_block=kv_block)
     B, L, H, hd = q.shape

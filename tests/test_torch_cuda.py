@@ -13,7 +13,11 @@ Flash attention: float32 outputs within 1e-5 of max |o|; bfloat16
 outputs within that plus one bf16 ULP of each value, since both sides
 compute in float32 and round once (near zero the float32 gap spans
 many ULPs, so a strict 1-ULP rule fails for any change of summation
-order).
+order).  bfloat16 at hd 64 and 128 runs on the tensor-core kernel
+(``csrc/flash_attn_wgmma.cu``), which splits each softmax weight into
+two bf16 parts to stay inside that gate; every other input on the
+CUDA-core kernel (``csrc/flash_attn.cu``).  Each test checks which
+kernel served it by the wrapper's two launch counts.
 Two launches must give identical bits: the kernels sum in a fixed order
 and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
@@ -24,7 +28,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
-                                 flash_mha, flash_mha_plain, fused_mac,
+                                 flash_mha, flash_mha_plain, flash_route,
+                                 fused_mac,
                                  fused_mac_partials,
                                  fused_mac_partials_plain, fused_mac_plain,
                                  fused_partials_reduce,
@@ -222,10 +227,11 @@ def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool((gap <= 1e-5 * want.float().abs().max() + ulp).all())
 
 
-def _flash_inputs(B, L, H, KV, hd, dtype, seed):
+def _flash_inputs(B, L, H, KV, hd, dtype, seed, S=None):
     g = torch.Generator().manual_seed(seed)
+    S = L if S is None else S
     return [torch.randn(*s, generator=g).to("cuda", dtype)
-            for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
+            for s in ((B, L, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
 
 
 def _flash_close(got, want):
@@ -233,6 +239,19 @@ def _flash_close(got, want):
         return bf16_close(got, want)
     return float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+def _launch_counts():
+    return {"flash_attn": flash_mha.launches,
+            "flash_attn_wgmma": flash_mha.wgmma_launches}
+
+
+def _served_by(before, q, n):
+    """The kernel `flash_route` names for q launched n times since
+    `before`, and the other kernel not at all."""
+    want = dict(before)
+    want[flash_route(q)] += n
+    return _launch_counts() == want
 
 
 @pytest.mark.cuda
@@ -243,28 +262,64 @@ def test_flash_kernel_matches_plain_on_card(B, L, H, KV, hd, dtype, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, dtype, B + L + H + hd)
-    before = flash_mha.launches
+    before = _launch_counts()
     o1 = flash_attention(q, k, v, causal=causal)
     o2 = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_mha.launches == before + 2
+    assert _served_by(before, q, 2)
     assert o1.shape == (B, L, H * hd) and o1.dtype == dtype
     assert torch.equal(o1, o2)
     assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_mha_folded_layout_on_card(dtype):
-    """The folded [N, G*L, hd] layout with seq_len: the kernel reads it
+@pytest.mark.parametrize("B,L,S,H,KV,hd", [
+    (1, 200, 200, 14, 2, 64),     # 128-row tiles straddle fold groups
+    (1, 200, 333, 14, 2, 64),     # more keys than queries, ragged
+    (2, 300, 130, 14, 2, 64),     # fewer keys than queries
+    (1, 1000, 1000, 14, 2, 64),
+    (2, 96, 200, 12, 2, 128),
+    (1, 300, 130, 8, 8, 128),
+    (1, 640, 640, 32, 8, 128),
+    (2, 1, 1, 14, 2, 64),         # one query, one key
+    (3, 5, 7, 4, 1, 128),         # 20 rows in a 128-row block; S > L
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
+                                                  causal):
+    """The tensor-core kernel at its edges: L not a multiple of the
+    128-row tile (a tile holds rows of two heads), S != L, S not a
+    multiple of the 128-key tile, hd 64 and 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _flash_inputs(B, L, H, KV, hd, torch.bfloat16, L + S + hd, S)
+    assert flash_route(q) == "flash_attn_wgmma"
+    before = _launch_counts()
+    o1 = flash_attention(q, k, v, causal=causal)
+    o2 = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _served_by(before, q, 2)
+    assert torch.equal(o1, o2)
+    assert torch.isfinite(o1).all()
+    assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_mha_folded_layout_on_card(dtype, hd):
+    """The folded [N, G*L, hd] layout with seq_len: the kernels read it
     through other strides than the model layout."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     g = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(*s, generator=g).to("cuda", dtype)
-               for s in ((4, 150, 64), (4, 50, 64), (4, 50, 64)))
+               for s in ((4, 150, hd), (4, 50, hd), (4, 50, hd)))
+    before = _launch_counts()
     o = flash_mha(q, k, v, seq_len=50)
     torch.cuda.synchronize()
+    assert _served_by(before, q, 1)
     assert _flash_close(o, flash_mha_plain(q, k, v, seq_len=50))
     assert torch.equal(o, flash_mha(q, k, v, seq_len=50))
 
@@ -273,13 +328,15 @@ def test_flash_mha_folded_layout_on_card(dtype):
 def test_flash_refuses_offsets_and_strided_views_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    q = torch.zeros((1, 8, 2, 16), device="cuda")
-    kv = torch.zeros((1, 8, 1, 16), device="cuda")
-    before = flash_mha.launches
-    shifted = torch.zeros(q.numel() + 1, device="cuda")[1:].view(q.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention(shifted, kv, kv)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv,
-                        kv)
-    assert flash_mha.launches == before
+    for dtype, hd in ((torch.float32, 16), (torch.bfloat16, 64)):
+        q = torch.zeros((1, 8, 2, hd), device="cuda", dtype=dtype)
+        kv = torch.zeros((1, 8, 1, hd), device="cuda", dtype=dtype)
+        before = _launch_counts()
+        shifted = torch.zeros(q.numel() + 1, device="cuda",
+                              dtype=dtype)[1:].view(q.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(shifted, kv, kv)
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            kv, kv)
+        assert _launch_counts() == before
