@@ -76,9 +76,11 @@ Phases, in order; any failure exits non-zero:
    TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
    the control; ``scale_u256`` on the sharded engine (2x4, u_sharded)
    the same way; qwen2-0.5b's full-width `prefill_logits` (B 1,
-   L 256, f32 compute) on the card (kernel) against the CPU (plain
-   version, the same weights copied off the card) within 1e-4 of
-   max |logit|, and its streamed decode (B 2, T 64, f32) against its
+   L 256) on the card (24 launches of one flash kernel) against the CPU
+   (plain version, the same weights copied off the card): at f32
+   compute (CUDA-core kernel) within 1e-4 of max |logit|, at bf16
+   compute (tensor-core kernel) within 5e-2 (the CPU tests' bf16 bound
+   against JAX), and its streamed decode (B 2, T 64, f32) against its
    prefill on the card within rtol = atol = 5e-3;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
@@ -105,7 +107,10 @@ Phases, in order; any failure exits non-zero:
    L 32,768, one layer), and the CUDA-core one at the prefill shape in
    float32, each against its plain version, the library's
    `scaled_dot_product_attention` on the same inputs (timed as a
-   yardstick only, with the backend it chose) and ``flash_bound_ms``;
+   yardstick only, held to the backend it chose; for float32 on k and v
+   expanded to H heads beforehand, as its GQA mode would send float32
+   to the MATH backend) and ``flash_bound_ms`` (bf16 at the tensor-core
+   peak, float32 at the 3xTF32 rate, and also at the TF32 peak);
 8. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -152,9 +157,15 @@ SMS, CLOCK_HZ = 132, 1.98e9
 FP32_FLOP_PER_S = SMS * 128 * 2 * CLOCK_HZ
 HBM_BYTES_PER_S = 3.35e12
 OP_PIPES = ("alu", "fmaheavy", "fma", "xu")
-# dense bf16 tensor-core peak of an H100 SXM at 700 W (NVIDIA's data sheet)
+# dense tensor-core peaks of an H100 SXM at 700 W (NVIDIA's data sheet):
+# bf16, and TF32, whose 3xTF32 split (three products per float32 one)
+# keeps float32's accuracy
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+F32_SPLIT_FLOP_PER_S = TF32_FLOP_PER_S / 3
 FLASH_F32_RTOL = 1e-5
+# tests/test_torch_lm.py's bound on a bf16 prefill's logits (port vs JAX)
+LM_BF16_RTOL = 5e-2
 LM_ARCH = "qwen2-0.5b"
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
@@ -219,23 +230,24 @@ def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
 
 
 def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
-                   causal: bool, itemsize: int):
+                   causal: bool, itemsize: int, rate: float | None = None):
     """Least time for one flash attention call on this card: the larger
-    of its operations at the peak rate for the inputs' type and its
-    bytes over HBM's rate.  Operations: 4 * hd per kept (query, key)
-    pair (q.k and p.v, a multiply-add counted as 2) for each of B * H
-    query rows of a position; kept pairs: min(l + 1, S) at position l
-    when causal, else S.  Rate: the dense bf16 tensor-core peak for
-    bf16 (itemsize 2); the float32 peak outside the tensor cores for
-    float32 (TF32 would break the float32 gate).  Bytes: q and o
-    (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
+    of its operations at `rate` FLOP/s and its bytes over HBM's rate.
+    Operations: 4 * hd per kept (query, key) pair (q.k and p.v, a
+    multiply-add counted as 2) for each of B * H query rows of a
+    position; kept pairs: min(l + 1, S) at position l when causal, else
+    S.  `rate` None takes the fastest rate that keeps the inputs' accuracy:
+    the dense bf16 tensor-core peak for bf16 (itemsize 2), the 3xTF32
+    rate for float32 (TF32 alone breaks the float32 gate).  Bytes: q
+    and o (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
     if not causal:
         pairs = L * S
     elif S >= L:
         pairs = L * (L + 1) // 2
     else:
         pairs = S * (S + 1) // 2 + (L - S) * S
-    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    rate = rate or (BF16_FLOP_PER_S if itemsize == 2
+                    else F32_SPLIT_FLOP_PER_S)
     t_ops = 4 * hd * B * H * pairs / rate
     t_bytes = itemsize * (2 * B * L * H * hd + 2 * B * S * KV * hd) / (
         HBM_BYTES_PER_S)
@@ -451,32 +463,49 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
 
 def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
     """Phase 5 for the LM: `prefill_logits` at batch 1 and `prefill_len`
-    tokens, float32 compute, on `dev` (the CUDA-core flash kernel)
-    against the CPU (its plain version) on the same weights copied off
-    the card, within TOL
-    of max |logit|; then the streamed decode of `decode` = (B, T) tokens
-    against the prefill of the same tokens on `dev`, float32, within
-    rtol = atol = 5e-3 (tests/test_arch_smoke.py's bound)."""
+    tokens on `dev` against the CPU (the plain version) on the same
+    weights copied off the card: at float32 compute (the CUDA-core flash
+    kernel) within TOL of max |logit|, and at `cfg`'s bf16 compute (the
+    tensor-core one) within LM_BF16_RTOL; each card run must launch its
+    kernel once per layer and not the other; then the streamed decode
+    of `decode` = (B, T) tokens against the prefill of the same tokens
+    on `dev`, float32, within rtol = atol = 5e-3
+    (tests/test_arch_smoke.py's bound)."""
     from repro_torch import prng
+    from repro_torch.kernels import flash_mha
     from repro_torch.models import lm
     from repro_torch.tree import tree_map
 
     f32 = cfg.with_(compute_dtype="float32")
     toks = prng.randint(prng.PRNGKey(4, dev), (1, prefill_len), 0,
                         cfg.vocab).to(torch.int32)
-    on_card = lm.prefill_logits(params, {"tokens": toks}, f32).cpu()
-    t0 = time.perf_counter()
-    on_cpu = lm.prefill_logits(tree_map(lambda t: t.cpu(), params),
-                               {"tokens": toks.cpu()}, f32)
-    gap = float((on_card - on_cpu).abs().max())
-    rel = gap / float(on_cpu.abs().max())
-    log({"phase": "reference", "run": f"{cfg.name} prefill_logits B1 "
-         f"L{prefill_len} f32", "what": "the card (flash_mha) vs the CPU "
-         "(its plain version), the same weights", "max_abs_gap": gap,
-         "max_rel_gap": rel, "cpu_seconds": time.perf_counter() - t0})
-    if not rel <= TOL:
-        raise SystemExit(f"{cfg.name} prefill on the card disagrees with "
-                         f"the CPU: {rel} of max |logit|")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    counts = lambda: {"flash_mha": flash_mha.launches,
+                      "flash_mha_wgmma": flash_mha.wgmma_launches}
+    for run_cfg, record, rtol in ((f32, "flash_mha", TOL),
+                                  (cfg, "flash_mha_wgmma", LM_BF16_RTOL)):
+        before = counts()
+        on_card = lm.prefill_logits(params, {"tokens": toks}, run_cfg).cpu()
+        step = {n: c - before[n] for n, c in counts().items()}
+        t0 = time.perf_counter()
+        on_cpu = lm.prefill_logits(cpu_params, {"tokens": toks.cpu()},
+                                   run_cfg)
+        gap = float((on_card - on_cpu).abs().max())
+        rel = gap / float(on_cpu.abs().max())
+        log({"phase": "reference", "run": f"{cfg.name} prefill_logits B1 "
+             f"L{prefill_len} {run_cfg.compute_dtype}",
+             "what": f"the card ({record}) vs the CPU (its plain version), "
+             "the same weights", "card_launches": step, "max_abs_gap": gap,
+             "max_rel_gap": rel, "rtol": rtol,
+             "cpu_seconds": time.perf_counter() - t0})
+        if step != {n: cfg.n_layers if n == record else 0 for n in step}:
+            raise SystemExit(f"{cfg.name} {run_cfg.compute_dtype} prefill "
+                             f"launched {step}, not {cfg.n_layers} of "
+                             f"{record}")
+        if not rel <= rtol:
+            raise SystemExit(f"{cfg.name} {run_cfg.compute_dtype} prefill "
+                             f"on the card disagrees with the CPU: {rel} "
+                             f"of max |logit|")
 
     B, T = decode
     toks = prng.randint(prng.PRNGKey(5, dev), (B, T), 0,
@@ -534,12 +563,14 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
     version in turns (`reps` = kernel and plain repetitions), the kernel
     held to the last plain output; the library's
     `scaled_dot_product_attention` on the [B, H, L, hd] layout (a
-    yardstick, never on the path; the backend it dispatches to and the
-    kernels the profiler saw are logged) and `flash_bound_ms`.  Returns
+    yardstick, never on the path, held to the backend it chooses, which
+    is logged with the kernels the profiler saw; for float32 on k and v
+    expanded to H heads) and `flash_bound_ms` (for float32 also at the
+    TF32 peak).  Returns
     (the kernel's record, its times)."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
-    from torch.nn.attention import SDPBackend
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
@@ -558,38 +589,49 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
     check_flash(name, f"{label} (timed)", shape, dtype, True, o1, o2,
                 kept["o"])
     qs, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # float32: k and v expanded to H heads beforehand, since enable_gqa
+    # sends float32 to the MATH backend; EFFICIENT can then run (3xTF32
+    # on the tensor cores)
+    gqa = dtype == torch.bfloat16
+    if not gqa:
+        kt, vt = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+    backend = SDPBackend(torch._fused_sdp_choice(
+        qs, kt, vt, None, 0.0, True, scale=None, enable_gqa=gqa))
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+                                              enable_gqa=gqa)
 
-    lib = [time_ms(sdpa, k_reps), time_ms(sdpa, k_reps)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        o_lib = sdpa()
-        torch.cuda.synchronize()
+    # only the backend SDPA chose for these inputs may run
+    with sdpa_kernel(backend):
+        lib = [time_ms(sdpa, k_reps), time_ms(sdpa, k_reps)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            o_lib = sdpa()
+            torch.cuda.synchronize()
     kernels = sorted({e.name[:80] for e in prof.events()
                       if e.device_type == DeviceType.CUDA})
-    # the backend SDPA dispatches to for these inputs (its own choice)
-    backend = SDPBackend(torch._fused_sdp_choice(
-        qs, kt, vt, None, 0.0, True, scale=None, enable_gqa=True)).name
     bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, True,
                                      q.element_size())
+    extra = {} if gqa else {"bound_tf32_peak_ms": flash_bound_ms(
+        B, L, L, H, KV, hd, True, 4, rate=TF32_FLOP_PER_S)[0]}
     ms = sum(ks) / 2
     log({"phase": "times", "kernel": name, "shape": label,
          "shape_BLHKVhd": list(shape), "dtype": str(dtype).split(".")[-1],
          "kernel_ms": ks, "plain_ms": ps, "library_ms": lib,
-         "library_call": "scaled_dot_product_attention(is_causal=True, "
-                         "enable_gqa=True) on [B, H, L, hd]",
-         "library_backend": backend, "library_kernels": kernels,
+         "library_call": "scaled_dot_product_attention(is_causal=True"
+                         + (", enable_gqa=True) on [B, H, L, hd]" if gqa else
+                            ") on [B, H, L, hd], k and v expanded to H "
+                            "heads beforehand"),
+         "library_backend": backend.name, "library_kernels": kernels,
          "library_vs_kernel_max_abs_gap": float(
              (o_lib.transpose(1, 2).reshape(o1.shape).float()
               - o1.float()).abs().max()),
          "kernel_tflops": 4 * hd * B * H * L * (L + 1) / 2 / ms / 1e9,
-         "bound_ms": bound, "bound_by": bound_by, "card": card})
+         "bound_ms": bound, "bound_by": bound_by, **extra, "card": card})
     return name, dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
                       bound_by=bound_by, library_ms=sum(lib) / 2,
-                      shape=list(shape))
+                      dtype=str(dtype).split(".")[-1], shape=list(shape))
 
 
 def kernel_inputs(B, U, K, N, seed, dev):
@@ -1508,7 +1550,9 @@ def main() -> int:
         **({"also_replaces": also} if also else {}),
         "launches": main_launches[name], "max_abs_err": errors[name],
         "max_rel_err": rel_errors[name],
-        "library_ms": None, **timings[name, shape]}
+        # the timed inputs' dtype: float32 (complex values as two planes)
+        # for the W-HFL kernels, set by `flash_times` for flash
+        "library_ms": None, "dtype": "float32", **timings[name, shape]}
         for name, shape, replaces, also in records]})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

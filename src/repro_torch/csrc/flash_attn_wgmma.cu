@@ -588,8 +588,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 
 }  // namespace
 
-// q, o: NB * G * L query rows; k, v: NB * S keys; bfloat16, head_dim `hd`
-// of 64 or 128.  Pair n = b * KV + kv reads query row r = g * L + l at
+// q, o: NB * G * L query rows; k, v: NB * S keys; bfloat16 (dtype 1, the
+// code of csrc/flash_attn.cu's entry point, which shares this signature;
+// any other dtype is refused), head_dim `hd` of 64 or 128.  Pair
+// n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides
@@ -598,11 +600,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 // an int: cudaErrorInvalidValue for a shape it does not take, 10000 +
 // the CUresult where cuTensorMapEncodeTiled refuses a map.
 extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
-                                       const void* v, void* o, int hd,
-                                       int causal, int NB, int KV, int G,
-                                       int L, int S,
+                                       const void* v, void* o, int dtype,
+                                       int hd, int causal, int NB, int KV,
+                                       int G, int L, int S,
                                        const long long* strides, float scale,
                                        void* stream) {
+  if (dtype != 1) return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -10,7 +10,8 @@ that every source has is timed with CUDA events at the main path's
 shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
 `fused_mac_partials` at the scale_u65536 1x1 shape, the tensor-core
 flash kernel at qwen2-0.5b's prefill shape and at prefill_32k's length
-(bf16, causal).  Prints one JSON line per shape (times, and whether
+(bf16, causal; every version must have the entry point's signature
+of `flash_attn.ARGTYPES`).  Prints one JSON line per shape (times, and whether
 each version's output equals the first's bit for bit, with the largest
 gap where it does not), one per kernel with its SASS report
 (`repro_torch.kernels.sass`), and the card's name and power limit.
@@ -28,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build, sass
+from repro_torch.kernels import build, flash_attn, sass
 
 # (B, U, K, N, block_u): scale_u256's and scale_u1024's cluster hops and
 # scale_u16384's gathered hop on a 1x1 mesh
@@ -159,19 +160,13 @@ def main(argv=None) -> int:
         g = torch.Generator().manual_seed(2)
         q, k, v = (torch.randn(*s, generator=g).to(dev, torch.bfloat16)
                    for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
-        strides = (ctypes.c_longlong * 12)(
-            L * H * hd, H * hd, hd, L * KV * hd, KV * hd, hd,
-            L * KV * hd, KV * hd, hd, L * H * hd, H * hd, hd)
 
         def fcall(name):
-            fn = built[name][0].flash_attn_wgmma_launch
-            fn.restype = _I
-            fn.argtypes = [_P] * 4 + [_I] * 7 + [
-                ctypes.POINTER(ctypes.c_longlong), _F, _P]
             o = torch.empty_like(q)
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     hd, 1, B * KV, KV, H // KV, L, L, strides,
-                     hd ** -0.5, stream)
+            err = flash_attn.call(
+                flash_attn.typed(built[name][0].flash_attn_wgmma_launch),
+                q, k, v, o, causal=True, NB=B * KV, KV=KV, G=H // KV, L=L,
+                S=L, strides=flash_attn.model_strides(q, k))
             if err:
                 raise RuntimeError(f"{name}: error {err}")
             return o

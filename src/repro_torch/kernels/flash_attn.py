@@ -107,37 +107,59 @@ def route(q: torch.Tensor) -> str:
     return "flash_attn"
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str):
-    """Kernel `name`'s C entry point, built and typed once per process.
-    The CUDA-core kernel takes the dtype code after o; the wgmma kernel
-    is bfloat16 only."""
-    fn = getattr(build.load(name), f"{name}_launch")
+# both kernels' C entry point: q, k, v, o, dtype code, hd, causal, NB,
+# KV, G, L, S, the 12 strides, scale, stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+               ctypes.c_void_p])
+
+
+def typed(fn):
+    """`fn`, a flash kernel's C entry point from a loaded library, with
+    its prototype set."""
     fn.restype = ctypes.c_int
-    ints = 8 if name == "flash_attn" else 7
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     return fn
 
 
-def _launch(q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
-            S: int, strides) -> None:
-    """Launch the kernel `route` picks on the current stream; `strides`
-    are the element strides (batch, row, head) of q, k, v and o."""
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    """Kernel `name`'s C entry point, built and typed once per process."""
+    return typed(getattr(build.load(name), f"{name}_launch"))
+
+
+def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """The element strides (batch, row, head) of q, k, v and o in the
+    model's contiguous [B, L, H, hd] and [B, S, KV, hd] layouts."""
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rows = (L * H * hd, H * hd, hd)
+    keys = (S * KV * hd, KV * hd, hd)
+    return rows + keys + keys + rows
+
+
+def call(fn, q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
+         S: int, strides) -> int:
+    """`fn` (a `typed` entry point) on q, k, v and o on the current
+    stream; `strides` are the element strides (batch, row, head) of q,
+    k, v and o.  Returns the entry point's error code."""
+    arr = (ctypes.c_longlong * 12)(*strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  _DTYPES[q.dtype], q.shape[-1], int(causal), NB, KV, G, L,
+                  S, arr, _scale(q.shape[-1]), stream)
+
+
+def _launch(q, k, v, o, **shape) -> None:
+    """Launch the kernel `route` picks (`call`'s arguments), and count
+    it."""
     for x in (q, k, v, o):
         if x.data_ptr() % 16:
             raise ValueError("flash attention's kernel reads 16-byte "
                              "aligned rows; got a tensor at an offset")
     name = route(q)
-    dtype = [_DTYPES[q.dtype]] if name == "flash_attn" else []
-    arr = (ctypes.c_longlong * 12)(*strides)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel_fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), *dtype, q.shape[-1],
-                               int(causal), NB, KV, G, L, S, arr,
-                               _scale(q.shape[-1]), stream)
+    err = call(_kernel_fn(name), q, k, v, o, **shape)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err} "
                            f"(the codes of csrc/{name}.cu's entry point)")
@@ -256,10 +278,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    rows = (L * H * hd, H * hd, hd)
-    keys = (S * KV * hd, KV * hd, hd)
     _launch(q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L, S=S,
-            strides=rows + keys + keys + rows)
+            strides=model_strides(q, k))
     return o.reshape(B, L, H * hd)
 
 

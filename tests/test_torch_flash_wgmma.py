@@ -23,9 +23,15 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   that plus one bf16 ULP of each value (the smoke's bf16 gate).
 - With p rounded once to bf16 (cuDNN's and FA3's choice) the same
   emulation lands at least 10x farther from the Pallas kernel, past the
-  1e-5 gate: the recorded reason for the split.
+  1e-5 gate, and its bf16 output fails the smoke's bf16 gate against
+  the Pallas kernel's bf16 output: the recorded reason for the split.
+- Both kernels' C entry points share one prototype, the wrapper's
+  `ARGTYPES`, and `model_strides` gives the model layout's strides.
 """
+import ctypes
+import re
 import types
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +41,7 @@ import torch
 from repro.kernels import flash_attention as j_flash_attention
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  flash_mha, flash_route)
+from repro_torch.kernels import flash_attn as flash_module
 from repro_torch.kernels.flash_attn import MIN_DENOMINATOR, NEG_INF
 
 torch.set_num_threads(1)
@@ -165,6 +172,32 @@ def test_rounding_p_once_misses_by_ten_times_more(B, L, S, H, KV, hd, qb,
     q, k, v = _inputs(B, L, S, H, KV, hd, L + S + hd)
     want = _pallas(q, k, v, True, qb, kb, jnp.float32)
     split = _gap(emulate(q, k, v, causal=True), want)
-    once = _gap(emulate(q, k, v, causal=True, split=False), want)
-    assert once >= 10 * split
-    assert once > RTOL
+    once = emulate(q, k, v, causal=True, split=False)
+    assert _gap(once, want) >= 10 * split
+    assert _gap(once, want) > RTOL
+    want_bf16 = _pallas(q, k, v, True, qb, kb, jnp.bfloat16).to(
+        torch.bfloat16)
+    assert not bf16_close(once.to(torch.bfloat16), want_bf16)
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "const long long*": ctypes.POINTER(ctypes.c_longlong)}
+
+
+@pytest.mark.parametrize("name", ["flash_attn", "flash_attn_wgmma"])
+def test_entry_points_share_the_wrappers_prototype(name):
+    src = (Path(flash_module.__file__).parent.parent / "csrc"
+           / f"{name}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}_launch\((.*?)\)', src,
+                       re.S).group(1)
+    types_ = [_C_TYPES[" ".join(p.split()[:-1]).replace(" *", "*")]
+              for p in params.split(",")]
+    assert types_ == flash_module.ARGTYPES
+
+
+def test_model_strides_are_the_contiguous_layouts():
+    q = torch.empty(2, 40, 14, 64)
+    k = torch.empty(2, 72, 2, 64)
+    assert flash_module.model_strides(q, k) == (
+        q.stride()[:3] + k.stride()[:3] * 2 + q.stride()[:3])
