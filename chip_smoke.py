@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
    (ptxas' registers and spills logged per kernel instance), and count
    each draw kernel's instructions per draw by pipe in its SASS
    (`repro_torch.kernels.sass`: the operations its bound counts); the
-   tensor-core flash kernel's two instances (hd 64, 128) must hold
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their SASS;
+   tensor-core flash kernels' instances (bf16 at hd 64 and 128, float32
+   at hd 64) must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in
+   their SASS;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
@@ -23,11 +24,13 @@ Phases, in order; any failure exits non-zero:
    versions run in phase 7); flash attention (through `flash_attention`,
    on the kernel `flash_route` picks, which alone must count both
    launches: bf16 at hd 64/128 on the tensor cores, ``flash_mha_wgmma``,
+   float32 at hd 64 on the tensor cores in 3xTF32, ``flash_mha_tf32``,
    the rest on the CUDA cores, ``flash_mha``) against its plain version
    at qwen2-0.5b's prefill shape (B 4, L 4096, bf16 and f32), its heads
-   at L 200 (128-row tiles straddle fold groups), the hd-128 shapes of
-   qwen2-1.5b (also bidirectional) and qwen3-4b and
-   ``tests/test_flash_attn.py``'s shapes: f32 within 1e-5 of max |o|,
+   at L 200 (128-row tiles straddle fold groups; also f32, both masks)
+   and L 77, the hd-128 shapes of qwen2-1.5b (also bidirectional) and
+   qwen3-4b and ``tests/test_flash_attn.py``'s shapes (f32 at hd 16/32
+   and 128 on the CUDA cores): f32 within 1e-5 of max |o|,
    bf16 within that plus one bf16 ULP of each value (both sides round
    once from float32), two launches identical;
 4. the main paths on ``cuda`` at full width, every launch count set to
@@ -59,9 +62,12 @@ Phases, in order; any failure exits non-zero:
      registered (24 layers, d 896, vocab 151936, bf16 compute, f32
      weights from a seed): `build_prefill_step` on 4 prompts of 4,096
      tokens (prefill_32k cut from batch 32 x 32,768), exactly 24
-     launches of the tensor-core flash kernel and none of the CUDA-core
-     one, by the count and in the profiler; the same prefill at float32
-     compute, 24 of the CUDA-core kernel and none of the other; one warm
+     launches of the bf16 tensor-core flash kernel and none of the
+     others, by the count and in the profiler; the same prefill at
+     float32 compute, 24 of the float32 tensor-core kernel and none of
+     the others; qwen2-1.5b at full width (hd 128), its depth cut to 4
+     layers, prefilled at float32 compute (1 prompt of 4,096 tokens): 4
+     launches of the CUDA-core kernel and none of the others; one warm
      `build_decode_step` step against `cache_specs`' prefilled cache
      (decode_32k cut from batch 128 to 8, cache 32,768), then 8
      requests answered: a 32-token prompt streamed into an empty
@@ -78,9 +84,9 @@ Phases, in order; any failure exits non-zero:
    the same way; qwen2-0.5b's full-width `prefill_logits` (B 1,
    L 256) on the card (24 launches of one flash kernel) against the CPU
    (plain version, the same weights copied off the card): at f32
-   compute (CUDA-core kernel) within 1e-4 of max |logit|, at bf16
-   compute (tensor-core kernel) within 5e-2 (the CPU tests' bf16 bound
-   against JAX), and its streamed decode (B 2, T 64, f32) against its
+   compute (the 3xTF32 kernel) within 1e-4 of max |logit|, at bf16
+   compute (the bf16 tensor-core kernel) within 5e-2 (the CPU tests'
+   bf16 bound against JAX), and its streamed decode (B 2, T 64, f32) against its
    prefill on the card within rtol = atol = 5e-3;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
@@ -91,12 +97,16 @@ Phases, in order; any failure exits non-zero:
    ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
    (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
    (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
-   (B 4, L 4096) and one warm decode step (B 8, cache 32,768): device
-   ms, busy share, each flash kernel's share, device ops per call;
+   (B 4, L 4096) at bf16 and at float32 compute and one warm decode
+   step (B 8, cache 32,768): device ms, busy share, each flash kernel's
+   share, device ops per call;
 7. kernel and plain times with CUDA events at the kernels' largest
-   main-path shapes (for `ota_combine` also the largest unbatched one),
-   beside the least time the card could take for the
-   same work (``fused_mac_bound_ms``, ``ota_combine_bound_ms``,
+   main-path shapes (for `ota_combine` at the Fig. 2 driver's three
+   shapes and scale_u256's, with its cluster size and its own device
+   time from the profiler, since at B = 1 the wrapper's host time
+   bounds back-to-back launches), beside the least
+   time the card could take for the same work (``fused_mac_bound_ms``,
+   ``ota_combine_bound_ms``,
    ``partials_bound_ms``, ``reduce_bound_ms``); at scale_u65536 1x1 both
    partial kernels are also held to the output of the plain calls
    timed there, as in phase 3; the whole slab cluster
@@ -104,8 +114,10 @@ Phases, in order; any failure exits non-zero:
    at the scale_u256 shape, and the u-sharded cluster hop against the
    gathered one at the scale_u16384 shape; the tensor-core flash kernel
    at qwen2-0.5b's prefill shape and at prefill_32k's length (B 1,
-   L 32,768, one layer), and the CUDA-core one at the prefill shape in
-   float32, each against its plain version, the library's
+   L 32,768, one layer), the float32 tensor-core one at the prefill
+   shape in float32, and the CUDA-core one at qwen2-1.5b's float32
+   prefill shape (B 1, L 4096, hd 128), each against its plain version,
+   the library's
    `scaled_dot_product_attention` on the same inputs (timed as a
    yardstick only, held to the backend it chose; for float32 on k and v
    expanded to H heads beforehand, as its GQA mode would send float32
@@ -119,6 +131,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib.util
 import json
@@ -137,14 +150,18 @@ TOL = 1e-4
 THETA_RTOL = 1e-4
 
 SOURCES = ("fused_mac", "ota_combine", "flash_attn",
-           "flash_attn_wgmma")                             # csrc/<name>.cu
+           "flash_attn_wgmma", "flash_attn_tf32")          # csrc/<name>.cu
 # each kernel's record name -> (source, its __global__ function)
 KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "ota_combine": ("ota_combine", "ota_combine_kernel"),
            "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
            "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel"),
            "flash_mha": ("flash_attn", "flash_attn_kernel"),
-           "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel")}
+           "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel"),
+           "flash_mha_tf32": ("flash_attn_tf32", "flash_tf32_kernel")}
+# the tensor-core flash kernels and their template instances: wgmma
+# (HGMMA) fed by TMA (UTMALDG) in each one's SASS
+TENSOR_CORE_FLASH = {"flash_mha_wgmma": 2, "flash_mha_tf32": 1}
 # the flash wrappers' route (`flash_route`: the source) -> the record
 FLASH_RECORDS = {src: name for name, (src, _) in KERNELS.items()
                  if src.startswith("flash_attn")}
@@ -167,6 +184,9 @@ FLASH_F32_RTOL = 1e-5
 # tests/test_torch_lm.py's bound on a bf16 prefill's logits (port vs JAX)
 LM_BF16_RTOL = 5e-2
 LM_ARCH = "qwen2-0.5b"
+# the float32 prefill at hd 128 that the CUDA-core flash kernel serves:
+# qwen2-1.5b at full width, its 28 layers cut to 4 for the run's time
+F32_HD128_ARCH, F32_HD128_LAYERS = "qwen2-1.5b", 4
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
                     (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
@@ -316,6 +336,28 @@ def lm_profile(fn) -> dict:
                     for k, (ms, n) in top]}
 
 
+def device_ms(fn, reps: int, kernel: str) -> dict:
+    """Mean device duration of the kernel whose name holds `kernel` over
+    `reps` calls of `fn()` under `torch.profiler`, and how many of its
+    launches the trace holds: its own time, free of the host's launch
+    rate, which bounds back-to-back CUDA-event times once the wrapper's
+    Python takes longer than the kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return {"ms": sum(us) / len(us) / 1e3 if us else "not measured",
+            "traced_launches": len(us), "calls": reps}
+
+
 def flash_kernels_in(prof) -> dict:
     """{record: launches} of each flash kernel a `torch.profiler` trace
     saw on the card."""
@@ -326,21 +368,64 @@ def flash_kernels_in(prof) -> dict:
             for name in FLASH_RECORDS.values()}
 
 
+def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
+                 expect, cut):
+    """One prefill of random tokens at `pre_shape` through
+    `serve.build_prefill_step` at `cfg`'s compute dtype: exactly
+    ``cfg.n_layers`` launches of the flash kernel `record` and none of
+    the others, by the count and in the profiler, finite logits and
+    greedy tokens in the vocabulary.  Returns (step, tokens)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.launch import serve
+
+    step, batch_specs = serve.build_prefill_step(cfg, pre_shape,
+                                                 device=dev.type)
+    spec = batch_specs()["tokens"]
+    tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
+                          cfg.vocab).to(spec.dtype)
+
+    def run_prefill():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = step(run_params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        return out, flash_kernels_in(prof)
+
+    t0 = time.perf_counter()
+    (logits, traced), launches = counted(run_prefill)
+    greedy = logits.argmax(-1)
+    log({"phase": "main_path", "run": label, "cut": cut,
+         "shape_BL": list(spec.shape), "compute_dtype": cfg.compute_dtype,
+         "seconds_cold": time.perf_counter() - t0,
+         "flash_kernels_in_profiler": traced, "greedy": greedy.tolist(),
+         "max_abs_logit": float(logits.abs().max())})
+    want = {name: cfg.n_layers if name == record else 0
+            for name in FLASH_RECORDS.values()}
+    if traced != want:
+        raise SystemExit(f"the profiler saw flash kernels {traced} in "
+                         f"{label}, not {want}")
+    expect(label, launches, {record: cfg.n_layers},
+           tuple(logits.shape) == (spec.shape[0], cfg.vocab)
+           and bool(torch.isfinite(logits).all())
+           and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
+    return step, tokens
+
+
 def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
              requests=(8, 32, 16)) -> dict:
     """Phase 4's dense-LM serving path through `repro_torch.launch.serve`:
     `cfg`'s weights from a seed on `dev`; a prefill at `pre_shape` at
-    `cfg`'s bf16 compute (one launch of the tensor-core flash kernel per
-    layer and none of the CUDA-core one, by the count and in the
+    `cfg`'s bf16 compute (one launch of the bf16 tensor-core flash
+    kernel per layer and none of the others, by the count and in the
     profiler, finite last-position logits and greedy tokens in the
-    vocabulary), then the same prefill at float32 compute (the other
-    route: one CUDA-core launch per layer, no tensor-core one);
+    vocabulary), then the same prefill at float32 compute (one launch
+    of the float32 tensor-core kernel per layer, none of the others);
     one warm decode step against `cache_specs`' prefilled cache at
     `dec_shape` (no kernel); then `requests` = (n, prompt tokens, new
     tokens): n prompts streamed into an empty cache, then greedy tokens.
     Returns what phases 5 to 7 reuse."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import prng
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -359,44 +444,13 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
          "init_seconds": time.perf_counter() - t0})
 
     f32 = cfg.with_(compute_dtype="float32")
-    for label, run_cfg, run_params, record in (
-            (f"{cfg.name} prefill", cfg, served, "flash_mha_wgmma"),
-            (f"{cfg.name} prefill f32", f32, serve.compute_params(params, f32),
-             "flash_mha")):
-        step, batch_specs = serve.build_prefill_step(run_cfg, pre_shape,
-                                                     device=dev.type)
-        spec = batch_specs()["tokens"]
-        tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
-                              cfg.vocab).to(spec.dtype)
-
-        def run_prefill():
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                out = step(run_params, {"tokens": tokens})
-                torch.cuda.synchronize()
-            return out, flash_kernels_in(prof)
-
-        t0 = time.perf_counter()
-        (logits, traced), launches = counted(run_prefill)
-        greedy = logits.argmax(-1)
-        log({"phase": "main_path", "run": label, "cut": cuts["prefill"],
-             "shape_BL": list(spec.shape),
-             "compute_dtype": run_cfg.compute_dtype,
-             "seconds_cold": time.perf_counter() - t0,
-             "flash_kernels_in_profiler": traced, "greedy": greedy.tolist(),
-             "max_abs_logit": float(logits.abs().max())})
-        want = {name: cfg.n_layers if name == record else 0
-                for name in FLASH_RECORDS.values()}
-        if traced != want:
-            raise SystemExit(f"the profiler saw flash kernels {traced} in "
-                             f"{label}, not {want}")
-        expect(label, launches, {record: cfg.n_layers},
-               tuple(logits.shape) == (spec.shape[0], cfg.vocab)
-               and bool(torch.isfinite(logits).all())
-               and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
-        if record == "flash_mha_wgmma":
-            prefill_step, pre_tokens = step, tokens
-        del logits, greedy
+    served_f32 = serve.compute_params(params, f32)
+    prefill_step, pre_tokens = prefill_path(
+        f"{cfg.name} prefill", cfg, served, "flash_mha_wgmma", pre_shape,
+        dev, counted, expect, cuts["prefill"])
+    prefill_f32_step, _ = prefill_path(
+        f"{cfg.name} prefill f32", f32, served_f32, "flash_mha_tf32",
+        pre_shape, dev, counted, expect, cuts["prefill"])
 
     serve_step, token_specs = serve.build_decode_step(cfg, dec_shape,
                                                       device=dev.type)
@@ -457,19 +511,20 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
            bool(torch.isfinite(logits).all()) and bool(
                ((answers >= 0) & (answers < cfg.vocab)).all()))
     return {"cfg": cfg, "params": params, "served": served,
-            "prefill_step": prefill_step, "pre_tokens": pre_tokens,
+            "served_f32": served_f32, "prefill_step": prefill_step,
+            "prefill_f32_step": prefill_f32_step, "pre_tokens": pre_tokens,
             "serve_step": serve_step, "dec_shape": dec_shape}
 
 
 def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
     """Phase 5 for the LM: `prefill_logits` at batch 1 and `prefill_len`
     tokens on `dev` against the CPU (the plain version) on the same
-    weights copied off the card: at float32 compute (the CUDA-core flash
-    kernel) within TOL of max |logit|, and at `cfg`'s bf16 compute (the
-    tensor-core one) within LM_BF16_RTOL; each card run must launch its
-    kernel once per layer and not the other; then the streamed decode
-    of `decode` = (B, T) tokens against the prefill of the same tokens
-    on `dev`, float32, within rtol = atol = 5e-3
+    weights copied off the card: at float32 compute (the float32
+    tensor-core flash kernel, 3xTF32) within TOL of max |logit|, and at
+    `cfg`'s bf16 compute (the bf16 one) within LM_BF16_RTOL; each card
+    run must launch its kernel once per layer and no other; then the
+    streamed decode of `decode` = (B, T) tokens against the prefill of
+    the same tokens on `dev`, float32, within rtol = atol = 5e-3
     (tests/test_arch_smoke.py's bound)."""
     from repro_torch import prng
     from repro_torch.kernels import flash_mha
@@ -481,8 +536,9 @@ def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
                         cfg.vocab).to(torch.int32)
     cpu_params = tree_map(lambda t: t.cpu(), params)
     counts = lambda: {"flash_mha": flash_mha.launches,
-                      "flash_mha_wgmma": flash_mha.wgmma_launches}
-    for run_cfg, record, rtol in ((f32, "flash_mha", TOL),
+                      "flash_mha_wgmma": flash_mha.wgmma_launches,
+                      "flash_mha_tf32": flash_mha.tf32_launches}
+    for run_cfg, record, rtol in ((f32, "flash_mha_tf32", TOL),
                                   (cfg, "flash_mha_wgmma", LM_BF16_RTOL)):
         before = counts()
         on_card = lm.prefill_logits(params, {"tokens": toks}, run_cfg).cpu()
@@ -529,15 +585,21 @@ def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
 
 
 def lm_profiles(run: dict, dev, card) -> None:
-    """Phase 6 for the LM: one warm prefill of phase 4's batch and one
-    warm decode step against a prefilled cache of phase 4's decode
-    shape, each through `lm_profile`."""
+    """Phase 6 for the LM: one warm prefill of phase 4's batch at bf16
+    and at float32 compute, and one warm decode step against a
+    prefilled cache of phase 4's decode shape, each through
+    `lm_profile`."""
     from repro_torch.models import lm
 
     cfg, served, shape = run["cfg"], run["served"], run["dec_shape"]
 
     def prefill_call():
         run["prefill_step"](served, {"tokens": run["pre_tokens"]})
+        torch.cuda.synchronize()
+
+    def prefill_f32_call():
+        run["prefill_f32_step"](run["served_f32"],
+                                {"tokens": run["pre_tokens"]})
         torch.cuda.synchronize()
 
     cache = lm.init_decode_cache(cfg, shape.global_batch, shape.seq_len,
@@ -550,6 +612,8 @@ def lm_profiles(run: dict, dev, card) -> None:
 
     B, L = run["pre_tokens"].shape
     for label, fn in ((f"{cfg.name} prefill B{B} L{L}", prefill_call),
+                      (f"{cfg.name} prefill f32 B{B} L{L}",
+                       prefill_f32_call),
                       (f"{cfg.name} decode step B{shape.global_batch} "
                        f"S{shape.seq_len}", decode_call)):
         log({"phase": "profile", "run": label, "card": card,
@@ -911,29 +975,30 @@ def main() -> int:
             raise SystemExit(f"no draw loop found in the SASS of {fn}")
         cycles[name] = rec["cycles_per_draw"]
         log({"phase": "sass", "kernel": name, "function": fn, **rec})
-    # the tensor-core flash kernel runs on wgmma (HGMMA) fed by TMA
+    # the tensor-core flash kernels run on wgmma (HGMMA) fed by TMA
     # (UTMALDG): each template instance, in this run's SASS
-    src, fn = KERNELS["flash_mha_wgmma"]
-    funcs = {k: v for k, v in sass.parse(sass.disassemble(
-        build.library_path(src))).items() if sass.short_name(k) == fn}
-    resources = sass.ptxas_resources(build.build_info(src)[1])
-    for mangled, instrs in funcs.items():
-        ops = defaultdict(int)
-        for ins in instrs:
-            ops[ins.base] += 1
-        counts = {op: ops[op] for op in ("HGMMA", "UTMALDG", "LDL", "STL",
-                                         "MUFU")}
-        log({"phase": "sass", "kernel": "flash_mha_wgmma",
-             "function": mangled, "instructions": len(instrs),
-             "hgmma_shapes": sorted({i.op for i in instrs
-                                     if i.base == "HGMMA"}),
-             **counts, **resources.get(mangled, {})})
-        if not (counts["HGMMA"] and counts["UTMALDG"]):
-            raise SystemExit(f"{mangled} has no HGMMA or no UTMALDG in its "
-                             f"SASS: {counts}")
-    if len(funcs) != 2:
-        raise SystemExit(f"want the hd 64 and 128 instances of {fn}, found "
-                         f"{list(funcs)}")
+    for record, instances in TENSOR_CORE_FLASH.items():
+        src, fn = KERNELS[record]
+        funcs = {k: v for k, v in sass.parse(sass.disassemble(
+            build.library_path(src))).items() if sass.short_name(k) == fn}
+        resources = sass.ptxas_resources(build.build_info(src)[1])
+        for mangled, instrs in funcs.items():
+            ops = defaultdict(int)
+            for ins in instrs:
+                ops[ins.base] += 1
+            counts = {op: ops[op] for op in ("HGMMA", "UTMALDG", "LDL",
+                                             "STL", "MUFU")}
+            log({"phase": "sass", "kernel": record,
+                 "function": mangled, "instructions": len(instrs),
+                 "hgmma_shapes": sorted({i.op for i in instrs
+                                         if i.base == "HGMMA"}),
+                 **counts, **resources.get(mangled, {})})
+            if not (counts["HGMMA"] and counts["UTMALDG"]):
+                raise SystemExit(f"{mangled} has no HGMMA or no UTMALDG in "
+                                 f"its SASS: {counts}")
+        if len(funcs) != instances:
+            raise SystemExit(f"want {instances} instances of {fn}, found "
+                             f"{list(funcs)}")
 
     # -- phase 3: kernels vs plain versions at the main paths' shapes -------
     seed = torch.tensor([0xC0FFEE, 42], dtype=torch.int64, device=dev)
@@ -1076,7 +1141,8 @@ def main() -> int:
                 "fused_mac_partials": (fused_mac_partials, "launches"),
                 "fused_partials_reduce": (fused_partials_reduce, "launches"),
                 "flash_mha": (flash_mha, "launches"),
-                "flash_mha_wgmma": (flash_mha, "wgmma_launches")}
+                "flash_mha_wgmma": (flash_mha, "wgmma_launches"),
+                "flash_mha_tf32": (flash_mha, "tf32_launches")}
 
     # flash attention at the serving path's shapes and the JAX tests'
     def flash_counts():
@@ -1123,6 +1189,10 @@ def main() -> int:
     flash_cases = [
         (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), bf16, True),
         (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), f32, True),
+        # bidirectional: every row averages 4,096 keys, so max |o| is
+        # small and the float32 gate tightest
+        (f"{LM_ARCH} B4 L4096 bidirectional", (4, 4096, 14, 2, 64), f32,
+         False),
         ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), bf16, True),
         ("qwen2-1.5b prefill B1 L4096", (1, 4096, 12, 2, 128), f32, True),
         ("qwen3-4b prefill B1 L4096", (1, 4096, 32, 8, 128), bf16, True),
@@ -1131,6 +1201,13 @@ def main() -> int:
          (2, 200, 14, 2, 64), bf16, True),
         ("qwen2-1.5b heads bidirectional", (1, 1000, 12, 2, 128), bf16,
          False),
+        # the float32 tensor-core kernel's edges: straddling tiles, rows
+        # and keys not multiples of its tiles, both masks
+        (f"{LM_ARCH} heads L200 f32 (fold straddles tiles)",
+         (2, 200, 14, 2, 64), f32, True),
+        (f"{LM_ARCH} heads L200 f32 bidirectional", (2, 200, 14, 2, 64), f32,
+         False),
+        (f"{LM_ARCH} heads L77 f32", (1, 77, 14, 2, 64), f32, True),
         ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
         ("test_flash_attn", shape, f32, causal)
         for shape in JAX_FLASH_SHAPES for causal in (True, False)]
@@ -1291,6 +1368,28 @@ def main() -> int:
         dataclasses.replace(INPUT_SHAPES["decode_32k"], global_batch=8),
         cuts={"prefill": "prefill_32k: batch 32 -> 4, length 32768 -> 4096",
               "decode": "decode_32k: batch 128 -> 8, cache 32768"})
+    # the CUDA-core flash kernel's main path: a float32 prefill at hd 128
+    # (qwen2-1.5b at full width, depth cut), which the tf32 kernel does
+    # not take
+    from repro_torch import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    q15 = get_config(F32_HD128_ARCH)
+    q15_f32 = q15.with_(n_layers=F32_HD128_LAYERS, compute_dtype="float32")
+    params15 = lm.init_params(prng.PRNGKey(0, dev), q15_f32)
+    log({"phase": "main_path", "run": f"{q15.name} init", "arch": q15.name,
+         "n_layers": q15_f32.n_layers, "d_model": q15.d_model,
+         "heads": q15.n_heads, "kv_heads": q15.n_kv_heads,
+         "head_dim": q15.head_dim, "compute_dtype": "float32"})
+    prefill_path(f"{q15.name} prefill f32", q15_f32,
+                 serve.compute_params(params15, q15_f32), "flash_mha",
+                 dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                     global_batch=1, seq_len=4096),
+                 dev, counted, expect,
+                 f"prefill_32k: batch 32 -> 1, length 32768 -> 4096; "
+                 f"depth {q15.n_layers} -> {F32_HD128_LAYERS} layers")
+    del params15
     spec = importlib.util.spec_from_file_location(
         "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
     example = importlib.util.module_from_spec(spec)
@@ -1404,10 +1503,14 @@ def main() -> int:
              "card": card})
         del args
 
+    cluster_fn = build.load("ota_combine").ota_combine_cluster_size
+    cluster_fn.restype = ctypes.c_int
+    cluster_fn.argtypes = [ctypes.c_int] * 3
     for label, sc, hop in (
             ("fig2_iid cluster", fig2_slab, "cluster"),
             ("fig2_iid conventional", fig2_slab.replace(mode="conventional"),
              "conventional"),                         # unbatched, as B = 1
+            ("fig2_iid is_ps", fig2_slab, "is_ps"),   # unbatched, as B = 1
             ("scale_u256 cluster", u256_slab, "cluster")):
         args = slab_inputs(sc, hop, 40, dev)
         h = args[0]
@@ -1419,8 +1522,12 @@ def main() -> int:
             ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
             bound_by=bound_by, shape_BUKN=[B, U, K, N])
         log({"phase": "times", "kernel": "ota_combine", "shape": label,
-             "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
-             "bound_ms": bound, "bound_by": bound_by, "card": card})
+             "shape_BUKN": [B, U, K, N],
+             "cluster_blocks": cluster_fn(B, K, N), "kernel_ms": ks,
+             "kernel_device_ms": device_ms(lambda: ota_combine(*args), 20,
+                                           KERNELS["ota_combine"][1]),
+             "plain_ms": ps, "bound_ms": bound, "bound_by": bound_by,
+             "card": card})
         del args
 
     # the whole cluster hop at the scale_u256 shape: the slab backend
@@ -1519,7 +1626,9 @@ def main() -> int:
             (f"{LM_ARCH} prefill_32k B1 L32768", (1, 32768, 14, 2, 64), bf16,
              (10, 1)),
             (f"{LM_ARCH} prefill f32 B4 L4096", (4, 4096, 14, 2, 64), f32,
-             (10, 3))):
+             (10, 3)),
+            (f"{F32_HD128_ARCH} prefill f32 B1 L4096",
+             (1, 4096, 12, 2, 128), f32, (10, 3))):
         name, times = flash_times(label, shape, dtype, reps, dev, card,
                                   in_turns, time_ms, flash_pair, check_flash)
         timings[name, label] = times
@@ -1535,11 +1644,14 @@ def main() -> int:
                # a jnp helper in the JAX package, a kernel here
                ("fused_partials_reduce", "scale_u65536 1x1",
                 "src/repro/kernels/fused_mac.py:467", None),
-               # both flash kernels replace the one Pallas kernel: bf16 at
-               # hd 64/128 on the tensor cores, the rest on the CUDA cores
+               # the three flash kernels replace the one Pallas kernel:
+               # bf16 at hd 64/128 and float32 at hd 64 on the tensor
+               # cores, the rest on the CUDA cores
                ("flash_mha_wgmma", f"{LM_ARCH} prefill B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None),
-               ("flash_mha", f"{LM_ARCH} prefill f32 B4 L4096",
+               ("flash_mha_tf32", f"{LM_ARCH} prefill f32 B4 L4096",
+                "src/repro/kernels/flash_attn.py:39", None),
+               ("flash_mha", f"{F32_HD128_ARCH} prefill f32 B1 L4096",
                 "src/repro/kernels/flash_attn.py:39", None)]
     log({"phase": "done", "seconds": time.perf_counter() - t_start,
          "card": card})

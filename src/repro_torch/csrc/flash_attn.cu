@@ -3,9 +3,11 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for float32 at every head dim and bfloat16 at 16 and 32; bfloat16 at
-// 64 and 128 (the serving path's prefill) runs on the tensor cores in
-// csrc/flash_attn_wgmma.cu.
+// for float32 at head dims 16, 32 and 128 and bfloat16 at 16 and 32;
+// bfloat16 at 64 and 128 (the serving path's prefill) runs on the tensor
+// cores in csrc/flash_attn_wgmma.cu, and float32 at 64 on them in 3xTF32
+// in csrc/flash_attn_tf32.cu.  The float32 hd-64 instance stays built
+// here, for timing the two against each other (kernels/ab.py).
 // For every (batch b, KV head kv) pair n and every query row r of the
 // folded row axis (r = g * L + l: the G = H / KV query heads of kv
 // folded over the L positions), with position l = r mod L:
@@ -25,11 +27,13 @@
 // What bounds it on this card: operations.  A causal prefill does
 // 4 * head_dim flops per kept (query, key) pair against 4 bytes per
 // float32 element of q, k, v and o read or written once: about 900
-// flops per byte at qwen2-0.5b's B 4 x L 4096.  Its float32 inputs
-// stay on the CUDA cores (67 TFLOP/s on an H100 SXM at 700 W, NVIDIA's
-// data sheet), since the tensor cores would take them as TF32 and miss
-// the float32 gate; bf16 at hd 16 and 32 runs here too, narrower than
-// the tensor-core kernel's 64-wide column blocks.
+// flops per byte at qwen2-0.5b's B 4 x L 4096.  Here everything runs on
+// the CUDA cores (67 TFLOP/s of float32 on an H100 SXM at 700 W,
+// NVIDIA's data sheet): the head dims the tensor-core kernels do not
+// take (16 and 32, narrower than their 64-wide column blocks; float32 at
+// 128, whose split operands would not fit the tf32 kernel's shared
+// memory).  TF32 alone would miss the float32 gate; the tf32 kernel
+// keeps it by splitting every product in three.
 //
 // Design.  The TPU kernel walks a sequential (N, q tile, k tile) grid
 // and carries (acc, m, l) in VMEM scratch across the k axis.  Here one

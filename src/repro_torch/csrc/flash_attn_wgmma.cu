@@ -4,11 +4,11 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for the inputs the serving path gives it; csrc/flash_attn.cu keeps
-// float32 at every head dim and bfloat16 at 16 and 32.  For every
-// (batch b, KV head kv) pair n and every query row r of the folded row
-// axis (r = g * L + l: the G = H / KV query heads of kv folded over the
-// L positions), with position l = r mod L:
+// for the inputs the serving path gives it; csrc/flash_attn_tf32.cu
+// takes float32 at head_dim 64, and csrc/flash_attn.cu every other
+// input.  For every (batch b, KV head kv) pair n and every query row r
+// of the folded row axis (r = g * L + l: the G = H / KV query heads of
+// kv folded over the L positions), with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
 //   s[j]  = NEG_INF (-1e30) where causal and j > l

@@ -1,5 +1,6 @@
 """Time two or more versions of ``csrc/fused_mac.cu`` (or of
-``csrc/flash_attn_wgmma.cu``) against each other on one card, in turns.
+``csrc/ota_combine.cu``, or of the flash kernels) against each other on
+one card, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.ab OLD.cu NEW.cu
 
@@ -11,7 +12,13 @@ shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
 `fused_mac_partials` at the scale_u65536 1x1 shape, the tensor-core
 flash kernel at qwen2-0.5b's prefill shape and at prefill_32k's length
 (bf16, causal; every version must have the entry point's signature
-of `flash_attn.ARGTYPES`).  Prints one JSON line per shape (times, and whether
+of `flash_attn.ARGTYPES`), `ota_combine` at its four main-path shapes,
+and float32 flash attention at qwen2-0.5b's prefill shape (causal)
+through whichever float32 entry point each source has: the tf32
+kernel's (`flash_attn.TF32_ARGTYPES`, with its scratch) or the
+CUDA-core kernel's (`flash_attn.ARGTYPES`, dtype code 0), so
+``csrc/flash_attn.cu`` and ``csrc/flash_attn_tf32.cu`` can be timed
+against each other.  Prints one JSON line per shape (times, and whether
 each version's output equals the first's bit for bit, with the largest
 gap where it does not), one per kernel with its SASS report
 (`repro_torch.kernels.sass`), and the card's name and power limit.
@@ -38,6 +45,11 @@ MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
 PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
 # (B, L, H, KV, hd): qwen2-0.5b's prefill and prefill_32k's length
 FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 32768, 14, 2, 64)]
+F32_FLASH_SHAPE = (4, 4096, 14, 2, 64)
+# (B, U, K, N): the Fig. 2 driver's cluster, IS->PS and conventional
+# hops (the last two unbatched, as B = 1) and scale_u256's cluster hop
+OTA_SHAPES = [(4, 20, 100, 3925), (1, 4, 100, 3925), (1, 20, 100, 3925),
+              (4, 256, 16, 3925)]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -155,6 +167,22 @@ def main(argv=None) -> int:
                           "ms": ms, "bitwise_equal_first": {
                               n: torch.equal(pcall(n), first)
                               for n in names}}), flush=True)
+    def compare(kernel, shape_key, shape, fn, reps):
+        """Time fn(name) for every version in turns, and print the times
+        and each output against the first version's."""
+        ms = {n: [] for n in names}
+        for n in order:
+            ms[n].append(time_ms(lambda: fn(n), reps))
+        outs = {n: fn(n) for n in names}
+        first = outs[names[0]]
+        print(json.dumps({
+            "kernel": kernel, shape_key: list(shape), "ms": ms,
+            "bitwise_equal_first": {n: torch.equal(o, first)
+                                    for n, o in outs.items()},
+            "max_abs_gap_first": {n: float((o.float() - first.float())
+                                           .abs().max())
+                                  for n, o in outs.items()}}), flush=True)
+
     for B, L, H, KV, hd in FLASH_SHAPES if has("flash_attn_wgmma_launch") \
             else ():
         g = torch.Generator().manual_seed(2)
@@ -171,20 +199,57 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"{name}: error {err}")
             return o
 
-        reps = a.reps if L <= 4096 else max(a.reps // 4, 1)
-        ms = {n: [] for n in names}
-        for n in order:
-            ms[n].append(time_ms(lambda: fcall(n), reps))
-        first = fcall(names[0])
-        outs = {n: fcall(n) for n in names}
-        print(json.dumps({
-            "kernel": "flash_attn_wgmma", "shape_BLHKVhd": [B, L, H, KV, hd],
-            "ms": ms,
-            "bitwise_equal_first": {n: torch.equal(o, first)
-                                    for n, o in outs.items()},
-            "max_abs_gap_first": {n: float((o.float() - first.float())
-                                           .abs().max())
-                                  for n, o in outs.items()}}), flush=True)
+        compare("flash_attn_wgmma", "shape_BLHKVhd", (B, L, H, KV, hd),
+                fcall, a.reps if L <= 4096 else max(a.reps // 4, 1))
+    for B, U, K, N in OTA_SHAPES if has("ota_combine_launch") else ():
+        g = torch.Generator().manual_seed(B + U + K + N)
+        cx = lambda *s: torch.randn(*s, dtype=torch.complex64,
+                                    generator=g).to(dev)
+        h, t, z = cx(B, U, K, N), cx(U, N), cx(B, K, N)
+        w = torch.randn(B, U, generator=g).to(dev)
+
+        def ocall(name):
+            fn = built[name][0].ota_combine_launch
+            fn.restype = _I
+            fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+            y = torch.empty(B, N, dtype=torch.complex64, device=dev)
+            err = fn(*[x.data_ptr() for x in (h, t, z, w, y)], B, U, K, N,
+                     stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return torch.view_as_real(y)
+
+        compare("ota_combine", "shape_BUKN", (B, U, K, N), ocall, a.reps)
+
+    f32_entry = {n: next((e for e in ("flash_attn_tf32_launch",
+                                      "flash_attn_launch")
+                          if hasattr(lib, e)), None)
+                 for n, (lib, _) in built.items()}
+    if all(f32_entry.values()):
+        B, L, H, KV, hd = F32_FLASH_SHAPE
+        g = torch.Generator().manual_seed(3)
+        q, k, v = (torch.randn(*s, generator=g).to(dev)
+                   for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+
+        def f32call(name):
+            entry = f32_entry[name]
+            tf32 = entry == "flash_attn_tf32_launch"
+            o = torch.empty_like(q)
+            err = flash_attn.call(
+                flash_attn.typed(getattr(built[name][0], entry),
+                                 flash_attn.TF32_ARGTYPES if tf32
+                                 else flash_attn.ARGTYPES),
+                q, k, v, o, causal=True, NB=B * KV, KV=KV, G=H // KV, L=L,
+                S=L, strides=flash_attn.model_strides(q, k),
+                scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
+                if tf32 else None)
+            if err:
+                raise RuntimeError(f"{name}: error {err}")
+            return o
+
+        print(json.dumps({"f32_flash_entry_points": f32_entry}), flush=True)
+        compare("flash_attn f32", "shape_BLHKVhd", F32_FLASH_SHAPE, f32call,
+                max(a.reps // 2, 1))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -11,7 +11,7 @@ a key j is kept for it when j <= r % seq_len.  Scores are
 JAX package's constants.  Inputs are float32 or bfloat16, upcast to
 float32; the output is in q's dtype.
 
-Three implementations of that one function live here, and `route`
+Four implementations of that one function live here, and `route`
 picks one from the input tensors alone:
 
 - ``"flash_attn_wgmma"``: bfloat16 at hd 64 or 128 on a CUDA card, the
@@ -19,24 +19,34 @@ picks one from the input tensors alone:
   wgmma, TMA-fed K/V ring, warp specialisation; 128 query rows and 128
   keys a tile), counted in ``flash_mha.wgmma_launches``.  This is the
   serving path's prefill.
-- ``"flash_attn"``: every other CUDA input (float32 at any hd, bfloat16
-  at hd 16 or 32), the CUDA-core kernel ``csrc/flash_attn.cu`` (float32
-  arithmetic throughout: tensor cores would mean TF32 for float32
-  inputs), counted in ``flash_mha.launches``.
+- ``"flash_attn_tf32"``: float32 at hd 64 on a CUDA card (qwen2-0.5b's
+  float32 prefill), ``csrc/flash_attn_tf32.cu``: the same design on the
+  tensor cores in TF32 with every product split 3xTF32 (x = hi + lo,
+  each rounded to nearest, ties away; `tf32_rna`), which keeps float32's
+  accuracy where TF32 alone would not; a pre-pass in the same launch
+  writes K and V^T, split, into a scratch tensor the wrapper allocates
+  (`tf32_prepass_plain` is its plain version).  Counted in
+  ``flash_mha.tf32_launches``.
+- ``"flash_attn"``: every other CUDA input (float32 at hd 16, 32 or
+  128, bfloat16 at hd 16 or 32), the CUDA-core kernel
+  ``csrc/flash_attn.cu`` (float32 arithmetic throughout), counted in
+  ``flash_mha.launches``.  float32 at hd 128 stays here: the tf32
+  kernel's split Q and a K/V stage would not fit one block's shared
+  memory at that width.
 - ``"plain"``: CPU tensors, `flash_mha_plain` and
   `flash_attention_plain`, the plain PyTorch versions: the same loop
   nest as the Pallas kernel in interpret mode (``q_block`` x
   ``kv_block`` tiles, key tiles in ascending order, the same recurrence
   and constants), vectorized over N.  The CPU tests hold them to the
-  JAX kernel; the card's smoke run holds both kernels to them.
+  JAX kernel; the card's smoke run holds every kernel to them.
 
-Both kernels tile with their own compiled sizes, so on the card
-``q_block`` and ``kv_block`` are ignored; both read the model's
+The kernels tile with their own compiled sizes, so on the card
+``q_block`` and ``kv_block`` are ignored; all read the model's
 [B, L, H, hd] layout through strides (no folded copy).  A kernel that
-fails to build or launch raises: nothing falls back to the other
-kernel or to the plain version.
+fails to build or launch raises: nothing falls back to another kernel
+or to the plain version.
 
-All three skip a key tile whose first key lies past every position of
+All four skip a key tile whose first key lies past every position of
 the q tile, by the exact test (the Pallas kernel's ``first_q_pos + QB -
 1`` is conservative when a q tile straddles two fold groups).  The bits
 are the same: the causal row has seen key 0 in tile 0 by then, so a
@@ -56,6 +66,12 @@ NEG_INF = -1e30
 MIN_DENOMINATOR = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
+TF32_HEAD_DIMS = (64,)
+# the tf32 kernel's keys per tile (S is padded to it in the scratch), and
+# the order its pre-pass stores each group of 8 keys of V^T in: the
+# column order of the tf32 wgmma's register A fragment
+TF32_KEY_TILE = 64
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,34 +114,48 @@ def route(q: torch.Tensor) -> str:
     `_check` holds to q's device, dtype and head dim), from q's device
     type, dtype and head dim alone: ``"plain"`` on the CPU,
     ``"flash_attn_wgmma"`` for bfloat16 at hd 64 or 128 on a CUDA card,
+    ``"flash_attn_tf32"`` for float32 at hd 64 on a CUDA card,
     ``"flash_attn"`` for any other CUDA input.  The kernels' names are
     their sources under ``csrc/``."""
     if q.device.type == "cpu":
         return "plain"
     if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
         return "flash_attn_wgmma"
+    if q.dtype == torch.float32 and q.shape[-1] in TF32_HEAD_DIMS:
+        return "flash_attn_tf32"
     return "flash_attn"
 
 
-# both kernels' C entry point: q, k, v, o, dtype code, hd, causal, NB,
-# KV, G, L, S, the 12 strides, scale, stream
+# the flash kernels' C entry point: q, k, v, o, dtype code, hd, causal,
+# NB, KV, G, L, S, the 12 strides, scale, stream; the tf32 kernel's takes
+# its scratch before the stream
 ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                ctypes.c_void_p])
+TF32_ARGTYPES = ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
 
 
-def typed(fn):
+def typed(fn, argtypes=ARGTYPES):
     """`fn`, a flash kernel's C entry point from a loaded library, with
     its prototype set."""
     fn.restype = ctypes.c_int
-    fn.argtypes = ARGTYPES
+    fn.argtypes = argtypes
     return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(name: str):
     """Kernel `name`'s C entry point, built and typed once per process."""
-    return typed(getattr(build.load(name), f"{name}_launch"))
+    return typed(getattr(build.load(name), f"{name}_launch"),
+                 TF32_ARGTYPES if name == "flash_attn_tf32" else ARGTYPES)
+
+
+def tf32_scratch(NB: int, S: int, hd: int, device) -> torch.Tensor:
+    """The tf32 kernel's scratch: K hi, K lo [NB, S_pad, hd] and V^T hi,
+    V^T lo [NB, hd, S_pad], S_pad = S rounded up to TF32_KEY_TILE."""
+    s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
+    return torch.empty(4 * NB * s_pad * hd, dtype=torch.float32,
+                       device=device)
 
 
 def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
@@ -139,16 +169,23 @@ def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
 
 
 def call(fn, q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
-         S: int, strides) -> int:
+         S: int, strides, scratch: torch.Tensor | None = None) -> int:
     """`fn` (a `typed` entry point) on q, k, v and o on the current
     stream; `strides` are the element strides (batch, row, head) of q,
-    k, v and o.  Returns the entry point's error code."""
+    k, v and o; `scratch` (`tf32_scratch`) only for the tf32 kernel.
+    Returns the entry point's error code."""
     arr = (ctypes.c_longlong * 12)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    extra = () if scratch is None else (scratch.data_ptr(),)
     with torch.cuda.device(q.device):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   _DTYPES[q.dtype], q.shape[-1], int(causal), NB, KV, G, L,
-                  S, arr, _scale(q.shape[-1]), stream)
+                  S, arr, _scale(q.shape[-1]), *extra, stream)
+
+
+# each kernel's launch count on `flash_mha`
+_COUNTERS = {"flash_attn": "launches", "flash_attn_wgmma": "wgmma_launches",
+             "flash_attn_tf32": "tf32_launches"}
 
 
 def _launch(q, k, v, o, **shape) -> None:
@@ -159,14 +196,17 @@ def _launch(q, k, v, o, **shape) -> None:
             raise ValueError("flash attention's kernel reads 16-byte "
                              "aligned rows; got a tensor at an offset")
     name = route(q)
-    err = call(_kernel_fn(name), q, k, v, o, **shape)
+    # freed on return while the kernel may still run: torch's allocator
+    # hands the block out again only to work ordered after it on this
+    # stream
+    scratch = (tf32_scratch(shape["NB"], shape["S"], q.shape[-1], q.device)
+               if name == "flash_attn_tf32" else None)
+    err = call(_kernel_fn(name), q, k, v, o, scratch=scratch, **shape)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err} "
                            f"(the codes of csrc/{name}.cu's entry point)")
-    if name == "flash_attn":
-        flash_mha.launches += 1
-    else:
-        flash_mha.wgmma_launches += 1
+    attr = _COUNTERS[name]
+    setattr(flash_mha, attr, getattr(flash_mha, attr) + 1)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -199,6 +239,42 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_mha.launches = 0          # csrc/flash_attn.cu (CUDA cores)
 flash_mha.wgmma_launches = 0    # csrc/flash_attn_wgmma.cu (tensor cores)
+flash_mha.tf32_launches = 0     # csrc/flash_attn_tf32.cu (tensor cores)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: ``cvt.rna.tf32.f32``, in integer bit operations
+    (int64, so no int32 add overflows).  The low 13 bits are zero."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the 3xTF32 split,
+    hi + lo within about 2^-22 of x."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The tf32 kernel's pre-pass on folded float32 k, v [N, S, hd]:
+    (K split [2, N, S_pad, hd], V^T split [2, N, hd, S_pad]), hi then
+    lo, S_pad = S rounded up to TF32_KEY_TILE with zero keys, and V^T's
+    keys stored in TF32_KEY_ORDER within each group of 8 (stored
+    position p of a group holds key TF32_KEY_ORDER[p]).  The kernel's
+    scratch holds the two, flattened, one after the other."""
+    N, S, hd = k.shape
+    s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
+    pad = lambda x: torch.cat([x.float(), x.new_zeros(N, s_pad - S, hd)], 1)
+    order = torch.tensor(TF32_KEY_ORDER, device=k.device)
+    keys = (torch.arange(0, s_pad, 8, device=k.device)[:, None]
+            + order).reshape(-1)
+    vt = pad(v)[:, keys].transpose(1, 2)
+    return (torch.stack(tf32_split(pad(k))),
+            torch.stack(tf32_split(vt.contiguous())))
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -15,18 +15,27 @@ compute in float32 and round once (near zero the float32 gap spans
 many ULPs, so a strict 1-ULP rule fails for any change of summation
 order).  bfloat16 at hd 64 and 128 runs on the tensor-core kernel
 (``csrc/flash_attn_wgmma.cu``), which splits each softmax weight into
-two bf16 parts to stay inside that gate; every other input on the
+two bf16 parts to stay inside that gate; float32 at hd 64 on the
+float32 tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every
+product split into tf32 hi and lo parts); every other input on the
 CUDA-core kernel (``csrc/flash_attn.cu``).  Each test checks which
-kernel served it by the wrapper's two launch counts.
+kernel served it by the wrapper's three launch counts.
+`ota_combine` splits its antennas over a thread-block cluster where B
+alone would not fill the card; its cluster size comes from the built
+library (``ota_combine_cluster_size``).
 Two launches must give identical bits: the kernels sum in a fixed order
 and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
 per-block sum, the noise draw and the finalize.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attn as flash_module
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  flash_mha, flash_mha_plain, flash_route,
                                  fused_mac,
@@ -140,6 +149,43 @@ def test_ota_combine_refuses_strided_views_on_card():
     assert ota_combine.launches == before
 
 
+
+def _cluster_size(B, K, N):
+    fn = build.load("ota_combine").ota_combine_cluster_size
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(B, K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,U,K,N", [
+    (None, 20, 100, 3925),  # fig2 conventional hop (B = 1)
+    (None, 3, 33, 513),     # a ragged last row group
+    (2, 20, 100, 3925),
+    (2, 5, 40, 700),
+])
+def test_ota_combine_cluster_split_matches_plain_on_card(B, U, K, N):
+    """Shapes whose grid alone would not fill the card run as clusters
+    of more than one block; within 1e-4 of the plain version, and two
+    launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    assert _cluster_size(B or 1, K, N) > 1
+    g = torch.Generator().manual_seed((B or 1) + U + K + N)
+    lead = () if B is None else (B,)
+    cx = lambda *shape: torch.randn(*shape, dtype=torch.complex64,
+                                    generator=g).to("cuda")
+    args = (cx(*lead, U, K, N), cx(U, N), cx(*lead, K, N),
+            torch.randn(*lead, U, generator=g).to("cuda"))
+    before = ota_combine.launches
+    y1 = ota_combine(*args)
+    y2 = ota_combine(*args)
+    torch.cuda.synchronize()
+    assert ota_combine.launches == before + 2
+    assert torch.equal(y1, y2)
+    want = ota_combine_plain(*args)
+    assert float((y1 - want).abs().max()) <= TOL * float(want.abs().max())
+
 PARTIAL_SHAPES = [              # B, U, K, N, block_u, (rx, u, n bases)
     (2, 16, 4, 130, 4, (0, 0, 0)),
     (3, 40, 7, 130, 8, (2, 40, 5)),      # ragged K and N
@@ -243,7 +289,8 @@ def _flash_close(got, want):
 
 def _launch_counts():
     return {"flash_attn": flash_mha.launches,
-            "flash_attn_wgmma": flash_mha.wgmma_launches}
+            "flash_attn_wgmma": flash_mha.wgmma_launches,
+            "flash_attn_tf32": flash_mha.tf32_launches}
 
 
 def _served_by(before, q, n):
@@ -303,6 +350,60 @@ def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
     assert torch.isfinite(o1).all()
     assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,S,H,KV,hd", [
+    (1, 200, 200, 14, 2, 64),     # 128-row tiles straddle fold groups
+    (1, 200, 333, 14, 2, 64),     # more keys than queries, ragged
+    (2, 300, 130, 14, 2, 64),     # fewer keys than queries
+    (1, 1000, 1000, 14, 2, 64),
+    (2, 1, 1, 14, 2, 64),         # one query, one key
+    (3, 5, 7, 4, 1, 64),          # 20 rows in a 128-row block; S > L
+    (1, 130, 70, 4, 4, 64),       # keys not a multiple of 8
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
+                                                 causal):
+    """The float32 tensor-core kernel at its edges: L not a multiple of
+    the 128-row tile (a tile holds rows of two heads), S != L, S not a
+    multiple of the 64-key tile or of 8; within 1e-5 of max |o|, one
+    count per call, identical repeats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, L + S + hd, S)
+    assert flash_route(q) == "flash_attn_tf32"
+    before = _launch_counts()
+    o1 = flash_attention(q, k, v, causal=causal)
+    o2 = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _served_by(before, q, 2)
+    assert torch.equal(o1, o2)
+    assert torch.isfinite(o1).all()
+    assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,KV", [(2, 333, 2), (1, 64, 1), (1, 1, 2)])
+def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV):
+    """The scratch the kernel's pre-pass writes (K and V^T split into
+    tf32 hi and lo, V^T's keys permuted) equals `tf32_prepass_plain`'s,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    L, H, hd = 40, 2 * KV, 64
+    q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, S, S)
+    o = torch.empty_like(q)
+    scratch = flash_module.tf32_scratch(B * KV, S, hd, "cuda")
+    err = flash_module.call(
+        flash_module._kernel_fn("flash_attn_tf32"), q, k, v, o, causal=True,
+        NB=B * KV, KV=KV, G=H // KV, L=L, S=S,
+        strides=flash_module.model_strides(q, k), scratch=scratch)
+    torch.cuda.synchronize()
+    assert err == 0
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    ks, vts = flash_module.tf32_prepass_plain(fold(k), fold(v))
+    assert torch.equal(scratch, torch.cat([ks.reshape(-1), vts.reshape(-1)]))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),

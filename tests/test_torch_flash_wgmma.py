@@ -5,8 +5,10 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to the plain version there).  Here:
 
 - `flash_route` picks the implementation from the tensors alone:
-  bfloat16 at hd 64 or 128 on CUDA -> the tensor-core kernel; float32,
-  or hd 16 or 32 -> the CUDA-core kernel; the CPU -> the plain version.
+  bfloat16 at hd 64 or 128 on CUDA -> the tensor-core kernel; float32
+  at hd 64 -> the float32 tensor-core kernel (3xTF32,
+  ``tests/test_torch_flash_tf32.py``); any other float32, or hd 16 or
+  32 -> the CUDA-core kernel; the CPU -> the plain version.
   CUDA inputs are stand-ins that carry a device, a dtype and a shape
   (this machine has no card), so nothing launches.
 - `emulate` repeats the kernel's arithmetic in torch: bf16 q, k and v
@@ -25,7 +27,7 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   emulation lands at least 10x farther from the Pallas kernel, past the
   1e-5 gate, and its bf16 output fails the smoke's bf16 gate against
   the Pallas kernel's bf16 output: the recorded reason for the split.
-- Both kernels' C entry points share one prototype, the wrapper's
+- The two kernels' C entry points share one prototype, the wrapper's
   `ARGTYPES`, and `model_strides` gives the model layout's strides.
 """
 import ctypes
@@ -62,7 +64,7 @@ SHAPES = [
     ("cpu", torch.float32, 128, "plain"),
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 128, "flash_attn_wgmma"),
-    ("cuda", torch.float32, 64, "flash_attn"),
+    ("cuda", torch.float32, 64, "flash_attn_tf32"),
     ("cuda", torch.float32, 128, "flash_attn"),
     ("cuda", torch.float32, 16, "flash_attn"),
     ("cuda", torch.bfloat16, 16, "flash_attn"),
