@@ -1,15 +1,15 @@
 // Causal or bidirectional online-softmax attention (flash attention) with
-// grouped KV heads, float32 at head_dim 64, on Hopper's tensor cores
-// (sm_90a) through a 3xTF32 split.
+// grouped KV heads, float32 at head_dim 64 or 128, on Hopper's tensor
+// cores (sm_90a) through a 3xTF32 split.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for float32 inputs at head_dim 64 (qwen2-0.5b's float32 prefill);
-// csrc/flash_attn_wgmma.cu takes bfloat16 at 64 and 128, and
-// csrc/flash_attn.cu every other input.  For every (batch b, KV head kv)
-// pair n and every query row r of the folded row axis (r = g * L + l:
-// the G = H / KV query heads of kv folded over the L positions), with
-// position l = r mod L:
+// for float32 inputs at head_dim 64 (qwen2-0.5b's float32 prefill) and
+// 128 (qwen2-1.5b's); csrc/flash_attn_wgmma.cu takes bfloat16 at 64 and
+// 128, and csrc/flash_attn.cu every other input.  For every (batch b, KV
+// head kv) pair n and every query row r of the folded row axis (r = g *
+// L + l: the G = H / KV query heads of kv folded over the L positions),
+// with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
 //   s[j]  = NEG_INF (-1e30) where causal and j > l
@@ -32,158 +32,91 @@
 // relative).  Both products, S = Q K^T and P V, are split: 12 * hd
 // flops of tensor work per kept pair, at most 1/3 of the TF32 peak.
 //
-// Design (the warp roles, ring and softmax of csrc/flash_attn_wgmma.cu):
+// Design (the warp roles, ring and softmax of csrc/flash_attn_wgmma.cu;
+// the helpers both share are in hopper_common.cuh):
 //
-// - a pre-pass (two small kernels, launched by the same entry point)
-//   writes K_hi, K_lo [N, S_pad, 64] and V^T_hi, V^T_lo [N, 64, S_pad]
-//   (S_pad = S rounded up to the 64-key tile, zeros past S) into the
-//   caller's scratch.  The scratch is a torch tensor the wrapper passes
-//   in (4 * N * S_pad * 64 floats), so torch's allocator accounts for
-//   it.  Why V transposed: wgmma takes its transpose bit only for
-//   16-bit types, so a tf32 B operand must be K-major, i.e. keys
-//   contiguous for P V.  Why its keys permuted: the S accumulator gives
-//   lane t of a quad keys {2t, 2t+1} of each group of 8, and the tf32
-//   register A fragment wants columns {t, t+4}; storing each group of 8
-//   keys of V^T in the order [0, 2, 4, 6, 1, 3, 5, 7] makes column c of
-//   the k8 step key 2c (c < 4) or 2(c - 4) + 1, so p goes from the
-//   accumulator's registers into the A fragment unmoved;
+// - a pre-pass of two small kernels, launched by the same entry point
+//   before the attention kernel (three launches a call), writes K_hi,
+//   K_lo [N, S_pad, hd] and V^T_hi, V^T_lo [N, hd, S_pad] (S_pad = S
+//   rounded up to 64 keys, zeros past S) into the caller's scratch.  The
+//   scratch is a torch tensor the wrapper passes in (4 * N * S_pad * hd
+//   floats), so torch's allocator accounts for it.  Why V transposed:
+//   wgmma takes its transpose bit only for 16-bit types, so a tf32 B
+//   operand must be K-major, i.e. keys contiguous for P V.  Why its keys
+//   permuted: the S accumulator gives lane t of a quad keys {2t, 2t+1}
+//   of each group of 8, and the tf32 register A fragment wants columns
+//   {t, t+4}; storing each group of 8 keys of V^T in the order [0, 2, 4,
+//   6, 1, 3, 5, 7] makes column c of the k8 step key 2c (c < 4) or
+//   2(c - 4) + 1, so p goes from the accumulator's registers into the A
+//   fragment unmoved;
 // - one block per (pair n, tile of QB = 128 folded query rows), three
 //   warpgroups: WG0 the producer (40 registers, setmaxnreg), one thread
-//   of which keeps TMA loads of K hi/lo and V^T hi/lo tiles (KB = 64
-//   keys, 64 KB a stage) in flight into a ring of 2 stages with "full"
-//   (TMA's transaction bytes) and "empty" (one arrival per consumer
-//   warp) mbarriers; WG1 and WG2 the consumers (232 registers), 64 query
-//   rows each.  Shared memory: Q hi + lo 64 KB, the ring 128 KB;
+//   of which keeps TMA loads of K hi/lo and V^T hi/lo tiles (KB keys,
+//   64 KB a stage) in flight into a ring of 2 stages with "full" (TMA's
+//   transaction bytes) and "empty" (one arrival per consumer warp)
+//   mbarriers; WG1 and WG2 the consumers (232 registers), 64 query rows
+//   each.  Shared memory: Q 64 KB, the ring 128 KB, at both widths:
+//   - hd 64: KB = 64, Q hi and lo both in shared memory;
+//   - hd 128: KB = 32, Q hi in shared memory and Q lo in registers, as
+//     the A fragments of its k8 steps (64 a thread): Q hi + lo would
+//     take 128 KB, and with a stage of 64 keys another 128 KB, past the
+//     227 KB a block may use;
 // - Q is loaded once by the consumers, 16 bytes a thread, split into hi
 //   and lo and stored in the 128-byte-swizzled layout wgmma reads (not
 //   by TMA: a 128-row tile can straddle two fold groups);
-// - S = Q K^T is 3 x 8 wgmma m64n64k8 (tf32 inputs, f32 accumulator),
-//   both operands K-major in shared memory: a 64-float row is two
-//   128-byte swizzled column blocks, and a k8 step is 32 bytes, so the
+// - S = Q K^T is 3 x hd / 8 wgmma m64n{KB}k8 (tf32 inputs, f32
+//   accumulator), K-major operands: a row of 32 floats is one 128-byte
+//   swizzled column block, and a k8 step is 32 bytes, so the
 //   descriptors step as the bf16 kernel's k16 ones do;
 // - the mask and the online softmax run in the accumulator's registers;
 //   a row's max and sum take two xor shuffles each; tiles past S or
 //   wholly past the block's largest position are never loaded (the
 //   exact test of csrc/flash_attn.cu);
-// - P V is 3 x 8 register-A wgmma m64n64k8: p split into tf32 hi and lo
-//   in registers, V^T hi and lo from the ring, summed into a fresh
-//   accumulator per tile and folded into acc in float32 (acc = acc corr
-//   + pv, each rounded to nearest).  The tensor core's float32
-//   accumulation drops low bits when it adds into a large running sum:
-//   carrying acc through the products missed the gate, 3.3e-5 of max
-//   |o| from a float64 truth at (4, 4096, 14, 2, 64) bidirectional,
-//   against 2.5e-6 with the fold (PERF.md, section 6), for 10% more time;
-// - the epilogue divides, stages the warpgroup's 64 rows in its Q slot
-//   and stores 16 bytes a thread through the strides (a straddling
+// - P V is 3 x KB / 8 register-A wgmma m64n64k8 per 64 output columns:
+//   p split into tf32 hi and lo in registers, V^T hi and lo from the
+//   ring, summed into a fresh accumulator per tile and folded into acc
+//   in float32 (acc = acc corr + pv, each rounded to nearest).  The
+//   tensor core's float32 accumulation drops low bits when it adds into
+//   a large running sum: carrying acc through the products missed the
+//   gate, 3.3e-5 of max |o| from a float64 truth at (4, 4096, 14, 2, 64)
+//   bidirectional, against 2.5e-6 with the fold (PERF.md, section 6),
+//   for 10% more time.  At hd 128 the two 64-column halves run one
+//   after the other, so the fresh accumulator stays 32 registers;
+// - the epilogue divides, stages the warpgroup's 64 rows in its Q hi
+//   slot and stores 16 bytes a thread through the strides (a straddling
 //   tile's rows go to two heads: no TMA store);
 // - fixed summation order, no atomics, no split over keys: two launches
 //   give the same bits.
-//
-// hd 128 is not taken: Q hi + lo for 128 rows would be 128 KB and one
-// 64-key stage of K and V^T hi + lo another 128 KB, past the 227 KB a
-// block may use.
-#include <cstdint>
-#include <cuda.h>
-#include <cuda_runtime.h>
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kMinDenominator = 1e-30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kHD = 64;                 // head_dim, floats
 constexpr int kQB = 128;                // query rows per block
-constexpr int kKB = 64;                 // keys per tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;           // three warpgroups
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr int kSwizzleBytes = 128;      // one row of a 32-float column block
 constexpr int kWgRows = 64;             // query rows per consumer warpgroup
-// one 64-row operand of 64 floats: two column blocks of 64 x 128 bytes
-constexpr int kTileBytes = 64 * kHD * 4;
-constexpr int kBlockBytes = 64 * kSwizzleBytes;
-constexpr int kQBytes = 2 * 2 * kTileBytes;           // hi, lo per consumer
-constexpr int kStageBytes = 4 * kTileBytes;           // K hi, lo; V^T hi, lo
-// + 1024: the dynamic window is aligned up to the swizzle atom
-constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;
+// the scratch's keys are padded to a multiple of this (both widths' KB
+// divide it)
+constexpr int kKeyPad = 64;
+// one 32-float column block of a 64-row Q operand
+constexpr int kQBlockBytes = kWgRows * kSwizzleBytes;
 
-// Element strides of one operand; the head_dim stride is 1.
-struct Layout {
-  long long b, row, head;
+template <int HD>
+struct Cfg {
+  static constexpr int KB = HD == 64 ? 64 : 32;         // keys per tile
+  static constexpr bool Q_LO_SMEM = HD == 64;           // else registers
+  static constexpr int PN = HD == 64 ? 64 : 32;         // P V's columns a pass
+  static constexpr int OP_BYTES = KB * HD * 4;          // K or V^T, hi or lo
+  static constexpr int K_BLOCK = KB * kSwizzleBytes;    // K: HD / 32 blocks
+  static constexpr int V_BLOCK = HD * kSwizzleBytes;    // V^T: KB / 32
+  static constexpr int STAGE_BYTES = 4 * OP_BYTES;      // K hi, lo; V^T hi, lo
+  static constexpr int Q_PART_BYTES = kWgRows * HD * 4; // Q hi (or lo)
+  static constexpr int WG_Q_BYTES = (Q_LO_SMEM ? 2 : 1) * Q_PART_BYTES;
+  // + 1024: the dynamic window is aligned up to the swizzle atom
+  static constexpr int SMEM = 2 * WG_Q_BYTES + kStages * STAGE_BYTES + 1024;
 };
-
-// -- shared memory, barriers, TMA --------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a block of
-// 128-byte rows stored with the 128-byte swizzle (TMA's and wgmma's).
-__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return row * kSwizzleBytes + ((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// Waits for the phase of parity `parity` of `bar` to complete; traps
-// after kWaitLimit SM clocks (seconds) so a fault in the ring ends the
-// launch with an error instead of hanging the card.
-constexpr long long kWaitLimit = 1LL << 35;
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWaitLimit) __trap();
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// One box of a 3-D tensor map into shared memory at `dst`, completing
-// on `bar`; coordinates innermost first.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
 
 // -- tf32 ----------------------------------------------------------------
 
@@ -200,52 +133,28 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
   lo = tf32_rna(x - hi);
 }
 
-// -- wgmma --------------------------------------------------------------
+// -- wgmma (the shared helpers: hopper_common.cuh) ----------------------
 
-// Shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+// A K-major operand's k8 step kk: column block kk / 4 (`block` bytes
+// apart), 32 bytes per step inside the 128-byte row, 8-row groups 1024
+// bytes apart.
+__device__ __forceinline__ uint64_t operand(uint32_t tile, int block,
+                                            int kk) {
+  return make_desc(tile + (kk / 4) * block + (kk % 4) * 32, 16, 1024);
 }
 
-// A K-major 64-row operand of a k8 step kk: column block kk / 4, 32
-// bytes per step inside the 128-byte row, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t operand(uint32_t tile, int kk) {
-  return make_desc(tile + (kk / 4) * kBlockBytes + (kk % 4) * 32, 16, 1024);
+// d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, both K-major in shared
+// memory; scale_d = 0 overwrites d.  N = 32 or 64.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" WG_R16
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_R32                                     \
-  "%0, %1, %2, %3, %4, %5, %6, %7, "               \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "         \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "       \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-
-// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, both K-major in shared
-// memory; scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -256,9 +165,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, A in registers (the k8
-// fragment: rows g and g + 8 of the warp's 16, columns t and t + 4), B
-// K-major in shared memory; scale_d = 0 overwrites d.
+// d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, A in registers (the k8
+// fragment: rows g and g + 8 of the warp's 16, columns t and t + 4, in
+// the order (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), B K-major
+// in shared memory; scale_d = 0 overwrites d.  N = 32 or 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" WG_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -271,18 +191,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
 
 // -- the pre-pass -------------------------------------------------------
 
-// K [N, S, 64] (through strides) -> K_hi, K_lo [N, S_pad, 64] at ks and
-// ks + N * S_pad * 64; zeros past S.  One float4 a thread.
+// K [N, S, hd] (through strides) -> K_hi, K_lo [N, S_pad, hd] at ks and
+// ks + N * S_pad * hd; zeros past S.  One float4 a thread.
 __global__ void __launch_bounds__(256)
 tf32_split_k_kernel(const float* __restrict__ k, float* __restrict__ ks,
-                    int NB, int KV, int S, int S_pad, Layout lk) {
-  const long long total = static_cast<long long>(NB) * S_pad * (kHD / 4);
+                    int NB, int KV, int S, int S_pad, int hd, Layout lk) {
+  const int cpr = hd / 4;                // float4 chunks per row
+  const long long total = static_cast<long long>(NB) * S_pad * cpr;
   float4* hi = reinterpret_cast<float4*>(ks);
   float4* lo = hi + total;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
        i += static_cast<long long>(gridDim.x) * 256) {
-    const int c = static_cast<int>(i % (kHD / 4));
-    const long long nj = i / (kHD / 4);
+    const int c = static_cast<int>(i % cpr);
+    const long long nj = i / cpr;
     const int j = static_cast<int>(nj % S_pad);
     const int n = static_cast<int>(nj / S_pad);
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -305,12 +226,12 @@ __device__ __forceinline__ int key_at(int p) {
   return p < 4 ? 2 * p : 2 * (p - 4) + 1;
 }
 
-// V [N, S, 64] (through strides) -> V^T_hi, V^T_lo [N, 64, S_pad] at vts
-// and vts + N * 64 * S_pad, keys permuted within each group of 8; zeros
+// V [N, S, hd] (through strides) -> V^T_hi, V^T_lo [N, hd, S_pad] at vts
+// and vts + N * hd * S_pad, keys permuted within each group of 8; zeros
 // past S.  A 32-key x 32-dim tile a block, transposed in shared memory.
 __global__ void __launch_bounds__(256)
 tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
-                     int NB, int KV, int S, int S_pad, Layout lv) {
+                     int NB, int KV, int S, int S_pad, int hd, Layout lv) {
   __shared__ float tile[32][33];
   const int n = blockIdx.z, j0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
@@ -321,8 +242,8 @@ tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
   }
   __syncthreads();
   const int key = (tx & ~7) + key_at(tx & 7);
-  float* hi = vts + static_cast<long long>(n) * kHD * S_pad + j0 + tx;
-  float* lo = hi + static_cast<long long>(NB) * kHD * S_pad;
+  float* hi = vts + static_cast<long long>(n) * hd * S_pad + j0 + tx;
+  float* lo = hi + static_cast<long long>(NB) * hd * S_pad;
   for (int r = ty; r < 32; r += 8) {
     float h, l;
     split(tile[key][r], h, l);
@@ -334,34 +255,28 @@ tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
 
 // -- the kernel ---------------------------------------------------------
 
-// Key tiles the block of rows [r0, r0 + QB) needs: all of them, or when
-// causal those up to the block's largest query position (its last
-// row's, unless the block straddles two fold groups).
-__device__ __forceinline__ int key_tiles(int r0, int rows, int L, int S,
-                                         int causal) {
-  const int all_tiles = (S + kKB - 1) / kKB;
-  if (!causal) return all_tiles;
-  const int r_last = min(r0 + kQB, rows) - 1;
-  const int max_pos = (r0 / L == r_last / L) ? r_last % L : L - 1;
-  return min(all_tiles, max_pos / kKB + 1);
-}
-
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
                   const __grid_constant__ CUtensorMap tmap_v,
                   const float* __restrict__ q, float* __restrict__ o,
                   int NB, int KV, int G, int L, int S, Layout lq, Layout lout,
                   float scale, int causal) {
+  using C = Cfg<HD>;
+  constexpr int KB = C::KB;
+  constexpr int CPR = HD / 4;            // 16-byte chunks per row
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  // consumer w's Q hi at w * 2 * kTileBytes, its Q lo kTileBytes later;
-  // stage st's K hi, K lo, V^T hi, V^T lo at stage(st) + i * kTileBytes;
-  // column block cb of an operand at + cb * kBlockBytes
-  auto stage = [&](int st) { return base + kQBytes + st * kStageBytes; };
+  // consumer w's Q hi at w * WG_Q_BYTES (its Q lo, at hd 64, a
+  // Q_PART_BYTES later); stage st's K hi, K lo, V^T hi, V^T lo at
+  // stage(st) + i * OP_BYTES
+  auto stage = [&](int st) {
+    return base + 2 * C::WG_Q_BYTES + st * C::STAGE_BYTES;
+  };
 
   const int rows = G * L;
   // longest blocks (the last rows, when causal) first
@@ -384,23 +299,25 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      const int n_tiles = key_tiles(r0, rows, L, S, causal);
+      const int n_tiles = key_tiles<kQB, KB>(r0, rows, L, S, causal);
       const int n = blockIdx.y;
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         const uint32_t full = smem_addr(&full_bar[st]);
         mbar_wait(smem_addr(&empty_bar[st]), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, kStageBytes);
+        mbar_expect_tx(full, C::STAGE_BYTES);
 #pragma unroll
         for (int part = 0; part < 2; ++part) {       // hi, lo
+          const uint32_t k_dst = stage(st) + part * C::OP_BYTES;
+          const uint32_t v_dst = k_dst + 2 * C::OP_BYTES;
 #pragma unroll
-          for (int cb = 0; cb < 2; ++cb) {
-            const uint32_t off = part * kTileBytes + cb * kBlockBytes;
-            tma_load(stage(st) + off, &tmap_k, full, cb * 32, t * kKB,
+          for (int cb = 0; cb < HD / 32; ++cb)
+            tma_load(k_dst + cb * C::K_BLOCK, &tmap_k, full, cb * 32, t * KB,
                      part * NB + n);
-            tma_load(stage(st) + 2 * kTileBytes + off, &tmap_v, full,
-                     t * kKB + cb * 32, 0, part * NB + n);
-          }
+#pragma unroll
+          for (int cb = 0; cb < KB / 32; ++cb)
+            tma_load(v_dst + cb * C::V_BLOCK, &tmap_v, full,
+                     t * KB + cb * 32, 0, part * NB + n);
         }
       }
     }
@@ -410,13 +327,12 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_r0 = r0 + w * kWgRows;
     if (wg_r0 >= rows) return;           // the block's last rows are fewer
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int n_tiles = key_tiles(r0, rows, L, S, causal);
+    const int n_tiles = key_tiles<kQB, KB>(r0, rows, L, S, causal);
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
-    const uint32_t q_hi = base + w * 2 * kTileBytes;
-    const uint32_t q_lo = q_hi + kTileBytes;
-    uint8_t* q_smem = smem + w * 2 * kTileBytes;
-    constexpr int CPR = kHD / 4;         // 16-byte chunks per row
+    const uint32_t q_hi = base + w * C::WG_Q_BYTES;
+    const uint32_t q_lo = q_hi + C::Q_PART_BYTES;        // hd 64 only
+    uint8_t* q_smem = smem + w * C::WG_Q_BYTES;
 
     // Q once: 16 bytes a thread, split into hi and lo, zeros past the
     // last row
@@ -433,9 +349,10 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       split(x.y, hi.y, lo.y);
       split(x.z, hi.z, lo.z);
       split(x.w, hi.w, lo.w);
-      const uint32_t off = (ch / 8) * kBlockBytes + swizzled(row, ch % 8);
+      const uint32_t off = (ch / 8) * kQBlockBytes + swizzled(row, ch % 8);
       *reinterpret_cast<float4*>(q_smem + off) = hi;
-      *reinterpret_cast<float4*>(q_smem + kTileBytes + off) = lo;
+      if constexpr (C::Q_LO_SMEM)
+        *reinterpret_cast<float4*>(q_smem + C::Q_PART_BYTES + off) = lo;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_barrier(1 + w);
@@ -444,6 +361,26 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // and that + 8, and its columns 8 * j + 2 * quad + {0, 1}
     const int warp = tid / 32, lane = tid % 32;
     const int quad = lane % 4;
+
+    // hd 128: Q lo as the A fragments of the S product's k8 steps
+    uint32_t q_lo_frag[C::Q_LO_SMEM ? 1 : HD / 8][4];
+    if constexpr (!C::Q_LO_SMEM) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = wg_r0 + warp * 16 + lane / 4 + 8 * (a % 2);
+          const int col = 8 * kk + quad + 4 * (a / 2);
+          float hi, lo = 0.0f;
+          if (r < rows)
+            split(q[b * lq.b + (r % L) * lq.row + (kv * G + r / L) * lq.head +
+                    col],
+                  hi, lo);
+          q_lo_frag[kk][a] = __float_as_uint(lo);
+        }
+      }
+    }
+
     int pos[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -453,38 +390,44 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_last = min(wg_r0 + kWgRows, rows) - 1;
     const int min_pos = wg_r0 / L == wg_last / L ? wg_r0 % L : 0;
 
-    float acc[kHD / 2];
+    float acc[HD / 2];
 #pragma unroll
-    for (int i = 0; i < kHD / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
     // scores, and the running max m, in log2 units: p = 2^(s - m)
     const float scale_log2 = scale * kLog2e;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % kStages;
-      const int j0 = t * kKB;
-      const uint32_t k_hi = stage(st), k_lo = k_hi + kTileBytes;
-      const uint32_t v_hi = k_hi + 2 * kTileBytes, v_lo = v_hi + kTileBytes;
+      const int j0 = t * KB;
+      const uint32_t k_hi = stage(st), k_lo = k_hi + C::OP_BYTES;
+      const uint32_t v_hi = k_hi + 2 * C::OP_BYTES;
+      const uint32_t v_lo = v_hi + C::OP_BYTES;
       mbar_wait(smem_addr(&full_bar[st]), (t / kStages) & 1);
 
       // S = Q K^T, split: hi hi + hi lo + lo hi
-      float s[kKB / 2];
+      float s[KB / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kHD / 8; ++kk) {
-        wgmma_ss(s, operand(q_hi, kk), operand(k_hi, kk), kk > 0);
-        wgmma_ss(s, operand(q_hi, kk), operand(k_lo, kk), 1);
-        wgmma_ss(s, operand(q_lo, kk), operand(k_hi, kk), 1);
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const uint64_t dq = operand(q_hi, kQBlockBytes, kk);
+        const uint64_t dk_hi = operand(k_hi, C::K_BLOCK, kk);
+        wgmma_ss(s, dq, dk_hi, kk > 0);
+        wgmma_ss(s, dq, operand(k_lo, C::K_BLOCK, kk), 1);
+        if constexpr (C::Q_LO_SMEM)
+          wgmma_ss(s, operand(q_lo, kQBlockBytes, kk), dk_hi, 1);
+        else
+          wgmma_rs(s, q_lo_frag[kk], dk_hi, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
 
       // scale, mask, and the online softmax in registers
-      const bool masked = j0 + kKB > S || (causal && j0 + kKB - 1 > min_pos);
+      const bool masked = j0 + KB > S || (causal && j0 + KB - 1 > min_pos);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int i = 0; i < kKB / 2; ++i) {
+      for (int i = 0; i < KB / 2; ++i) {
         const int h = (i / 2) % 2;
         const int j = j0 + 8 * (i / 4) + 2 * quad + i % 2;
         float x = s[i] * scale_log2;
@@ -506,9 +449,9 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       // 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); the fragment
       // wants (g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4), and
       // V^T's permuted keys make col t key 2t and col t + 4 key 2t + 1.
-      uint32_t p_hi[kKB / 8][4], p_lo[kKB / 8][4];
+      uint32_t p_hi[KB / 8][4], p_lo[KB / 8][4];
 #pragma unroll
-      for (int kk = 0; kk < kKB / 8; ++kk) {
+      for (int kk = 0; kk < KB / 8; ++kk) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e / 2;           // register 4 kk + e: row g + 8 h
@@ -527,21 +470,28 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = l[h] * corr[h] + sum[h];
       }
-      // pv = p_hi V_hi + p_hi V_lo + p_lo V_hi, then acc = acc corr + pv
-      float pv[kHD / 2];
-      wgmma_fence();
+      // per PN output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
+      // then acc = acc corr + pv
 #pragma unroll
-      for (int kk = 0; kk < kKB / 8; ++kk) {
-        wgmma_rs(pv, p_hi[kk], operand(v_hi, kk), kk > 0);
-        wgmma_rs(pv, p_hi[kk], operand(v_lo, kk), 1);
-        wgmma_rs(pv, p_lo[kk], operand(v_hi, kk), 1);
+      for (int nh = 0; nh < HD / C::PN; ++nh) {
+        const uint32_t rows_nh = nh * C::PN * kSwizzleBytes;   // V^T's
+        float pv[C::PN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KB / 8; ++kk) {
+          const uint64_t dv_hi = operand(v_hi + rows_nh, C::V_BLOCK, kk);
+          wgmma_rs(pv, p_hi[kk], dv_hi, kk > 0);
+          wgmma_rs(pv, p_hi[kk], operand(v_lo + rows_nh, C::V_BLOCK, kk), 1);
+          wgmma_rs(pv, p_lo[kk], dv_hi, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(pv);
+#pragma unroll
+        for (int i = 0; i < C::PN / 2; ++i)
+          acc[C::PN / 2 * nh + i] = __fadd_rn(
+              __fmul_rn(acc[C::PN / 2 * nh + i], corr[(i / 2) % 2]), pv[i]);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(pv);
-#pragma unroll
-      for (int i = 0; i < kHD / 2; ++i)
-        acc[i] = __fadd_rn(__fmul_rn(acc[i], corr[(i / 2) % 2]), pv[i]);
       if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));
     }
 
@@ -552,15 +502,16 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     named_barrier(1 + w);                // every product on Q has completed
     const int row_g = warp * 16 + lane / 4;
 #pragma unroll
-    for (int jn = 0; jn < kHD / 8; ++jn) {
+    for (int jn = 0; jn < HD / 8; ++jn) {
       // columns 8 jn + 2 quad + {0, 1}: chunk 2 jn + quad / 2, 8 bytes in
       const int ch = 2 * jn + quad / 2;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         *reinterpret_cast<float2*>(
-            q_smem + (ch / 8) * kBlockBytes + swizzled(row_g + 8 * h, ch % 8) +
-            8 * (quad % 2)) = make_float2(acc[4 * jn + 2 * h] / den[h],
-                                          acc[4 * jn + 2 * h + 1] / den[h]);
+            q_smem + (ch / 8) * kQBlockBytes +
+            swizzled(row_g + 8 * h, ch % 8) + 8 * (quad % 2)) =
+            make_float2(acc[4 * jn + 2 * h] / den[h],
+                        acc[4 * jn + 2 * h + 1] / den[h]);
       }
     }
     named_barrier(1 + w);
@@ -571,45 +522,17 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       *reinterpret_cast<float4*>(o + b * lout.b + pos_r * lout.row +
                                  h * lout.head + ch * 4) =
           *reinterpret_cast<const float4*>(
-              q_smem + (ch / 8) * kBlockBytes + swizzled(row, ch % 8));
+              q_smem + (ch / 8) * kQBlockBytes + swizzled(row, ch % 8));
     }
   }
 }
 
 // -- host side ----------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (cudaGetDriverEntryPoint*), so the library needs no link against
-// libcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A map of the contiguous 3-D float32 tensor (d0, d1, d2), innermost
-// first, in boxes of (32, 64, 1) with the 128-byte swizzle.
+// first, in boxes of (32, box1, 1) with the 128-byte swizzle.
 int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
-             long long d2) {
+             long long d2, int box1) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
@@ -617,7 +540,7 @@ int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
                               static_cast<cuuint64_t>(d2)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 4,
                                  static_cast<cuuint64_t>(d0 * d1) * 4};
-  const cuuint32_t box[3] = {32, 64, 1};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box1), 1};
   const cuuint32_t ones[3] = {1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims,
@@ -627,35 +550,58 @@ int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
+// The attention kernel on the pre-pass's output (K split at ks, V^T
+// split at vts).
+template <int HD>
+int launch(const float* ks, const float* vts, const void* q, void* o,
+           int causal, int NB, int KV, int G, int L, int S, long long S_pad,
+           long long tiles, const Layout& lq, const Layout& lout,
+           float scale, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  CUtensorMap tmap_k, tmap_v;
+  int map_err = make_map(&tmap_k, ks, HD, S_pad, 2LL * NB, C::KB);
+  if (map_err == 0) map_err = make_map(&tmap_v, vts, S_pad, HD, 2LL * NB, HD);
+  if (map_err != 0) return map_err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  flash_tf32_kernel<HD><<<dim3(static_cast<unsigned>(tiles), NB), kThreads,
+                          C::SMEM, stream>>>(
+      tmap_k, tmap_v, static_cast<const float*>(q), static_cast<float*>(o),
+      NB, KV, G, L, S, lq, lout, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, o: NB * G * L query rows; k, v: NB * S keys; float32 (dtype 0, the
 // code of csrc/flash_attn.cu's entry point; any other dtype is refused),
-// head_dim `hd` 64 (any other is refused).  Pair n = b * KV + kv reads
-// query row r = g * L + l at
+// head_dim `hd` 64 or 128 (any other is refused).  Pair n = b * KV + kv
+// reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides
 // in elements, head_dim contiguous, every row 16-byte aligned.
-// `scratch`: 4 * NB * S_pad * 64 floats, 16-byte aligned, S_pad = S
+// `scratch`: 4 * NB * S_pad * hd floats, 16-byte aligned, S_pad = S
 // rounded up to a multiple of 64; the pre-pass overwrites it.  Launches
-// the pre-pass and the kernel on `stream`, does not synchronise, and
-// returns the first cudaGetLastError() that is not 0, as an int:
-// cudaErrorInvalidValue for a shape it does not take, 10000 + the
-// CUresult where cuTensorMapEncodeTiled refuses a map.
+// the pre-pass's two kernels and the attention kernel on `stream`, does
+// not synchronise, and returns the first cudaGetLastError() that is not
+// 0, as an int: cudaErrorInvalidValue for a shape it does not take,
+// 10000 + the CUresult where cuTensorMapEncodeTiled refuses a map.
 extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int hd, int causal, int NB, int KV,
                                       int G, int L, int S,
                                       const long long* strides, float scale,
                                       void* scratch, void* stream) {
-  if (dtype != 0 || hd != kHD) return cudaErrorInvalidValue;
+  if (dtype != 0 || (hd != 64 && hd != 128)) return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0 || NB % KV || NB > 65535)
     return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(G) * L;
   const long long tiles = (rows + kQB - 1) / kQB;
-  const long long S_pad = (S + kKB - 1LL) / kKB * kKB;
+  const long long S_pad = (S + kKeyPad - 1LL) / kKeyPad * kKeyPad;
   if (rows > 0x7FFFFFFFLL || S_pad > 0x7FFFFFFFLL)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -664,34 +610,27 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
   const Layout lv{strides[6], strides[7], strides[8]};
   const Layout lout{strides[9], strides[10], strides[11]};
   float* ks = static_cast<float*>(scratch);
-  float* vts = ks + 2LL * NB * S_pad * kHD;
+  float* vts = ks + 2LL * NB * S_pad * hd;
 
-  const long long chunks = static_cast<long long>(NB) * S_pad * (kHD / 4);
+  const long long chunks = static_cast<long long>(NB) * S_pad * (hd / 4);
   const unsigned split_blocks =
       static_cast<unsigned>((chunks + 255) / 256 < 8192 ? (chunks + 255) / 256
                                                         : 8192);
   tf32_split_k_kernel<<<split_blocks, 256, 0, st>>>(
       static_cast<const float*>(k), ks, NB, KV, S, static_cast<int>(S_pad),
-      lk);
+      hd, lk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tf32_split_vt_kernel<<<dim3(static_cast<unsigned>(S_pad / 32), kHD / 32,
+  tf32_split_vt_kernel<<<dim3(static_cast<unsigned>(S_pad / 32), hd / 32,
                               NB),
                          256, 0, st>>>(static_cast<const float*>(v), vts, NB,
-                                       KV, S, static_cast<int>(S_pad), lv);
+                                       KV, S, static_cast<int>(S_pad), hd,
+                                       lv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  CUtensorMap tmap_k, tmap_v;
-  int map_err = make_map(&tmap_k, ks, kHD, S_pad, 2LL * NB);
-  if (map_err == 0) map_err = make_map(&tmap_v, vts, S_pad, kHD, 2LL * NB);
-  if (map_err != 0) return map_err;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (attr != cudaSuccess) return attr;
-  flash_tf32_kernel<<<dim3(static_cast<unsigned>(tiles), NB), kThreads, kSmem,
-                      st>>>(tmap_k, tmap_v, static_cast<const float*>(q),
-                            static_cast<float*>(o), NB, KV, G, L, S, lq, lout,
-                            scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if (hd == 64)
+    return launch<64>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad, tiles,
+                      lq, lout, scale, st);
+  return launch<128>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad, tiles,
+                     lq, lout, scale, st);
 }

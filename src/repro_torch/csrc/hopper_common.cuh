@@ -1,0 +1,204 @@
+// What the tensor-core flash kernels (csrc/flash_attn_wgmma.cu and
+// csrc/flash_attn_tf32.cu) share: the model's constants, shared-memory
+// addressing with the 128-byte swizzle, the mbarrier ring's waits and
+// arrivals, TMA loads, wgmma's descriptors and fences, the exact skip of
+// key tiles past a block's last position, and the run-time lookup of
+// cuTensorMapEncodeTiled.  Included by both; kernels/build.py hashes it
+// with each source that includes it.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kMinDenominator = 1e-30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSwizzleBytes = 128;      // one swizzled row of a column block
+
+// Element strides of one operand; the head_dim stride is 1.
+struct Layout {
+  long long b, row, head;
+};
+
+// -- shared memory, barriers, TMA --------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a block of
+// 128-byte rows stored with the 128-byte swizzle (TMA's and wgmma's).
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return row * kSwizzleBytes + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Waits for the phase of parity `parity` of `bar` to complete.  A wait
+// that has not ended after kWaitLimit SM clocks (seconds: no tile takes
+// that long) traps, so a fault in the ring ends the launch with an
+// error instead of hanging the card.
+constexpr long long kWaitLimit = 1LL << 35;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kWaitLimit) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One box of a 3-D or 4-D tensor map into shared memory at `dst`,
+// completing on `bar`; coordinates innermost first.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// -- wgmma --------------------------------------------------------------
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma's accumulator operands: eight registers from d[i], and the
+// operand lists of 16, 32 and 64 of them
+#define WG_D8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_R16                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "               \
+  "%8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_R32                                     \
+  WG_R16 ", "                                      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "       \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R64                                     \
+  WG_R32 ", "                                      \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "       \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "       \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// -- the exact tile skip -------------------------------------------------
+
+// Key tiles of KB keys that the block of folded rows [r0, r0 + QB)
+// needs: all of them, or when causal those up to the block's largest
+// query position (its last row's, unless the block straddles two fold
+// groups).  The exact test of csrc/flash_attn.cu.
+template <int QB, int KB>
+__device__ __forceinline__ int key_tiles(int r0, int rows, int L, int S,
+                                         int causal) {
+  const int all_tiles = (S + KB - 1) / KB;
+  if (!causal) return all_tiles;
+  const int r_last = min(r0 + QB, rows) - 1;
+  const int max_pos = (r0 / L == r_last / L) ? r_last % L : L - 1;
+  return min(all_tiles, max_pos / KB + 1);
+}
+
+// -- host side ----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (cudaGetDriverEntryPoint*), so the library needs no link against
+// libcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+}  // namespace

@@ -57,9 +57,10 @@ def build_source(src: Path, out_dir: Path):
     """(library, nvcc log, whether `fused_mac_launch`, where the source
     has it, takes block_u)."""
     lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                           str(lib), str(src)], capture_output=True,
-                          text=True)
+    # -I: an older source from elsewhere finds the package's csrc/ headers
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     text = src.read_text()

@@ -4,9 +4,9 @@ Each kernel source under ``repro_torch/csrc/`` is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 and loaded with `ctypes`.  The build happens at first use, from the
 sources in the package only, into ``repro_torch/csrc/_build/`` (listed
-in ``.gitignore``); the library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import time: the module imports on a
+in ``.gitignore``); the library's file name carries a hash of its source,
+the ``csrc/`` headers it includes and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing here runs at import time: the module imports on a
 machine without CUDA, and only `load` needs ``nvcc``.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,9 +46,17 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def includes(src: bytes) -> List[bytes]:
+    """The ``csrc/`` headers a source includes by ``#include "..."``."""
+    return re.findall(rb'^#include "([^"]+)"', src, re.M)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join((CSRC / h.decode()).read_bytes()
+                       for h in includes(src))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
