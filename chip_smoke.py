@@ -11,9 +11,9 @@ Phases, in order; any failure exits non-zero:
    (ptxas' registers and spills logged per kernel instance), and count
    each draw kernel's instructions per draw by pipe in its SASS
    (`repro_torch.kernels.sass`: the operations its bound counts); the
-   tensor-core flash kernels' instances (bf16 at hd 64 and 128, float32
-   at hd 64) must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in
-   their SASS;
+   tensor-core flash kernels' instances (bf16 and float32, each at hd
+   64 and 128) must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)
+   in their SASS;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
@@ -24,13 +24,16 @@ Phases, in order; any failure exits non-zero:
    versions run in phase 7); flash attention (through `flash_attention`,
    on the kernel `flash_route` picks, which alone must count both
    launches: bf16 at hd 64/128 on the tensor cores, ``flash_mha_wgmma``,
-   float32 at hd 64 on the tensor cores in 3xTF32, ``flash_mha_tf32``,
-   the rest on the CUDA cores, ``flash_mha``) against its plain version
-   at qwen2-0.5b's prefill shape (B 4, L 4096, bf16 and f32), its heads
-   at L 200 (128-row tiles straddle fold groups; also f32, both masks)
-   and L 77, the hd-128 shapes of qwen2-1.5b (also bidirectional) and
-   qwen3-4b and ``tests/test_flash_attn.py``'s shapes (f32 at hd 16/32
-   and 128 on the CUDA cores): f32 within 1e-5 of max |o|,
+   float32 at hd 64/128 on the tensor cores in 3xTF32,
+   ``flash_mha_tf32``, hd 16/32 on the CUDA cores, ``flash_mha``)
+   against its plain version at qwen2-0.5b's prefill shape (B 4, L 4096,
+   bf16 and f32), its heads at L 200 (128-row tiles straddle fold
+   groups; also f32, both masks) and L 77, the hd-128 shapes of
+   qwen2-1.5b (also bidirectional, and f32 at L 200 and L 77) and
+   qwen3-4b (f32 bidirectional at L 1000), the serving example's
+   reduced model at B 4, L 4096 (hd 32, bf16) and
+   ``tests/test_flash_attn.py``'s shapes (f32 at hd 16, 32, 64 and
+   128): f32 within 1e-5 of max |o|,
    bf16 within that plus one bf16 ULP of each value (both sides round
    once from float32), two launches identical;
 4. the main paths on ``cuda`` at full width, every launch count set to
@@ -65,9 +68,13 @@ Phases, in order; any failure exits non-zero:
      launches of the bf16 tensor-core flash kernel and none of the
      others, by the count and in the profiler; the same prefill at
      float32 compute, 24 of the float32 tensor-core kernel and none of
-     the others; qwen2-1.5b at full width (hd 128), its depth cut to 4
+     the others (and 24 of each of its two pre-pass kernels in the
+     profiler); qwen2-1.5b at full width (hd 128), its depth cut to 4
      layers, prefilled at float32 compute (1 prompt of 4,096 tokens): 4
-     launches of the CUDA-core kernel and none of the others; one warm
+     launches of the float32 tensor-core kernel and none of the others;
+     the serving example's model (qwen2-0.5b's reduced() config, hd 32,
+     2 layers, bf16) prefilled at B 4 x L 4096: 2 launches of the
+     CUDA-core kernel and none of the others; one warm
      `build_decode_step` step against `cache_specs`' prefilled cache
      (decode_32k cut from batch 128 to 8, cache 32,768), then 8
      requests answered: a 32-token prompt streamed into an empty
@@ -97,14 +104,16 @@ Phases, in order; any failure exits non-zero:
    ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
    (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
    (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
-   (B 4, L 4096) at bf16 and at float32 compute and one warm decode
-   step (B 8, cache 32,768): device ms, busy share, each flash kernel's
-   share, device ops per call;
+   (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
+   (B 8, cache 32,768), and phase 4's qwen2-1.5b float32 and reduced
+   prefills: device ms, busy share, each flash record's share (the
+   tf32 record's with its pre-pass, also given alone), device ops per
+   call;
 7. kernel and plain times with CUDA events at the kernels' largest
    main-path shapes (for `ota_combine` at the Fig. 2 driver's three
-   shapes and scale_u256's, with its cluster size and its own device
-   time from the profiler, since at B = 1 the wrapper's host time
-   bounds back-to-back launches), beside the least
+   shapes and scale_u256's, with its cluster size and its time with
+   the calls queued behind a spin kernel, since at B = 1 the wrapper's
+   host time bounds back-to-back launches), beside the least
    time the card could take for the same work (``fused_mac_bound_ms``,
    ``ota_combine_bound_ms``,
    ``partials_bound_ms``, ``reduce_bound_ms``); at scale_u65536 1x1 both
@@ -115,8 +124,9 @@ Phases, in order; any failure exits non-zero:
    gathered one at the scale_u16384 shape; the tensor-core flash kernel
    at qwen2-0.5b's prefill shape and at prefill_32k's length (B 1,
    L 32,768, one layer), the float32 tensor-core one at the prefill
-   shape in float32, and the CUDA-core one at qwen2-1.5b's float32
-   prefill shape (B 1, L 4096, hd 128), each against its plain version,
+   shape in float32 and at qwen2-1.5b's float32 prefill shape (B 1,
+   L 4096, hd 128), and the CUDA-core one at the reduced prefill's
+   shape (B 4, L 4096, hd 32, bf16), each against its plain version,
    the library's
    `scaled_dot_product_attention` on the same inputs (timed as a
    yardstick only, held to the backend it chose; for float32 on k and v
@@ -161,7 +171,11 @@ KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "flash_mha_tf32": ("flash_attn_tf32", "flash_tf32_kernel")}
 # the tensor-core flash kernels and their template instances: wgmma
 # (HGMMA) fed by TMA (UTMALDG) in each one's SASS
-TENSOR_CORE_FLASH = {"flash_mha_wgmma": 2, "flash_mha_tf32": 1}
+TENSOR_CORE_FLASH = {"flash_mha_wgmma": 2, "flash_mha_tf32": 2}
+# the kernels a flash record's entry point launches before its own, once
+# per call: the tf32 kernel's pre-pass (K and V^T split into scratch)
+FLASH_PREPASS = {"flash_mha_tf32": ("tf32_split_k_kernel",
+                                    "tf32_split_vt_kernel")}
 # the flash wrappers' route (`flash_route`: the source) -> the record
 FLASH_RECORDS = {src: name for name, (src, _) in KERNELS.items()
                  if src.startswith("flash_attn")}
@@ -184,7 +198,7 @@ FLASH_F32_RTOL = 1e-5
 # tests/test_torch_lm.py's bound on a bf16 prefill's logits (port vs JAX)
 LM_BF16_RTOL = 5e-2
 LM_ARCH = "qwen2-0.5b"
-# the float32 prefill at hd 128 that the CUDA-core flash kernel serves:
+# the float32 prefill at hd 128 (the tf32 kernel's hd-128 instance):
 # qwen2-1.5b at full width, its 28 layers cut to 4 for the run's time
 F32_HD128_ARCH, F32_HD128_LAYERS = "qwen2-1.5b", 4
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
@@ -305,7 +319,9 @@ def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
 def lm_profile(fn) -> dict:
     """`fn()` (one serving step, ending in a synchronize) warm, timed on
     the host clock, then under `torch.profiler`: device ms, busy share,
-    each flash kernel's share and the device ops of one call."""
+    each flash record's share (its kernel and any pre-pass its entry
+    point launches, whose time is also given alone) and the device ops
+    of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,8 +342,14 @@ def lm_profile(fn) -> dict:
     device_ms = sum(ms for ms, _ in by_name.values())
     flash = {}
     for name in FLASH_RECORDS.values():
-        ms = sum(t for k, (t, _) in by_name.items() if KERNELS[name][1] in k)
+        # a record's time holds the pre-pass its entry point launches
+        pre = sum(t for k, (t, _) in by_name.items()
+                  if any(fn in k for fn in FLASH_PREPASS.get(name, ())))
+        ms = pre + sum(t for k, (t, _) in by_name.items()
+                       if KERNELS[name][1] in k)
         flash.update({f"{name}_ms": ms, f"{name}_share": ms / device_ms})
+        if name in FLASH_PREPASS:
+            flash[f"{name}_prepass_ms"] = pre
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms, **flash,
@@ -336,36 +358,39 @@ def lm_profile(fn) -> dict:
                     for k, (ms, n) in top]}
 
 
-def device_ms(fn, reps: int, kernel: str) -> dict:
-    """Mean device duration of the kernel whose name holds `kernel` over
-    `reps` calls of `fn()` under `torch.profiler`, and how many of its
-    launches the trace holds: its own time, free of the host's launch
-    rate, which bounds back-to-back CUDA-event times once the wrapper's
-    Python takes longer than the kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def queued_ms(fn, reps: int) -> float:
+    """Mean time of `reps` calls of `fn()` enqueued behind a spin kernel
+    (`torch.cuda._sleep`, ~25 ms): the host has queued every call before
+    the card reaches the first, so the calls run back to back and the
+    CUDA events between them time the kernels and the gaps between
+    launches, free of the wrapper's host time, which bounds back-to-back
+    event times once its Python takes longer than the kernel."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return {"ms": sum(us) / len(us) / 1e3 if us else "not measured",
-            "traced_launches": len(us), "calls": reps}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def flash_kernels_in(prof) -> dict:
     """{record: launches} of each flash kernel a `torch.profiler` trace
-    saw on the card."""
+    saw on the card, and {"<record> pre-pass": [launches of each
+    pre-pass kernel]} for the records that have one."""
     from torch.autograd import DeviceType
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    return {name: sum(KERNELS[name][1] in k for k in names)
+    seen = {name: sum(KERNELS[name][1] in k for k in names)
             for name in FLASH_RECORDS.values()}
+    for name, fns in FLASH_PREPASS.items():
+        seen[f"{name} pre-pass"] = [sum(fn in k for k in names)
+                                    for fn in fns]
+    return seen
 
 
 def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
@@ -403,6 +428,8 @@ def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
          "max_abs_logit": float(logits.abs().max())})
     want = {name: cfg.n_layers if name == record else 0
             for name in FLASH_RECORDS.values()}
+    for name, fns in FLASH_PREPASS.items():
+        want[f"{name} pre-pass"] = [want[name]] * len(fns)
     if traced != want:
         raise SystemExit(f"the profiler saw flash kernels {traced} in "
                          f"{label}, not {want}")
@@ -1208,6 +1235,18 @@ def main() -> int:
         (f"{LM_ARCH} heads L200 f32 bidirectional", (2, 200, 14, 2, 64), f32,
          False),
         (f"{LM_ARCH} heads L77 f32", (1, 77, 14, 2, 64), f32, True),
+        # its hd-128 instance's: 32-key tiles, 2 K stages, 1 V^T stage
+        ("qwen2-1.5b heads L200 f32 (fold straddles tiles)",
+         (2, 200, 12, 2, 128), f32, True),
+        ("qwen2-1.5b heads L200 f32 bidirectional", (2, 200, 12, 2, 128),
+         f32, False),
+        ("qwen2-1.5b heads L77 f32", (1, 77, 12, 2, 128), f32, True),
+        ("qwen3-4b heads L1000 f32 bidirectional", (1, 1000, 32, 8, 128),
+         f32, False),
+        # the CUDA-core kernel's main path: the serving example's model
+        # (hd 32) prefilled at B4 L4096
+        (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32), bf16,
+         True),
         ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
         ("test_flash_attn", shape, f32, causal)
         for shape in JAX_FLASH_SHAPES for causal in (True, False)]
@@ -1368,9 +1407,8 @@ def main() -> int:
         dataclasses.replace(INPUT_SHAPES["decode_32k"], global_batch=8),
         cuts={"prefill": "prefill_32k: batch 32 -> 4, length 32768 -> 4096",
               "decode": "decode_32k: batch 128 -> 8, cache 32768"})
-    # the CUDA-core flash kernel's main path: a float32 prefill at hd 128
-    # (qwen2-1.5b at full width, depth cut), which the tf32 kernel does
-    # not take
+    # a float32 prefill at hd 128 (qwen2-1.5b at full width, depth cut):
+    # the tf32 kernel's hd-128 instance
     from repro_torch import prng
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1382,14 +1420,33 @@ def main() -> int:
          "n_layers": q15_f32.n_layers, "d_model": q15.d_model,
          "heads": q15.n_heads, "kv_heads": q15.n_kv_heads,
          "head_dim": q15.head_dim, "compute_dtype": "float32"})
-    prefill_path(f"{q15.name} prefill f32", q15_f32,
-                 serve.compute_params(params15, q15_f32), "flash_mha",
-                 dataclasses.replace(INPUT_SHAPES["prefill_32k"],
-                                     global_batch=1, seq_len=4096),
-                 dev, counted, expect,
-                 f"prefill_32k: batch 32 -> 1, length 32768 -> 4096; "
-                 f"depth {q15.n_layers} -> {F32_HD128_LAYERS} layers")
-    del params15
+    served15 = serve.compute_params(params15, q15_f32)
+    q15_step, q15_tokens = prefill_path(
+        f"{q15.name} prefill f32", q15_f32, served15, "flash_mha_tf32",
+        dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=1,
+                            seq_len=4096),
+        dev, counted, expect,
+        f"prefill_32k: batch 32 -> 1, length 32768 -> 4096; "
+        f"depth {q15.n_layers} -> {F32_HD128_LAYERS} layers")
+    # the CUDA-core flash kernel's main path: the serving example's model
+    # (examples/serve_decode_torch.py runs LM_ARCH's reduced() config:
+    # head_dim 32, which the tensor-core kernels do not take), prefilled
+    # at qwen2-0.5b's prefill shape through the same serving entry point
+    small = qwen.reduced()
+    params_small = lm.init_params(prng.PRNGKey(0, dev), small)
+    log({"phase": "main_path", "run": f"{small.name} reduced init",
+         "n_layers": small.n_layers, "d_model": small.d_model,
+         "heads": small.n_heads, "kv_heads": small.n_kv_heads,
+         "head_dim": small.head_dim, "compute_dtype": small.compute_dtype})
+    served_small = serve.compute_params(params_small, small)
+    small_step, small_tokens = prefill_path(
+        f"{small.name} reduced prefill", small, served_small, "flash_mha",
+        dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=4,
+                            seq_len=4096),
+        dev, counted, expect,
+        "the serving example's reduced() config; prefill_32k: batch 32 -> "
+        "4, length 32768 -> 4096")
+    del params15, params_small
     spec = importlib.util.spec_from_file_location(
         "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
     example = importlib.util.module_from_spec(spec)
@@ -1442,6 +1499,18 @@ def main() -> int:
     # the LM first: its weights are freed before the sharded runs' peak
     # device memory is read
     lm_profiles(lm_run, dev, card)
+    for label, step, served_p, tokens in (
+            (f"{q15.name} prefill f32 ({F32_HD128_LAYERS} layers) B1 L4096",
+             q15_step, served15, q15_tokens),
+            (f"{small.name} reduced prefill B4 L4096", small_step,
+             served_small, small_tokens)):
+        def call(step=step, served_p=served_p, tokens=tokens):
+            step(served_p, {"tokens": tokens})
+            torch.cuda.synchronize()
+
+        log({"phase": "profile", "run": label, "card": card,
+             **lm_profile(call)})
+    del served15, served_small
     del lm_run
     # the reference backend issues ~60k ops a round (a 20-step fold per
     # hop), so it is profiled over 2 rounds to keep the trace small
@@ -1524,8 +1593,8 @@ def main() -> int:
         log({"phase": "times", "kernel": "ota_combine", "shape": label,
              "shape_BUKN": [B, U, K, N],
              "cluster_blocks": cluster_fn(B, K, N), "kernel_ms": ks,
-             "kernel_device_ms": device_ms(lambda: ota_combine(*args), 20,
-                                           KERNELS["ota_combine"][1]),
+             "kernel_queued_ms": [queued_ms(lambda: ota_combine(*args), 20)
+                                  for _ in range(2)],
              "plain_ms": ps, "bound_ms": bound, "bound_by": bound_by,
              "card": card})
         del args
@@ -1628,7 +1697,9 @@ def main() -> int:
             (f"{LM_ARCH} prefill f32 B4 L4096", (4, 4096, 14, 2, 64), f32,
              (10, 3)),
             (f"{F32_HD128_ARCH} prefill f32 B1 L4096",
-             (1, 4096, 12, 2, 128), f32, (10, 3))):
+             (1, 4096, 12, 2, 128), f32, (10, 3)),
+            (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32),
+             bf16, (10, 3))):
         name, times = flash_times(label, shape, dtype, reps, dev, card,
                                   in_turns, time_ms, flash_pair, check_flash)
         timings[name, label] = times
@@ -1645,13 +1716,13 @@ def main() -> int:
                ("fused_partials_reduce", "scale_u65536 1x1",
                 "src/repro/kernels/fused_mac.py:467", None),
                # the three flash kernels replace the one Pallas kernel:
-               # bf16 at hd 64/128 and float32 at hd 64 on the tensor
-               # cores, the rest on the CUDA cores
+               # bf16 and float32 at hd 64/128 on the tensor cores, hd
+               # 16/32 on the CUDA cores
                ("flash_mha_wgmma", f"{LM_ARCH} prefill B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None),
                ("flash_mha_tf32", f"{LM_ARCH} prefill f32 B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None),
-               ("flash_mha", f"{F32_HD128_ARCH} prefill f32 B1 L4096",
+               ("flash_mha", f"{LM_ARCH} reduced prefill B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None)]
     log({"phase": "done", "seconds": time.perf_counter() - t_start,
          "card": card})

@@ -3,11 +3,10 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for float32 at head dims 16, 32 and 128 and bfloat16 at 16 and 32;
-// bfloat16 at 64 and 128 (the serving path's prefill) runs on the tensor
-// cores in csrc/flash_attn_wgmma.cu, and float32 at 64 on them in 3xTF32
-// in csrc/flash_attn_tf32.cu.  The float32 hd-64 instance stays built
-// here, for timing the two against each other (kernels/ab.py).
+// at head dims 16 and 32, float32 or bfloat16; at 64 and 128 (the
+// serving path's prefills) bfloat16 runs on the tensor cores in
+// csrc/flash_attn_wgmma.cu, and float32 on them in 3xTF32 in
+// csrc/flash_attn_tf32.cu.
 // For every (batch b, KV head kv) pair n and every query row r of the
 // folded row axis (r = g * L + l: the G = H / KV query heads of kv
 // folded over the L positions), with position l = r mod L:
@@ -30,21 +29,14 @@
 // flops per byte at qwen2-0.5b's B 4 x L 4096.  Here everything runs on
 // the CUDA cores (67 TFLOP/s of float32 on an H100 SXM at 700 W,
 // NVIDIA's data sheet): the head dims the tensor-core kernels do not
-// take (16 and 32, narrower than their 64-wide column blocks; float32 at
-// 128, whose split operands would not fit the tf32 kernel's shared
-// memory).  TF32 alone would miss the float32 gate; the tf32 kernel
-// keeps it by splitting every product in three.
+// take, 16 and 32, narrower than their column blocks.
 //
 // Design.  The TPU kernel walks a sequential (N, q tile, k tile) grid
 // and carries (acc, m, l) in VMEM scratch across the k axis.  Here one
 // thread block owns (n, a tile of QB query rows) and loops over the key
 // tiles itself:
-// - each query row belongs to TPR = head_dim / DPT neighbouring lanes,
-//   each holding DPT = min(head_dim, 32) of its dims of q and of the
-//   accumulator in registers (dims in 16-byte chunks interleaved over
-//   the TPR lanes, so their shared-memory reads hit distinct banks);
-//   a row's partial dot products meet through xor shuffles, which give
-//   every lane of the row the same bits, so (m, l) agree across them;
+// - each query row belongs to one lane, which holds its q and its
+//   accumulator (head_dim floats each) in registers;
 // - the K and V tiles (KB keys) are staged in shared memory as float32,
 //   loaded 16 bytes per thread; every lane of a warp reads the same key
 //   (a broadcast);
@@ -61,7 +53,6 @@
 //   [B, L, H, head_dim] layout needs no folded copy;
 // - fixed summation order, no atomics: two launches give the same bits.
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,11 +65,9 @@ constexpr int kThreads = 128;
 
 template <int HD>
 struct Tile {
-  static constexpr int DPT = HD < 32 ? HD : 32;  // head dims per lane
-  static constexpr int TPR = HD / DPT;           // lanes per query row
-  static constexpr int QB = kThreads / TPR;      // query rows per block
-  static constexpr int KB = HD == 128 ? 32 : 64;  // keys per tile
-  static constexpr int CH = DPT / 4;             // 16-byte chunks per lane
+  static constexpr int QB = kThreads;            // query rows per block
+  static constexpr int KB = 64;                  // keys per tile
+  static constexpr int CH = HD / 4;              // 16-byte chunks per row
 };
 
 // Element strides of one operand; the head_dim stride is 1.
@@ -126,12 +115,11 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ __align__(16) float vs[C::KB][HD];
 
   const int tid = threadIdx.x;
-  const int part = tid % C::TPR;
   const int n = blockIdx.y;
   const int b = n / KV, kv = n % KV;
   const int rows = G * L;
   const int r0 = blockIdx.x * C::QB;
-  const int r = r0 + tid / C::TPR;
+  const int r = r0 + tid;
   const bool active = r < rows;
   const int rr = active ? r : rows - 1;  // idle lanes shadow the last row
   const int pos = rr % L;
@@ -145,17 +133,17 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_tiles = causal ? min(all_tiles, max_pos / C::KB + 1)
                              : all_tiles;
 
-  float qr[C::DPT];
+  float qr[HD];
   const T* qp = q + b * lq.b + pos * lq.row + h * lq.head;
 #pragma unroll
   for (int c = 0; c < C::CH; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      qr[4 * c + e] = to_f32(qp[4 * (part + C::TPR * c) + e]);
+      qr[4 * c + e] = to_f32(qp[4 * c + e]);
 
-  float acc[C::DPT];
+  float acc[HD];
 #pragma unroll
-  for (int i = 0; i < C::DPT; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < HD; ++i) acc[i] = 0.0f;
   float m = kNegInf, l = 0.0f;
   const T* kb = k + b * lk.b + kv * lk.head;
   const T* vb = v + b * lv.b + kv * lv.head;
@@ -191,15 +179,13 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < C::CH; ++c) {
         const float4 kk = *reinterpret_cast<const float4*>(
-            &ks[j][4 * (part + C::TPR * c)]);
+            &ks[j][4 * c]);
         d0 = fmaf(qr[4 * c], kk.x, d0);
         d1 = fmaf(qr[4 * c + 1], kk.y, d1);
         d2 = fmaf(qr[4 * c + 2], kk.z, d2);
         d3 = fmaf(qr[4 * c + 3], kk.w, d3);
       }
-      float dot = (d0 + d1) + (d2 + d3);
-      if (C::TPR >= 2) dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      if (C::TPR >= 4) dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      const float dot = (d0 + d1) + (d2 + d3);
       const int jj = j0 + j;
       const float sj = (jj >= S || (causal && jj > pos)) ? kNegInf
                                                          : dot * scale;
@@ -209,9 +195,9 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float m_new = fmaxf(m, tile_max);
     const float corr = expf(m - m_new);
     float sum = 0.0f;
-    float pv[C::DPT];
+    float pv[HD];
 #pragma unroll
-    for (int i = 0; i < C::DPT; ++i) pv[i] = 0.0f;
+    for (int i = 0; i < HD; ++i) pv[i] = 0.0f;
 #pragma unroll
     for (int j = 0; j < C::KB; ++j) {
       const float p = expf(s[j] - m_new);
@@ -219,7 +205,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < C::CH; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(
-            &vs[j][4 * (part + C::TPR * c)]);
+            &vs[j][4 * c]);
         pv[4 * c] = fmaf(p, vv.x, pv[4 * c]);
         pv[4 * c + 1] = fmaf(p, vv.y, pv[4 * c + 1]);
         pv[4 * c + 2] = fmaf(p, vv.z, pv[4 * c + 2]);
@@ -229,7 +215,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l = l * corr + sum;
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < C::DPT; ++i) acc[i] = acc[i] * corr + pv[i];
+    for (int i = 0; i < HD; ++i) acc[i] = acc[i] * corr + pv[i];
   }
 
   if (active) {
@@ -239,7 +225,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < C::CH; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        store(op + 4 * (part + C::TPR * c) + e, acc[4 * c + e] / den);
+        store(op + 4 * c + e, acc[4 * c + e] / den);
   }
 }
 
@@ -265,6 +251,8 @@ template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int causal, int NB, int KV, int G, int L, int S,
               const long long* st, float scale, cudaStream_t stream) {
+  // hd 64 and 128 run on the tensor cores (csrc/flash_attn_wgmma.cu,
+  // csrc/flash_attn_tf32.cu): no instance here
   switch (hd) {
     case 16:
       return launch<16, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
@@ -273,26 +261,14 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
       return launch<32, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
                            stream);
   }
-  // bfloat16 at hd 64 and 128 runs on the tensor cores
-  // (csrc/flash_attn_wgmma.cu): no instance here
-  if constexpr (std::is_same<T, float>::value) {
-    switch (hd) {
-      case 64:
-        return launch<64, T>(q, k, v, o, causal, NB, KV, G, L, S, st, scale,
-                             stream);
-      case 128:
-        return launch<128, T>(q, k, v, o, causal, NB, KV, G, L, S, st,
-                              scale, stream);
-    }
-  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: NB * G * L query rows; k, v: NB * S keys; all of head_dim `hd`:
-// float32 (dtype 0) at 16, 32, 64 or 128, bfloat16 (dtype 1) at 16 or 32.  Pair n
-// = b * KV + kv reads query row r = g * L + l at
+// q, o: NB * G * L query rows; k, v: NB * S keys; all of head_dim `hd`
+// 16 or 32, float32 (dtype 0) or bfloat16 (dtype 1).  Pair n = b * KV +
+// kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides

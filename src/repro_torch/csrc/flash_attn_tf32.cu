@@ -51,16 +51,22 @@
 //   fragment unmoved;
 // - one block per (pair n, tile of QB = 128 folded query rows), three
 //   warpgroups: WG0 the producer (40 registers, setmaxnreg), one thread
-//   of which keeps TMA loads of K hi/lo and V^T hi/lo tiles (KB keys,
-//   64 KB a stage) in flight into a ring of 2 stages with "full" (TMA's
-//   transaction bytes) and "empty" (one arrival per consumer warp)
-//   mbarriers; WG1 and WG2 the consumers (232 registers), 64 query rows
-//   each.  Shared memory: Q 64 KB, the ring 128 KB, at both widths:
-//   - hd 64: KB = 64, Q hi and lo both in shared memory;
-//   - hd 128: KB = 32, Q hi in shared memory and Q lo in registers, as
-//     the A fragments of its k8 steps (64 a thread): Q hi + lo would
-//     take 128 KB, and with a stage of 64 keys another 128 KB, past the
-//     227 KB a block may use;
+//   of which keeps TMA loads in flight into two rings, one of K hi/lo
+//   tiles and one of V^T hi/lo tiles (KB keys, 32 KB a stage), each
+//   stage with a "full" (TMA's transaction bytes) and an "empty" (one
+//   arrival per consumer warp) mbarrier; WG1 and WG2 the consumers (232
+//   registers), 64 query rows each.  A K stage is freed as soon as S has
+//   been computed from it, a V^T stage once P V has.  Shared memory, Q
+//   hi and lo of both consumers and the rings:
+//   - hd 64: KB = 64, 3 K and 2 V^T stages: 64 + 160 KB (a third K
+//     stage took 5% off the time at qwen2-0.5b's prefill shape; PERF.md,
+//     section 6);
+//   - hd 128: KB = 32, 2 K stages and 1 V^T stage: 128 + 96 KB, of the
+//     227 KB a block may use.  V^T tile t + 1 then loads while S and
+//     the softmax of tile t + 1 run.  Keeping Q lo in registers instead
+//     (as the A fragments of the S product, 64 a thread) left room for
+//     2 V^T stages, but ptxas spilled it (204 bytes at the consumers'
+//     232 registers; PERF.md, section 6);
 // - Q is loaded once by the consumers, 16 bytes a thread, split into hi
 //   and lo and stored in the 128-byte-swizzled layout wgmma reads (not
 //   by TMA: a 128-row tile can straddle two fold groups);
@@ -92,7 +98,6 @@
 namespace {
 
 constexpr int kQB = 128;                // query rows per block
-constexpr int kStages = 2;
 constexpr int kThreads = 384;           // three warpgroups
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
@@ -106,16 +111,18 @@ constexpr int kQBlockBytes = kWgRows * kSwizzleBytes;
 template <int HD>
 struct Cfg {
   static constexpr int KB = HD == 64 ? 64 : 32;         // keys per tile
-  static constexpr bool Q_LO_SMEM = HD == 64;           // else registers
-  static constexpr int PN = HD == 64 ? 64 : 32;         // P V's columns a pass
+  static constexpr int K_STAGES = HD == 64 ? 3 : 2;
+  static constexpr int V_STAGES = HD == 64 ? 2 : 1;
   static constexpr int OP_BYTES = KB * HD * 4;          // K or V^T, hi or lo
   static constexpr int K_BLOCK = KB * kSwizzleBytes;    // K: HD / 32 blocks
   static constexpr int V_BLOCK = HD * kSwizzleBytes;    // V^T: KB / 32
-  static constexpr int STAGE_BYTES = 4 * OP_BYTES;      // K hi, lo; V^T hi, lo
-  static constexpr int Q_PART_BYTES = kWgRows * HD * 4; // Q hi (or lo)
-  static constexpr int WG_Q_BYTES = (Q_LO_SMEM ? 2 : 1) * Q_PART_BYTES;
+  static constexpr int STAGE_BYTES = 2 * OP_BYTES;      // hi and lo
+  static constexpr int Q_PART_BYTES = kWgRows * HD * 4; // Q hi or Q lo
+  static constexpr int WG_Q_BYTES = 2 * Q_PART_BYTES;
+  static constexpr int K_RING = 2 * WG_Q_BYTES;         // offsets from base
+  static constexpr int V_RING = K_RING + K_STAGES * STAGE_BYTES;
   // + 1024: the dynamic window is aligned up to the swizzle atom
-  static constexpr int SMEM = 2 * WG_Q_BYTES + kStages * STAGE_BYTES + 1024;
+  static constexpr int SMEM = V_RING + V_STAGES * STAGE_BYTES + 1024;
 };
 
 // -- tf32 ----------------------------------------------------------------
@@ -144,7 +151,7 @@ __device__ __forceinline__ uint64_t operand(uint32_t tile, int block,
 }
 
 // d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, both K-major in shared
-// memory; scale_d = 0 overwrites d.  N = 32 or 64.
+// memory; scale_d = 0 overwrites d.  N = 32 or 64 (KB).
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -165,20 +172,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, A in registers (the k8
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, A in registers (the k8
 // fragment: rows g and g + 8 of the warp's 16, columns t and t + 4, in
 // the order (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), B K-major
-// in shared memory; scale_d = 0 overwrites d.  N = 32 or 64.
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" WG_R16
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
+// in shared memory; scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -265,18 +262,20 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
   using C = Cfg<HD>;
   constexpr int KB = C::KB;
   constexpr int CPR = HD / 4;            // 16-byte chunks per row
-  __shared__ __align__(8) uint64_t full_bar[kStages];
-  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  constexpr int KS = C::K_STAGES, VS = C::V_STAGES;
+  // a ring of K tiles and one of V^T tiles, each with "full" and "empty"
+  // barriers per stage
+  __shared__ __align__(8) uint64_t k_full[KS], k_empty[KS];
+  __shared__ __align__(8) uint64_t v_full[VS], v_empty[VS];
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  // consumer w's Q hi at w * WG_Q_BYTES (its Q lo, at hd 64, a
-  // Q_PART_BYTES later); stage st's K hi, K lo, V^T hi, V^T lo at
-  // stage(st) + i * OP_BYTES
-  auto stage = [&](int st) {
-    return base + 2 * C::WG_Q_BYTES + st * C::STAGE_BYTES;
-  };
+  // consumer w's Q hi at w * WG_Q_BYTES, its Q lo a Q_PART_BYTES later;
+  // the hi and lo of K stage st at k_stage(st) (+ OP_BYTES), of V^T
+  // stage st at v_stage(st)
+  auto k_stage = [&](int st) { return base + C::K_RING + st * C::STAGE_BYTES; };
+  auto v_stage = [&](int st) { return base + C::V_RING + st * C::STAGE_BYTES; };
 
   const int rows = G * L;
   // longest blocks (the last rows, when causal) first
@@ -284,9 +283,13 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const int consumers = r0 + kWgRows < rows ? 2 : 1;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(smem_addr(&full_bar[st]), 1);
-      mbar_init(smem_addr(&empty_bar[st]), 4 * consumers);
+    for (int st = 0; st < KS; ++st) {
+      mbar_init(smem_addr(&k_full[st]), 1);
+      mbar_init(smem_addr(&k_empty[st]), 4 * consumers);
+    }
+    for (int st = 0; st < VS; ++st) {
+      mbar_init(smem_addr(&v_full[st]), 1);
+      mbar_init(smem_addr(&v_empty[st]), 4 * consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -296,29 +299,32 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
   // across it would be spilled
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // ---- producer: one thread keeps the ring full ----
+    // ---- producer: one thread keeps both rings full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
       const int n_tiles = key_tiles<kQB, KB>(r0, rows, L, S, causal);
       const int n = blockIdx.y;
+      // K tile t, then V^T tile t, each once its stage has been freed
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % kStages;
-        const uint32_t full = smem_addr(&full_bar[st]);
-        mbar_wait(smem_addr(&empty_bar[st]), ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, C::STAGE_BYTES);
+        const int ks = t % KS, vs = t % VS;
+        mbar_wait(smem_addr(&k_empty[ks]), ((t / KS) & 1) ^ 1);
+        const uint32_t kf = smem_addr(&k_full[ks]);
+        mbar_expect_tx(kf, C::STAGE_BYTES);
 #pragma unroll
-        for (int part = 0; part < 2; ++part) {       // hi, lo
-          const uint32_t k_dst = stage(st) + part * C::OP_BYTES;
-          const uint32_t v_dst = k_dst + 2 * C::OP_BYTES;
+        for (int part = 0; part < 2; ++part)         // hi, lo
 #pragma unroll
           for (int cb = 0; cb < HD / 32; ++cb)
-            tma_load(k_dst + cb * C::K_BLOCK, &tmap_k, full, cb * 32, t * KB,
-                     part * NB + n);
+            tma_load(k_stage(ks) + part * C::OP_BYTES + cb * C::K_BLOCK,
+                     &tmap_k, kf, cb * 32, t * KB, part * NB + n);
+        mbar_wait(smem_addr(&v_empty[vs]), ((t / VS) & 1) ^ 1);
+        const uint32_t vf = smem_addr(&v_full[vs]);
+        mbar_expect_tx(vf, C::STAGE_BYTES);
+#pragma unroll
+        for (int part = 0; part < 2; ++part)
 #pragma unroll
           for (int cb = 0; cb < KB / 32; ++cb)
-            tma_load(v_dst + cb * C::V_BLOCK, &tmap_v, full,
-                     t * KB + cb * 32, 0, part * NB + n);
-        }
+            tma_load(v_stage(vs) + part * C::OP_BYTES + cb * C::V_BLOCK,
+                     &tmap_v, vf, t * KB + cb * 32, 0, part * NB + n);
       }
     }
   } else {
@@ -331,7 +337,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
     const uint32_t q_hi = base + w * C::WG_Q_BYTES;
-    const uint32_t q_lo = q_hi + C::Q_PART_BYTES;        // hd 64 only
+    const uint32_t q_lo = q_hi + C::Q_PART_BYTES;
     uint8_t* q_smem = smem + w * C::WG_Q_BYTES;
 
     // Q once: 16 bytes a thread, split into hi and lo, zeros past the
@@ -351,8 +357,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       split(x.w, hi.w, lo.w);
       const uint32_t off = (ch / 8) * kQBlockBytes + swizzled(row, ch % 8);
       *reinterpret_cast<float4*>(q_smem + off) = hi;
-      if constexpr (C::Q_LO_SMEM)
-        *reinterpret_cast<float4*>(q_smem + C::Q_PART_BYTES + off) = lo;
+      *reinterpret_cast<float4*>(q_smem + C::Q_PART_BYTES + off) = lo;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_barrier(1 + w);
@@ -361,25 +366,6 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // and that + 8, and its columns 8 * j + 2 * quad + {0, 1}
     const int warp = tid / 32, lane = tid % 32;
     const int quad = lane % 4;
-
-    // hd 128: Q lo as the A fragments of the S product's k8 steps
-    uint32_t q_lo_frag[C::Q_LO_SMEM ? 1 : HD / 8][4];
-    if constexpr (!C::Q_LO_SMEM) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 8; ++kk) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int r = wg_r0 + warp * 16 + lane / 4 + 8 * (a % 2);
-          const int col = 8 * kk + quad + 4 * (a / 2);
-          float hi, lo = 0.0f;
-          if (r < rows)
-            split(q[b * lq.b + (r % L) * lq.row + (kv * G + r / L) * lq.head +
-                    col],
-                  hi, lo);
-          q_lo_frag[kk][a] = __float_as_uint(lo);
-        }
-      }
-    }
 
     int pos[2];
 #pragma unroll
@@ -398,12 +384,11 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
     for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % kStages;
+      const int ks = t % KS, vs = t % VS;
       const int j0 = t * KB;
-      const uint32_t k_hi = stage(st), k_lo = k_hi + C::OP_BYTES;
-      const uint32_t v_hi = k_hi + 2 * C::OP_BYTES;
-      const uint32_t v_lo = v_hi + C::OP_BYTES;
-      mbar_wait(smem_addr(&full_bar[st]), (t / kStages) & 1);
+      const uint32_t k_hi = k_stage(ks), k_lo = k_hi + C::OP_BYTES;
+      const uint32_t v_hi = v_stage(vs), v_lo = v_hi + C::OP_BYTES;
+      mbar_wait(smem_addr(&k_full[ks]), (t / KS) & 1);
 
       // S = Q K^T, split: hi hi + hi lo + lo hi
       float s[KB / 2];
@@ -414,14 +399,12 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         const uint64_t dk_hi = operand(k_hi, C::K_BLOCK, kk);
         wgmma_ss(s, dq, dk_hi, kk > 0);
         wgmma_ss(s, dq, operand(k_lo, C::K_BLOCK, kk), 1);
-        if constexpr (C::Q_LO_SMEM)
-          wgmma_ss(s, operand(q_lo, kQBlockBytes, kk), dk_hi, 1);
-        else
-          wgmma_rs(s, q_lo_frag[kk], dk_hi, 1);
+        wgmma_ss(s, operand(q_lo, kQBlockBytes, kk), dk_hi, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
+      if (lane == 0) mbar_arrive(smem_addr(&k_empty[ks]));
 
       // scale, mask, and the online softmax in registers
       const bool masked = j0 + KB > S || (causal && j0 + KB - 1 > min_pos);
@@ -470,12 +453,13 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = l[h] * corr[h] + sum[h];
       }
-      // per PN output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
+      // per 64 output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
       // then acc = acc corr + pv
+      mbar_wait(smem_addr(&v_full[vs]), (t / VS) & 1);
 #pragma unroll
-      for (int nh = 0; nh < HD / C::PN; ++nh) {
-        const uint32_t rows_nh = nh * C::PN * kSwizzleBytes;   // V^T's
-        float pv[C::PN / 2];
+      for (int nh = 0; nh < HD / 64; ++nh) {
+        const uint32_t rows_nh = nh * 64 * kSwizzleBytes;      // V^T's
+        float pv[32];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KB / 8; ++kk) {
@@ -488,11 +472,11 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         wgmma_wait_all();
         fence_regs(pv);
 #pragma unroll
-        for (int i = 0; i < C::PN / 2; ++i)
-          acc[C::PN / 2 * nh + i] = __fadd_rn(
-              __fmul_rn(acc[C::PN / 2 * nh + i], corr[(i / 2) % 2]), pv[i]);
+        for (int i = 0; i < 32; ++i)
+          acc[32 * nh + i] = __fadd_rn(
+              __fmul_rn(acc[32 * nh + i], corr[(i / 2) % 2]), pv[i]);
       }
-      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[st]));
+      if (lane == 0) mbar_arrive(smem_addr(&v_empty[vs]));
     }
 
     // epilogue: divide, stage in the Q hi slot, 16-byte stores

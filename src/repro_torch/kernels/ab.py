@@ -13,12 +13,13 @@ shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
 flash kernel at qwen2-0.5b's prefill shape and at prefill_32k's length
 (bf16, causal; every version must have the entry point's signature
 of `flash_attn.ARGTYPES`), `ota_combine` at its four main-path shapes,
-and float32 flash attention at qwen2-0.5b's prefill shape (causal)
-through whichever float32 entry point each source has: the tf32
-kernel's (`flash_attn.TF32_ARGTYPES`, with its scratch) or the
-CUDA-core kernel's (`flash_attn.ARGTYPES`, dtype code 0), so
-``csrc/flash_attn.cu`` and ``csrc/flash_attn_tf32.cu`` can be timed
-against each other.  Prints one JSON line per shape (times, and whether
+and float32 flash attention at qwen2-0.5b's and qwen2-1.5b's prefill
+shapes (causal, hd 64 and 128) through whichever float32 entry point
+each source has: the tf32 kernel's (`flash_attn.TF32_ARGTYPES`, with
+its scratch) or the CUDA-core kernel's (`flash_attn.ARGTYPES`, dtype
+code 0), so ``csrc/flash_attn.cu`` and ``csrc/flash_attn_tf32.cu`` can
+be timed against each other (a version whose entry point refuses a
+shape is listed as refusing it and left out there).  Prints one JSON line per shape (times, and whether
 each version's output equals the first's bit for bit, with the largest
 gap where it does not), one per kernel with its SASS report
 (`repro_torch.kernels.sass`), and the card's name and power limit.
@@ -45,7 +46,8 @@ MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
 PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
 # (B, L, H, KV, hd): qwen2-0.5b's prefill and prefill_32k's length
 FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 32768, 14, 2, 64)]
-F32_FLASH_SHAPE = (4, 4096, 14, 2, 64)
+# (B, L, H, KV, hd): qwen2-0.5b's and qwen2-1.5b's float32 prefills
+F32_FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 4096, 12, 2, 128)]
 # (B, U, K, N): the Fig. 2 driver's cluster, IS->PS and conventional
 # hops (the last two unbatched, as B = 1) and scale_u256's cluster hop
 OTA_SHAPES = [(4, 20, 100, 3925), (1, 4, 100, 3925), (1, 20, 100, 3925),
@@ -168,14 +170,15 @@ def main(argv=None) -> int:
                           "ms": ms, "bitwise_equal_first": {
                               n: torch.equal(pcall(n), first)
                               for n in names}}), flush=True)
-    def compare(kernel, shape_key, shape, fn, reps):
-        """Time fn(name) for every version in turns, and print the times
-        and each output against the first version's."""
-        ms = {n: [] for n in names}
-        for n in order:
+    def compare(kernel, shape_key, shape, fn, reps, versions=None):
+        """Time fn(name) for every version (all by default) in turns, and
+        print the times and each output against the first version's."""
+        versions = versions or names
+        ms = {n: [] for n in versions}
+        for n in versions + versions[::-1]:
             ms[n].append(time_ms(lambda: fn(n), reps))
-        outs = {n: fn(n) for n in names}
-        first = outs[names[0]]
+        outs = {n: fn(n) for n in versions}
+        first = outs[versions[0]]
         print(json.dumps({
             "kernel": kernel, shape_key: list(shape), "ms": ms,
             "bitwise_equal_first": {n: torch.equal(o, first)
@@ -227,12 +230,14 @@ def main(argv=None) -> int:
                           if hasattr(lib, e)), None)
                  for n, (lib, _) in built.items()}
     if all(f32_entry.values()):
-        B, L, H, KV, hd = F32_FLASH_SHAPE
+        print(json.dumps({"f32_flash_entry_points": f32_entry}), flush=True)
+    for B, L, H, KV, hd in F32_FLASH_SHAPES if all(f32_entry.values()) \
+            else ():
         g = torch.Generator().manual_seed(3)
         q, k, v = (torch.randn(*s, generator=g).to(dev)
                    for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
 
-        def f32call(name):
+        def f32launch(name):
             entry = f32_entry[name]
             tf32 = entry == "flash_attn_tf32_launch"
             o = torch.empty_like(q)
@@ -244,13 +249,24 @@ def main(argv=None) -> int:
                 S=L, strides=flash_attn.model_strides(q, k),
                 scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
                 if tf32 else None)
+            return err, o
+
+        def f32call(name):
+            err, o = f32launch(name)
             if err:
                 raise RuntimeError(f"{name}: error {err}")
             return o
 
-        print(json.dumps({"f32_flash_entry_points": f32_entry}), flush=True)
-        compare("flash_attn f32", "shape_BLHKVhd", F32_FLASH_SHAPE, f32call,
-                max(a.reps // 2, 1))
+        takes = [n for n in names if f32launch(n)[0] == 0]
+        if len(takes) < len(names):
+            print(json.dumps({"kernel": "flash_attn f32",
+                              "shape_BLHKVhd": [B, L, H, KV, hd],
+                              "refused_by": [n for n in names
+                                             if n not in takes]}),
+                  flush=True)
+        if takes:
+            compare("flash_attn f32", "shape_BLHKVhd", (B, L, H, KV, hd),
+                    f32call, max(a.reps // 2, 1), takes)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -19,20 +19,18 @@ picks one from the input tensors alone:
   wgmma, TMA-fed K/V ring, warp specialisation; 128 query rows and 128
   keys a tile), counted in ``flash_mha.wgmma_launches``.  This is the
   serving path's prefill.
-- ``"flash_attn_tf32"``: float32 at hd 64 on a CUDA card (qwen2-0.5b's
-  float32 prefill), ``csrc/flash_attn_tf32.cu``: the same design on the
-  tensor cores in TF32 with every product split 3xTF32 (x = hi + lo,
-  each rounded to nearest, ties away; `tf32_rna`), which keeps float32's
-  accuracy where TF32 alone would not; a pre-pass in the same launch
-  writes K and V^T, split, into a scratch tensor the wrapper allocates
-  (`tf32_prepass_plain` is its plain version).  Counted in
-  ``flash_mha.tf32_launches``.
-- ``"flash_attn"``: every other CUDA input (float32 at hd 16, 32 or
-  128, bfloat16 at hd 16 or 32), the CUDA-core kernel
-  ``csrc/flash_attn.cu`` (float32 arithmetic throughout), counted in
-  ``flash_mha.launches``.  float32 at hd 128 stays here: the tf32
-  kernel's split Q and a K/V stage would not fit one block's shared
-  memory at that width.
+- ``"flash_attn_tf32"``: float32 at hd 64 or 128 on a CUDA card
+  (qwen2-0.5b's and qwen2-1.5b's float32 prefills),
+  ``csrc/flash_attn_tf32.cu``: the same design on the tensor cores in
+  TF32 with every product split 3xTF32 (x = hi + lo, each rounded to
+  nearest, ties away; `tf32_rna`), which keeps float32's accuracy where
+  TF32 alone would not.  Its entry point first launches a pre-pass (two
+  more kernels per call) that writes K and V^T, split, into a scratch
+  tensor the wrapper allocates (`tf32_prepass_plain` is its plain
+  version).  Counted in ``flash_mha.tf32_launches``, once per call.
+- ``"flash_attn"``: every other CUDA input (hd 16 or 32, float32 or
+  bfloat16), the CUDA-core kernel ``csrc/flash_attn.cu`` (float32
+  arithmetic throughout), counted in ``flash_mha.launches``.
 - ``"plain"``: CPU tensors, `flash_mha_plain` and
   `flash_attention_plain`, the plain PyTorch versions: the same loop
   nest as the Pallas kernel in interpret mode (``q_block`` x
@@ -66,10 +64,11 @@ NEG_INF = -1e30
 MIN_DENOMINATOR = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)
-TF32_HEAD_DIMS = (64,)
-# the tf32 kernel's keys per tile (S is padded to it in the scratch), and
-# the order its pre-pass stores each group of 8 keys of V^T in: the
-# column order of the tf32 wgmma's register A fragment
+TF32_HEAD_DIMS = (64, 128)
+# the tf32 kernel's scratch pads S to a multiple of this (its key tile at
+# hd 64; hd 128's 32-key tile divides it), and the order its pre-pass
+# stores each group of 8 keys of V^T in: the column order of the tf32
+# wgmma's register A fragment
 TF32_KEY_TILE = 64
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,7 +113,7 @@ def route(q: torch.Tensor) -> str:
     `_check` holds to q's device, dtype and head dim), from q's device
     type, dtype and head dim alone: ``"plain"`` on the CPU,
     ``"flash_attn_wgmma"`` for bfloat16 at hd 64 or 128 on a CUDA card,
-    ``"flash_attn_tf32"`` for float32 at hd 64 on a CUDA card,
+    ``"flash_attn_tf32"`` for float32 at hd 64 or 128 on a CUDA card,
     ``"flash_attn"`` for any other CUDA input.  The kernels' names are
     their sources under ``csrc/``."""
     if q.device.type == "cpu":

@@ -217,8 +217,36 @@ def short_name(mangled: str) -> str:
     return name
 
 
+def instance_name(mangled: str) -> str:
+    """`short_name`, with a template instance's arguments: integers,
+    builtin types and named types, e.g. ``flash_tf32_kernel<128>`` or
+    ``flash_attn_kernel<16, float>``."""
+    name = short_name(mangled)
+    at = mangled.find(f"{len(name)}{name}I")
+    if at < 0:
+        return name
+    rest, args = mangled[at + len(str(len(name))) + len(name) + 1:], []
+    while rest and rest[0] != "E":
+        m = re.match(r"L[a-z](\d+)E", rest)
+        if m:
+            args.append(m.group(1))
+        else:
+            m = re.match(r"(\d+)", rest)
+            if m:
+                size = int(m.group(1))
+                args.append(rest[m.end():m.end() + size])
+                rest = rest[m.end() + size:]
+                continue
+            m = re.match(r"[a-z]", rest)
+            args.append({"f": "float", "d": "double", "i": "int"}.get(
+                rest[0], rest[0]))
+        rest = rest[m.end():]
+    return f"{name}<{', '.join(args)}>"
+
+
 def analyse(sass: str, ptxas_log: str = "") -> Dict[str, dict]:
-    """{kernel name: its report} for every function of a disassembly."""
+    """{kernel name: its report} for every function of a disassembly,
+    each template instance under its own `instance_name`."""
     res = ptxas_resources(ptxas_log)
     report = {}
     for name, instrs in parse(sass).items():
@@ -242,7 +270,7 @@ def analyse(sass: str, ptxas_log: str = "") -> Dict[str, dict]:
                 per_draw_by_opcode=dict(Counter(
                     p.op for p in path).most_common()),
                 cycles_per_draw=cycles_per_draw(per_draw))
-        report[short_name(name)] = rec
+        report[instance_name(name)] = rec
     return report
 
 

@@ -15,8 +15,8 @@ compute in float32 and round once (near zero the float32 gap spans
 many ULPs, so a strict 1-ULP rule fails for any change of summation
 order).  bfloat16 at hd 64 and 128 runs on the tensor-core kernel
 (``csrc/flash_attn_wgmma.cu``), which splits each softmax weight into
-two bf16 parts to stay inside that gate; float32 at hd 64 on the
-float32 tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every
+two bf16 parts to stay inside that gate; float32 at hd 64 and 128 on
+the float32 tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every
 product split into tf32 hi and lo parts); every other input on the
 CUDA-core kernel (``csrc/flash_attn.cu``).  Each test checks which
 kernel served it by the wrapper's three launch counts.
@@ -361,14 +361,20 @@ def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
     (2, 1, 1, 14, 2, 64),         # one query, one key
     (3, 5, 7, 4, 1, 64),          # 20 rows in a 128-row block; S > L
     (1, 130, 70, 4, 4, 64),       # keys not a multiple of 8
+    (2, 96, 200, 12, 2, 128),     # hd 128: 32-key tiles, 1 V^T stage
+    (1, 200, 200, 12, 2, 128),    # straddling tiles at hd 128
+    (1, 300, 130, 8, 8, 128),
+    (1, 640, 640, 32, 8, 128),
+    (3, 5, 7, 4, 1, 128),
+    (1, 130, 70, 4, 4, 128),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
                                                  causal):
     """The float32 tensor-core kernel at its edges: L not a multiple of
     the 128-row tile (a tile holds rows of two heads), S != L, S not a
-    multiple of the 64-key tile or of 8; within 1e-5 of max |o|, one
-    count per call, identical repeats."""
+    multiple of the key tile (64 keys at hd 64, 32 at hd 128) or of 8;
+    within 1e-5 of max |o|, one count per call, identical repeats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, L + S + hd, S)
@@ -384,14 +390,15 @@ def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("B,S,KV", [(2, 333, 2), (1, 64, 1), (1, 1, 2)])
-def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV):
+def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV, hd):
     """The scratch the kernel's pre-pass writes (K and V^T split into
     tf32 hi and lo, V^T's keys permuted) equals `tf32_prepass_plain`'s,
     bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    L, H, hd = 40, 2 * KV, 64
+    L, H = 40, 2 * KV
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, S, S)
     o = torch.empty_like(q)
     scratch = flash_module.tf32_scratch(B * KV, S, hd, "cuda")
@@ -407,6 +414,7 @@ def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.float32, 128),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128)])
 def test_flash_mha_folded_layout_on_card(dtype, hd):

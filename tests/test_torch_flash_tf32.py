@@ -4,8 +4,8 @@ route, its pre-pass and its rounding, on the CPU.
 The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to the plain version there).  Here:
 
-- `flash_route` sends float32 at hd 64 on CUDA to the tf32 kernel and
-  every other input where it went before (CUDA inputs are stand-ins
+- `flash_route` sends float32 at hd 64 and 128 on CUDA to the tf32
+  kernel and every other input where it went before (CUDA inputs are stand-ins
   that carry a device, a dtype and a shape: nothing launches).
 - `tf32_prepass_plain`, the pre-pass's plain version: hi + lo gives x
   back within 2^-22 relative, hi and lo have their low 13 bits zero
@@ -13,7 +13,8 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   of 8 keys in the tf32 A fragment's column order, zeros past S.
 - `emulate_tf32` repeats the kernel's arithmetic in torch: float32 q,
   k, v split into tf32 hi + lo by integer bit operations; scores over
-  64-key tiles in ascending order as hi hi + hi lo + lo hi, scaled by
+  the kernel's key tiles (64 keys at hd 64, 32 at hd 128) in ascending
+  order as hi hi + hi lo + lo hi, scaled by
   1/sqrt(hd) * log2(e) (the exp2 prescale); the online softmax in
   float32 with p = 2^(s - m); p split the same way and P V as three
   products.  At the tensor-core kernels' test shapes (a fold that
@@ -47,6 +48,8 @@ from repro_torch.kernels.flash_attn import (MIN_DENOMINATOR, NEG_INF,
 torch.set_num_threads(1)
 
 RTOL = 1e-5          # chip_smoke.py's FLASH_F32_RTOL
+# the kernel's keys per tile at each head dim (its Cfg<HD>::KB)
+KEY_TILES = {64: 64, 128: 32}
 
 # (B, L, S, H, KV, hd, Pallas q_block, Pallas kv_block):
 # tests/test_torch_flash_wgmma.py's shapes
@@ -60,7 +63,7 @@ SHAPES = [
 @pytest.mark.parametrize("device,dtype,hd,want", [
     ("cpu", torch.float32, 64, "plain"),
     ("cuda", torch.float32, 64, "flash_attn_tf32"),
-    ("cuda", torch.float32, 128, "flash_attn"),
+    ("cuda", torch.float32, 128, "flash_attn_tf32"),
     ("cuda", torch.float32, 16, "flash_attn"),
     ("cuda", torch.float32, 32, "flash_attn"),
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
@@ -96,17 +99,18 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert tf32_rna(x).tolist() == want
 
 
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("N,S", [(3, 70), (2, 64), (1, 1)])
-def test_prepass_plain_splits_and_lays_out_keys(N, S):
-    rng = np.random.default_rng(N * 100 + S)
+def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
+    rng = np.random.default_rng(N * 100 + S + hd)
     k, v = (torch.as_tensor(
-        (rng.standard_normal((N, S, 64))
-         * 10.0 ** rng.integers(-3, 4, (N, S, 64))).astype(np.float32))
+        (rng.standard_normal((N, S, hd))
+         * 10.0 ** rng.integers(-3, 4, (N, S, hd))).astype(np.float32))
         for _ in range(2))
     ks, vts = tf32_prepass_plain(k, v)
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    assert ks.shape == (2, N, s_pad, 64) and vts.shape == (2, N, 64, s_pad)
-    assert flash_module.tf32_scratch(N, S, 64, "cpu").numel() == (
+    assert ks.shape == (2, N, s_pad, hd) and vts.shape == (2, N, hd, s_pad)
+    assert flash_module.tf32_scratch(N, S, hd, "cpu").numel() == (
         ks.numel() + vts.numel())
     for part in (ks, vts):
         assert not bool((part.view(torch.int32) & 0x1FFF).any())
@@ -145,8 +149,9 @@ def emulate_tf32(q, k, v, *, causal: bool, split: bool = True):
     acc = torch.zeros(B, H, L, hd)
     m = torch.full((B, H, L, 1), NEG_INF)
     den = torch.zeros(B, H, L, 1)
-    for j0 in range(0, S, TF32_KEY_TILE):
-        j1 = min(j0 + TF32_KEY_TILE, S)
+    kb = KEY_TILES[hd]
+    for j0 in range(0, S, kb):
+        j1 = min(j0 + kb, S)
         kh, kl = (x[:, :, j0:j1].transpose(-1, -2) for x in (k_hi, k_lo))
         s = q_hi @ kh
         if split:
@@ -222,8 +227,11 @@ def test_entry_point_parses_against_the_wrappers_prototype():
     types_ = [_C_TYPES[" ".join(p.split()[:-1]).replace(" *", "*")]
               for p in params.split(",")]
     assert types_ == flash_module.TF32_ARGTYPES
-    # the key tile and key order the wrapper assumes are the source's
-    assert f"constexpr int kKB = {TF32_KEY_TILE};" in src
+    # the key padding, key tiles and key order the wrapper and the
+    # emulation assume are the source's
+    assert f"constexpr int kKeyPad = {TF32_KEY_TILE};" in src
+    assert ("static constexpr int KB = HD == 64 ? "
+            f"{KEY_TILES[64]} : {KEY_TILES[128]};") in src
     assert "p < 4 ? 2 * p : 2 * (p - 4) + 1" in src
     assert list(TF32_KEY_ORDER) == [p * 2 if p < 4 else 2 * (p - 4) + 1
                                     for p in range(8)]

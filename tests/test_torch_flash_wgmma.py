@@ -65,7 +65,7 @@ SHAPES = [
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 128, "flash_attn_wgmma"),
     ("cuda", torch.float32, 64, "flash_attn_tf32"),
-    ("cuda", torch.float32, 128, "flash_attn"),
+    ("cuda", torch.float32, 128, "flash_attn_tf32"),
     ("cuda", torch.float32, 16, "flash_attn"),
     ("cuda", torch.bfloat16, 16, "flash_attn"),
     ("cuda", torch.bfloat16, 32, "flash_attn"),

@@ -75,6 +75,27 @@ def test_short_name(mangled, name):
     assert sass.short_name(mangled) == name
 
 
+@pytest.mark.parametrize("mangled, name", [
+    (MANGLED, "toy_kernel"),
+    ("_ZN51_GLOBAL__N__4293d5e8_18_flash_attn_tf32_cu_2c51640917"
+     "flash_tf32_kernelILi128EEEv14CUtensorMap_stS1_PKfPfiiiiiNS_6Layout"
+     "ES5_fi", "flash_tf32_kernel<128>"),
+    ("_ZN12_GLOBAL__N_117flash_attn_kernelILi32EfEEvPKT0_",
+     "flash_attn_kernel<32, float>"),
+    ("_ZN12_GLOBAL__N_117flash_attn_kernelILi16E13__nv_bfloat16EEvPKT0_",
+     "flash_attn_kernel<16, __nv_bfloat16>"),
+])
+def test_instance_name_keeps_template_arguments(mangled, name):
+    assert sass.instance_name(mangled) == name
+
+
+def test_report_keeps_each_template_instance():
+    two = "\n".join(
+        SASS.replace(MANGLED, f"_ZN12_GLOBAL__N_110toy_kernelILi{hd}EEvPf")
+        for hd in (64, 128))
+    assert set(sass.analyse(two)) == {"toy_kernel<64>", "toy_kernel<128>"}
+
+
 def test_a_function_without_a_draw_has_no_draw_loop():
     text = SASS.replace("MUFU.RSQ", "MUFU.EX2")
     assert "cycles_per_draw" not in sass.analyse(text)["toy_kernel"]
