@@ -11,9 +11,9 @@ Phases, in order; any failure exits non-zero:
    (ptxas' registers and spills logged per kernel instance), and count
    each draw kernel's instructions per draw by pipe in its SASS
    (`repro_torch.kernels.sass`: the operations its bound counts); the
-   tensor-core flash kernels' instances (bf16 and float32, each at hd
-   64 and 128) must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)
-   in their SASS;
+   tensor-core flash kernels' instances (bf16 at hd 16, 32, 64 and 128;
+   float32 at hd 32, 64 and 128 and hd 16 on the hd-32 one) must hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their SASS;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
@@ -23,17 +23,17 @@ Phases, in order; any failure exits non-zero:
    every such shape and at the scale_u65536 1x1 one (there the plain
    versions run in phase 7); flash attention (through `flash_attention`,
    on the kernel `flash_route` picks, which alone must count both
-   launches: bf16 at hd 64/128 on the tensor cores, ``flash_mha_wgmma``,
-   float32 at hd 64/128 on the tensor cores in 3xTF32,
-   ``flash_mha_tf32``, hd 16/32 on the CUDA cores, ``flash_mha``)
-   against its plain version at qwen2-0.5b's prefill shape (B 4, L 4096,
-   bf16 and f32), its heads at L 200 (128-row tiles straddle fold
-   groups; also f32, both masks) and L 77, the hd-128 shapes of
+   launches: bf16 on the tensor cores, ``flash_mha_wgmma``, float32 on
+   the tensor cores in 3xTF32, ``flash_mha_tf32``, at every head dim)
+   against its plain version, first at one tile (L = S = 64, one head:
+   hd 16 and 32, both dtypes), then at qwen2-0.5b's prefill shape (B 4,
+   L 4096, bf16 and f32), its heads at L 200 (128-row tiles straddle
+   fold groups; also f32, both masks) and L 77, the hd-128 shapes of
    qwen2-1.5b (also bidirectional, and f32 at L 200 and L 77) and
    qwen3-4b (f32 bidirectional at L 1000), the serving example's
-   reduced model at B 4, L 4096 (hd 32, bf16) and
-   ``tests/test_flash_attn.py``'s shapes (f32 at hd 16, 32, 64 and
-   128): f32 within 1e-5 of max |o|,
+   reduced model at B 4, L 4096 (hd 32, bf16 and f32) and
+   ``tests/test_flash_attn.py``'s shapes (hd 16, 32, 64 and 128, f32
+   and bf16, both masks): f32 within 1e-5 of max |o|,
    bf16 within that plus one bf16 ULP of each value (both sides round
    once from float32), two launches identical;
 4. the main paths on ``cuda`` at full width, every launch count set to
@@ -73,8 +73,9 @@ Phases, in order; any failure exits non-zero:
      layers, prefilled at float32 compute (1 prompt of 4,096 tokens): 4
      launches of the float32 tensor-core kernel and none of the others;
      the serving example's model (qwen2-0.5b's reduced() config, hd 32,
-     2 layers, bf16) prefilled at B 4 x L 4096: 2 launches of the
-     CUDA-core kernel and none of the others; one warm
+     2 layers) prefilled at B 4 x L 4096 at its bf16 compute (2 launches
+     of the bf16 tensor-core kernel, none of the others) and at float32
+     compute (2 of the float32 one, none of the others); one warm
      `build_decode_step` step against `cache_specs`' prefilled cache
      (decode_32k cut from batch 128 to 8, cache 32,768), then 8
      requests answered: a 32-token prompt streamed into an empty
@@ -93,8 +94,11 @@ Phases, in order; any failure exits non-zero:
    (plain version, the same weights copied off the card): at f32
    compute (the 3xTF32 kernel) within 1e-4 of max |logit|, at bf16
    compute (the bf16 tensor-core kernel) within 5e-2 (the CPU tests'
-   bf16 bound against JAX), and its streamed decode (B 2, T 64, f32) against its
-   prefill on the card within rtol = atol = 5e-3;
+   bf16 bound against JAX), and its streamed decode (B 2, T 64, f32)
+   against its prefill on the card within rtol = atol = 5e-3; phase 4's
+   two prefills of the serving example's model (B 4, L 4096) against
+   the same prefills on the CPU: bf16 within 5e-2 of max |logit|,
+   float32 within 1e-4;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
    slab backend, through
@@ -105,8 +109,9 @@ Phases, in order; any failure exits non-zero:
    (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
    (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
    (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
-   (B 8, cache 32,768), and phase 4's qwen2-1.5b float32 and reduced
-   prefills: device ms, busy share, each flash record's share (the
+   (B 8, cache 32,768), and phase 4's qwen2-1.5b float32 prefill and
+   both reduced prefills: device ms, busy share, each flash record's
+   share (the
    tf32 record's with its pre-pass, also given alone), device ops per
    call;
 7. kernel and plain times with CUDA events at the kernels' largest
@@ -125,14 +130,16 @@ Phases, in order; any failure exits non-zero:
    at qwen2-0.5b's prefill shape and at prefill_32k's length (B 1,
    L 32,768, one layer), the float32 tensor-core one at the prefill
    shape in float32 and at qwen2-1.5b's float32 prefill shape (B 1,
-   L 4096, hd 128), and the CUDA-core one at the reduced prefill's
-   shape (B 4, L 4096, hd 32, bf16), each against its plain version,
-   the library's
+   L 4096, hd 128), and both at the reduced prefill's shape (B 4,
+   L 4096, hd 32) and at hd 16 on it (with their times queued behind a
+   spin as well, since they near the launch gap), each against its
+   plain version, the library's
    `scaled_dot_product_attention` on the same inputs (timed as a
    yardstick only, held to the backend it chose; for float32 on k and v
    expanded to H heads beforehand, as its GQA mode would send float32
-   to the MATH backend) and ``flash_bound_ms`` (bf16 at the tensor-core
-   peak, float32 at the 3xTF32 rate, and also at the TF32 peak);
+   to the MATH backend), ``flash_bound_ms`` (bf16 at the tensor-core
+   peak, float32 at the 3xTF32 rate, and also at the TF32 peak) and
+   ``exp_floor_ms`` (one exp2 per kept pair on the MUFU pipe);
 8. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +148,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import importlib.util
@@ -159,19 +167,19 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
-SOURCES = ("fused_mac", "ota_combine", "flash_attn",
-           "flash_attn_wgmma", "flash_attn_tf32")          # csrc/<name>.cu
+SOURCES = ("fused_mac", "ota_combine", "flash_attn_wgmma",
+           "flash_attn_tf32")                               # csrc/<name>.cu
 # each kernel's record name -> (source, its __global__ function)
 KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "ota_combine": ("ota_combine", "ota_combine_kernel"),
            "fused_mac_partials": ("fused_mac", "fused_partials_kernel"),
            "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel"),
-           "flash_mha": ("flash_attn", "flash_attn_kernel"),
            "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel"),
            "flash_mha_tf32": ("flash_attn_tf32", "flash_tf32_kernel")}
-# the tensor-core flash kernels and their template instances: wgmma
-# (HGMMA) fed by TMA (UTMALDG) in each one's SASS
-TENSOR_CORE_FLASH = {"flash_mha_wgmma": 2, "flash_mha_tf32": 2}
+# the tensor-core flash kernels and their template instances (bf16 at hd
+# 16, 32, 64, 128; float32 at hd 32, 64, 128 and hd 16 on the hd-32
+# one): wgmma (HGMMA) fed by TMA (UTMALDG) in each one's SASS
+TENSOR_CORE_FLASH = {"flash_mha_wgmma": 4, "flash_mha_tf32": 4}
 # the kernels a flash record's entry point launches before its own, once
 # per call: the tf32 kernel's pre-pass (K and V^T split into scratch)
 FLASH_PREPASS = {"flash_mha_tf32": ("tf32_split_k_kernel",
@@ -274,12 +282,7 @@ def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
     the dense bf16 tensor-core peak for bf16 (itemsize 2), the 3xTF32
     rate for float32 (TF32 alone breaks the float32 gate).  Bytes: q
     and o (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
-    if not causal:
-        pairs = L * S
-    elif S >= L:
-        pairs = L * (L + 1) // 2
-    else:
-        pairs = S * (S + 1) // 2 + (L - S) * S
+    pairs = kept_pairs(L, S, causal)
     rate = rate or (BF16_FLOP_PER_S if itemsize == 2
                     else F32_SPLIT_FLOP_PER_S)
     t_ops = 4 * hd * B * H * pairs / rate
@@ -287,6 +290,27 @@ def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
         HBM_BYTES_PER_S)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                         else "bytes")
+
+
+def kept_pairs(L: int, S: int, causal: bool) -> int:
+    """The (query, key) pairs one head of a flash call keeps: min(l + 1,
+    S) at position l when causal, else S."""
+    if not causal:
+        return L * S
+    if S >= L:
+        return L * (L + 1) // 2
+    return S * (S + 1) // 2 + (L - S) * S
+
+
+def exp_floor_ms(B: int, L: int, S: int, H: int, causal: bool) -> float:
+    """The exponentials' floor of one flash call on this card: one exp2
+    per kept pair on the MUFU pipe, at its rate per clock per SM in
+    `sass.RATES`.  For bf16 at hd 16 and 32 it lies above
+    `flash_bound_ms`, which counts only the products and the bytes."""
+    from repro_torch.kernels import sass
+
+    return 1e3 * B * H * kept_pairs(L, S, causal) / (
+        sass.RATES["xu"] * SMS * CLOCK_HZ)
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -316,6 +340,28 @@ def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
             for shape in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
 
 
+# A `torch.profiler` trace on the H100 80GB HBM3 (700.00 W) now and then
+# loses the card's records of the first kernels it should hold (a
+# prefix of the call's kernels; the host-side launch records are all
+# kept), so a trace's kernel counts and device time would read short.
+# With the card idle for this long after the trace starts, no trace lost
+# any (`python -m repro_torch.kernels.trace_probe` counts both).
+TRACE_PAUSE_S = 0.1
+
+
+@contextlib.contextmanager
+def device_trace():
+    """A `torch.profiler` trace of the host and the card that starts with
+    the card idle and waits TRACE_PAUSE_S before its body runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAUSE_S)
+        yield prof
+
+
 def lm_profile(fn) -> dict:
     """`fn()` (one serving step, ending in a synchronize) warm, timed on
     the host clock, then under `torch.profiler`: device ms, busy share,
@@ -323,14 +369,12 @@ def lm_profile(fn) -> dict:
     point launches, whose time is also given alone) and the device ops
     of one call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     t0 = time.perf_counter()
     fn()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         fn()
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ops:
@@ -400,8 +444,6 @@ def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
     ``cfg.n_layers`` launches of the flash kernel `record` and none of
     the others, by the count and in the profiler, finite logits and
     greedy tokens in the vocabulary.  Returns (step, tokens)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import prng
     from repro_torch.launch import serve
 
@@ -412,8 +454,7 @@ def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
                           cfg.vocab).to(spec.dtype)
 
     def run_prefill():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             out = step(run_params, {"tokens": tokens})
             torch.cuda.synchronize()
         return out, flash_kernels_in(prof)
@@ -562,8 +603,7 @@ def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
     toks = prng.randint(prng.PRNGKey(4, dev), (1, prefill_len), 0,
                         cfg.vocab).to(torch.int32)
     cpu_params = tree_map(lambda t: t.cpu(), params)
-    counts = lambda: {"flash_mha": flash_mha.launches,
-                      "flash_mha_wgmma": flash_mha.wgmma_launches,
+    counts = lambda: {"flash_mha_wgmma": flash_mha.wgmma_launches,
                       "flash_mha_tf32": flash_mha.tf32_launches}
     for run_cfg, record, rtol in ((f32, "flash_mha_tf32", TOL),
                                   (cfg, "flash_mha_wgmma", LM_BF16_RTOL)):
@@ -611,6 +651,35 @@ def lm_reference(cfg, params, dev, prefill_len: int, decode) -> None:
                          f"prefill by {gap}")
 
 
+def small_vs_cpu(runs, params, shape) -> None:
+    """Phase 5 for the serving example's model: each of phase 4's
+    prefills `runs` = [(label, cfg, step, served params, tokens)] on the
+    card against the same prefill through `serve.build_prefill_step` on
+    the CPU (the plain versions) on `params` copied off the card: within
+    TOL of max |logit| at float32 compute, LM_BF16_RTOL at bf16."""
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_map
+
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    for label, cfg, step, served, tokens in runs:
+        rtol = TOL if cfg.compute_dtype == "float32" else LM_BF16_RTOL
+        on_card = step(served, {"tokens": tokens}).cpu()
+        t0 = time.perf_counter()
+        cpu_step, _ = serve.build_prefill_step(cfg, shape, device="cpu")
+        on_cpu = cpu_step(serve.compute_params(cpu_params, cfg),
+                          {"tokens": tokens.cpu()})
+        gap = float((on_card - on_cpu).abs().max())
+        rel = gap / float(on_cpu.abs().max())
+        log({"phase": "reference", "run": f"{label} B{shape.global_batch} "
+             f"L{shape.seq_len}", "what": "the card (tensor-core flash "
+             "kernels) vs the CPU (plain versions), the same weights",
+             "max_abs_gap": gap, "max_rel_gap": rel, "rtol": rtol,
+             "cpu_seconds": time.perf_counter() - t0})
+        if not rel <= rtol:
+            raise SystemExit(f"{label} on the card disagrees with the CPU: "
+                             f"{rel} of max |logit|")
+
+
 def lm_profiles(run: dict, dev, card) -> None:
     """Phase 6 for the LM: one warm prefill of phase 4's batch at bf16
     and at float32 compute, and one warm decode step against a
@@ -648,21 +717,22 @@ def lm_profiles(run: dict, dev, card) -> None:
 
 
 def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
-                flash_pair, check_flash) -> tuple:
+                flash_pair, check_flash, queued=False) -> tuple:
     """Phase 7 for flash attention at `shape` = (B, L, H, KV, hd),
     causal, in `dtype`: the kernel `flash_route` picks and its plain
     version in turns (`reps` = kernel and plain repetitions), the kernel
-    held to the last plain output; the library's
+    held to the last plain output, with `queued` also its time queued
+    behind a spin (`queued_ms`, twice); the library's
     `scaled_dot_product_attention` on the [B, H, L, hd] layout (a
     yardstick, never on the path, held to the backend it chooses, which
     is logged with the kernels the profiler saw; for float32 on k and v
-    expanded to H heads) and `flash_bound_ms` (for float32 also at the
-    TF32 peak).  Returns
-    (the kernel's record, its times)."""
+    expanded to H heads), `flash_bound_ms` (for float32 also at the
+    TF32 peak) and `exp_floor_ms` (logged only: the record holds
+    measured times and the bound).  Returns (the kernel's record, its
+    times)."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
 
@@ -676,6 +746,9 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
     k_reps, p_reps = reps
     ks, ps = in_turns(lambda: flash_attention(q, k, v), plain, k_reps,
                       p_reps, warm_plain=p_reps > 1)
+    queued = ({"kernel_queued_ms": [
+        queued_ms(lambda: flash_attention(q, k, v), k_reps)
+        for _ in range(2)]} if queued else {})
     name, o1, o2 = flash_pair(q, k, v, True)
     check_flash(name, f"{label} (timed)", shape, dtype, True, o1, o2,
                 kept["o"])
@@ -696,8 +769,7 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
     # only the backend SDPA chose for these inputs may run
     with sdpa_kernel(backend):
         lib = [time_ms(sdpa, k_reps), time_ms(sdpa, k_reps)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             o_lib = sdpa()
             torch.cuda.synchronize()
     kernels = sorted({e.name[:80] for e in prof.events()
@@ -719,9 +791,10 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
              (o_lib.transpose(1, 2).reshape(o1.shape).float()
               - o1.float()).abs().max()),
          "kernel_tflops": 4 * hd * B * H * L * (L + 1) / 2 / ms / 1e9,
-         "bound_ms": bound, "bound_by": bound_by, **extra, "card": card})
+         **queued, "bound_ms": bound, "bound_by": bound_by, **extra,
+         "exp_floor_ms": exp_floor_ms(B, L, L, H, True), "card": card})
     return name, dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
-                      bound_by=bound_by, library_ms=sum(lib) / 2,
+                      bound_by=bound_by, library_ms=sum(lib) / 2, **queued,
                       dtype=str(dtype).split(".")[-1], shape=list(shape))
 
 
@@ -904,13 +977,11 @@ def device_profile(runner, sc) -> dict:
     range (the drive begins and ends with a device synchronize, so they
     are exactly the rounds' and evals' device work)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     runner.run_scenario(sc)                                   # warm-up
     T = sc.rounds
     wall_ms = 1e3 * runner.run_scenario(sc).exec_info["drive_seconds"] / T
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         runner.run_scenario(sc)
     events = prof.events()
     drive = [e for e in events if e.name == "SweepRunner.drive"
@@ -1167,7 +1238,6 @@ def main() -> int:
                 "ota_combine": (ota_combine, "launches"),
                 "fused_mac_partials": (fused_mac_partials, "launches"),
                 "fused_partials_reduce": (fused_partials_reduce, "launches"),
-                "flash_mha": (flash_mha, "launches"),
                 "flash_mha_wgmma": (flash_mha, "wgmma_launches"),
                 "flash_mha_tf32": (flash_mha, "tf32_launches")}
 
@@ -1213,7 +1283,10 @@ def main() -> int:
                              f"{ulps}, repeat {same}")
 
     bf16, f32 = torch.bfloat16, torch.float32
-    flash_cases = [
+    # one tile first (64 rows of one head, 64 keys): the hd-16 and hd-32
+    # instances' swizzles and descriptors, before anything larger
+    flash_cases = [(f"one tile hd {hd}", (1, 64, 1, 1, hd), dtype, True)
+                   for hd in (32, 16) for dtype in (bf16, f32)] + [
         (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), bf16, True),
         (f"{LM_ARCH} prefill B4 L4096", (4, 4096, 14, 2, 64), f32, True),
         # bidirectional: every row averages 4,096 keys, so max |o| is
@@ -1243,13 +1316,16 @@ def main() -> int:
         ("qwen2-1.5b heads L77 f32", (1, 77, 12, 2, 128), f32, True),
         ("qwen3-4b heads L1000 f32 bidirectional", (1, 1000, 32, 8, 128),
          f32, False),
-        # the CUDA-core kernel's main path: the serving example's model
-        # (hd 32) prefilled at B4 L4096
+        # the hd-32 instances' main path: the serving example's model
+        # prefilled at B4 L4096, at bf16 and at float32 compute
         (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32), bf16,
          True),
+        (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32), f32,
+         True),
         ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
-        ("test_flash_attn", shape, f32, causal)
-        for shape in JAX_FLASH_SHAPES for causal in (True, False)]
+        ("test_flash_attn", shape, dtype, causal)
+        for shape in JAX_FLASH_SHAPES for dtype in (f32, bf16)
+        for causal in (True, False)]
     for i, (label, shape, dtype, causal) in enumerate(flash_cases):
         q, k, v = flash_inputs(*shape, dtype, 80 + i, dev)
         name, o1, o2 = flash_pair(q, k, v, causal)
@@ -1428,25 +1504,30 @@ def main() -> int:
         dev, counted, expect,
         f"prefill_32k: batch 32 -> 1, length 32768 -> 4096; "
         f"depth {q15.n_layers} -> {F32_HD128_LAYERS} layers")
-    # the CUDA-core flash kernel's main path: the serving example's model
-    # (examples/serve_decode_torch.py runs LM_ARCH's reduced() config:
-    # head_dim 32, which the tensor-core kernels do not take), prefilled
-    # at qwen2-0.5b's prefill shape through the same serving entry point
+    # the hd-32 instances' main path: the serving example's model
+    # (examples/serve_decode_torch.py runs LM_ARCH's reduced() config,
+    # head_dim 32), prefilled at qwen2-0.5b's prefill shape through the
+    # same serving entry point, at its bf16 compute and at float32
     small = qwen.reduced()
     params_small = lm.init_params(prng.PRNGKey(0, dev), small)
     log({"phase": "main_path", "run": f"{small.name} reduced init",
          "n_layers": small.n_layers, "d_model": small.d_model,
          "heads": small.n_heads, "kv_heads": small.n_kv_heads,
          "head_dim": small.head_dim, "compute_dtype": small.compute_dtype})
-    served_small = serve.compute_params(params_small, small)
-    small_step, small_tokens = prefill_path(
-        f"{small.name} reduced prefill", small, served_small, "flash_mha",
-        dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=4,
-                            seq_len=4096),
-        dev, counted, expect,
-        "the serving example's reduced() config; prefill_32k: batch 32 -> "
-        "4, length 32768 -> 4096")
-    del params15, params_small
+    small_shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                      global_batch=4, seq_len=4096)
+    small_runs = []          # (label, cfg, step, served params, tokens)
+    for run_cfg, record, suffix in (
+            (small, "flash_mha_wgmma", ""),
+            (small.with_(compute_dtype="float32"), "flash_mha_tf32", " f32")):
+        served_p = serve.compute_params(params_small, run_cfg)
+        label = f"{small.name} reduced prefill{suffix}"
+        step, tokens = prefill_path(
+            label, run_cfg, served_p, record, small_shape, dev, counted,
+            expect, "the serving example's reduced() config; prefill_32k: "
+            "batch 32 -> 4, length 32768 -> 4096")
+        small_runs.append((label, run_cfg, step, served_p, tokens))
+    del params15
     spec = importlib.util.spec_from_file_location(
         "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
     example = importlib.util.module_from_spec(spec)
@@ -1494,23 +1575,25 @@ def main() -> int:
 
     lm_reference(qwen, lm_run["params"], dev, prefill_len=256,
                  decode=(2, 64))
+    small_vs_cpu(small_runs, params_small, small_shape)
+    del params_small
 
     # -- phase 6: where the time goes --------------------------------------
     # the LM first: its weights are freed before the sharded runs' peak
     # device memory is read
     lm_profiles(lm_run, dev, card)
-    for label, step, served_p, tokens in (
+    for label, step, served_p, tokens in [
             (f"{q15.name} prefill f32 ({F32_HD128_LAYERS} layers) B1 L4096",
-             q15_step, served15, q15_tokens),
-            (f"{small.name} reduced prefill B4 L4096", small_step,
-             served_small, small_tokens)):
+             q15_step, served15, q15_tokens)] + [
+            (f"{label} B4 L4096", step, served_p, tokens)
+            for label, _, step, served_p, tokens in small_runs]:
         def call(step=step, served_p=served_p, tokens=tokens):
             step(served_p, {"tokens": tokens})
             torch.cuda.synchronize()
 
         log({"phase": "profile", "run": label, "card": card,
              **lm_profile(call)})
-    del served15, served_small
+    del served15, small_runs
     del lm_run
     # the reference backend issues ~60k ops a round (a 20-step fold per
     # hop), so it is profiled over 2 rounds to keep the trace small
@@ -1699,9 +1782,14 @@ def main() -> int:
             (f"{F32_HD128_ARCH} prefill f32 B1 L4096",
              (1, 4096, 12, 2, 128), f32, (10, 3)),
             (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32),
-             bf16, (10, 3))):
+             bf16, (20, 3)),
+            (f"{LM_ARCH} reduced prefill f32 B4 L4096", (4, 4096, 4, 2, 32),
+             f32, (20, 3)),
+            ("hd 16 B4 L4096", (4, 4096, 4, 2, 16), bf16, (20, 3)),
+            ("hd 16 f32 B4 L4096", (4, 4096, 4, 2, 16), f32, (20, 3))):
         name, times = flash_times(label, shape, dtype, reps, dev, card,
-                                  in_turns, time_ms, flash_pair, check_flash)
+                                  in_turns, time_ms, flash_pair, check_flash,
+                                  queued=shape[-1] <= 32)
         timings[name, label] = times
 
     # -- phase 8: the records ----------------------------------------------
@@ -1715,14 +1803,11 @@ def main() -> int:
                # a jnp helper in the JAX package, a kernel here
                ("fused_partials_reduce", "scale_u65536 1x1",
                 "src/repro/kernels/fused_mac.py:467", None),
-               # the three flash kernels replace the one Pallas kernel:
-               # bf16 and float32 at hd 64/128 on the tensor cores, hd
-               # 16/32 on the CUDA cores
+               # the two flash kernels replace the one Pallas kernel: bf16
+               # and float32 on the tensor cores, at every head dim
                ("flash_mha_wgmma", f"{LM_ARCH} prefill B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None),
                ("flash_mha_tf32", f"{LM_ARCH} prefill f32 B4 L4096",
-                "src/repro/kernels/flash_attn.py:39", None),
-               ("flash_mha", f"{LM_ARCH} reduced prefill B4 L4096",
                 "src/repro/kernels/flash_attn.py:39", None)]
     log({"phase": "done", "seconds": time.perf_counter() - t_start,
          "card": card})
@@ -1735,7 +1820,12 @@ def main() -> int:
         "max_rel_err": rel_errors[name],
         # the timed inputs' dtype: float32 (complex values as two planes)
         # for the W-HFL kernels, set by `flash_times` for flash
-        "library_ms": None, "dtype": "float32", **timings[name, shape]}
+        "library_ms": None, "dtype": "float32", **timings[name, shape],
+        # the kernel's times at its other timed shapes (flash: other head
+        # dims and lengths), each with its own bound and library time
+        "also_timed": [{"shape_label": label, **t}
+                       for (n, label), t in timings.items()
+                       if n == name and label != shape]}
         for name, shape, replaces, also in records]})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})

@@ -1,23 +1,24 @@
 // Causal or bidirectional online-softmax attention (flash attention) with
-// grouped KV heads, float32 at head_dim 64 or 128, on Hopper's tensor
-// cores (sm_90a) through a 3xTF32 split.
+// grouped KV heads, float32 at head_dim 16, 32, 64 or 128, on Hopper's
+// tensor cores (sm_90a) through a 3xTF32 split.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for float32 inputs at head_dim 64 (qwen2-0.5b's float32 prefill) and
-// 128 (qwen2-1.5b's); csrc/flash_attn_wgmma.cu takes bfloat16 at 64 and
-// 128, and csrc/flash_attn.cu every other input.  For every (batch b, KV
-// head kv) pair n and every query row r of the folded row axis (r = g *
-// L + l: the G = H / KV query heads of kv folded over the L positions),
-// with position l = r mod L:
+// for float32 inputs: head_dim 64 (qwen2-0.5b's float32 prefill), 128
+// (qwen2-1.5b's), 32 (the serving example's reduced model) and 16 (the
+// JAX package's test shapes); csrc/flash_attn_wgmma.cu takes bfloat16.
+// For every (batch b, KV head kv) pair n and every query row r of the
+// folded row axis (r = g * L + l: the G = H / KV query heads of kv folded
+// over the L positions), with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
 //   s[j]  = NEG_INF (-1e30) where causal and j > l
 //   o[r]  = sum_j softmax(s)[j] v[j]
 //
 // through the online-softmax recurrence over key tiles in ascending
-// order (m, l and acc in float32, exp2f of scores prescaled by log2(e),
-// no fast math), and at the end o = acc / max(l, 1e-30), in float32.
+// order (m, l and acc in float32, 2^x on the MUFU pipe, `exp2_ftz`, of
+// scores prescaled by log2(e); no other fast math), and at the end o =
+// acc / max(l, 1e-30), in float32.
 //
 // What bounds it on this card: operations.  A causal prefill does
 // 4 * head_dim flops per kept (query, key) pair against 4 bytes per
@@ -37,10 +38,11 @@
 //
 // - a pre-pass of two small kernels, launched by the same entry point
 //   before the attention kernel (three launches a call), writes K_hi,
-//   K_lo [N, S_pad, hd] and V^T_hi, V^T_lo [N, hd, S_pad] (S_pad = S
-//   rounded up to 64 keys, zeros past S) into the caller's scratch.  The
-//   scratch is a torch tensor the wrapper passes in (4 * N * S_pad * hd
-//   floats), so torch's allocator accounts for it.  Why V transposed:
+//   K_lo [N, S_pad, hdp] and V^T_hi, V^T_lo [N, hdp, S_pad] (S_pad = S
+//   rounded up to 64 keys, zeros past S; hdp = max(hd, 32), zeros past
+//   hd) into the caller's scratch.  The scratch is a torch tensor the
+//   wrapper passes in (4 * N * S_pad * hdp floats), so torch's allocator
+//   accounts for it.  Why V transposed:
 //   wgmma takes its transpose bit only for 16-bit types, so a tf32 B
 //   operand must be K-major, i.e. keys contiguous for P V.  Why its keys
 //   permuted: the S accumulator gives lane t of a quad keys {2t, 2t+1}
@@ -52,7 +54,8 @@
 // - one block per (pair n, tile of QB = 128 folded query rows), three
 //   warpgroups: WG0 the producer (40 registers, setmaxnreg), one thread
 //   of which keeps TMA loads in flight into two rings, one of K hi/lo
-//   tiles and one of V^T hi/lo tiles (KB keys, 32 KB a stage), each
+//   tiles and one of V^T hi/lo tiles (KB keys, KB * hd * 8 bytes a
+//   stage), each
 //   stage with a "full" (TMA's transaction bytes) and an "empty" (one
 //   arrival per consumer warp) mbarrier; WG1 and WG2 the consumers (232
 //   registers), 64 query rows each.  A K stage is freed as soon as S has
@@ -67,6 +70,15 @@
 //     (as the A fragments of the S product, 64 a thread) left room for
 //     2 V^T stages, but ptxas spilled it (204 bytes at the consumers'
 //     232 registers; PERF.md, section 6);
+//   - hd 32: KB = 64, 4 K and 4 V^T stages: 32 + 128 KB.  A row of 32
+//     floats is one 128-byte swizzled column block, so Q, K and V^T keep
+//     the wider instances' layout with one block;
+//   - hd 16 runs the hd-32 instance zero-padded: the pre-pass writes K
+//     and V^T with 32 columns or rows, zeros past 16, the consumers load
+//     Q with zero columns 16 .. 31 and store 16 columns of o.  Zero
+//     columns add +0 to every dot product, so the scores are unchanged;
+//     no model runs hd 16, so it takes the width's products twice over
+//     rather than a 64-byte-swizzle instance of its own;
 // - Q is loaded once by the consumers, 16 bytes a thread, split into hi
 //   and lo and stored in the 128-byte-swizzled layout wgmma reads (not
 //   by TMA: a 128-row tile can straddle two fold groups);
@@ -77,8 +89,9 @@
 // - the mask and the online softmax run in the accumulator's registers;
 //   a row's max and sum take two xor shuffles each; tiles past S or
 //   wholly past the block's largest position are never loaded (the
-//   exact test of csrc/flash_attn.cu);
-// - P V is 3 x KB / 8 register-A wgmma m64n64k8 per 64 output columns:
+//   exact test, `key_tiles`);
+// - P V is 3 x KB / 8 register-A wgmma m64n{PN}k8 per PN = min(hd, 64)
+//   output columns:
 //   p split into tf32 hi and lo in registers, V^T hi and lo from the
 //   ring, summed into a fresh accumulator per tile and folded into acc
 //   in float32 (acc = acc corr + pv, each rounded to nearest).  The
@@ -102,20 +115,25 @@ constexpr int kThreads = 384;           // three warpgroups
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kWgRows = 64;             // query rows per consumer warpgroup
-// the scratch's keys are padded to a multiple of this (both widths' KB
-// divide it)
+// the scratch's keys are padded to a multiple of this (every width's KB
+// divides it)
 constexpr int kKeyPad = 64;
+// every operand row is 32 floats, one 128-byte swizzled column block
+constexpr int kSW = 128;
 // one 32-float column block of a 64-row Q operand
-constexpr int kQBlockBytes = kWgRows * kSwizzleBytes;
+constexpr int kQBlockBytes = kWgRows * kSW;
+// the narrowest instance: smaller head dims run it zero-padded
+constexpr int kMinHD = 32;
 
 template <int HD>
 struct Cfg {
-  static constexpr int KB = HD == 64 ? 64 : 32;         // keys per tile
-  static constexpr int K_STAGES = HD == 64 ? 3 : 2;
-  static constexpr int V_STAGES = HD == 64 ? 2 : 1;
+  static constexpr int KB = HD == 128 ? 32 : 64;        // keys per tile
+  static constexpr int K_STAGES = HD == 64 ? 3 : HD == 128 ? 2 : 4;
+  static constexpr int V_STAGES = HD == 64 ? 2 : HD == 128 ? 1 : 4;
+  static constexpr int PN = HD < 64 ? HD : 64;  // output columns a P V pass
   static constexpr int OP_BYTES = KB * HD * 4;          // K or V^T, hi or lo
-  static constexpr int K_BLOCK = KB * kSwizzleBytes;    // K: HD / 32 blocks
-  static constexpr int V_BLOCK = HD * kSwizzleBytes;    // V^T: KB / 32
+  static constexpr int K_BLOCK = KB * kSW;              // K: HD / 32 blocks
+  static constexpr int V_BLOCK = HD * kSW;              // V^T: KB / 32
   static constexpr int STAGE_BYTES = 2 * OP_BYTES;      // hi and lo
   static constexpr int Q_PART_BYTES = kWgRows * HD * 4; // Q hi or Q lo
   static constexpr int WG_Q_BYTES = 2 * Q_PART_BYTES;
@@ -147,7 +165,7 @@ __device__ __forceinline__ void split(float x, float& hi, float& lo) {
 // bytes apart.
 __device__ __forceinline__ uint64_t operand(uint32_t tile, int block,
                                             int kk) {
-  return make_desc(tile + (kk / 4) * block + (kk % 4) * 32, 16, 1024);
+  return make_desc<kSW>(tile + (kk / 4) * block + (kk % 4) * 32, 16);
 }
 
 // d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, both K-major in shared
@@ -172,10 +190,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, A in registers (the k8
+// d[64 x N] (+)= A[64 x 8] B[8 x N], tf32, A in registers (the k8
 // fragment: rows g and g + 8 of the warp's 16, columns t and t + 4, in
 // the order (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), B K-major
-// in shared memory; scale_d = 0 overwrites d.
+// in shared memory; scale_d = 0 overwrites d.  N = 32 or 64 (PN).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" WG_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -188,12 +216,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
 
 // -- the pre-pass -------------------------------------------------------
 
-// K [N, S, hd] (through strides) -> K_hi, K_lo [N, S_pad, hd] at ks and
-// ks + N * S_pad * hd; zeros past S.  One float4 a thread.
+// K [N, S, hd] (through strides) -> K_hi, K_lo [N, S_pad, hdp] at ks and
+// ks + N * S_pad * hdp; zeros past S and past column hd.  One float4 a
+// thread.
 __global__ void __launch_bounds__(256)
 tf32_split_k_kernel(const float* __restrict__ k, float* __restrict__ ks,
-                    int NB, int KV, int S, int S_pad, int hd, Layout lk) {
-  const int cpr = hd / 4;                // float4 chunks per row
+                    int NB, int KV, int S, int S_pad, int hd, int hdp,
+                    Layout lk) {
+  const int cpr = hdp / 4;               // float4 chunks per row
   const long long total = static_cast<long long>(NB) * S_pad * cpr;
   float4* hi = reinterpret_cast<float4*>(ks);
   float4* lo = hi + total;
@@ -204,7 +234,7 @@ tf32_split_k_kernel(const float* __restrict__ k, float* __restrict__ ks,
     const int j = static_cast<int>(nj % S_pad);
     const int n = static_cast<int>(nj / S_pad);
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (j < S)
+    if (j < S && 4 * c < hd)
       x = *reinterpret_cast<const float4*>(k + (n / KV) * lk.b + j * lk.row +
                                            (n % KV) * lk.head + 4 * c);
     float4 h, l;
@@ -223,24 +253,26 @@ __device__ __forceinline__ int key_at(int p) {
   return p < 4 ? 2 * p : 2 * (p - 4) + 1;
 }
 
-// V [N, S, hd] (through strides) -> V^T_hi, V^T_lo [N, hd, S_pad] at vts
-// and vts + N * hd * S_pad, keys permuted within each group of 8; zeros
-// past S.  A 32-key x 32-dim tile a block, transposed in shared memory.
+// V [N, S, hd] (through strides) -> V^T_hi, V^T_lo [N, hdp, S_pad] at
+// vts and vts + N * hdp * S_pad, keys permuted within each group of 8;
+// zeros past S and past row hd.  A 32-key x 32-dim tile a block,
+// transposed in shared memory.
 __global__ void __launch_bounds__(256)
 tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
-                     int NB, int KV, int S, int S_pad, int hd, Layout lv) {
+                     int NB, int KV, int S, int S_pad, int hd, int hdp,
+                     Layout lv) {
   __shared__ float tile[32][33];
   const int n = blockIdx.z, j0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   const float* v_n = v + (n / KV) * lv.b + (n % KV) * lv.head + d0 + tx;
   for (int r = ty; r < 32; r += 8) {
     const int j = j0 + r;
-    tile[r][tx] = j < S ? v_n[j * lv.row] : 0.0f;
+    tile[r][tx] = j < S && d0 + tx < hd ? v_n[j * lv.row] : 0.0f;
   }
   __syncthreads();
   const int key = (tx & ~7) + key_at(tx & 7);
-  float* hi = vts + static_cast<long long>(n) * hd * S_pad + j0 + tx;
-  float* lo = hi + static_cast<long long>(NB) * hd * S_pad;
+  float* hi = vts + static_cast<long long>(n) * hdp * S_pad + j0 + tx;
+  float* lo = hi + static_cast<long long>(NB) * hdp * S_pad;
   for (int r = ty; r < 32; r += 8) {
     float h, l;
     split(tile[key][r], h, l);
@@ -252,16 +284,21 @@ tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
 
 // -- the kernel ---------------------------------------------------------
 
-template <int HD>
+// HD: the instance's width (32, 64 or 128); COLS: the columns of q and o
+// (HD, or 16 on the hd-32 instance: Q's columns past COLS load as zeros
+// and o's are not stored).
+template <int HD, int COLS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
                   const __grid_constant__ CUtensorMap tmap_v,
                   const float* __restrict__ q, float* __restrict__ o,
                   int NB, int KV, int G, int L, int S, Layout lq, Layout lout,
                   float scale, int causal) {
+  static_assert(COLS == HD || (HD == kMinHD && COLS == 16), "columns");
   using C = Cfg<HD>;
-  constexpr int KB = C::KB;
-  constexpr int CPR = HD / 4;            // 16-byte chunks per row
+  constexpr int KB = C::KB, PN = C::PN;
+  constexpr int CPR = HD / 4;            // 16-byte chunks per operand row
+  constexpr int OUT_CPR = COLS / 4;      // 16-byte chunks per q or o row
   constexpr int KS = C::K_STAGES, VS = C::V_STAGES;
   // a ring of K tiles and one of V^T tiles, each with "full" and "empty"
   // barriers per stage
@@ -341,11 +378,11 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     uint8_t* q_smem = smem + w * C::WG_Q_BYTES;
 
     // Q once: 16 bytes a thread, split into hi and lo, zeros past the
-    // last row
+    // last row and past column COLS
     for (int i = tid; i < kWgRows * CPR; i += 128) {
       const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < rows) {
+      if (r < rows && (COLS == HD || ch < OUT_CPR)) {
         const int pos = r % L, h = kv * G + r / L;
         x = *reinterpret_cast<const float4*>(
             q + b * lq.b + pos * lq.row + h * lq.head + ch * 4);
@@ -355,7 +392,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       split(x.y, hi.y, lo.y);
       split(x.z, hi.z, lo.z);
       split(x.w, hi.w, lo.w);
-      const uint32_t off = (ch / 8) * kQBlockBytes + swizzled(row, ch % 8);
+      const uint32_t off =
+          (ch / 8) * kQBlockBytes + swizzled<kSW>(row, ch % 8);
       *reinterpret_cast<float4*>(q_smem + off) = hi;
       *reinterpret_cast<float4*>(q_smem + C::Q_PART_BYTES + off) = lo;
     }
@@ -424,7 +462,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float m_new = fmaxf(m[h], mx[h]);
-        corr[h] = exp2f(m[h] - m_new);
+        corr[h] = exp2_ftz(m[h] - m_new);
         m[h] = m_new;
       }
       // p, split into tf32 hi and lo: A fragments of the P V product.
@@ -438,7 +476,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int h = e / 2;           // register 4 kk + e: row g + 8 h
-          const float p = exp2f(s[4 * kk + e] - m[h]);
+          const float p = exp2_ftz(s[4 * kk + e] - m[h]);
           sum[h] += p;                   // l sums the float32 p
           float hi, lo;
           split(p, hi, lo);
@@ -453,13 +491,13 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = l[h] * corr[h] + sum[h];
       }
-      // per 64 output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
+      // per PN output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
       // then acc = acc corr + pv
       mbar_wait(smem_addr(&v_full[vs]), (t / VS) & 1);
 #pragma unroll
-      for (int nh = 0; nh < HD / 64; ++nh) {
-        const uint32_t rows_nh = nh * 64 * kSwizzleBytes;      // V^T's
-        float pv[32];
+      for (int nh = 0; nh < HD / PN; ++nh) {
+        const uint32_t rows_nh = nh * PN * kSW;                // V^T's
+        float pv[PN / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KB / 8; ++kk) {
@@ -472,9 +510,9 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         wgmma_wait_all();
         fence_regs(pv);
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          acc[32 * nh + i] = __fadd_rn(
-              __fmul_rn(acc[32 * nh + i], corr[(i / 2) % 2]), pv[i]);
+        for (int i = 0; i < PN / 2; ++i)
+          acc[PN / 2 * nh + i] = __fadd_rn(
+              __fmul_rn(acc[PN / 2 * nh + i], corr[(i / 2) % 2]), pv[i]);
       }
       if (lane == 0) mbar_arrive(smem_addr(&v_empty[vs]));
     }
@@ -493,20 +531,20 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int h = 0; h < 2; ++h) {
         *reinterpret_cast<float2*>(
             q_smem + (ch / 8) * kQBlockBytes +
-            swizzled(row_g + 8 * h, ch % 8) + 8 * (quad % 2)) =
+            swizzled<kSW>(row_g + 8 * h, ch % 8) + 8 * (quad % 2)) =
             make_float2(acc[4 * jn + 2 * h] / den[h],
                         acc[4 * jn + 2 * h + 1] / den[h]);
       }
     }
     named_barrier(1 + w);
-    for (int i = tid; i < kWgRows * CPR; i += 128) {
-      const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
+    for (int i = tid; i < kWgRows * OUT_CPR; i += 128) {
+      const int row = i / OUT_CPR, ch = i % OUT_CPR, r = wg_r0 + row;
       if (r >= rows) break;
       const int pos_r = r % L, h = kv * G + r / L;
       *reinterpret_cast<float4*>(o + b * lout.b + pos_r * lout.row +
                                  h * lout.head + ch * 4) =
           *reinterpret_cast<const float4*>(
-              q_smem + (ch / 8) * kQBlockBytes + swizzled(row, ch % 8));
+              q_smem + (ch / 8) * kQBlockBytes + swizzled<kSW>(row, ch % 8));
     }
   }
 }
@@ -535,8 +573,8 @@ int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
 }
 
 // The attention kernel on the pre-pass's output (K split at ks, V^T
-// split at vts).
-template <int HD>
+// split at vts, both HD wide).
+template <int HD, int COLS>
 int launch(const float* ks, const float* vts, const void* q, void* o,
            int causal, int NB, int KV, int G, int L, int S, long long S_pad,
            long long tiles, const Layout& lq, const Layout& lout,
@@ -547,11 +585,11 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
   if (map_err == 0) map_err = make_map(&tmap_v, vts, S_pad, HD, 2LL * NB, HD);
   if (map_err != 0) return map_err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      flash_tf32_kernel<HD, COLS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
-  flash_tf32_kernel<HD><<<dim3(static_cast<unsigned>(tiles), NB), kThreads,
-                          C::SMEM, stream>>>(
+  flash_tf32_kernel<HD, COLS><<<dim3(static_cast<unsigned>(tiles), NB),
+                                kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const float*>(q), static_cast<float*>(o),
       NB, KV, G, L, S, lq, lout, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -560,15 +598,15 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 }  // namespace
 
 // q, o: NB * G * L query rows; k, v: NB * S keys; float32 (dtype 0, the
-// code of csrc/flash_attn.cu's entry point; any other dtype is refused),
-// head_dim `hd` 64 or 128 (any other is refused).  Pair n = b * KV + kv
+// wrapper's code; any other dtype is refused), head_dim `hd` 16, 32, 64
+// or 128 (any other is refused).  Pair n = b * KV + kv
 // reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides
 // in elements, head_dim contiguous, every row 16-byte aligned.
-// `scratch`: 4 * NB * S_pad * hd floats, 16-byte aligned, S_pad = S
-// rounded up to a multiple of 64; the pre-pass overwrites it.  Launches
+// `scratch`: 4 * NB * S_pad * max(hd, 32) floats, 16-byte aligned, S_pad
+// = S rounded up to a multiple of 64; the pre-pass overwrites it.  Launches
 // the pre-pass's two kernels and the attention kernel on `stream`, does
 // not synchronise, and returns the first cudaGetLastError() that is not
 // 0, as an int: cudaErrorInvalidValue for a shape it does not take,
@@ -579,7 +617,8 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
                                       int G, int L, int S,
                                       const long long* strides, float scale,
                                       void* scratch, void* stream) {
-  if (dtype != 0 || (hd != 64 && hd != 128)) return cudaErrorInvalidValue;
+  if (dtype != 0 || (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+    return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0 || NB % KV || NB > 65535)
     return cudaErrorInvalidValue;
@@ -593,28 +632,39 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
   const Layout lk{strides[3], strides[4], strides[5]};
   const Layout lv{strides[6], strides[7], strides[8]};
   const Layout lout{strides[9], strides[10], strides[11]};
+  const int hdp = hd < kMinHD ? kMinHD : hd;    // the scratch's width
   float* ks = static_cast<float*>(scratch);
-  float* vts = ks + 2LL * NB * S_pad * hd;
+  float* vts = ks + 2LL * NB * S_pad * hdp;
 
-  const long long chunks = static_cast<long long>(NB) * S_pad * (hd / 4);
+  const long long chunks = static_cast<long long>(NB) * S_pad * (hdp / 4);
   const unsigned split_blocks =
       static_cast<unsigned>((chunks + 255) / 256 < 8192 ? (chunks + 255) / 256
                                                         : 8192);
   tf32_split_k_kernel<<<split_blocks, 256, 0, st>>>(
       static_cast<const float*>(k), ks, NB, KV, S, static_cast<int>(S_pad),
-      hd, lk);
+      hd, hdp, lk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tf32_split_vt_kernel<<<dim3(static_cast<unsigned>(S_pad / 32), hd / 32,
+  tf32_split_vt_kernel<<<dim3(static_cast<unsigned>(S_pad / 32), hdp / 32,
                               NB),
                          256, 0, st>>>(static_cast<const float*>(v), vts, NB,
                                        KV, S, static_cast<int>(S_pad), hd,
-                                       lv);
+                                       hdp, lv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (hd == 64)
-    return launch<64>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad, tiles,
-                      lq, lout, scale, st);
-  return launch<128>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad, tiles,
-                     lq, lout, scale, st);
+  switch (hd) {
+    case 16:
+      return launch<32, 16>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
+                            tiles, lq, lout, scale, st);
+    case 32:
+      return launch<32, 32>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
+                            tiles, lq, lout, scale, st);
+    case 64:
+      return launch<64, 64>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
+                            tiles, lq, lout, scale, st);
+    case 128:
+      return launch<128, 128>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
+                              tiles, lq, lout, scale, st);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -1,14 +1,13 @@
 // Causal or bidirectional online-softmax attention (flash attention) with
-// grouped KV heads, bfloat16 at head_dim 64 or 128, on Hopper's tensor
-// cores (sm_90a).
+// grouped KV heads, bfloat16 at head_dim 16, 32, 64 or 128, on Hopper's
+// tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
-// for the inputs the serving path gives it; csrc/flash_attn_tf32.cu
-// takes float32 at head_dim 64, and csrc/flash_attn.cu every other
-// input.  For every (batch b, KV head kv) pair n and every query row r
-// of the folded row axis (r = g * L + l: the G = H / KV query heads of
-// kv folded over the L positions), with position l = r mod L:
+// for bfloat16 inputs; csrc/flash_attn_tf32.cu takes float32.  For every
+// (batch b, KV head kv) pair n and every query row r of the folded row
+// axis (r = g * L + l: the G = H / KV query heads of kv folded over the
+// L positions), with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
 //   s[j]  = NEG_INF (-1e30) where causal and j > l
@@ -19,51 +18,65 @@
 // sum_j p[j], acc = acc corr + sum_j p[j] v[j] with p[j] = exp(s[j] -
 // m_new), and at the end o = acc / max(l, 1e-30), rounded once to
 // bfloat16.  Scores, the running max, the denominator and the
-// accumulator are float32; the exponentials are exp2f of scores
-// prescaled by log2(e) (one FMUL each, as the scale was), no fast math.
+// accumulator are float32; the exponentials are 2^x on the MUFU pipe
+// (`exp2_ftz`) of scores prescaled by log2(e) (one FMUL each, as the
+// scale was); no other fast math.
 //
 // What bounds it on this card: operations.  A causal prefill does
 // 4 * head_dim flops per kept (query, key) pair against 2 bytes per
 // element of q, k, v and o read or written once: about 1,800 flops per
 // byte at qwen2-0.5b's B 4 x L 4096, six times the ratio (~295) above
 // which the dense bf16 tensor-core rate, not HBM, is the limit.  So the
-// products run on the tensor cores, and the design keeps them fed:
+// products run on the tensor cores, and the design keeps them fed.  At
+// head_dim 16 and 32 (the serving example's reduced model) the products
+// shrink with the width but the softmax does not: one exp2 per kept pair
+// on the MUFU pipe (16 a clock per SM) takes about twice the tensor-core
+// bound at hd 32, so there the exponentials, not the products, are the
+// floor.
+//
+// Each row of a Q, K or V tile is head_dim bf16 stored in column blocks
+// of SW bytes, each with TMA's and wgmma's SW-byte swizzle (`Cfg`): one
+// 128-byte block at hd 64, two at hd 128, one 64-byte block at hd 32 and
+// one 32-byte block at hd 16.  hd 16 and 32 are instances of their own,
+// not hd 64 zero-padded: the narrow swizzle keeps every product the
+// width of the data.
 //
 // - one block per (pair n, tile of QB = 128 folded query rows), three
 //   warpgroups: WG0 the producer, WG1 and WG2 the consumers, 64 query
 //   rows each (wgmma's M).  The producer drops to 40 registers
 //   (setmaxnreg) and one thread of it keeps TMA loads of K and V tiles
-//   (KB = 128 keys) in flight into a ring of STAGES slots (4 at hd 64,
-//   2 at hd 128), each with a "full" mbarrier (TMA's transaction bytes)
+//   (KB = 128 keys) in flight into a ring of STAGES slots (2 at hd 128,
+//   4 below), each with a "full" mbarrier (TMA's transaction bytes)
 //   and an "empty" one (one arrival per consumer warp once its products
 //   on the slot have completed); the consumers rise to 232 registers
 //   for their accumulators: S (64 x KB f32, 64 a thread) and O (64 x hd
 //   f32, hd / 2 a thread);
 // - K and V come by TMA over a 4-D map of [B, S, KV, hd] (or the folded
-//   [N, S, hd]) with 128-byte swizzle, two boxes per tile at hd 128
-//   (the box's inner extent may not pass the swizzle span); keys past S
+//   [N, S, hd]) with the SW-byte swizzle, one box per column block (the
+//   box's inner extent may not pass the swizzle span); keys past S
 //   arrive as zeros and are masked to NEG_INF;
 // - Q is loaded once by the consumers, 16 bytes a thread, into the
-//   128-byte-swizzled layout wgmma reads: not by TMA, since a 128-row
-//   tile can straddle two fold groups (two heads, at positions that
-//   wrap to 0) when L is not a multiple of 128;
+//   swizzled layout wgmma reads: not by TMA, since a 128-row tile can
+//   straddle two fold groups (two heads, at positions that wrap to 0)
+//   when L is not a multiple of 128;
 // - S = Q K^T is hd / 16 wgmma m64n128k16 with both operands in shared
-//   memory (K-major).  bf16 products are exact in f32, so this is the
-//   TPU kernel's f32 dot of the upcast inputs up to summation order;
+//   memory (K-major; a k16 step is 32 bytes of a swizzled row).  bf16
+//   products are exact in f32, so this is the TPU kernel's f32 dot of
+//   the upcast inputs up to summation order;
 // - the softmax runs in the accumulator's registers: a row's scores sit
 //   on a quad of lanes, so its max and sum take two xor shuffles each,
 //   which give every lane the same bits; the mask is applied only to
 //   tiles that reach past the warpgroup's smallest position or past S,
 //   and a key tile past the block's largest position is never loaded
-//   (the exact test of csrc/flash_attn.cu);
+//   (the exact test, `key_tiles`);
 // - P V keeps p at about 2^-17 relative: p is split into bf16 hi =
 //   bf16(p) and lo = bf16(p - hi), and two register-A wgmmas
-//   (m64n{hd}k16, V as an MN-major B operand, transposed) add hi V and
-//   lo V into one f32 accumulator.  Rounding p once to bf16 (cuDNN's
-//   and FA3's choice) errs by up to 2^-9 per weight, past this port's
-//   gates; the split costs a second product, 6 * hd flops per kept pair
-//   where the function needs 4 * hd, so the kernel reaches at most 2/3
-//   of the tensor-core bound;
+//   (m64n{hd}k16, V as an MN-major B operand with the SW-byte swizzle,
+//   transposed) add hi V and lo V into one f32 accumulator.  Rounding p
+//   once to bf16 (cuDNN's and FA3's choice) errs by up to 2^-9 per
+//   weight, past this port's gates; the split costs a second product,
+//   6 * hd flops per kept pair where the function needs 4 * hd, so the
+//   kernel reaches at most 2/3 of the tensor-core bound;
 // - the epilogue divides, rounds once to bf16, stages the warpgroup's
 //   64 rows in its own Q slot and stores 16 bytes a thread through the
 //   strides (a straddling tile's rows go to two heads: no TMA store);
@@ -87,8 +100,10 @@ constexpr int kWgRows = 64;             // query rows per consumer warpgroup
 
 template <int HD>
 struct Cfg {
-  static constexpr int CB = HD / 64;          // 128-byte column blocks
-  static constexpr int STAGES = HD == 64 ? 4 : 2;
+  static constexpr int SW = HD >= 64 ? 128 : 2 * HD;  // swizzle span, bytes
+  static constexpr int CB = 2 * HD / SW;              // column blocks
+  static constexpr int CPB = SW / 16;     // 16-byte chunks of a block's row
+  static constexpr int STAGES = HD == 128 ? 2 : 4;
   static constexpr int WG_Q_BYTES = kWgRows * HD * 2;
   static constexpr int TILE_BYTES = kKB * HD * 2;       // one K or V tile
   static constexpr int Q_BYTES = 2 * WG_Q_BYTES;
@@ -112,7 +127,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 // d[64 x N] += A[64 x 16] B[16 x N], A in registers (bf16 pairs), B
-// MN-major in shared memory (the transpose bit set).
+// MN-major in shared memory (the transpose bit set); N = 16, 32, 64 or
+// 128, the head_dim.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {" WG_R8
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : WG_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" WG_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t db) {
   asm volatile(
@@ -157,6 +193,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                    int S, Layout lq, Layout lo, float scale, int causal) {
   using C = Cfg<HD>;
   constexpr int STAGES = C::STAGES;
+  constexpr int SW = C::SW, CPB = C::CPB;
   constexpr int CPR = HD / 8;            // 16-byte chunks per row
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
@@ -165,8 +202,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
   // Q slot of consumer warpgroup w at w * WG_Q_BYTES; K tile of stage st
-  // at k_tile(st), V at k_tile(st) + TILE_BYTES; a 64-wide column block
-  // cb of a tile of R rows at + cb * R * 128
+  // at k_tile(st), V at k_tile(st) + TILE_BYTES; column block cb of a
+  // tile of R rows at + cb * R * SW
   auto k_tile = [&](int st) {
     return base + C::Q_BYTES + st * 2 * C::TILE_BYTES;
   };
@@ -201,10 +238,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         mbar_expect_tx(full, 2 * C::TILE_BYTES);
 #pragma unroll
         for (int cb = 0; cb < C::CB; ++cb) {
-          const uint32_t off = cb * kKB * kSwizzleBytes;
-          tma_load(k_tile(st) + off, &tmap_k, full, cb * 64, kv, t * kKB, b);
-          tma_load(k_tile(st) + C::TILE_BYTES + off, &tmap_v, full, cb * 64,
-                   kv, t * kKB, b);
+          const uint32_t off = cb * kKB * SW;
+          tma_load(k_tile(st) + off, &tmap_k, full, cb * SW / 2, kv, t * kKB,
+                   b);
+          tma_load(k_tile(st) + C::TILE_BYTES + off, &tmap_v, full,
+                   cb * SW / 2, kv, t * kKB, b);
         }
       }
     }
@@ -229,8 +267,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         val = *reinterpret_cast<const uint4*>(
             q + b * lq.b + pos * lq.row + h * lq.head + ch * 8);
       }
-      *reinterpret_cast<uint4*>(q_smem + (ch / 8) * kWgRows * kSwizzleBytes +
-                                swizzled(row, ch % 8)) = val;
+      *reinterpret_cast<uint4*>(q_smem + (ch / CPB) * kWgRows * SW +
+                                swizzled<SW>(row, ch % CPB)) = val;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_barrier(1 + w);
@@ -260,15 +298,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int j0 = t * kKB;
       mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
 
-      // S = Q K^T
+      // S = Q K^T: k16 step kk is 32 bytes into column block kk / SPB
+      constexpr int SPB = SW / 32;
       float s[kKB / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kWgRows * kSwizzleBytes + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * kKB * kSwizzleBytes + (kk % 4) * 32;
-        wgmma_ss_n128(s, make_desc(q_slot + off, 16, 1024),
-                      make_desc(k_tile(st) + koff, 16, 1024), kk > 0);
+        const uint32_t off = (kk / SPB) * kWgRows * SW + (kk % SPB) * 32;
+        const uint32_t koff = (kk / SPB) * kKB * SW + (kk % SPB) * 32;
+        wgmma_ss_n128(s, make_desc<SW>(q_slot + off, 16),
+                      make_desc<SW>(k_tile(st) + koff, 16), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -292,7 +331,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
         const float m_new = fmaxf(m[h], mx[h]);
-        corr[h] = exp2f(m[h] - m_new);
+        corr[h] = exp2_ftz(m[h] - m_new);
         m[h] = m_new;
       }
       // p, split into bf16 hi and lo: A fragments of the P V product,
@@ -303,7 +342,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int i = 8 * kk + 2 * a, h = a % 2;
-          const float p0 = exp2f(s[i] - m[h]), p1 = exp2f(s[i + 1] - m[h]);
+          const float p0 = exp2_ftz(s[i] - m[h]);
+          const float p1 = exp2_ftz(s[i + 1] - m[h]);
           sum[h] += p0;
           sum[h] += p1;
           const uint32_t hi = pack_bf16(p0, p1);
@@ -320,14 +360,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 
-      // acc += p_hi V + p_lo V
+      // acc += p_hi V + p_lo V: V's k16 step kk is its rows 16 kk ..
+      // 16 kk + 15, column blocks kKB * SW bytes apart
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKB / 16; ++kk) {
-        const uint64_t dv = make_desc(
-            k_tile(st) + C::TILE_BYTES + kk * 16 * kSwizzleBytes,
-            kKB * kSwizzleBytes, 1024);
+        const uint64_t dv = make_desc<SW>(
+            k_tile(st) + C::TILE_BYTES + kk * 16 * SW, kKB * SW);
         wgmma_rs(acc, p_hi[kk], dv);
         wgmma_rs(acc, p_lo[kk], dv);
       }
@@ -350,8 +390,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         const uint32_t v = pack_bf16(acc[4 * jn + 2 * h] / den[h],
                                      acc[4 * jn + 2 * h + 1] / den[h]);
         *reinterpret_cast<uint32_t*>(
-            q_smem + (jn / 8) * kWgRows * kSwizzleBytes +
-            swizzled(row, jn % 8) + 4 * quad) = v;
+            q_smem + (jn / CPB) * kWgRows * SW +
+            swizzled<SW>(row, jn % CPB) + 4 * quad) = v;
       }
     }
     named_barrier(1 + w);
@@ -362,8 +402,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       *reinterpret_cast<uint4*>(o + b * lo.b + pos_r * lo.row + h * lo.head +
                                 ch * 8) =
           *reinterpret_cast<const uint4*>(
-              q_smem + (ch / 8) * kWgRows * kSwizzleBytes +
-              swizzled(row, ch % 8));
+              q_smem + (ch / CPB) * kWgRows * SW +
+              swizzled<SW>(row, ch % CPB));
     }
   }
 }
@@ -372,7 +412,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 
 // A map of keys (or values) as the 4-D bf16 tensor (hd, KV, S, B),
 // innermost first, with element strides (1, head, row, batch); boxes of
-// (64, 1, KB, 1) with the 128-byte swizzle, zeros past S.
+// (SW / 2, 1, KB, 1), one column block, with the SW-byte swizzle, zeros
+// past S.
+template <int SW>
 int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
              int B, long long head, long long row, long long batch) {
   const EncodeTiled encode = encoder();
@@ -385,13 +427,16 @@ int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
   const cuuint64_t strides[3] = {
       static_cast<cuuint64_t>(KV > 1 ? head : hd) * 2,
       static_cast<cuuint64_t>(row) * 2, static_cast<cuuint64_t>(batch) * 2};
-  const cuuint32_t box[4] = {64, 1, kKB, 1};
+  const cuuint32_t box[4] = {SW / 2, 1, kKB, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
@@ -405,9 +450,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
   if (tiles > 0x7FFFFFFFLL || rows > 0x7FFFFFFFLL || NB > 65535 || NB % KV)
     return cudaErrorInvalidValue;
   CUtensorMap tmap_k, tmap_v;
-  int err = make_map(&tmap_k, k, HD, KV, S, NB / KV, st[5], st[4], st[3]);
+  int err = make_map<C::SW>(&tmap_k, k, HD, KV, S, NB / KV, st[5], st[4],
+                            st[3]);
   if (err == 0)
-    err = make_map(&tmap_v, v, HD, KV, S, NB / KV, st[8], st[7], st[6]);
+    err = make_map<C::SW>(&tmap_v, v, HD, KV, S, NB / KV, st[8], st[7],
+                          st[6]);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -424,8 +471,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 }  // namespace
 
 // q, o: NB * G * L query rows; k, v: NB * S keys; bfloat16 (dtype 1, the
-// code of csrc/flash_attn.cu's entry point, which shares this signature;
-// any other dtype is refused), head_dim `hd` of 64 or 128.  Pair
+// wrapper's code; csrc/flash_attn_tf32.cu's entry point, which shares
+// this signature but for its scratch, takes float32, 0), head_dim `hd`
+// of 16, 32, 64 or 128.  Pair
 // n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
@@ -444,6 +492,12 @@ extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 16)
+    return launch<16>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
+                      st);
+  if (hd == 32)
+    return launch<32>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
+                      st);
   if (hd == 64)
     return launch<64>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
                       st);

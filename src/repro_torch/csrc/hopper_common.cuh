@@ -1,10 +1,10 @@
 // What the tensor-core flash kernels (csrc/flash_attn_wgmma.cu and
 // csrc/flash_attn_tf32.cu) share: the model's constants, shared-memory
-// addressing with the 128-byte swizzle, the mbarrier ring's waits and
-// arrivals, TMA loads, wgmma's descriptors and fences, the exact skip of
-// key tiles past a block's last position, and the run-time lookup of
-// cuTensorMapEncodeTiled.  Included by both; kernels/build.py hashes it
-// with each source that includes it.
+// addressing with the 128-, 64- or 32-byte swizzle, the exponential, the
+// mbarrier ring's waits and arrivals, TMA loads, wgmma's descriptors and
+// fences, the exact skip of key tiles past a block's last position, and
+// the run-time lookup of cuTensorMapEncodeTiled.  Included by both;
+// kernels/build.py hashes it with each source that includes it.
 #pragma once
 
 #include <cstdint>
@@ -16,7 +16,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kMinDenominator = 1e-30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kSwizzleBytes = 128;      // one swizzled row of a column block
 
 // Element strides of one operand; the head_dim stride is 1.
 struct Layout {
@@ -29,10 +28,24 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a block of
-// 128-byte rows stored with the 128-byte swizzle (TMA's and wgmma's).
+// A swizzle span SW of 128, 64 or 32 bytes (TMA's CU_TENSOR_MAP_SWIZZLE_
+// 128B, _64B, _32B; wgmma's layout types 1, 2, 3): a block of SW-byte
+// rows in which the 16-byte chunk c of row r is stored at chunk c ^ ((r *
+// SW / 128) mod (SW / 16)), the pattern repeating every 8 rows (1024,
+// 512 or 256 bytes, to which the block is aligned).
+template <int SW>
+struct Swizzle {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle span");
+  static constexpr int kShift = SW == 128 ? 0 : SW == 64 ? 1 : 2;
+  static constexpr uint64_t kLayout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+};
+
+// Byte offset of 16-byte chunk `chunk` (0 .. SW / 16 - 1) of row `row` in
+// a block of SW-byte rows stored with the SW-byte swizzle.
+template <int SW>
 __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
-  return row * kSwizzleBytes + ((chunk ^ (row & 7)) << 4);
+  return row * SW +
+         ((chunk ^ ((row >> Swizzle<SW>::kShift) & (SW / 16 - 1))) << 4);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -103,19 +116,34 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 2^x on the MUFU pipe, ex2.approx.ftz.f32: exp2f issues the same
+// instruction plus a fix-up for results below 2^-126 (three more
+// instructions an exponential), which this flushes to 0.  A softmax
+// weight that small is lost against the row's largest weight, 2^0, in
+// every float32 sum it enters; on the card the kernels' outputs kept
+// their bits at every timed shape (PERF.md, section 6).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ void named_barrier(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // -- wgmma --------------------------------------------------------------
 
-// Shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+// Shared-memory matrix descriptor with the SW-byte swizzle: start
+// address, leading byte offset `lbo` (an MN-major operand's step between
+// SW-byte column blocks; unused K-major) and the stride byte offset
+// between 8-row groups, 8 * SW, each in 16-byte units.
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(8 * SW >> 4) << 32) |
+         (Swizzle<SW>::kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,12 +165,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // wgmma's accumulator operands: eight registers from d[i], and the
-// operand lists of 16, 32 and 64 of them
+// operand lists of 8, 16, 32 and 64 of them
 #define WG_D8(i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define WG_R16                                     \
-  "%0, %1, %2, %3, %4, %5, %6, %7, "               \
+  WG_R8 ", "                                       \
   "%8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R32                                     \
   WG_R16 ", "                                      \
@@ -160,7 +189,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // Key tiles of KB keys that the block of folded rows [r0, r0 + QB)
 // needs: all of them, or when causal those up to the block's largest
 // query position (its last row's, unless the block straddles two fold
-// groups).  The exact test of csrc/flash_attn.cu.
+// groups).  The exact test: the Pallas kernel's first_q_pos + QB - 1 is
+// conservative when a block straddles two fold groups.
 template <int QB, int KB>
 __device__ __forceinline__ int key_tiles(int r0, int rows, int L, int S,
                                          int causal) {

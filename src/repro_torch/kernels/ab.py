@@ -9,21 +9,32 @@ fused_mac.cu > OLD.cu``, in a directory the chip copy carries).  Each
 source is built with the package's nvcc flags, and each entry point
 that every source has is timed with CUDA events at the main path's
 shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
-`fused_mac_partials` at the scale_u65536 1x1 shape, the tensor-core
-flash kernel at qwen2-0.5b's prefill shape and at prefill_32k's length
-(bf16, causal; every version must have the entry point's signature
-of `flash_attn.ARGTYPES`), `ota_combine` at its four main-path shapes,
-and float32 flash attention at qwen2-0.5b's and qwen2-1.5b's prefill
-shapes (causal, hd 64 and 128) through whichever float32 entry point
-each source has: the tf32 kernel's (`flash_attn.TF32_ARGTYPES`, with
-its scratch) or the CUDA-core kernel's (`flash_attn.ARGTYPES`, dtype
-code 0), so ``csrc/flash_attn.cu`` and ``csrc/flash_attn_tf32.cu`` can
-be timed against each other (a version whose entry point refuses a
-shape is listed as refusing it and left out there).  Prints one JSON line per shape (times, and whether
-each version's output equals the first's bit for bit, with the largest
-gap where it does not), one per kernel with its SASS report
-(`repro_torch.kernels.sass`), and the card's name and power limit.
-Needs a CUDA card and nvcc.
+`fused_mac_partials` at the scale_u65536 1x1 shape, `ota_combine` at its
+four main-path shapes, and flash attention (causal) at the prefill
+shapes of the main paths in bf16 and float32: qwen2-0.5b's (hd 64; in
+bf16 also at prefill_32k's length), qwen2-1.5b's float32 one (hd 128)
+and the serving example's reduced model (hd 32), and hd 16 at the same
+batch and length.  A flash source is timed at a dtype through the first
+of FLASH_ENTRIES[dtype] it has: the bf16 tensor-core kernel's
+(`flash_attn.ARGTYPES`), the tf32 kernel's (`flash_attn.TF32_ARGTYPES`,
+with its scratch) or an older source's CUDA-core ``flash_attn_launch``
+(`flash_attn.ARGTYPES`, dtype code 0 or 1), so an older
+``flash_attn.cu`` can be timed against the tensor-core sources; a source
+with none of them, or whose entry point refuses a shape, is left out
+there (and listed as refusing it).  Prints one JSON line per shape
+(times, and whether each version's output equals the first's bit for
+bit, with the largest gap where it does not), one per kernel with its
+SASS report (`repro_torch.kernels.sass`), and the card's name and power
+limit.  An older source that includes ``hopper_common.cuh`` finds the
+header beside it first, so keep the older header with it.  Needs a CUDA
+card and nvcc.
+
+    PYTHONPATH=src python -m repro_torch.kernels.ab --edge OLD.cu NEW.cu
+
+times nothing: it runs each flash source once at FLASH_EDGE_CASES (the
+smoke's phase-3 shapes at hd 64 and 128: ragged lengths, 128-row tiles
+that straddle two heads, both masks, both dtypes) and prints whether
+each output equals the first source's bit for bit.
 """
 from __future__ import annotations
 
@@ -44,10 +55,31 @@ from repro_torch.kernels import build, flash_attn, sass
 MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
               (16, 16384, 4, 3925, 1024)]
 PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
-# (B, L, H, KV, hd): qwen2-0.5b's prefill and prefill_32k's length
-FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 32768, 14, 2, 64)]
-# (B, L, H, KV, hd): qwen2-0.5b's and qwen2-1.5b's float32 prefills
-F32_FLASH_SHAPES = [(4, 4096, 14, 2, 64), (1, 4096, 12, 2, 128)]
+# ((B, L, H, KV, hd), dtype): qwen2-0.5b's prefill (bf16 also at
+# prefill_32k's length), qwen2-1.5b's float32 one, the serving example's
+# reduced model, and hd 16 at its batch and length
+FLASH_CASES = [((4, 4096, 14, 2, 64), torch.bfloat16),
+               ((1, 32768, 14, 2, 64), torch.bfloat16),
+               ((4, 4096, 4, 2, 32), torch.bfloat16),
+               ((4, 4096, 4, 2, 16), torch.bfloat16),
+               ((4, 4096, 14, 2, 64), torch.float32),
+               ((1, 4096, 12, 2, 128), torch.float32),
+               ((4, 4096, 4, 2, 32), torch.float32),
+               ((4, 4096, 4, 2, 16), torch.float32)]
+# ((B, L, H, KV, hd), dtype, causal) for --edge: the smoke's phase-3
+# shapes at hd 64 and 128, every one in both dtypes and both masks
+FLASH_EDGE_CASES = [(shape, dtype, causal)
+                    for shape in ((2, 200, 14, 2, 64), (1, 77, 14, 2, 64),
+                                  (1, 128, 8, 8, 64), (4, 4096, 14, 2, 64),
+                                  (2, 200, 12, 2, 128), (1, 77, 12, 2, 128),
+                                  (1, 256, 2, 2, 128), (1, 1000, 12, 2, 128))
+                    for dtype in (torch.bfloat16, torch.float32)
+                    for causal in (True, False)]
+# the flash entry points that take each dtype, in order of preference
+FLASH_ENTRIES = {torch.bfloat16: ("flash_attn_wgmma_launch",
+                                  "flash_attn_launch"),
+                 torch.float32: ("flash_attn_tf32_launch",
+                                 "flash_attn_launch")}
 # (B, U, K, N): the Fig. 2 driver's cluster, IS->PS and conventional
 # hops (the last two unbatched, as B = 1) and scale_u256's cluster hop
 OTA_SHAPES = [(4, 20, 100, 3925), (1, 4, 100, 3925), (1, 20, 100, 3925),
@@ -96,6 +128,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="+", type=Path)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--edge", action="store_true",
+                    help="compare flash outputs at FLASH_EDGE_CASES bit "
+                         "for bit, timing nothing")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab: this comparison needs a CUDA card")
@@ -116,6 +151,10 @@ def main(argv=None) -> int:
                       flush=True)
     order = names + names[::-1]
     has = lambda fn: all(hasattr(lib, fn) for lib, _ in built.values())
+    if a.edge:
+        for shape, dtype, causal in FLASH_EDGE_CASES:
+            flash_case(built, shape, dtype, causal, None, dev)
+        return card_line()
 
     for B, U, K, N, bu in MAC_SHAPES if has("fused_mac_launch") else ():
         t_re, t_im, amp, w = inputs(B, U, N, 0, dev)
@@ -187,24 +226,6 @@ def main(argv=None) -> int:
                                            .abs().max())
                                   for n, o in outs.items()}}), flush=True)
 
-    for B, L, H, KV, hd in FLASH_SHAPES if has("flash_attn_wgmma_launch") \
-            else ():
-        g = torch.Generator().manual_seed(2)
-        q, k, v = (torch.randn(*s, generator=g).to(dev, torch.bfloat16)
-                   for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
-
-        def fcall(name):
-            o = torch.empty_like(q)
-            err = flash_attn.call(
-                flash_attn.typed(built[name][0].flash_attn_wgmma_launch),
-                q, k, v, o, causal=True, NB=B * KV, KV=KV, G=H // KV, L=L,
-                S=L, strides=flash_attn.model_strides(q, k))
-            if err:
-                raise RuntimeError(f"{name}: error {err}")
-            return o
-
-        compare("flash_attn_wgmma", "shape_BLHKVhd", (B, L, H, KV, hd),
-                fcall, a.reps if L <= 4096 else max(a.reps // 4, 1))
     for B, U, K, N in OTA_SHAPES if has("ota_combine_launch") else ():
         g = torch.Generator().manual_seed(B + U + K + N)
         cx = lambda *s: torch.randn(*s, dtype=torch.complex64,
@@ -225,48 +246,76 @@ def main(argv=None) -> int:
 
         compare("ota_combine", "shape_BUKN", (B, U, K, N), ocall, a.reps)
 
-    f32_entry = {n: next((e for e in ("flash_attn_tf32_launch",
-                                      "flash_attn_launch")
-                          if hasattr(lib, e)), None)
-                 for n, (lib, _) in built.items()}
-    if all(f32_entry.values()):
-        print(json.dumps({"f32_flash_entry_points": f32_entry}), flush=True)
-    for B, L, H, KV, hd in F32_FLASH_SHAPES if all(f32_entry.values()) \
-            else ():
-        g = torch.Generator().manual_seed(3)
-        q, k, v = (torch.randn(*s, generator=g).to(dev)
-                   for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    for shape, dtype in FLASH_CASES:
+        flash_case(built, shape, dtype, True, compare, dev,
+                   reps=a.reps if dtype == torch.bfloat16
+                   else max(a.reps // 2, 1),
+                   long_reps=max(a.reps // 4, 1))
+    return card_line()
 
-        def f32launch(name):
-            entry = f32_entry[name]
-            tf32 = entry == "flash_attn_tf32_launch"
-            o = torch.empty_like(q)
-            err = flash_attn.call(
-                flash_attn.typed(getattr(built[name][0], entry),
-                                 flash_attn.TF32_ARGTYPES if tf32
-                                 else flash_attn.ARGTYPES),
-                q, k, v, o, causal=True, NB=B * KV, KV=KV, G=H // KV, L=L,
-                S=L, strides=flash_attn.model_strides(q, k),
-                scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
-                if tf32 else None)
-            return err, o
 
-        def f32call(name):
-            err, o = f32launch(name)
-            if err:
-                raise RuntimeError(f"{name}: error {err}")
-            return o
+def flash_case(built, shape, dtype, causal, compare, dev, reps=0,
+               long_reps=0) -> None:
+    """One flash shape across the sources that have an entry point for
+    `dtype`: with `compare`, timed through it in turns; without, run once
+    and printed with each output against the first source's bit for
+    bit."""
+    B, L, H, KV, hd = shape
+    entry = {n: next((e for e in FLASH_ENTRIES[dtype] if hasattr(lib, e)),
+                     None)
+             for n, (lib, _) in built.items()}
+    entry = {n: e for n, e in entry.items() if e}
+    if not entry:
+        return
+    g = torch.Generator().manual_seed(2 if dtype == torch.bfloat16 else 3)
+    q, k, v = (torch.randn(*s, generator=g).to(dev, dtype)
+               for s in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    label = f"flash_attn {str(dtype).split('.')[-1]}"
 
-        takes = [n for n in names if f32launch(n)[0] == 0]
-        if len(takes) < len(names):
-            print(json.dumps({"kernel": "flash_attn f32",
-                              "shape_BLHKVhd": [B, L, H, KV, hd],
-                              "refused_by": [n for n in names
-                                             if n not in takes]}),
-                  flush=True)
-        if takes:
-            compare("flash_attn f32", "shape_BLHKVhd", (B, L, H, KV, hd),
-                    f32call, max(a.reps // 2, 1), takes)
+    def flaunch(name):
+        tf32 = entry[name] == "flash_attn_tf32_launch"
+        o = torch.empty_like(q)
+        err = flash_attn.call(
+            flash_attn.typed(getattr(built[name][0], entry[name]),
+                             flash_attn.TF32_ARGTYPES if tf32
+                             else flash_attn.ARGTYPES),
+            q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L,
+            S=L, strides=flash_attn.model_strides(q, k),
+            scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
+            if tf32 else None)
+        return err, o
+
+    def fcall(name):
+        err, o = flaunch(name)
+        if err:
+            raise RuntimeError(f"{name}: error {err}")
+        return o
+
+    takes = [n for n in entry if flaunch(n)[0] == 0]
+    print(json.dumps({"kernel": label, "shape_BLHKVhd": list(shape),
+                      "causal": causal,
+                      "entry_points": {n: entry[n] for n in takes},
+                      "refused_by": [n for n in entry if n not in takes]}),
+          flush=True)
+    if not takes:
+        return
+    if compare:
+        compare(label, "shape_BLHKVhd", shape, fcall,
+                reps if L <= 4096 else long_reps, takes)
+        return
+    outs = {n: fcall(n) for n in takes}
+    first = outs[takes[0]]
+    print(json.dumps({
+        "kernel": label, "shape_BLHKVhd": list(shape), "causal": causal,
+        "bitwise_equal_first": {n: torch.equal(o, first)
+                                for n, o in outs.items()},
+        "max_abs_gap_first": {n: float((o.float() - first.float())
+                                       .abs().max())
+                              for n, o in outs.items()}}), flush=True)
+
+
+def card_line() -> int:
+    """Print the card's name and power limit; 0."""
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -11,26 +11,27 @@ a key j is kept for it when j <= r % seq_len.  Scores are
 JAX package's constants.  Inputs are float32 or bfloat16, upcast to
 float32; the output is in q's dtype.
 
-Four implementations of that one function live here, and `route`
+Three implementations of that one function live here, and `route`
 picks one from the input tensors alone:
 
-- ``"flash_attn_wgmma"``: bfloat16 at hd 64 or 128 on a CUDA card, the
-  hand-written Hopper kernel ``csrc/flash_attn_wgmma.cu`` (tensor cores:
-  wgmma, TMA-fed K/V ring, warp specialisation; 128 query rows and 128
-  keys a tile), counted in ``flash_mha.wgmma_launches``.  This is the
-  serving path's prefill.
-- ``"flash_attn_tf32"``: float32 at hd 64 or 128 on a CUDA card
-  (qwen2-0.5b's and qwen2-1.5b's float32 prefills),
+- ``"flash_attn_wgmma"``: bfloat16 on a CUDA card, at every head dim of
+  HEAD_DIMS, the hand-written Hopper kernel ``csrc/flash_attn_wgmma.cu``
+  (tensor cores: wgmma, TMA-fed K/V ring, warp specialisation; 128 query
+  rows and 128 keys a tile; a row of hd 16 or 32 is one 32- or 64-byte
+  swizzled block), counted in ``flash_mha.wgmma_launches``.  This is
+  the serving path's prefill.
+- ``"flash_attn_tf32"``: float32 on a CUDA card, at every head dim of
+  HEAD_DIMS (qwen2-0.5b's and qwen2-1.5b's float32 prefills at hd 64
+  and 128, the serving example's reduced model at hd 32),
   ``csrc/flash_attn_tf32.cu``: the same design on the tensor cores in
   TF32 with every product split 3xTF32 (x = hi + lo, each rounded to
   nearest, ties away; `tf32_rna`), which keeps float32's accuracy where
   TF32 alone would not.  Its entry point first launches a pre-pass (two
   more kernels per call) that writes K and V^T, split, into a scratch
   tensor the wrapper allocates (`tf32_prepass_plain` is its plain
-  version).  Counted in ``flash_mha.tf32_launches``, once per call.
-- ``"flash_attn"``: every other CUDA input (hd 16 or 32, float32 or
-  bfloat16), the CUDA-core kernel ``csrc/flash_attn.cu`` (float32
-  arithmetic throughout), counted in ``flash_mha.launches``.
+  version); hd 16 runs its hd-32 instance with K and V^T zero-padded to
+  TF32_MIN_HEAD_DIM.  Counted in ``flash_mha.tf32_launches``, once per
+  call.
 - ``"plain"``: CPU tensors, `flash_mha_plain` and
   `flash_attention_plain`, the plain PyTorch versions: the same loop
   nest as the Pallas kernel in interpret mode (``q_block`` x
@@ -44,7 +45,7 @@ The kernels tile with their own compiled sizes, so on the card
 fails to build or launch raises: nothing falls back to another kernel
 or to the plain version.
 
-All four skip a key tile whose first key lies past every position of
+All three skip a key tile whose first key lies past every position of
 the q tile, by the exact test (the Pallas kernel's ``first_q_pos + QB -
 1`` is conservative when a q tile straddles two fold groups).  The bits
 are the same: the causal row has seen key 0 in tile 0 by then, so a
@@ -63,14 +64,15 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MIN_DENOMINATOR = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
-TF32_HEAD_DIMS = (64, 128)
 # the tf32 kernel's scratch pads S to a multiple of this (its key tile at
-# hd 64; hd 128's 32-key tile divides it), and the order its pre-pass
-# stores each group of 8 keys of V^T in: the column order of the tf32
-# wgmma's register A fragment
+# hd 32 and 64; hd 128's 32-key tile divides it), and the order its
+# pre-pass stores each group of 8 keys of V^T in: the column order of the
+# tf32 wgmma's register A fragment
 TF32_KEY_TILE = 64
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# its narrowest instance: the pre-pass pads K's columns and V^T's rows of
+# a smaller head dim to this width with zeros
+TF32_MIN_HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -111,18 +113,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def route(q: torch.Tensor) -> str:
     """The implementation that serves `q` (and its k and v, which
     `_check` holds to q's device, dtype and head dim), from q's device
-    type, dtype and head dim alone: ``"plain"`` on the CPU,
-    ``"flash_attn_wgmma"`` for bfloat16 at hd 64 or 128 on a CUDA card,
-    ``"flash_attn_tf32"`` for float32 at hd 64 or 128 on a CUDA card,
-    ``"flash_attn"`` for any other CUDA input.  The kernels' names are
+    type and dtype alone: ``"plain"`` on the CPU, ``"flash_attn_wgmma"``
+    for bfloat16 on a CUDA card, ``"flash_attn_tf32"`` for float32 on a
+    CUDA card, at every head dim of HEAD_DIMS.  The kernels' names are
     their sources under ``csrc/``."""
     if q.device.type == "cpu":
         return "plain"
-    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS:
-        return "flash_attn_wgmma"
-    if q.dtype == torch.float32 and q.shape[-1] in TF32_HEAD_DIMS:
-        return "flash_attn_tf32"
-    return "flash_attn"
+    return ("flash_attn_wgmma" if q.dtype == torch.bfloat16
+            else "flash_attn_tf32")
 
 
 # the flash kernels' C entry point: q, k, v, o, dtype code, hd, causal,
@@ -150,11 +148,12 @@ def _kernel_fn(name: str):
 
 
 def tf32_scratch(NB: int, S: int, hd: int, device) -> torch.Tensor:
-    """The tf32 kernel's scratch: K hi, K lo [NB, S_pad, hd] and V^T hi,
-    V^T lo [NB, hd, S_pad], S_pad = S rounded up to TF32_KEY_TILE."""
+    """The tf32 kernel's scratch: K hi, K lo [NB, S_pad, hdp] and V^T hi,
+    V^T lo [NB, hdp, S_pad], S_pad = S rounded up to TF32_KEY_TILE, hdp
+    = max(hd, TF32_MIN_HEAD_DIM)."""
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    return torch.empty(4 * NB * s_pad * hd, dtype=torch.float32,
-                       device=device)
+    return torch.empty(4 * NB * s_pad * max(hd, TF32_MIN_HEAD_DIM),
+                       dtype=torch.float32, device=device)
 
 
 def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
@@ -183,7 +182,7 @@ def call(fn, q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
 
 
 # each kernel's launch count on `flash_mha`
-_COUNTERS = {"flash_attn": "launches", "flash_attn_wgmma": "wgmma_launches",
+_COUNTERS = {"flash_attn_wgmma": "wgmma_launches",
              "flash_attn_tf32": "tf32_launches"}
 
 
@@ -236,7 +235,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
-flash_mha.launches = 0          # csrc/flash_attn.cu (CUDA cores)
 flash_mha.wgmma_launches = 0    # csrc/flash_attn_wgmma.cu (tensor cores)
 flash_mha.tf32_launches = 0     # csrc/flash_attn_tf32.cu (tensor cores)
 
@@ -260,14 +258,17 @@ def tf32_split(x: torch.Tensor) -> tuple:
 
 def tf32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> tuple:
     """The tf32 kernel's pre-pass on folded float32 k, v [N, S, hd]:
-    (K split [2, N, S_pad, hd], V^T split [2, N, hd, S_pad]), hi then
-    lo, S_pad = S rounded up to TF32_KEY_TILE with zero keys, and V^T's
-    keys stored in TF32_KEY_ORDER within each group of 8 (stored
-    position p of a group holds key TF32_KEY_ORDER[p]).  The kernel's
-    scratch holds the two, flattened, one after the other."""
+    (K split [2, N, S_pad, hdp], V^T split [2, N, hdp, S_pad]), hi then
+    lo, S_pad = S rounded up to TF32_KEY_TILE with zero keys, hdp =
+    max(hd, TF32_MIN_HEAD_DIM) with zero columns of K and rows of V^T
+    past hd, and V^T's keys stored in TF32_KEY_ORDER within each group
+    of 8 (stored position p of a group holds key TF32_KEY_ORDER[p]).
+    The kernel's scratch holds the two, flattened, one after the other."""
     N, S, hd = k.shape
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    pad = lambda x: torch.cat([x.float(), x.new_zeros(N, s_pad - S, hd)], 1)
+    hdp = max(hd, TF32_MIN_HEAD_DIM)
+    pad = lambda x: torch.nn.functional.pad(x.float(),
+                                            (0, hdp - hd, 0, s_pad - S))
     order = torch.tensor(TF32_KEY_ORDER, device=k.device)
     keys = (torch.arange(0, s_pad, 8, device=k.device)[:, None]
             + order).reshape(-1)

@@ -219,8 +219,8 @@ def short_name(mangled: str) -> str:
 
 def instance_name(mangled: str) -> str:
     """`short_name`, with a template instance's arguments: integers,
-    builtin types and named types, e.g. ``flash_tf32_kernel<128>`` or
-    ``flash_attn_kernel<16, float>``."""
+    builtin types and named types, e.g. ``flash_tf32_kernel<32, 16>`` or
+    ``toy_kernel<16, float>``."""
     name = short_name(mangled)
     at = mangled.find(f"{len(name)}{name}I")
     if at < 0:

@@ -13,13 +13,13 @@ Flash attention: float32 outputs within 1e-5 of max |o|; bfloat16
 outputs within that plus one bf16 ULP of each value, since both sides
 compute in float32 and round once (near zero the float32 gap spans
 many ULPs, so a strict 1-ULP rule fails for any change of summation
-order).  bfloat16 at hd 64 and 128 runs on the tensor-core kernel
+order).  bfloat16 runs on the tensor-core kernel
 (``csrc/flash_attn_wgmma.cu``), which splits each softmax weight into
-two bf16 parts to stay inside that gate; float32 at hd 64 and 128 on
-the float32 tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every
-product split into tf32 hi and lo parts); every other input on the
-CUDA-core kernel (``csrc/flash_attn.cu``).  Each test checks which
-kernel served it by the wrapper's three launch counts.
+two bf16 parts to stay inside that gate; float32 on the float32
+tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every product
+split into tf32 hi and lo parts; hd 16 on its hd-32 instance,
+zero-padded); both at hd 16, 32, 64 and 128.  Each test checks which
+kernel served it by the wrapper's two launch counts.
 `ota_combine` splits its antennas over a thread-block cluster where B
 alone would not fill the card; its cluster size comes from the built
 library (``ota_combine_cluster_size``).
@@ -288,8 +288,7 @@ def _flash_close(got, want):
 
 
 def _launch_counts():
-    return {"flash_attn": flash_mha.launches,
-            "flash_attn_wgmma": flash_mha.wgmma_launches,
+    return {"flash_attn_wgmma": flash_mha.wgmma_launches,
             "flash_attn_tf32": flash_mha.tf32_launches}
 
 
@@ -330,13 +329,19 @@ def test_flash_kernel_matches_plain_on_card(B, L, H, KV, hd, dtype, causal):
     (1, 640, 640, 32, 8, 128),
     (2, 1, 1, 14, 2, 64),         # one query, one key
     (3, 5, 7, 4, 1, 128),         # 20 rows in a 128-row block; S > L
+    (1, 64, 64, 1, 1, 32),        # one tile: 64 rows, 64 keys
+    (1, 64, 64, 1, 1, 16),
+    (1, 200, 333, 4, 2, 32),      # the 64- and 32-byte swizzles: straddle,
+    (2, 300, 130, 4, 2, 16),      # ragged keys, S != L
+    (1, 1000, 1000, 4, 2, 32),
+    (3, 5, 7, 4, 1, 16),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
                                                   causal):
     """The tensor-core kernel at its edges: L not a multiple of the
     128-row tile (a tile holds rows of two heads), S != L, S not a
-    multiple of the 128-key tile, hd 64 and 128."""
+    multiple of the 128-key tile, hd 16, 32, 64 and 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.bfloat16, L + S + hd, S)
@@ -367,14 +372,21 @@ def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
     (1, 640, 640, 32, 8, 128),
     (3, 5, 7, 4, 1, 128),
     (1, 130, 70, 4, 4, 128),
+    (1, 64, 64, 1, 1, 32),        # hd 32: one tile, 64 rows and 64 keys
+    (1, 200, 333, 4, 2, 32),      # straddling tiles, ragged keys
+    (1, 130, 70, 4, 4, 32),
+    (1, 64, 64, 1, 1, 16),        # hd 16 on the hd-32 instance, padded
+    (2, 300, 130, 4, 2, 16),
+    (3, 5, 7, 4, 1, 16),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
                                                  causal):
     """The float32 tensor-core kernel at its edges: L not a multiple of
     the 128-row tile (a tile holds rows of two heads), S != L, S not a
-    multiple of the key tile (64 keys at hd 64, 32 at hd 128) or of 8;
-    within 1e-5 of max |o|, one count per call, identical repeats."""
+    multiple of the key tile (64 keys at hd 32 and 64, 32 at hd 128) or
+    of 8, hd 16 zero-padded to 32; within 1e-5 of max |o|, one count per
+    call, identical repeats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, L + S + hd, S)
@@ -390,12 +402,12 @@ def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("B,S,KV", [(2, 333, 2), (1, 64, 1), (1, 1, 2)])
 def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV, hd):
     """The scratch the kernel's pre-pass writes (K and V^T split into
-    tf32 hi and lo, V^T's keys permuted) equals `tf32_prepass_plain`'s,
-    bit for bit."""
+    tf32 hi and lo, V^T's keys permuted, hd 16 zero-padded to 32) equals
+    `tf32_prepass_plain`'s, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     L, H = 40, 2 * KV
@@ -413,10 +425,8 @@ def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV, hd):
     assert torch.equal(scratch, torch.cat([ks.reshape(-1), vts.reshape(-1)]))
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
-                                      (torch.float32, 128),
-                                      (torch.bfloat16, 64),
-                                      (torch.bfloat16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_mha_folded_layout_on_card(dtype, hd):
     """The folded [N, G*L, hd] layout with seq_len: the kernels read it
     through other strides than the model layout."""
@@ -437,7 +447,8 @@ def test_flash_mha_folded_layout_on_card(dtype, hd):
 def test_flash_refuses_offsets_and_strided_views_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for dtype, hd in ((torch.float32, 16), (torch.bfloat16, 64)):
+    for dtype, hd in ((torch.float32, 16), (torch.bfloat16, 64),
+                      (torch.bfloat16, 32)):
         q = torch.zeros((1, 8, 2, hd), device="cuda", dtype=dtype)
         kv = torch.zeros((1, 8, 1, hd), device="cuda", dtype=dtype)
         before = _launch_counts()

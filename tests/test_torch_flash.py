@@ -136,8 +136,9 @@ def test_wrappers_refuse_other_devices_and_layouts():
     with pytest.raises(ValueError, match="multiple of seq_len"):
         flash_mha(torch.zeros((1, 10, 16)), torch.zeros((1, 4, 16)),
                   torch.zeros((1, 4, 16)), seq_len=4)
-    before = flash_mha.launches
+    counts = lambda: (flash_mha.wgmma_launches, flash_mha.tf32_launches)
+    before = counts()
     flash_attention(q, kv, kv)           # the CPU runs the plain version
-    assert flash_mha.launches == before
+    assert counts() == before
     assert torch.equal(flash_mha(q[0], q[0], q[0]),
                        flash_mha_plain(q[0], q[0], q[0]))

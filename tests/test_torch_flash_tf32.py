@@ -4,24 +4,29 @@ route, its pre-pass and its rounding, on the CPU.
 The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to the plain version there).  Here:
 
-- `flash_route` sends float32 at hd 64 and 128 on CUDA to the tf32
-  kernel and every other input where it went before (CUDA inputs are stand-ins
-  that carry a device, a dtype and a shape: nothing launches).
+- `flash_route` sends float32 on CUDA to the tf32 kernel at every head
+  dim (16, 32, 64, 128) and bfloat16 to the bf16 tensor-core kernel
+  (CUDA inputs are stand-ins that carry a device, a dtype and a shape:
+  nothing launches).
 - `tf32_prepass_plain`, the pre-pass's plain version: hi + lo gives x
   back within 2^-22 relative, hi and lo have their low 13 bits zero
   (``cvt.rna.tf32.f32``, ties away from zero), and V^T holds each group
-  of 8 keys in the tf32 A fragment's column order, zeros past S.
+  of 8 keys in the tf32 A fragment's column order, zeros past S; at hd
+  16, K's columns and V^T's rows are zero-padded to 32.
 - `emulate_tf32` repeats the kernel's arithmetic in torch: float32 q,
   k, v split into tf32 hi + lo by integer bit operations; scores over
-  the kernel's key tiles (64 keys at hd 64, 32 at hd 128) in ascending
-  order as hi hi + hi lo + lo hi, scaled by
+  the kernel's key tiles (64 keys at hd 32 and 64, 32 at hd 128) in
+  ascending order as hi hi + hi lo + lo hi, scaled by
   1/sqrt(hd) * log2(e) (the exp2 prescale); the online softmax in
   float32 with p = 2^(s - m); p split the same way and P V as three
-  products.  At the tensor-core kernels' test shapes (a fold that
-  straddles the 128-row tile, keys not a multiple of the key tile,
-  S != L, hd 64 and 128), causal and bidirectional, it is held to the
-  JAX package's Pallas `flash_attention` in interpret mode in float32
-  within 1e-5 of max |o| (``chip_smoke.py``'s FLASH_F32_RTOL).
+  products; hd 16 optionally zero-padded to 32, as the kernel runs it.
+  At the tensor-core kernels' test shapes (a fold that straddles the
+  128-row tile, keys not a multiple of the key tile, S != L, hd 64 and
+  128, and ``tests/test_flash_attn.py``'s hd-16 and hd-32 shapes and
+  both widths over several key tiles), causal and bidirectional, it is
+  held to the JAX package's Pallas `flash_attention` in interpret mode
+  in float32 within 1e-5 of max |o| (``chip_smoke.py``'s
+  FLASH_F32_RTOL).
 - With every product in plain TF32 (one rounding, no lo terms) the same
   emulation lands at least 10x farther from the Pallas kernel and past
   that gate: the recorded reason for the split.
@@ -42,14 +47,16 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
 from repro_torch.kernels import flash_attn as flash_module
 from repro_torch.kernels.flash_attn import (MIN_DENOMINATOR, NEG_INF,
                                             TF32_KEY_ORDER, TF32_KEY_TILE,
+                                            TF32_MIN_HEAD_DIM,
                                             tf32_prepass_plain, tf32_rna,
                                             tf32_split)
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5          # chip_smoke.py's FLASH_F32_RTOL
-# the kernel's keys per tile at each head dim (its Cfg<HD>::KB)
-KEY_TILES = {64: 64, 128: 32}
+# the kernel's keys per tile at each of its instances' widths (its
+# Cfg<HD>::KB); hd 16 runs the hd-32 instance
+KEY_TILES = {32: 64, 64: 64, 128: 32}
 
 # (B, L, S, H, KV, hd, Pallas q_block, Pallas kv_block):
 # tests/test_torch_flash_wgmma.py's shapes
@@ -57,17 +64,25 @@ SHAPES = [
     (1, 200, 200, 14, 2, 64, 200, 40),     # 7 x 200 folded rows straddle
     (2, 256, 256, 14, 2, 64, 128, 128),    # qwen2-0.5b's heads
     (1, 96, 200, 12, 2, 128, 96, 40),      # S != L, 200 = 3 x 64 + 8 keys
+    # tests/test_flash_attn.py's hd-16 and hd-32 shapes
+    (2, 64, 64, 4, 2, 16, 32, 32),
+    (2, 96, 96, 6, 2, 32, 32, 48),
+    (1, 32, 32, 2, 1, 16, 64, 32),         # a q block straddles the fold
+    # the reduced model's width over several key tiles: 320 = 5 x 64
+    (1, 256, 320, 4, 2, 32, 128, 64),
+    (2, 160, 160, 4, 1, 16, 160, 32),
 ]
 
 
 @pytest.mark.parametrize("device,dtype,hd,want", [
     ("cpu", torch.float32, 64, "plain"),
+    ("cpu", torch.float32, 32, "plain"),
+    ("cuda", torch.float32, 16, "flash_attn_tf32"),
+    ("cuda", torch.float32, 32, "flash_attn_tf32"),
     ("cuda", torch.float32, 64, "flash_attn_tf32"),
     ("cuda", torch.float32, 128, "flash_attn_tf32"),
-    ("cuda", torch.float32, 16, "flash_attn"),
-    ("cuda", torch.float32, 32, "flash_attn"),
+    ("cuda", torch.bfloat16, 32, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
-    ("cuda", torch.bfloat16, 32, "flash_attn"),
 ])
 def test_route_sends_float32_hd64_to_the_tf32_kernel(device, dtype, hd,
                                                      want):
@@ -78,16 +93,15 @@ def test_route_sends_float32_hd64_to_the_tf32_kernel(device, dtype, hd,
     assert flash_route(q) == want
 
 
-def test_cpu_float32_hd64_runs_the_plain_version_and_launches_nothing():
+@pytest.mark.parametrize("hd", [16, 64])
+def test_cpu_float32_hd64_runs_the_plain_version_and_launches_nothing(hd):
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(*s, generator=g)
-               for s in ((1, 40, 4, 64), (1, 40, 2, 64), (1, 40, 2, 64)))
-    before = (flash_mha.launches, flash_mha.wgmma_launches,
-              flash_mha.tf32_launches)
+               for s in ((1, 40, 4, hd), (1, 40, 2, hd), (1, 40, 2, hd)))
+    before = (flash_mha.wgmma_launches, flash_mha.tf32_launches)
     assert torch.equal(flash_attention(q, k, v),
                        flash_attention_plain(q, k, v))
-    assert (flash_mha.launches, flash_mha.wgmma_launches,
-            flash_mha.tf32_launches) == before
+    assert (flash_mha.wgmma_launches, flash_mha.tf32_launches) == before
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
@@ -99,9 +113,11 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert tf32_rna(x).tolist() == want
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("N,S", [(3, 70), (2, 64), (1, 1)])
 def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
+    """At hd 16 the pre-pass pads K's columns and V^T's rows to 32 with
+    zeros: the width of the instance that runs it."""
     rng = np.random.default_rng(N * 100 + S + hd)
     k, v = (torch.as_tensor(
         (rng.standard_normal((N, S, hd))
@@ -109,18 +125,20 @@ def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
         for _ in range(2))
     ks, vts = tf32_prepass_plain(k, v)
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    assert ks.shape == (2, N, s_pad, hd) and vts.shape == (2, N, hd, s_pad)
+    hdp = max(hd, TF32_MIN_HEAD_DIM)
+    assert ks.shape == (2, N, s_pad, hdp) and vts.shape == (2, N, hdp, s_pad)
     assert flash_module.tf32_scratch(N, S, hd, "cpu").numel() == (
         ks.numel() + vts.numel())
     for part in (ks, vts):
         assert not bool((part.view(torch.int32) & 0x1FFF).any())
-    rec = ks[0, :, :S] + ks[1, :, :S]
+    rec = ks[0, :, :S, :hd] + ks[1, :, :S, :hd]
     assert bool(((rec - k).abs() <= 2.0 ** -22 * k.abs()).all())
     assert not bool(ks[:, :, S:].any())
+    assert not bool(ks[:, :, :, hd:].any()) and not bool(vts[:, :, hd:].any())
     # stored position p of a group of 8 holds key TF32_KEY_ORDER[p]
     keys = [8 * (p // 8) + TF32_KEY_ORDER[p % 8] for p in range(s_pad)]
     for p, j in enumerate(keys):
-        col = vts[:, :, :, p]
+        col = vts[:, :, :hd, p]
         if j < S:
             assert bool(((col[0] + col[1] - v[:, j]).abs()
                          <= 2.0 ** -22 * v[:, j].abs()).all())
@@ -129,11 +147,28 @@ def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
             assert not bool(col.any())
 
 
-def emulate_tf32(q, k, v, *, causal: bool, split: bool = True):
+def emulate_tf32(q, k, v, *, causal: bool, split: bool = True,
+                 pad: bool = False):
     """The tf32 kernel's arithmetic on float32 q [B, L, H, hd], k, v
     [B, S, KV, hd], per query head with positions arange(L): float32
     [B, L, H * hd].  `split` False runs every product in plain TF32 (hi
-    only) instead of 3xTF32."""
+    only) instead of 3xTF32.  `pad` runs a head dim below
+    TF32_MIN_HEAD_DIM as the kernel does: q, k and v zero-padded to it,
+    the scale still 1/sqrt(hd), the first hd columns of o kept."""
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    if pad and hd < TF32_MIN_HEAD_DIM:
+        q, k, v = (torch.nn.functional.pad(x, (0, TF32_MIN_HEAD_DIM - hd))
+                   for x in (q, k, v))
+        o = _emulate_tf32(q, k, v, causal=causal, split=split, scale=scale)
+        return o.reshape(B, L, H, -1)[..., :hd].reshape(B, L, H * hd)
+    return _emulate_tf32(q, k, v, causal=causal, split=split, scale=scale)
+
+
+def _emulate_tf32(q, k, v, *, causal: bool, split: bool, scale: float):
+    """`emulate_tf32` at q's own width, with the given softmax scale."""
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -144,12 +179,12 @@ def emulate_tf32(q, k, v, *, causal: bool, split: bool = True):
         tf32_split(x) for x in (qf, kf, vf))
     pos = torch.arange(L)[:, None]
     # the kernel's scale * log2(e), each a float32, multiplied in float32
-    scale_log2 = (torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    scale_log2 = (torch.tensor(scale, dtype=torch.float32)
                   * torch.tensor(np.log2(np.e), dtype=torch.float32))
     acc = torch.zeros(B, H, L, hd)
     m = torch.full((B, H, L, 1), NEG_INF)
     den = torch.zeros(B, H, L, 1)
-    kb = KEY_TILES[hd]
+    kb = KEY_TILES[max(hd, TF32_MIN_HEAD_DIM)]
     for j0 in range(0, S, kb):
         j1 = min(j0 + kb, S)
         kh, kl = (x[:, :, j0:j1].transpose(-1, -2) for x in (k_hi, k_lo))
@@ -199,16 +234,28 @@ def _gap(got: torch.Tensor, want: torch.Tensor) -> float:
 def test_3xtf32_emulation_matches_pallas_kernel(B, L, S, H, KV, hd, qb, kb,
                                                 causal):
     q, k, v = _inputs(B, L, S, H, KV, hd, L + S + hd + causal)
-    assert _gap(emulate_tf32(q, k, v, causal=causal),
+    assert _gap(emulate_tf32(q, k, v, causal=causal, pad=True),
                 _pallas(q, k, v, causal, qb, kb)) <= RTOL
+
+
+@pytest.mark.parametrize("B,L,S,H,KV,hd,qb,kb",
+                         [s for s in SHAPES if s[5] < TF32_MIN_HEAD_DIM])
+def test_zero_padding_leaves_the_emulation_unchanged(B, L, S, H, KV, hd, qb,
+                                                     kb):
+    """hd 16 on the hd-32 instance: zero columns add +0 to every score
+    and every output column kept."""
+    q, k, v = _inputs(B, L, S, H, KV, hd, L + S + hd)
+    assert torch.equal(emulate_tf32(q, k, v, causal=True, pad=True),
+                       emulate_tf32(q, k, v, causal=True))
 
 
 @pytest.mark.parametrize("B,L,S,H,KV,hd,qb,kb", SHAPES)
 def test_plain_tf32_misses_by_ten_times_more(B, L, S, H, KV, hd, qb, kb):
     q, k, v = _inputs(B, L, S, H, KV, hd, L + S + hd)
     want = _pallas(q, k, v, True, qb, kb)
-    split = _gap(emulate_tf32(q, k, v, causal=True), want)
-    once = _gap(emulate_tf32(q, k, v, causal=True, split=False), want)
+    split = _gap(emulate_tf32(q, k, v, causal=True, pad=True), want)
+    once = _gap(emulate_tf32(q, k, v, causal=True, split=False, pad=True),
+                want)
     assert once >= 10 * split
     assert once > RTOL
 
@@ -230,8 +277,20 @@ def test_entry_point_parses_against_the_wrappers_prototype():
     # the key padding, key tiles and key order the wrapper and the
     # emulation assume are the source's
     assert f"constexpr int kKeyPad = {TF32_KEY_TILE};" in src
-    assert ("static constexpr int KB = HD == 64 ? "
-            f"{KEY_TILES[64]} : {KEY_TILES[128]};") in src
+    assert ("static constexpr int KB = HD == 128 ? "
+            f"{KEY_TILES[128]} : {KEY_TILES[64]};") in src
+    assert KEY_TILES[32] == KEY_TILES[64]
+    assert f"constexpr int kMinHD = {TF32_MIN_HEAD_DIM};" in src
     assert "p < 4 ? 2 * p : 2 * (p - 4) + 1" in src
     assert list(TF32_KEY_ORDER) == [p * 2 if p < 4 else 2 * (p - 4) + 1
                                     for p in range(8)]
+
+
+@pytest.mark.parametrize("hd", flash_module.HEAD_DIMS)
+def test_entry_point_dispatches_every_head_dim(hd):
+    """Each head dim goes to the instance of its width, hd 16 to the
+    hd-32 one with 16 columns of q and o; any other is refused."""
+    src = (Path(flash_module.__file__).parent.parent / "csrc"
+           / "flash_attn_tf32.cu").read_text()
+    width = max(hd, TF32_MIN_HEAD_DIM)
+    assert f"case {hd}:\n      return launch<{width}, {hd}>(" in src

@@ -5,21 +5,22 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to the plain version there).  Here:
 
 - `flash_route` picks the implementation from the tensors alone:
-  bfloat16 at hd 64 or 128 on CUDA -> the tensor-core kernel; float32
-  at hd 64 -> the float32 tensor-core kernel (3xTF32,
-  ``tests/test_torch_flash_tf32.py``); any other float32, or hd 16 or
-  32 -> the CUDA-core kernel; the CPU -> the plain version.
-  CUDA inputs are stand-ins that carry a device, a dtype and a shape
-  (this machine has no card), so nothing launches.
+  bfloat16 on CUDA -> the tensor-core kernel, at hd 16, 32, 64 and 128;
+  float32 on CUDA -> the float32 tensor-core kernel (3xTF32,
+  ``tests/test_torch_flash_tf32.py``), at every head dim; the CPU -> the
+  plain version.  CUDA inputs are stand-ins that carry a device, a
+  dtype and a shape (this machine has no card), so nothing launches.
 - `emulate` repeats the kernel's arithmetic in torch: bf16 q, k and v
   upcast to float32; float32 scores over 128-key tiles in ascending
   order, scaled by 1/sqrt(hd) * log2(e) (the kernel's exp2 prescale);
   the online softmax in float32 with p = 2^(s - m); p split into bf16
   hi = bf16(p) and lo = bf16(p - hi), both P V products summed in
-  float32.  At small
-  qwen-like shapes (a fold that straddles the kernel's 128-row tile,
-  keys not a multiple of its 128-key tile, S != L, hd 64 and 128) it is
-  held to the JAX package's Pallas `flash_attention` in interpret mode:
+  float32.  At small qwen-like shapes (a fold that straddles the
+  kernel's 128-row tile, keys not a multiple of its 128-key tile, S !=
+  L, hd 64 and 128), at ``tests/test_flash_attn.py``'s hd-16 and hd-32
+  shapes and at hd 16 and 32 over several key tiles (the reduced
+  model's width), it is held to the JAX package's Pallas
+  `flash_attention` in interpret mode:
   its float32 output on the same values within 1e-5 of max |o|
   (``chip_smoke.py``'s FLASH_F32_RTOL), and its bf16 output within
   that plus one bf16 ULP of each value (the smoke's bf16 gate).
@@ -27,8 +28,8 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   emulation lands at least 10x farther from the Pallas kernel, past the
   1e-5 gate, and its bf16 output fails the smoke's bf16 gate against
   the Pallas kernel's bf16 output: the recorded reason for the split.
-- The two kernels' C entry points share one prototype, the wrapper's
-  `ARGTYPES`, and `model_strides` gives the model layout's strides.
+- The kernel's C entry point has the wrapper's prototype, `ARGTYPES`,
+  and `model_strides` gives the model layout's strides.
 """
 import ctypes
 import re
@@ -56,19 +57,28 @@ SHAPES = [
     (1, 200, 200, 14, 2, 64, 200, 40),     # 7 x 200 folded rows straddle
     (2, 256, 256, 14, 2, 64, 128, 128),    # qwen2-0.5b's heads
     (1, 96, 200, 12, 2, 128, 96, 40),      # S != L, 200 = 128 + 72 keys
+    # tests/test_flash_attn.py's hd-16 and hd-32 shapes
+    (2, 64, 64, 4, 2, 16, 32, 32),
+    (2, 96, 96, 6, 2, 32, 32, 48),
+    (1, 32, 32, 2, 1, 16, 64, 32),         # a q block straddles the fold
+    # the reduced model's width over several key tiles: 320 = 2 x 128 + 64
+    (1, 256, 320, 4, 2, 32, 128, 64),
+    (2, 160, 160, 4, 1, 16, 160, 32),
 ]
 
 
 @pytest.mark.parametrize("device,dtype,hd,want", [
     ("cpu", torch.bfloat16, 64, "plain"),
     ("cpu", torch.float32, 128, "plain"),
+    ("cpu", torch.bfloat16, 32, "plain"),
+    ("cuda", torch.bfloat16, 16, "flash_attn_wgmma"),
+    ("cuda", torch.bfloat16, 32, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 128, "flash_attn_wgmma"),
+    ("cuda", torch.float32, 16, "flash_attn_tf32"),
+    ("cuda", torch.float32, 32, "flash_attn_tf32"),
     ("cuda", torch.float32, 64, "flash_attn_tf32"),
     ("cuda", torch.float32, 128, "flash_attn_tf32"),
-    ("cuda", torch.float32, 16, "flash_attn"),
-    ("cuda", torch.bfloat16, 16, "flash_attn"),
-    ("cuda", torch.bfloat16, 32, "flash_attn"),
 ])
 def test_route_by_device_dtype_and_head_dim(device, dtype, hd, want):
     shape = (1, 8, 2, hd)
@@ -78,14 +88,15 @@ def test_route_by_device_dtype_and_head_dim(device, dtype, hd, want):
     assert flash_route(q) == want
 
 
-def test_cpu_bf16_runs_the_plain_version_and_launches_nothing():
+@pytest.mark.parametrize("hd", [32, 64])
+def test_cpu_bf16_runs_the_plain_version_and_launches_nothing(hd):
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(*s, generator=g).to(torch.bfloat16)
-               for s in ((1, 40, 4, 64), (1, 40, 2, 64), (1, 40, 2, 64)))
-    before = (flash_mha.launches, flash_mha.wgmma_launches)
+               for s in ((1, 40, 4, hd), (1, 40, 2, hd), (1, 40, 2, hd)))
+    before = (flash_mha.wgmma_launches, flash_mha.tf32_launches)
     assert torch.equal(flash_attention(q, k, v),
                        flash_attention_plain(q, k, v))
-    assert (flash_mha.launches, flash_mha.wgmma_launches) == before
+    assert (flash_mha.wgmma_launches, flash_mha.tf32_launches) == before
 
 
 def emulate(q, k, v, *, causal: bool, split: bool = True) -> torch.Tensor:
@@ -187,7 +198,7 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "const long long*": ctypes.POINTER(ctypes.c_longlong)}
 
 
-@pytest.mark.parametrize("name", ["flash_attn", "flash_attn_wgmma"])
+@pytest.mark.parametrize("name", ["flash_attn_wgmma"])
 def test_entry_points_share_the_wrappers_prototype(name):
     src = (Path(flash_module.__file__).parent.parent / "csrc"
            / f"{name}.cu").read_text()
@@ -203,3 +214,13 @@ def test_model_strides_are_the_contiguous_layouts():
     k = torch.empty(2, 72, 2, 64)
     assert flash_module.model_strides(q, k) == (
         q.stride()[:3] + k.stride()[:3] * 2 + q.stride()[:3])
+
+
+@pytest.mark.parametrize("hd", flash_module.HEAD_DIMS)
+def test_entry_point_has_an_instance_of_every_head_dim(hd):
+    """The route sends bfloat16 at every head dim here, so the entry point
+    dispatches each to an instance of its own width (any other is
+    refused)."""
+    src = (Path(flash_module.__file__).parent.parent / "csrc"
+           / "flash_attn_wgmma.cu").read_text()
+    assert f"if (hd == {hd})\n    return launch<{hd}>(" in src

@@ -84,6 +84,12 @@ def test_short_name(mangled, name):
      "flash_attn_kernel<32, float>"),
     ("_ZN12_GLOBAL__N_117flash_attn_kernelILi16E13__nv_bfloat16EEvPKT0_",
      "flash_attn_kernel<16, __nv_bfloat16>"),
+    ("_ZN51_GLOBAL__N__4293d5e8_18_flash_attn_tf32_cu_2c51640917"
+     "flash_tf32_kernelILi32ELi16EEEv14CUtensorMap_stS1_PKfPfiiiiiNS_6Layout"
+     "ES5_fi", "flash_tf32_kernel<32, 16>"),
+    ("_ZN52_GLOBAL__N__5f6c4d44_19_flash_attn_wgmma_cu_18bb9c5118"
+     "flash_wgmma_kernelILi16EEEv14CUtensorMap_stS1_PK13__nv_bfloat16PS2_"
+     "iiiiNS_6LayoutES6_fi", "flash_wgmma_kernel<16>"),
 ])
 def test_instance_name_keeps_template_arguments(mangled, name):
     assert sass.instance_name(mangled) == name
