@@ -5,7 +5,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi); TF32 off for matmul
-   and cuDNN, so float32 stays float32;
+   and cuDNN, so float32 stays float32, and cuDNN on its deterministic
+   algorithms, picked by heuristics;
 2. build every CUDA kernel of the main paths from the sources in this
    checkout (``src/repro_torch/csrc``), one nvcc per source, all at once
    (ptxas' registers and spills logged per kernel instance), and count
@@ -18,10 +19,13 @@ Phases, in order; any failure exits non-zero:
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
    (max |y_kernel - y_plain| / max |y_plain| <= 1e-4, and two launches
-   give identical bits); `fused_mac_partials` then
+   give identical bits), among them Fig. 3's two hops at the CIFAR CNN's
+   N = 154,197 symbols, (B, U, K, N) = (4, 20, 100, 154197) with a
+   ragged last N tile and (1, 4, 100, 154197); `fused_mac_partials` then
    `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
-   every such shape and at the scale_u65536 1x1 one (there the plain
-   versions run in phase 7); flash attention (through `flash_attention`,
+   every such shape, at a tile of Fig. 3's 2x5 mesh and at the
+   scale_u65536 1x1 one (there the plain versions run in phase 7); flash
+   attention (through `flash_attention`,
    on the kernel `flash_route` picks, which alone must count both
    launches: bf16 on the tensor cores, ``flash_mha_wgmma``, float32 on
    the tensor cores in 3xTF32, ``flash_mha_tf32``, at every head dim)
@@ -44,6 +48,28 @@ Phases, in order; any failure exits non-zero:
      (no kernel), and ``fig2_iid`` as registered (equivalent backend),
      2 seeds each; `fused_mac` launches exactly twice per round per
      seed on the fused runs (one cluster hop, one IS->PS hop);
+   - ``fig3_cifar`` (the CIFAR CNN) at the paper's sizes (C 4, M 5,
+     K = K_ps = 100, batch 128, tau 5, n_train 20,000, n_test 1,000,
+     Adam at 1e-3), its 400 rounds cut to 2: as registered (equivalent
+     channel, no kernel), faithful with the fused backend (2
+     `fused_mac` launches per round per seed), and on the sharded
+     engine, 1x1 and 2x5, u_sharded, 2 seeds each; the sharded runs'
+     final state and metrics against the single engine's (logged);
+     whether the CNN's gradient runs under
+     ``torch.use_deterministic_algorithms(True)`` (logged);
+   - every SweepRunner run above and every sharded CLI run below again
+     through the chunked driver (each eval window one CUDA graph,
+     captured and replayed once on throwaway copies before the drive):
+     bit for bit its stepwise run (final state and every metric; the
+     CLI runs, which keep no state, by their metrics), with the
+     stepwise run's launch counts in a `torch.profiler` trace of the
+     chunked drive (a trace that lost device records, reading fewer and
+     none more, is taken again, up to 3 times in all); a run with no
+     kernel of ours shows it by counters that read 0 through its eager
+     runs and captures.  A graph replay runs no Python, so the wrappers'
+     counters do not see it: the chunked runs' counts are logged, not
+     added to the kernels line, whose launches are the stepwise runs'
+     counters alone;
    - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
      --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
      `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
@@ -98,7 +124,18 @@ Phases, in order; any failure exits non-zero:
    against its prefill on the card within rtol = atol = 5e-3; phase 4's
    two prefills of the serving example's model (B 4, L 4096) against
    the same prefills on the CPU: bf16 within 5e-2 of max |logit|,
-   float32 within 1e-4;
+   float32 within 1e-4; ``fig3_cifar`` faithful/fused for 1 round with
+   its users and batch cut (C 2, M 2, batch 32; the CPU's plain combine
+   would take minutes at full size), with SGD within all three bounds,
+   and as registered (Adam) within the accuracy bound, its loss and
+   model gaps logged: Adam turns the conv biases' rounding noise (their
+   gradient is zero in exact arithmetic) into steps of up to the
+   learning rate, and the OTA hops carry those into the coordinates
+   packed with them; so Adam on the card is also held on the error-free
+   channel (``fig3_cifar_ideal``, the same cut), within the accuracy
+   bound and, in learning-rate units as tests/test_torch_cifar.py holds
+   it, the conv biases within 2 lr per local step and every other entry
+   within 0.1 lr;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
    slab backend, through
@@ -106,16 +143,25 @@ Phases, in order; any failure exits non-zero:
    wall ms per round from the runner's ``drive_seconds``, device time
    per round from the device ops inside the runner's
    ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
-   (1x1, u_sharded, with its peak device memory) and of ``scale_u256``
-   (2x4, u_sharded) on the sharded engine; one warm qwen2-0.5b prefill
+   (1x1, u_sharded, with its peak device memory, and its peak through
+   the chunked driver) and of ``scale_u256`` (2x4, u_sharded) on the
+   sharded engine; one round of ``fig3_cifar`` (equivalent, and fused
+   through both drivers) with cuDNN's share of the device time; rounds/s
+   of both drivers, each warmed, for fig2_iid fused, scale_u256, sharded
+   scale_u256 2x4 and fig3_cifar fused; one warm qwen2-0.5b prefill
    (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
    (B 8, cache 32,768), and phase 4's qwen2-1.5b float32 prefill and
    both reduced prefills: device ms, busy share, each flash record's
    share (the
    tf32 record's with its pre-pass, also given alone), device ops per
    call;
-7. kernel and plain times with CUDA events at the kernels' largest
-   main-path shapes (for `ota_combine` at the Fig. 2 driver's three
+7. a Fig. 3 round's parts, each timed alone queued behind a spin (all
+   users' dropout masks for a step, one user's gradient, a step's
+   gradients of all 20 users one at a time, in one vmapped pass and in
+   vmapped chunks of 5, with each one's gap to the first, Adam over all
+   users); kernel and plain times with CUDA events at the kernels' largest
+   main-path shapes (for `fused_mac` also at Fig. 3's cluster hop, for
+   `ota_combine` at the Fig. 2 driver's three
    shapes and scale_u256's, with its cluster size and its time with
    the calls queued behind a spin kernel, since at B = 1 the wrapper's
    host time bounds back-to-back launches), beside the least
@@ -209,12 +255,37 @@ LM_ARCH = "qwen2-0.5b"
 # the float32 prefill at hd 128 (the tf32 kernel's hd-128 instance):
 # qwen2-1.5b at full width, its 28 layers cut to 4 for the run's time
 F32_HD128_ARCH, F32_HD128_LAYERS = "qwen2-1.5b", 4
+# Fig. 3's rounds in phase 4 (the paper runs 400): each is ~1 s on the
+# card, and each SweepRunner run goes through both drivers
+FIG3_ROUNDS = 2
+# fig3 with Adam on the error-free channel, card vs CPU (phase 5): the
+# gap's norm against the update's (theta - theta0), off the conv biases.
+# Adam's step is lr m/sqrt(v) whatever the gradient's size, so an entry
+# whose gradients are small against their rounding differences (cuDNN's
+# convolutions against oneDNN's) steps differently on the two sides:
+# 0.037, with 1.6 lr at most, on the H100 80GB HBM3 at 700 W.  A wrong
+# update rule moves every step by a share of itself (without the bias
+# corrections the first step is 3.2x smaller)
+FIG3_ADAM_UPDATE_RTOL = 0.1
+# Adam's step on the same inputs, card vs CPU, against each leaf's
+# largest value: elementwise float32 on both sides
+ADAM_STEP_RTOL = 1e-6
+# users per vmapped pass in phase 7's timing of the CNN's gradients (one
+# of fig3's 20 users at a time is the round's way)
+GRAD_CHUNK = 5
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
                     (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
 
 
+T_START = time.perf_counter()
+
+
 def log(obj) -> None:
+    """One line of the run's log; a phase's record carries the seconds
+    since the run started."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -347,6 +418,14 @@ def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
 # With the card idle for this long after the trace starts, no trace lost
 # any (`python -m repro_torch.kernels.trace_probe` counts both).
 TRACE_PAUSE_S = 0.1
+# A trace of a chunked drive (graph replays of up to ~110k kernels) now
+# and then loses device records of some of them in its middle, past the
+# pause (2 of 8 `fused_mac` records of a fig3 drive, on the H100 80GB
+# HBM3 at 700.00 W, once in about ten such traces).  Records are lost,
+# never made up, and a graph short of a kernel would read short on every
+# attempt (and break the bitwise match with the stepwise run), so such a
+# run is traced again, up to this many times in all.
+TRACE_ATTEMPTS = 3
 
 
 @contextlib.contextmanager
@@ -940,8 +1019,10 @@ def ota_label(sc) -> str:
 
 def compare_runs(on_card, on_cpu) -> dict:
     """The card's run against the CPU's: max relative loss gap, max
-    accuracy gap, and the final model's gap over its largest entry."""
-    theta = on_cpu.final_state["theta"]
+    accuracy gap, and the final model's gap over its largest entry,
+    leaf by leaf."""
+    from repro_torch.tree import tree_leaves
+
     return {
         "loss_max_rel": float(np.max(np.abs(np.subtract(on_card.loss,
                                                         on_cpu.loss))
@@ -949,8 +1030,10 @@ def compare_runs(on_card, on_cpu) -> dict:
         "acc_max_abs": float(np.max(np.abs(np.subtract(on_card.acc,
                                                        on_cpu.acc)))),
         "theta_max_rel": max(
-            float((on_card.final_state["theta"][k].cpu() - theta[k]).abs()
-                  .max() / theta[k].abs().max()) for k in theta)}
+            float((x.cpu() - y).abs().max() / y.abs().max())
+            for (_, x), (_, y) in zip(
+                tree_leaves(on_card.final_state["theta"]),
+                tree_leaves(on_cpu.final_state["theta"])))}
 
 
 def expected_slab_launches(doc: dict) -> int:
@@ -970,47 +1053,161 @@ def expected_slab_launches(doc: dict) -> int:
     return total
 
 
+def raw_events(prof):
+    """A trace's events as kineto recorded them (`_KinetoEvent`), which
+    read far faster than `prof.events()` for a trace of many rounds."""
+    return prof.profiler.kineto_results.events()
+
+
+def drive_ops(prof):
+    """(every device op of a trace, the device ops that start inside one
+    of the runner's ``SweepRunner.drive`` ranges, the ranges found)."""
+    from torch.autograd import DeviceType
+
+    events = raw_events(prof)
+    drives = [(e.start_ns(), e.end_ns()) for e in events
+              if e.name() == "SweepRunner.drive"
+              and e.device_type() == DeviceType.CPU]
+    ops = [e for e in events if e.device_type() == DeviceType.CUDA
+           and e.name() != "SweepRunner.drive"
+           and not e.is_user_annotation()]
+    inside = [e for e in ops
+              if any(lo <= e.start_ns() <= hi for lo, hi in drives)]
+    return ops, inside, drives
+
+
+def drive_kernel_counts(prof) -> dict:
+    """{record: launches} of each kernel of ours that a trace saw on the
+    card inside the runners' drive ranges."""
+    _, inside, _ = drive_ops(prof)
+    return {name: sum(fn in e.name() for e in inside)
+            for name, (_, fn) in KERNELS.items()}
+
+
+# cuDNN's convolution kernels, by name: its own (``cudnn::``) and the
+# implicit-GEMM engines it runs a convolution's three passes on
+CONV_KERNEL_MARKS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                     "conv")
+
+
 def device_profile(runner, sc) -> dict:
     """One seed of `sc` through `runner.run_scenario`, warm, then under
     `torch.profiler`: wall ms per round from ``drive_seconds``, and the
     device ops that start inside the runner's ``SweepRunner.drive``
     range (the drive begins and ends with a device synchronize, so they
-    are exactly the rounds' and evals' device work)."""
-    from torch.autograd import DeviceType
-
+    are exactly the rounds' and evals' device work; a chunked runner
+    warmed up captures its graphs before the range, so only replays lie
+    inside it)."""
     runner.run_scenario(sc)                                   # warm-up
     T = sc.rounds
     wall_ms = 1e3 * runner.run_scenario(sc).exec_info["drive_seconds"] / T
     with device_trace() as prof:
         runner.run_scenario(sc)
-    events = prof.events()
-    drive = [e for e in events if e.name == "SweepRunner.drive"
-             and e.device_type == DeviceType.CPU]
-    ops = [e for e in events if e.device_type == DeviceType.CUDA
-           and e.name != "SweepRunner.drive"
-           and not getattr(e, "is_user_annotation", False)]
-    out = {"rounds": T, "seed": runner.seeds[0], "wall_ms_per_round": wall_ms,
-           "device_ms_whole_call": sum(e.time_range.elapsed_us()
-                                       for e in ops) / 1e3}
-    if drive:
-        lo, hi = drive[0].time_range.start, drive[0].time_range.end
-        ops = [e for e in ops if lo <= e.time_range.start <= hi]
-    if not drive or not ops:
+    ops, inside, drives = drive_ops(prof)
+    out = {"rounds": T, "seed": runner.seeds[0], "driver": runner.driver,
+           "wall_ms_per_round": wall_ms,
+           "device_ms_whole_call": sum(e.duration_ns() for e in ops) / 1e6}
+    if not drives or not inside:
         out["device_ms_per_round"] = "not measured"
         return out
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in ops:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / T
-        by_name[e.name][1] += 1
+    for e in inside:
+        by_name[e.name()][0] += e.duration_ns() / 1e6 / T
+        by_name[e.name()][1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())
+    conv_ms = sum(ms for k, (ms, _) in by_name.items()
+                  if any(m in k.lower() for m in CONV_KERNEL_MARKS))
     rows = lambda items: [{"op": k[:72], "ms_per_round": ms,
                            "calls_per_round": n / T} for k, (ms, n) in items]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     out.update(device_ms_per_round=device_ms,
                device_busy_share=device_ms / wall_ms,
-               device_ops_per_round=len(ops) / T, top=rows(top),
+               device_ops_per_round=len(inside) / T,
+               conv_ms_per_round=conv_ms, conv_share=conv_ms / device_ms,
+               top=rows(top),
                kernels=rows((k, v) for k, v in by_name.items()
                             if any(fn in k for _, fn in KERNELS.values())))
+    return out
+
+
+@contextlib.contextmanager
+def traced_drives(runner_cls, traces):
+    """Every drive of a `runner_cls` (either engine, also through the
+    CLI) inside the block under a `device_trace` of its own (not the
+    runs' set-up, warm-up or the chunked driver's captures); the traces
+    appended to `traces` as the drives end."""
+    drive_range = runner_cls._drive_range
+
+    @contextlib.contextmanager
+    def traced(self):
+        with device_trace() as prof, drive_range(self):
+            yield
+        traces.append(prof)
+
+    runner_cls._drive_range = traced
+    try:
+        yield
+    finally:
+        runner_cls._drive_range = drive_range
+
+
+def bitwise_runs(a, b) -> dict:
+    """Two runs' final states and metrics: equal bit for bit, and the
+    largest gap in the final state where they are not."""
+    from repro_torch.tree import tree_leaves
+
+    la, lb = list(tree_leaves(a.final_state)), list(tree_leaves(b.final_state))
+    state = len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+    gap = max(float((x.float() - y.float()).abs().max())
+              for (_, x), (_, y) in zip(la, lb))
+    metrics = all(getattr(a, k) == getattr(b, k)
+                  for k in ("acc", "loss", "edge_power", "is_power"))
+    return {"state_bitwise_equal": state, "metrics_bitwise_equal": metrics,
+            "state_max_abs_gap": gap}
+
+
+def theta_gaps(on_card, on_cpu, theta0=None, lr=None) -> dict:
+    """The final models' largest gap over the whole flat vector, against
+    its largest entry, and the same off the conv biases and the
+    coordinates the OTA hops pack with them (n and n + N share a complex
+    symbol); the conv biases' largest absolute gap, and every other
+    entry's.  Given the initial model `theta0` and the learning rate
+    `lr`: off those coordinates, the gap's norm against the norm of the
+    CPU's update (theta - theta0), and the share of entries more than
+    0.1 lr apart."""
+    from repro_torch.core import aggregation
+    from repro_torch.tree import tree_from_paths, tree_leaves, tree_map
+
+    card = tree_map(lambda t: t.cpu(), on_card.final_state["theta"])
+    cpu = on_cpu.final_state["theta"]
+    spec = aggregation.make_flat_spec(cpu)
+    fa, fb = aggregation.flatten(spec, card), aggregation.flatten(spec, cpu)
+    is_bias = lambda p: "conv" in p and p[-1] == "b"
+    bias = aggregation.flatten(spec, tree_from_paths(
+        (p, torch.full_like(x, float(is_bias(p))))
+        for p, x in tree_leaves(cpu))) > 0
+    off = ~(bias | bias.roll(spec.two_n // 2))
+    gap = lambda parts: max(float((x - y).abs().max()) for x, y in parts)
+    out = {"theta_flat_max_rel": float((fa - fb).abs().max()
+                                       / fb.abs().max()),
+           "theta_flat_max_rel_off_conv_biases_and_partners": float(
+               (fa - fb)[off].abs().max() / fb[off].abs().max()),
+           "conv_bias_max_abs_gap": gap(
+               (x, y) for (p, x), (_, y) in zip(tree_leaves(card),
+                                                tree_leaves(cpu))
+               if is_bias(p)),
+           "other_max_abs_gap": gap(
+               (x, y) for (p, x), (_, y) in zip(tree_leaves(card),
+                                                tree_leaves(cpu))
+               if not is_bias(p))}
+    if theta0 is not None:
+        f0 = aggregation.flatten(spec, theta0)
+        out["update_rel_gap_off_conv_biases_and_partners"] = float(
+            (fa - fb)[off].norm() / (fb - f0)[off].norm())
+        out["share_off_conv_biases_and_partners_past_0.1_lr"] = float(
+            ((fa - fb)[off].abs() > 0.1 * lr).float().mean())
     return out
 
 
@@ -1024,7 +1221,7 @@ def main() -> int:
     from repro_torch.core import channel
     from repro_torch.exec import (ShardedSweepRunner, make_device_mesh,
                                   make_fused_cluster_hop, parse_mesh)
-    from repro_torch.kernels import (build, flash_attention,
+    from repro_torch.kernels import (LAUNCH_COUNTERS, build, flash_attention,
                                      flash_attention_plain, flash_mha,
                                      flash_route, fused_mac,
                                      fused_mac_partials,
@@ -1042,6 +1239,10 @@ def main() -> int:
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms, chosen by its heuristics, not by
+    # timing: the CNN's runs repeat bit for bit across drivers and meshes
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log({"phase": "card", "kind": kind, "nvidia_smi": smi,
@@ -1103,6 +1304,11 @@ def main() -> int:
     fig2 = get_scenario("fig2_iid").replace(total_IT=5)
     fig2_fused = fig2.replace(ota_mode="faithful", ota_backend="fused")
     fig2_slab = fig2.replace(ota_mode="faithful", ota_backend="slab_kernel")
+    # Fig. 3 at the paper's sizes (C 4, M 5, K = K_ps = 100, batch 128,
+    # tau 5, n_train 20,000, n_test 1,000, Adam at 1e-3), its 400 rounds
+    # cut to FIG3_ROUNDS for the run's time
+    fig3 = get_scenario("fig3_cifar").replace(total_IT=FIG3_ROUNDS)
+    fig3_fused = fig3.replace(ota_mode="faithful", ota_backend="fused")
     u256 = get_scenario("scale_u256")
     u256_slab = u256.replace(ota_backend="slab_kernel")
     cases = [("edge", (0, 0, 0), kernel_inputs(1, 1, 1, 64, 0, dev)),
@@ -1113,7 +1319,9 @@ def main() -> int:
     for i, (sc, hop) in enumerate([(u256, "cluster"), (u256, "is_ps"),
                                    (fig2_fused, "cluster"),
                                    (fig2_fused, "is_ps"),
-                                   (u16384, "is_ps"), (u65536, "is_ps")]):
+                                   (u16384, "is_ps"), (u65536, "is_ps"),
+                                   (fig3_fused, "cluster"),
+                                   (fig3_fused, "is_ps")]):
         cases.append((f"{sc.name} {hop}", (0, 0, 0),
                       hop_inputs(sc, hop, 10 + i, dev)))
     errors = {name: 0.0 for name in KERNELS}
@@ -1195,6 +1403,8 @@ def main() -> int:
         ("scale_u16384 1x1",
          lambda: tile_inputs(u16384, (1, 1), 0, 0, 62, dev), True),
         ("edge", edge_tile, True),
+        ("fig3_cifar 2x5 tile (1, 3)",
+         lambda: tile_inputs(fig3_fused, (2, 5), 1, 3, 64, dev), True),
         ("scale_u65536 1x1",
          lambda: tile_inputs(u65536, (1, 1), 0, 0, 63, dev), False)]
     for label, make, with_plain in partial_cases:
@@ -1234,12 +1444,7 @@ def main() -> int:
         del inp, args, p1, p2, y1, y2, y
 
     # each kernel's launch count: (wrapper, attribute)
-    counters = {"fused_mac": (fused_mac, "launches"),
-                "ota_combine": (ota_combine, "launches"),
-                "fused_mac_partials": (fused_mac_partials, "launches"),
-                "fused_partials_reduce": (fused_partials_reduce, "launches"),
-                "flash_mha_wgmma": (flash_mha, "wgmma_launches"),
-                "flash_mha_tf32": (flash_mha, "tf32_launches")}
+    counters = LAUNCH_COUNTERS
 
     # flash attention at the serving path's shapes and the JAX tests'
     def flash_counts():
@@ -1362,13 +1567,67 @@ def main() -> int:
         for name, n in launches.items():
             main_launches[name] += n
 
+    def chunked_launches(label, run, want):
+        """`run()`, whose drives are chunked and warmed up (so they hold
+        graph replays only), and the launches of our kernels in them,
+        which must be `want`.  A replay runs no Python, so the wrappers'
+        counters do not see it: they read the eager run before each
+        capture and the capture's recording.  Where `want` has a launch,
+        a trace of the drives counts them (a trace that holds fewer of
+        our kernels than `want`, and none more, lost device records,
+        TRACE_ATTEMPTS, and the run is traced again); where it has none,
+        counters that read 0 show that no wrapper was called, so no
+        graph holds a kernel of ours.  Neither is added to the kernels
+        line, whose launches are the stepwise runs' counters."""
+        full = {n: want.get(n, 0) for n in KERNELS}
+        traced = any(full.values())
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            traces = []
+            with traced_drives(SweepRunner, traces) if traced else \
+                    contextlib.nullcontext():
+                out, counts = counted(run)
+            seen = counts if not traced else {
+                n: sum(drive_kernel_counts(p)[n] for p in traces)
+                for n in KERNELS}
+            log({"phase": "chunked_launches", "run": label,
+                 "drives_traced": len(traces),
+                 "kernel_launches_traced": seen if traced else None,
+                 "expected_launches": full,
+                 "counters_eager_and_capture": counts,
+                 "trace_attempt": attempt})
+            if seen == full or not all(seen[n] <= full[n] for n in KERNELS):
+                break
+        if seen != full:
+            raise SystemExit(f"{label}: {seen} launches in the chunked "
+                             f"drive ({'traced' if traced else 'counters'}),"
+                             f" the stepwise run {full}")
+        return out
+
+    def chunked_rerun(label, make_runner, step, want):
+        """`make_runner()`'s run, the same sweep through the chunked
+        driver (its graphs captured and replayed once before the drive),
+        against its stepwise run `step`: the same bits (final state and
+        every metric), and the stepwise run's launches in a trace of the
+        chunked drive (`chunked_launches`)."""
+        res = chunked_launches(f"{label} chunked",
+                               lambda: make_runner().run()[0], want)
+        same = bitwise_runs(step, res)
+        log({"phase": "chunked_vs_stepwise", "run": label, **same,
+             "dispatches": res.exec_info["dispatches"],
+             "finite": finite(res)})
+        if not (same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
+                and finite(res)):
+            raise SystemExit(f"{label}: the chunked driver's run differs "
+                             f"from the stepwise one: {same}")
+
     fig2_ref = fig2.replace(ota_mode="faithful")          # reference backend
     runs = [("scale_u256", u256, True), ("fig2_iid_fused", fig2_fused, True),
             ("fig2_iid_reference", fig2_ref, False), ("fig2_iid", fig2, False)]
     for label, sc, fused in runs:
-        res, launches = counted(lambda sc=sc: SweepRunner(
-            [sc], seeds=2, device="cuda",
-            keep_state=label == "scale_u256").run()[0])
+        make = lambda driver="stepwise", warmup=False, sc=sc: SweepRunner(
+            [sc], seeds=2, device="cuda", keep_state=True, driver=driver,
+            warmup=warmup)
+        res, launches = counted(lambda: make().run()[0])
         if label == "scale_u256":
             u256_on_card = res
         rounds = res.rounds[-1]
@@ -1380,9 +1639,80 @@ def main() -> int:
              "drive_seconds": res.exec_info["drive_seconds"],
              "final_acc": [a[-1] for a in res.acc],
              "final_loss": [v[-1] for v in res.loss]})
-        expect(label, launches, {
-            "fused_mac": 2 * rounds * len(res.seeds) if fused else 0,
-            "ota_combine": 0}, finite(res))
+        want = {"fused_mac": 2 * rounds * len(res.seeds) if fused else 0}
+        expect(label, launches, want, finite(res))
+        chunked_rerun(label, lambda: make("chunked", True), res, want)
+
+    # Fig. 3: the CIFAR CNN at the paper's sizes, as registered (the
+    # equivalent channel, no kernel), faithful with the fused backend,
+    # and on the sharded engine (1x1 and 2x5, u_sharded), each through
+    # both drivers
+    fig3_on_card = {}
+    for label, sc, mesh in (
+            ("fig3_cifar", fig3, None), ("fig3_cifar_fused", fig3_fused, None),
+            ("fig3_cifar_fused sharded 1x1 u_sharded", fig3_fused, "1x1"),
+            ("fig3_cifar_fused sharded 2x5 u_sharded", fig3_fused, "2x5")):
+        def make(driver="stepwise", warmup=False, sc=sc, mesh=mesh):
+            kw = dict(seeds=2, device="cuda", keep_state=True, driver=driver,
+                      warmup=warmup)
+            if mesh is None:
+                return SweepRunner([sc], **kw)
+            return ShardedSweepRunner([sc], mesh=mesh, combine="u_sharded",
+                                      **kw)
+
+        res, launches = counted(lambda: make().run()[0])
+        hops = res.rounds[-1] * len(res.seeds) * sc.I      # cluster hops
+        if mesh is not None:
+            mc, mu = parse_mesh(mesh)
+            want = {"fused_mac_partials": hops * mc * mu,
+                    "fused_partials_reduce": hops * mu,
+                    "fused_mac": res.rounds[-1] * len(res.seeds)}
+        else:
+            want = {"fused_mac": 2 * hops if sc.ota_backend == "fused"
+                    else 0}
+        log({"phase": "main_path", "run": label, "scenario": sc.name,
+             "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
+             "batch": sc.batch, "tau": sc.tau, "n_train": sc.n_train,
+             "n_test": sc.n_test, "opt": sc.opt, "lr": sc.lr,
+             "ota": ota_label(sc), "mesh": mesh, "seeds": res.seeds,
+             "rounds": res.rounds[-1],
+             "cut": f"total_IT 400 -> {FIG3_ROUNDS}",
+             "rounds_per_sec": res.rounds[-1]
+             / res.exec_info["drive_seconds"],
+             "final_acc": [a[-1] for a in res.acc],
+             "final_loss": [v[-1] for v in res.loss]})
+        expect(label, launches, want, finite(res))
+        chunked_rerun(label, lambda: make("chunked", True), res, want)
+        fig3_on_card[label] = res
+    for label in ("fig3_cifar_fused sharded 1x1 u_sharded",
+                  "fig3_cifar_fused sharded 2x5 u_sharded"):
+        log({"phase": "sharded_vs_single", "run": label,
+             "what": "final state and metrics, sharded vs single engine, "
+                     "both on the card (the CNN's users take their "
+                     "gradients one at a time on every engine and mesh)",
+             **bitwise_runs(fig3_on_card["fig3_cifar_fused"],
+                            fig3_on_card[label])})
+    # phase 6 reads peak device memory: free the Fig. 3 runs' states
+    del fig3_on_card, res
+    # max_pool2d's backward under PyTorch's deterministic-algorithms
+    # mode (the runners set only cuDNN's flags): accepted or refused
+    from repro_torch import prng as _prng
+    from repro_torch.sim.scenario import TASKS
+    torch.use_deterministic_algorithms(True)
+    try:
+        p0 = TASKS["cifar"][0](_prng.PRNGKey(0, dev))
+        xb = torch.zeros((fig3.batch, 32, 32, 3), device=dev)
+        yb = torch.zeros((fig3.batch,), dtype=torch.int32, device=dev)
+        torch.func.grad(TASKS["cifar"][2])(p0, xb, yb, _prng.PRNGKey(1, dev))
+        torch.cuda.synchronize()
+        verdict = "accepted"
+    except RuntimeError as e:
+        verdict = f"refused: {str(e)[:200]}"
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log({"phase": "main_path", "what": "the CNN's gradient (max_pool2d "
+         "backward) under torch.use_deterministic_algorithms(True)",
+         "verdict": verdict})
 
     spec = importlib.util.spec_from_file_location(
         "whfl_mnist_torch", ROOT / "examples" / "whfl_mnist_torch.py")
@@ -1448,6 +1778,23 @@ def main() -> int:
         expect(f"sharded {label}", launches, want, bool(all(
             np.all(np.isfinite(np.asarray(v, np.float64)))
             for v in rec["metrics"].values())))
+        # the same CLI run through the chunked driver: the same metrics
+        # bit for bit and the same launches, in a trace of its drive
+        argv_c = argv + ["--driver", "chunked", "--warmup"]
+        doc_c = chunked_launches(f"sharded {label} chunked",
+                                 lambda: sweep.main(argv_c), want)
+        rec_c = doc_c["scenarios"][0]
+        same = rec_c["metrics"] == rec["metrics"]
+        log({"phase": "chunked_vs_stepwise", "run": f"sharded {label}",
+             "argv": argv_c, "metrics_bitwise_equal": same,
+             "dispatches": rec_c["exec"]["dispatches"],
+             "rounds_per_sec_chunked": rounds
+             / rec_c["exec"]["drive_seconds"],
+             "rounds_per_sec_stepwise": rounds
+             / rec["exec"]["drive_seconds"]})
+        if not same:
+            raise SystemExit(f"sharded {label}: the chunked driver's "
+                             f"metrics differ from the stepwise ones")
         if name != "scale_u256":
             continue
         # the same run with its final state, against the single engine
@@ -1573,6 +1920,90 @@ def main() -> int:
             raise SystemExit(f"{label}: the card's run disagrees with the "
                              f"CPU reference")
 
+    # Fig. 3, 1 round, card vs CPU.  The CPU's plain fused combine draws
+    # every channel of both hops in int64 torch ops (1.2e9 draws at C 4,
+    # M 5 take minutes), so the users and the batch are cut: C 4 -> 2,
+    # M 5 -> 2, batch 128 -> 32; K = K_ps = 100 and the model stay.
+    # - faithful/fused with SGD: every bound of the fig2 runs;
+    # - the registered Adam on the error-free channel (fig3_cifar_ideal),
+    #   where nothing couples coordinates: accuracy, every entry within
+    #   2 lr per local step, and the update off the conv biases within
+    #   FIG3_ADAM_UPDATE_RTOL of its size (see there);
+    # - faithful/fused with Adam, as registered: accuracy; the OTA hops
+    #   carry the conv biases' noise steps into the coordinates packed
+    #   with them, so the loss and model gaps are logged, also off those
+    #   coordinates (ROADMAP queue C)
+    from repro_torch import prng
+    from repro_torch.optim import adam
+    from repro_torch.sim.scenario import TASKS
+    from repro_torch.tree import tree_leaves, tree_map
+
+    fig3_cut = dict(total_IT=1, C=2, M=2, batch=32)
+    for label, sc, gate in (
+            ("fig3_cifar_fused sgd", fig3_fused.replace(opt="sgd",
+                                                        **fig3_cut), "all"),
+            ("fig3_cifar_ideal", get_scenario("fig3_cifar_ideal").replace(
+                **fig3_cut), "adam"),
+            ("fig3_cifar_fused", fig3_fused.replace(**fig3_cut), "acc")):
+        run = lambda device, sc=sc: SweepRunner(
+            [sc], seeds=1, device=device, keep_state=True).run()[0]
+        card_res = run("cuda")
+        t0 = time.perf_counter()
+        cpu_res = run("cpu")
+        theta0 = TASKS["cifar"][0](prng.PRNGKey(cpu_res.seeds[0]))
+        gaps = {**compare_runs(card_res, cpu_res),
+                **theta_gaps(card_res, cpu_res, theta0, sc.lr)}
+        log({"phase": "reference", "run": label, "scenario": sc.name,
+             "ota": ota_label(sc), "opt": sc.opt,
+             "what": "the card (kernels, cuDNN) vs the CPU (plain "
+                     "versions, oneDNN)",
+             "cut": "C 4 -> 2, M 5 -> 2, batch 128 -> 32, 1 round",
+             "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
+             "gate": gate, "lr": sc.lr, "tau": sc.tau, "n_test": sc.n_test,
+             "cpu_seconds": time.perf_counter() - t0})
+        ok = gaps["acc_max_abs"] <= 2.0 / sc.n_test
+        if gate == "all":
+            ok &= (gaps["loss_max_rel"] <= TOL
+                   and gaps["theta_max_rel"] <= THETA_RTOL)
+        elif gate == "adam":
+            ok &= (max(gaps["conv_bias_max_abs_gap"],
+                       gaps["other_max_abs_gap"]) <= 2 * sc.lr * sc.tau
+                   and gaps["update_rel_gap_off_conv_biases_and_partners"]
+                   <= FIG3_ADAM_UPDATE_RTOL)
+        if not ok:
+            raise SystemExit(f"{label}: the card's run disagrees with the "
+                             f"CPU reference")
+    # Adam's step itself on the card against the CPU, on the same inputs:
+    # the CNN's tree for fig3's 20 users, the second step (bias
+    # corrections at t = 2), gradients spread over 8 decades so that
+    # eps and the small-gradient ratios are exercised
+    users = fig3.C * fig3.M
+    rng = np.random.default_rng(94)
+    th = tree_map(lambda x: x.expand(users, *x.shape).clone(),
+                  TASKS["cifar"][0](prng.PRNGKey(95)))
+    grads = [tree_map(lambda x: torch.as_tensor(
+        (rng.standard_normal(x.shape)
+         * 10.0 ** rng.uniform(-8, 0, x.shape)).astype(np.float32)), th)
+        for _ in range(2)]
+    steps = {}
+    for device in ("cuda", "cpu"):
+        opt, to = adam(fig3.lr), lambda t, d=device: t.to(d)
+        p = tree_map(to, th)
+        state = opt.init(p)
+        for i, g in enumerate(grads):
+            upd, state = opt.update(
+                tree_map(to, g), state, p,
+                torch.tensor(i, dtype=torch.int32, device=device))
+        steps[device] = dict(tree_leaves([upd, state]))
+    adam_gap = max(float((steps["cuda"][k].cpu() - v).abs().max()
+                         / v.abs().max()) for k, v in steps["cpu"].items())
+    log({"phase": "reference", "run": "adam step on the CNN's tree",
+         "what": "the port's Adam, second step, card vs CPU on the same "
+                 "gradients and state", "users": users,
+         "max_rel_gap": adam_gap, "bound": ADAM_STEP_RTOL})
+    if not adam_gap <= ADAM_STEP_RTOL:
+        raise SystemExit("Adam's step on the card disagrees with the CPU")
+
     lm_reference(qwen, lm_run["params"], dev, prefill_len=256,
                  decode=(2, 64))
     small_vs_cpu(small_runs, params_small, small_shape)
@@ -1613,6 +2044,50 @@ def main() -> int:
         log({"phase": "profile", "run": label, "card": card,
              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
              **prof})
+    # the same scale_u65536 round as one CUDA graph: its peak memory
+    # (the graph's pool holds the round's buffers beside the carry)
+    torch.cuda.reset_peak_memory_stats()
+    res = ShardedSweepRunner([u65536], seeds=1, mesh="1x1",
+                             combine="u_sharded", driver="chunked",
+                             device="cuda").run()[0]
+    log({"phase": "profile", "run": "sharded scale_u65536 1x1 u_sharded "
+         "chunked", "card": card,
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "drive_seconds": res.exec_info["drive_seconds"]})
+    del res
+    # Fig. 3, one round: as registered (equivalent) and faithful/fused,
+    # stepwise, and fused through the chunked driver's graph
+    for label, sc, driver in (
+            ("fig3_cifar", fig3, "stepwise"),
+            ("fig3_cifar_fused", fig3_fused, "stepwise"),
+            ("fig3_cifar_fused chunked", fig3_fused, "chunked")):
+        sc = sc.replace(total_IT=1)
+        prof = device_profile(SweepRunner([sc], seeds=1, device="cuda",
+                                          driver=driver,
+                                          warmup=driver == "chunked"), sc)
+        log({"phase": "profile", "run": label, "card": card, **prof})
+    # rounds/s of both drivers, each warmed before its drive
+    for label, make in (
+            ("fig2_iid_fused", lambda d: SweepRunner(
+                [fig2_fused], seeds=1, device="cuda", driver=d,
+                warmup=True)),
+            ("scale_u256", lambda d: SweepRunner(
+                [u256.replace(total_IT=10)], seeds=1, device="cuda",
+                driver=d, warmup=True)),
+            ("sharded scale_u256 2x4 u_sharded", lambda d: ShardedSweepRunner(
+                [u256.replace(total_IT=10)], seeds=1, mesh="2x4",
+                combine="u_sharded", device="cuda", driver=d, warmup=True)),
+            ("fig3_cifar_fused", lambda d: SweepRunner(
+                [fig3_fused], seeds=1, device="cuda", driver=d,
+                warmup=True))):
+        rates = {}
+        for d in ("stepwise", "chunked"):
+            r = make(d).run()[0]
+            rates[d] = r.rounds[-1] / r.exec_info["drive_seconds"]
+        log({"phase": "profile", "run": label, "what": "rounds/s per driver "
+             "(1 seed, warmed)", "rounds": r.rounds[-1], "card": card,
+             **{f"rounds_per_sec_{d}": v for d, v in rates.items()},
+             "chunked_over_stepwise": rates["chunked"] / rates["stepwise"]})
 
     # -- phase 7: kernel times ---------------------------------------------
     def time_ms(fn, reps, warm=True):
@@ -1639,7 +2114,9 @@ def main() -> int:
     timings = {}
     for label, (B, U, K, N), bu in (("scale_u256", (4, 256, 16, 3925), 64),
                                     ("scale_u1024", (8, 1024, 16, 3925),
-                                     128)):
+                                     128),
+                                    ("fig3_cifar cluster",
+                                     (4, 20, 100, 154197), 5)):
         args = kernel_inputs(B, U, K, N, 7, dev)["args"]
         kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0, block_u=bu)
         ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
@@ -1654,6 +2131,80 @@ def main() -> int:
              "bound_ms": bound, "bound_by": bound_by, "issue_ms": issue,
              "card": card})
         del args
+
+    # a fig3 round by part, each timed alone at the round's shapes and
+    # queued behind a spin (so the host's launch time hides): every
+    # user's dropout masks for one local step (the int64 threefry
+    # emulation), one user's gradient (the CNN's forward and backward at
+    # batch 128), and Adam's update over all users' trees
+    from repro_torch import prng
+    from repro_torch.models import paper_models
+    from repro_torch.optim import adam
+    from repro_torch.sim.scenario import TASKS
+    from repro_torch.tree import tree_leaves, tree_map
+
+    users = fig3.C * fig3.M
+    user_keys = prng.split(prng.PRNGKey(90, dev), users)
+    p0 = TASKS["cifar"][0](prng.PRNGKey(91, dev))
+    g = torch.Generator(device=dev).manual_seed(92)
+    xb = torch.randn((fig3.batch, 32, 32, 3), generator=g, device=dev)
+    yb = torch.randint(0, 10, (fig3.batch,), generator=g, device=dev)
+    masks = tuple(m[0] for m in paper_models.dropout_masks(user_keys,
+                                                            fig3.batch))
+    grad = torch.func.grad(TASKS["cifar"][2])
+    opt = adam(fig3.lr)
+    th = tree_map(lambda x: x.expand(users, *x.shape).clone(), p0)
+    opt_state, ones = opt.init(th), tree_map(torch.ones_like, th)
+    step0 = torch.zeros((), dtype=torch.int32, device=dev)
+    parts = {
+        "masks_ms_per_step": queued_ms(
+            lambda: paper_models.dropout_masks(user_keys, fig3.batch), 3),
+        "grad_ms_per_user_step": queued_ms(
+            lambda: grad(p0, xb, yb, masks), 2),
+        "adam_ms_per_step": queued_ms(
+            lambda: opt.update(ones, opt_state, th, step0), 3)}
+    log({"phase": "times", "what": "fig3 round by part", "users": users,
+         "tau": fig3.tau, "batch": fig3.batch, **parts,
+         "parts_ms_per_round": fig3.tau * (
+             parts["masks_ms_per_step"] + users
+             * parts["grad_ms_per_user_step"] + parts["adam_ms_per_step"]),
+         "card": card})
+    # one local step's gradients of every user three ways: one user at a
+    # time on fresh unbatched copies (the round's way, the loss's
+    # ``per_user_grads``: the same shapes, so the same bits, on every
+    # engine and mesh), all users in one vmapped pass, and vmapped chunks
+    # of GRAD_CHUNK users; each one's gap to the round's way
+    xu = torch.randn((users, fig3.batch, 32, 32, 3), generator=g, device=dev)
+    yu = torch.randint(0, 10, (users, fig3.batch), generator=g, device=dev)
+    args = [th, xu, yu, list(paper_models.dropout_masks(user_keys,
+                                                        fig3.batch))]
+    vgrad = torch.func.vmap(grad)
+
+    def stacked(parts, join):
+        return tree_map(lambda *xs: join(xs), *parts)
+
+    ways = {
+        "one_at_a_time": lambda: stacked(
+            [grad(*tree_map(lambda a: a[u].clone(), args))
+             for u in range(users)], torch.stack),
+        "vmapped": lambda: vgrad(*args),
+        f"chunks_of_{GRAD_CHUNK}": lambda: stacked(
+            [vgrad(*tree_map(lambda a: a[u:u + GRAD_CHUNK].clone(), args))
+             for u in range(0, users, GRAD_CHUNK)], torch.cat)}
+    mine = dict(tree_leaves(ways["one_at_a_time"]()))
+    for way, fn in ways.items():
+        out = dict(tree_leaves(fn()))
+        log({"phase": "times", "what": "fig3 gradients of every user, one "
+             "local step", "way": way, "users": users, "batch": fig3.batch,
+             "ms_per_step": queued_ms(fn, 2),
+             "max_abs_gradient": max(float(v.abs().max())
+                                     for v in mine.values()),
+             "bitwise_equal_to_one_at_a_time": all(
+                 torch.equal(out[k], mine[k]) for k in mine),
+             "max_abs_gap_to_one_at_a_time": max(
+                 float((out[k] - mine[k]).abs().max()) for k in mine),
+             "card": card})
+    del th, opt_state, ones, masks, xb, p0, xu, yu, args, mine, out
 
     cluster_fn = build.load("ota_combine").ota_combine_cluster_size
     cluster_fn.restype = ctypes.c_int

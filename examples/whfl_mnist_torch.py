@@ -13,9 +13,10 @@ two error-free baselines, every seed of every scheme through
         --quick --ota faithful --backend slab_kernel
 
 It runs on the CUDA card unless ``--device`` names another.  The JAX
-driver's ``--exec``, ``--mesh`` and ``--driver`` are not here yet: the
-port runs the single engine with the stepwise driver only (the chunked
-driver and the sharded engine come later).
+driver's ``--exec``, ``--mesh`` and ``--driver`` are not here yet
+(ROADMAP queue A, item 12): this driver runs the single engine with the
+stepwise driver only; the sweep CLI (`repro_torch.sim.sweep`) has both
+engines and both drivers.
 """
 import argparse
 import json

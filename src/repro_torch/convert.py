@@ -1,7 +1,8 @@
 """Move parameters and round state between the JAX package and the port.
 
 The JAX package keeps parameters and round state as pytrees of arrays;
-the port keeps nested dicts of tensors with the same leaf names.  These
+the port keeps nested dicts (and lists, where the reference has lists)
+of tensors with the same leaf names.  These
 helpers take the reference's trees as numpy arrays (``jax.device_get``
 of them), so both packages can start from identical weights, and bring
 the port's trees back for comparison.  uint32 words (PRNG keys) become
@@ -27,10 +28,12 @@ def _tensor(x, device=None) -> torch.Tensor:
 
 
 def params_from_jax(tree, device=None):
-    """A nested dict of arrays (the reference's model parameters) ->
-    the same dict of tensors on `device`."""
+    """A nested dict or list of arrays (the reference's model
+    parameters) -> the same tree of tensors on `device`."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
     return _tensor(tree, device)
 
 
@@ -48,8 +51,11 @@ def state_from_jax(state, device=None):
 
 
 def to_numpy(tree):
-    """A nested dict of tensors -> the same dict of numpy arrays."""
+    """A nested dict or list of tensors -> the same tree of numpy
+    arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

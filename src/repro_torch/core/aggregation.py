@@ -1,24 +1,27 @@
 """Parameter-tree <-> flat-vector plumbing and power accounting for OTA hops.
 
 The OTA channel operates on flat R^{2N} vectors (eq. 7 packing).  These
-helpers ravel a model's parameter tree (nested dicts of tensors) into a
-padded even-length vector and account transmit power the way the paper
+helpers ravel a model's parameter tree (nested dicts and lists of
+tensors) into a padded even-length vector and account transmit power the way the paper
 reports it (average per-symbol power at the edge).
 
-Leaf order is sorted-key order, the order `jax.tree.flatten` gives a
-dict: the MNIST vector is ``b`` (10) then ``w`` (7840), exactly as in
-the JAX package, so every OTA estimate lands on the same parameters.
+Leaf order is `jax.tree.flatten`'s: dicts in sorted-key order, lists in
+index order.  The MNIST vector is ``b`` (10) then ``w`` (7840); the
+CIFAR CNN's is ``conv[0].b``, ``conv[0].bn_bias``, ``conv[0].bn_scale``,
+``conv[0].w``, ``conv[1].b``, ..., then ``fc_b`` and ``fc_w`` (308,394
+values), exactly as in the JAX package, so every OTA estimate lands on
+the same parameters.
 Every function takes leaves with any leading batch dims (``[C, M, ...]``
 for per-user trees) in place of `vmap`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.tree import Path, tree_leaves
+from repro_torch.tree import Path, tree_from_paths, tree_leaves
 
 
 @dataclass(frozen=True)
@@ -57,20 +60,18 @@ def flatten(spec: FlatSpec, tree) -> torch.Tensor:
     return flat
 
 
-def unflatten(spec: FlatSpec, vec: torch.Tensor) -> Dict:
-    """[*lead, 2N] -> tree with leaves [*lead, *shape] (padding dropped)."""
+def unflatten(spec: FlatSpec, vec: torch.Tensor):
+    """[*lead, 2N] -> tree with leaves [*lead, *shape] (padding dropped);
+    lists come back where the spec's tree has them."""
     lead = vec.shape[:-1]
-    out: Dict = {}
+    items = []
     off = 0
     for path, shape, size, dt in zip(spec.paths, spec.shapes, spec.sizes,
                                      spec.dtypes):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = vec[..., off:off + size].reshape(
-            *lead, *shape).to(dt)
+        items.append((path, vec[..., off:off + size].reshape(
+            *lead, *shape).to(dt)))
         off += size
-    return out
+    return tree_from_paths(items)
 
 
 def user_energy(flat: torch.Tensor) -> torch.Tensor:

@@ -16,11 +16,15 @@ so a seed reproduces the JAX package's round: keys split in the same
 order, the same users draw the same indices, and the OTA hops get the
 same keys.  Baselines: ``mode="conventional"`` (single-hop OTA FL) and
 ``OTAConfig(mode="ideal")`` (error-free).
+
+`make_window_fn` is the drivers' unit: the rounds of one eval window
+and the eval.  The stepwise driver runs it eagerly; `make_chunk_fn`
+replays it as one CUDA graph per window length on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -77,9 +81,29 @@ def make_local_train(loss_fn: Callable, opt: Optimizer,
     theta and opt_state carry a leading user axis [U, ...]; X [U, n,
     ...], Y [U, n]; keys [U, 2].  Per step each user splits its key into
     (kb, kd) and draws `cfg.batch` indices from kb, as the reference's
-    per-user program does.
+    per-user program does; where the loss has a ``draw_rng``, it draws
+    from every user's kd at once what the model would draw (the CNN's
+    dropout masks), and each user's share is its `rng`.
+
+    Where the loss sets ``per_user_grads`` each user's gradient is
+    `torch.func.grad` of fresh copies of its own unbatched inputs, so it
+    sees the same shapes (and bits) however many users the caller holds
+    (under vmap a convolution with per-user weights becomes a grouped
+    one, whose algorithm follows the group count); the optimizer step,
+    elementwise, still runs over all users at once.
     """
-    grad_fn = torch.func.vmap(torch.func.grad(loss_fn))
+    one_grad = torch.func.grad(loss_fn)
+    grad_fn = torch.func.vmap(one_grad)
+    draw = getattr(loss_fn, "draw_rng", None)
+    per_user = getattr(loss_fn, "per_user_grads", False)
+
+    def grads_of(th, xb, yb, rng):
+        args = [th, xb, yb, rng]
+        if not per_user:
+            return grad_fn(*args)
+        parts = [one_grad(*tree_map(lambda a: a[u].clone(), args))
+                 for u in range(xb.shape[0])]
+        return tree_map(lambda *xs: torch.stack(xs), *parts)
 
     def local_train(theta, opt_state, X, Y, keys, step):
         users = torch.arange(X.shape[0], device=X.device)[:, None]
@@ -88,7 +112,8 @@ def make_local_train(loss_fn: Callable, opt: Optimizer,
         for i in range(cfg.tau):
             kb, kd = prng.split(step_keys[:, i]).unbind(-2)
             idx = prng.randint(kb, (cfg.batch,), 0, X.shape[1])
-            grads = grad_fn(th, X[users, idx], Y[users, idx], kd)
+            rng = kd if draw is None else draw(kd, cfg.batch)
+            grads = grads_of(th, X[users, idx], Y[users, idx], rng)
             upd, st = opt.update(grads, st, th, step)
             th = apply_updates(th, upd)
         return tree_map(lambda a, b: a - b, th, theta), st
@@ -212,15 +237,144 @@ def eval_windows(T: int, eval_every: int) -> list:
     return out
 
 
+def make_window_fn(round_fn: Callable,
+                   eval_fn: Optional[Callable] = None) -> Callable:
+    """Lift the per-seed round into an eval window: ``window(states,
+    keys, P_win, P_is_win) -> (states, keys, metrics)`` runs
+    ``len(P_win)`` rounds of every seed, then ``eval_fn(state)`` on each
+    seed's state (metrics: their [S, ...] stack, or None).
+
+    states and keys are per-seed lists (the port runs seeds as a loop);
+    P_win and P_is_win are float32 [w] tensors of the window's powers on
+    the run's device.  Per round and seed the carried key splits into
+    (next_key, sub) and `round_fn` takes sub with that round's powers.
+    Both drivers run this one loop: the stepwise driver calls it eagerly
+    and the chunked driver replays it as a graph (`make_chunk_fn`).
+    """
+    def window(states: List, keys: List, P_win, P_is_win):
+        states, keys = list(states), list(keys)
+        for i in range(P_win.shape[0]):
+            for s in range(len(states)):
+                keys[s], sub = prng.split(keys[s])
+                states[s] = round_fn(states[s], sub, P_win[i], P_is_win[i])
+        metrics = (None if eval_fn is None
+                   else torch.stack([eval_fn(st) for st in states]))
+        return states, keys, metrics
+
+    return window
+
+
+class _ChunkFn:
+    """The chunked driver's unit (`make_chunk_fn`): an eval window
+    (`make_window_fn`) on the device of the power values.
+
+    On the CPU each call runs the window eagerly.  On CUDA each distinct
+    window length is captured once as a `torch.cuda.CUDAGraph` (at most
+    three: 1, eval_every and the tail) and every later call replays it:
+
+    - the seeds' states and keys live in static buffers that every graph
+      reads and, at its end, overwrites in place, so a call returns them
+      as the carried state (pass them back unchanged);
+    - the window's powers are copied into the graph's float32 [w]
+      buffers before each replay, so every round of every replay reads
+      its own;
+    - before the first capture of a length the window runs once eagerly
+      on a side stream (its outputs dropped): that uploads every constant
+      the wrappers and channels cache, builds the cuBLAS/cuDNN handles
+      and plans and takes every host-side decision, so no host-to-device
+      copy or host read is left for the capture.
+
+    A replay runs no Python, so the kernel wrappers' launch counts see
+    the eager run and the capture, not the replays: a replay's launches
+    are read from a device trace.
+
+    The graphs share one memory pool: they replay one after another on
+    one stream, and each replay's metrics are copied out before the next.
+    """
+
+    def __init__(self, window: Callable):
+        self.window = window
+        self.graphs: Dict[int, tuple] = {}
+        self.carry = None
+        self.pool = None
+
+    def __call__(self, states, keys, P_win, P_is_win):
+        if P_win.device.type != "cuda":
+            return self.window(states, keys, P_win, P_is_win)
+        self._load([states, keys])
+        w = int(P_win.shape[0])
+        if w not in self.graphs:
+            self._capture(w, P_win, P_is_win)
+        graph, P, P_is, metrics = self.graphs[w]
+        P.copy_(P_win)
+        P_is.copy_(P_is_win)
+        graph.replay()
+        states, keys = self.carry
+        return (list(states), list(keys),
+                None if metrics is None else metrics.clone())
+
+    def _load(self, carry) -> None:
+        """Copy (states, keys) into the static buffers, unless they are
+        the buffers."""
+        if self.carry is None:
+            self.carry = tree_map(torch.clone, carry)
+            return
+        for (_, dst), (_, src) in zip(tree_leaves(self.carry),
+                                      tree_leaves(carry)):
+            if dst is not src:
+                dst.copy_(src)
+
+    def _capture(self, w: int, P_win, P_is_win) -> None:
+        states, keys = self.carry
+        dev = P_win.device
+        P = P_win.detach().clone()
+        P_is = P_is_win.detach().clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.window(states, keys, P, P_is)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            new_states, new_keys, metrics = self.window(states, keys, P,
+                                                        P_is)
+            for (_, dst), (_, src) in zip(tree_leaves(self.carry),
+                                          tree_leaves([new_states,
+                                                       new_keys])):
+                if dst is not src:
+                    dst.copy_(src)
+        self.pool = graph.pool()
+        self.graphs[w] = (graph, P, P_is, metrics)
+
+
+def make_chunk_fn(round_fn: Callable,
+                  eval_fn: Optional[Callable] = None) -> Callable:
+    """The chunked driver's window executor: `make_window_fn`'s window,
+    ``chunk_fn(states, keys, P_win, P_is_win) -> (states, keys,
+    metrics)``, as one CUDA graph per window length on the card
+    (`_ChunkFn`) and eagerly on the CPU.  It runs the stepwise driver's
+    loop, so the two drivers agree bit for bit.
+    """
+    return _ChunkFn(make_window_fn(round_fn, eval_fn))
+
+
 @torch.no_grad()
 def accuracy(apply_fn, params, X: torch.Tensor, Y: torch.Tensor,
              batch: int = 2000) -> float:
-    """Top-1 accuracy of `apply_fn(params, .)` over (X, Y), in batches."""
+    """Top-1 accuracy of `apply_fn(params, .)` over (X, Y), in batches of
+    ``min(batch, n)``.  The last, short batch is padded with zero rows to
+    the full batch and the padded rows are masked out, as the reference
+    does: a batch-norm model then sees full batches only."""
     n = len(X)
     if n == 0:
         return 0.0
+    batch = min(batch, n)
     correct = 0
     for i in range(0, n, batch):
-        logits = apply_fn(params, X[i:i + batch])
-        correct += int((logits.argmax(-1) == Y[i:i + batch]).sum())
+        xb, yb = X[i:i + batch], Y[i:i + batch]
+        m = xb.shape[0]
+        if m < batch:
+            xb = torch.cat([xb, xb.new_zeros((batch - m, *xb.shape[1:]))])
+        logits = apply_fn(params, xb)[:m]
+        correct += int((logits.argmax(-1) == yb).sum())
     return correct / n

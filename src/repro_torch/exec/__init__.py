@@ -24,7 +24,6 @@ from repro_torch.exec.mesh import (MESH_AXES, Mesh, make_device_mesh,
                                    pad_plan_for, parse_mesh,
                                    validate_mesh_for)
 from repro_torch.exec.round import (COMBINES, make_fused_cluster_hop,
-                                    make_sharded_chunk_fn,
                                     make_sharded_round_fn)
 from repro_torch.exec.runner import ShardedSweepRunner
 from repro_torch.sim.scenario import Scenario
@@ -36,10 +35,10 @@ ENGINES = ("single", "sharded")
 def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
                 *, seeds=1, quick: bool = False, batch: str = "map",
                 mesh: Union[str, tuple] = "1x1", keep_state: bool = False,
-                combine: str = "gathered", device=None) -> SweepRunner:
-    """Engine factory behind the ``--exec`` CLI flag.  Both engines
-    drive rounds stepwise; the chunked driver is not ported yet
-    (`make_sharded_chunk_fn`)."""
+                combine: str = "gathered", driver: str = "stepwise",
+                warmup: bool = False, device=None) -> SweepRunner:
+    """Engine factory behind the ``--exec`` CLI flag.  Both engines take
+    both round drivers (``stepwise``, ``chunked``)."""
     if exec_name == "single":
         if combine != "gathered":
             raise ValueError(
@@ -48,11 +47,12 @@ def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
                 f"distribution to select")
         return SweepRunner(scenarios, seeds=seeds, quick=quick,
                            keep_state=keep_state, batch=batch,
-                           device=device)
+                           driver=driver, warmup=warmup, device=device)
     if exec_name == "sharded":
         return ShardedSweepRunner(scenarios, seeds=seeds, quick=quick,
                                   keep_state=keep_state, mesh=mesh,
-                                  combine=combine, device=device)
+                                  combine=combine, driver=driver,
+                                  warmup=warmup, device=device)
     raise ValueError(
         f"unknown execution engine {exec_name!r}; known: "
         f"{', '.join(ENGINES)}")
@@ -60,5 +60,5 @@ def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
 
 __all__ = ["COMBINES", "ENGINES", "MESH_AXES", "Mesh", "ShardedSweepRunner",
            "SweepRunner", "make_device_mesh", "make_fused_cluster_hop",
-           "make_runner", "make_sharded_chunk_fn", "make_sharded_round_fn",
+           "make_runner", "make_sharded_round_fn",
            "pad_plan_for", "parse_mesh", "validate_mesh_for"]

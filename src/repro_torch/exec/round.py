@@ -12,8 +12,10 @@ Phase 1 -- local training.  Every shard trains only its own
 ``(C_loc, M_loc)`` block of users (`repro_torch.core.whfl.
 make_local_train`, vmapped over that block as the single engine vmaps
 all users), from per-user keys split over the *real* (C, M) grid and
-then padded.  Each shard computes its users' symbol energies for the
-power fold.
+then padded.  The users' symbol energies for the power fold are taken
+once, over the assembled real block: a row sum's order on the card (or
+over CPU threads) follows the number of rows, so summing per shard
+would make the power depend on the mesh.
 
 Phase 2 -- the OTA hops.  With the ``fused`` backend the cluster hop
 keeps its shard structure (`make_fused_cluster_hop`):
@@ -224,7 +226,7 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
         the opt state [Cp, Mp, ...] and the real users' symbol energies
         [C, M]."""
         keys = plan.pad_users(prng.split(key, C * M).reshape(C, M, 2))
-        flats, states, energies = {}, {}, {}
+        flats, states = {}, {}
         for ci, ui in shards:
             th = tree_map(
                 lambda x: x[ci * C_loc:(ci + 1) * C_loc, None]
@@ -233,15 +235,14 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
             st = tree_map(lambda x: users(x, ci, ui), opt_state)
             deltas, st = local_train(th, st, *data[ci, ui],
                                      users(keys, ci, ui), step)
-            flat = agg.flatten(spec, deltas).reshape(C_loc, M_loc, -1)
-            flats[ci, ui] = flat
-            energies[ci, ui] = agg.user_energy(flat)
+            flats[ci, ui] = agg.flatten(spec, deltas).reshape(C_loc, M_loc,
+                                                              -1)
             states[ci, ui] = tree_map(
                 lambda x: x.reshape(C_loc, M_loc, *x.shape[1:]), st)
         opt_state = tree_map(lambda *xs: assemble(dict(zip(shards, xs))),
                              *(states[s] for s in shards))
-        return (real(assemble(flats)), opt_state,
-                real(assemble(energies)))
+        flat = real(assemble(flats))
+        return flat, opt_state, agg.user_energy(flat)
 
     def cluster_estimate(key, flat, P_t):
         """[Cp, 2N]: the real rows are the single engine's estimate."""
@@ -251,11 +252,3 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
 
     return make_round_body(topo, cfg, spec, users_train, cluster_estimate,
                            n_rx=plan.Cp)
-
-
-def make_sharded_chunk_fn(*args, **kwargs):
-    """The sharded engine's chunked driver (one program per eval
-    window): not ported yet."""
-    raise NotImplementedError(
-        "make_sharded_chunk_fn (the chunked driver) is not ported yet "
-        "(ROADMAP queue A, item 5)")

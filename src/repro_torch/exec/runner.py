@@ -31,15 +31,20 @@ class ShardedSweepRunner(SweepRunner):
     sized to the padded (Cp, Mp) grid here and stripped again before
     ``final_state`` is stored.  combine: the fused cluster hop's
     strategy, ``"gathered"`` or ``"u_sharded"``.  Seeds run as a loop
-    (``batch="map"``), as in the single engine.
+    (``batch="map"``), and ``driver="chunked"`` replays each eval window
+    as one CUDA graph of the whole sharded round (every shard's
+    training, the partial kernels, the fold and the IS -> PS hop), as in
+    the single engine.
     """
 
     def __init__(self, scenarios: Sequence[Union[str, Scenario]],
                  seeds=1, quick: bool = False, keep_state: bool = False,
                  mesh: Union[str, tuple] = "1x1",
-                 combine: str = "gathered", device: Optional[str] = None):
+                 combine: str = "gathered", driver: str = "stepwise",
+                 warmup: bool = False, device: Optional[str] = None):
         super().__init__(scenarios, seeds=seeds, quick=quick,
-                         keep_state=keep_state, batch="map", device=device)
+                         keep_state=keep_state, batch="map", driver=driver,
+                         warmup=warmup, device=device)
         if combine not in COMBINES:
             raise ValueError(f"unknown combine {combine!r}; known: "
                              f"{', '.join(COMBINES)}")

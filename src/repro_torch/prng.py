@@ -8,8 +8,8 @@ Two consumers share the threefry2x32 block cipher here:
   ``(u * Kstride + k, n)``, so the draws depend on logical indices only;
 - a bit-exact emulation of `jax.random` under the threefry2x32 impl with
   ``jax_threefry_partitionable=True`` (`PRNGKey`, `split`,
-  `random_bits`, `randint`, `uniform`, `normal`), so one integer seed
-  reproduces a run of the JAX reference.
+  `random_bits`, `randint`, `uniform`, `normal`, `bernoulli`), so one
+  integer seed reproduces a run of the JAX reference.
 
 Words are uint32 values carried in int64 tensors: CPU torch has no
 uint32 arithmetic, so every add, multiply and shift is masked back to
@@ -277,3 +277,11 @@ def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     (nextafter(-1, +inf), 1)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * _erf_inv(u)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+    """bool `jax.random.bernoulli` in its default mode ("low"):
+    ``uniform(key, shape) < p`` with p rounded to float32, as a Python
+    float enters it.  Batched over the leading key dims like `uniform`,
+    and usable under `torch.func.vmap` with a batched key."""
+    return uniform(key, shape) < float(np.float32(p))

@@ -9,9 +9,9 @@ mode.  Seeds are not part of a scenario: the sweep supplies them (model
 init + minibatch sampling + channel noise follow the per-seed key;
 geometry and the data partition follow `data_seed`).
 
-Scenarios whose features the port has not reached yet (the CIFAR model,
-partial participation, robust folds, telemetry) are registered all the
-same; building their round raises and names the ROADMAP item.
+Scenarios whose features the port has not reached yet (partial
+participation, robust folds, telemetry) are registered all the same;
+building their round raises and names the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,24 +26,48 @@ from repro_torch.core.topology import Topology
 from repro_torch.core.whfl import WHFLConfig
 from repro_torch.data import get_partitioner, synthetic_cifar, synthetic_mnist
 from repro_torch.models.paper_models import (cifar_apply, cifar_init,
-                                             mnist_apply, mnist_init)
+                                             dropout_masks, mnist_apply,
+                                             mnist_init)
 
 
-def _xent(apply_fn):
-    """Mean softmax cross-entropy over 10 classes (vmap-safe one-hot)."""
+def _xent(apply_fn, train: bool, draw_rng=None, per_user_grads=False):
+    """Mean softmax cross-entropy over 10 classes (vmap-safe one-hot).
+    With ``train=True`` the model runs in training mode with the step's
+    key `rng` (dropout).  `draw_rng(keys [U, 2], batch)`, when given,
+    draws from every user's key at once what the model would draw from
+    it (the CNN's dropout masks); the round passes its result, sliced per
+    user, as `rng` (`repro_torch.core.whfl.make_local_train`).
+
+    ``per_user_grads`` asks the round to take the users' gradients one
+    at a time.  Under `torch.func.vmap` a convolution with per-user
+    weights becomes a grouped convolution with one group per user, so
+    the number of users in a pass would change the shapes cuDNN (or
+    oneDNN) sees, the algorithm it picks and the result's bits.  One
+    user per pass gives every engine and mesh the same shapes, hence the
+    same bits, and keeps the NHWC input's channels-last layout, which
+    cuDNN runs as it is."""
     def loss(params, x, y, rng):
-        logits = apply_fn(params, x)
+        if train:
+            logits = apply_fn(params, x, train=True, rng=rng)
+        else:
+            logits = apply_fn(params, x)
         onehot = (y[..., None] == torch.arange(10, device=y.device)).to(
             logits.dtype)
         return -torch.mean(torch.sum(torch.log_softmax(logits, -1) * onehot,
                                      -1))
+    loss.draw_rng = draw_rng
+    loss.per_user_grads = per_user_grads
     return loss
 
 
 # dataset -> (init_fn, apply_fn, loss_fn, make_data)
 TASKS: Dict[str, Tuple] = {
-    "mnist": (mnist_init, mnist_apply, _xent(mnist_apply), synthetic_mnist),
-    "cifar": (cifar_init, cifar_apply, _xent(cifar_apply), synthetic_cifar),
+    "mnist": (mnist_init, mnist_apply, _xent(mnist_apply, train=False),
+              synthetic_mnist),
+    "cifar": (cifar_init, cifar_apply,
+              _xent(cifar_apply, train=True, draw_rng=dropout_masks,
+                    per_user_grads=True),
+              synthetic_cifar),
 }
 
 

@@ -13,7 +13,10 @@ round keys from ``split`` of ``PRNGKey(s + 1)``).
 
 ``--exec sharded --mesh CxU [--combine u_sharded]`` drives the same
 sweep through the sharded engine (`repro_torch.exec.ShardedSweepRunner`),
-which overrides the runner's engine hooks.
+which overrides the runner's engine hooks.  ``--driver chunked`` replays
+each eval window's rounds and eval as one CUDA graph
+(`repro_torch.core.whfl.make_chunk_fn`) instead of issuing every round
+from the host; ``--driver stepwise,chunked`` runs and records both.
 
 The entry points run on the CUDA card unless the caller asks for
 another device (``device="cpu"``, ``--device cpu``); without a card
@@ -35,7 +38,9 @@ import torch
 from repro_torch import prng
 from repro_torch.core import aggregation as agg
 from repro_torch.core.topology import power_schedule
-from repro_torch.core.whfl import init_round_state, make_round_fn
+from repro_torch.core.whfl import (eval_windows, init_round_state,
+                                   make_chunk_fn, make_round_fn,
+                                   make_window_fn)
 from repro_torch.optim import adam, sgd
 from repro_torch.device import resolve_device
 from repro_torch.sim.scenario import Scenario, get_scenario, list_scenarios
@@ -50,6 +55,14 @@ BENCH_SCHEMA_VERSION = "repro.bench.sweep/v1"
 RECORD_KEYS = ("scenario", "seeds", "rounds", "metrics", "final",
                "n_traces", "seconds", "exec", "telemetry")
 METRIC_KEYS = ("acc", "loss", "edge_power", "is_power")
+
+# Round drivers: how the host feeds rounds to the device.
+#   "stepwise" -- the host issues every round's ops, round by round
+#                 (`repro_torch.core.whfl.make_window_fn`, eagerly);
+#   "chunked"  -- `repro_torch.core.whfl.make_chunk_fn`: each eval
+#                 window's rounds and eval replay as one CUDA graph (a
+#                 plain loop per window on the CPU); the same bits.
+DRIVERS = ("stepwise", "chunked")
 
 
 def device_name(dev: torch.device) -> str:
@@ -104,13 +117,20 @@ class SweepRunner:
       seeds, in `SweepResult.final_state`.
     batch: the reference's seed-batch mode, "vmap" or "map".  Seeds run
       as a loop either way, which is "map"; records say so.
+    driver: "stepwise" (the host issues every round) or "chunked" (one
+      CUDA graph per eval window, `repro_torch.core.whfl.make_chunk_fn`;
+      a plain loop per window on the CPU).  Both give the same bits.
+    warmup: run each window length's graph (stepwise: the first window)
+      once on throwaway copies before the timed drive, so
+      ``drive_seconds`` holds no capture or first-call costs.
     device: None (the CUDA card) or a torch device string.
     """
 
     def __init__(self, scenarios: Sequence[Union[str, Scenario]],
                  seeds: Union[int, Sequence[int]] = 1,
                  quick: bool = False, keep_state: bool = False,
-                 batch: str = "map", device: Optional[str] = None):
+                 batch: str = "map", driver: str = "stepwise",
+                 warmup: bool = False, device: Optional[str] = None):
         self.device = resolve_device(device)
         self.scenarios = [get_scenario(s) if isinstance(s, str) else s
                           for s in scenarios]
@@ -121,6 +141,11 @@ class SweepRunner:
         self.keep_state = keep_state
         if batch not in ("vmap", "map"):
             raise ValueError(f"batch must be 'vmap' or 'map', got {batch!r}")
+        if driver not in DRIVERS:
+            raise ValueError(f"driver must be one of {DRIVERS}, "
+                             f"got {driver!r}")
+        self.driver = driver
+        self.warmup = warmup
 
     # -- engine hooks (overridden by repro_torch.exec.ShardedSweepRunner) --
 
@@ -144,8 +169,14 @@ class SweepRunner:
         symbol-buffer bytes.  ``device_count`` is the number of torch
         devices the engine runs on."""
         return {"name": "single", "mesh": None, "device_count": 1,
-                "batch": "map", "device": device_name(self.device),
-                "driver": "stepwise"}
+                "batch": "map", "device": device_name(self.device)}
+
+    def _drive_range(self):
+        """The named range around a drive, for profilers: it starts and
+        ends synchronized, so the device work inside it is exactly the
+        rounds' and evals'.  A profiler may wrap it to trace the drive
+        alone (the chunked driver's captures lie before it)."""
+        return torch.profiler.record_function("SweepRunner.drive")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -171,47 +202,34 @@ class SweepRunner:
         yte_d = torch.as_tensor(yte, device=dev)
 
         @torch.no_grad()
-        def _eval(theta):
-            logits = apply_fn(theta, xte_d)
+        def eval_state(st):
+            """[4] float32 on the device: test accuracy, test loss and the
+            running average edge and IS powers."""
+            logits = apply_fn(st["theta"], xte_d)
             acc = torch.mean((logits.argmax(-1) == yte_d).to(torch.float32))
             logp = torch.log_softmax(logits, -1)
             loss = -torch.mean(logp.gather(-1, yte_d.long()[:, None]))
-            return float(acc), float(loss)
+            pe = st["power_edge"] / torch.clamp_min(st["n_edge_tx"], 1.0)
+            pi = st["power_is"] / torch.clamp_min(st["n_is_tx"], 1.0)
+            return torch.stack([acc, loss, pe, pi])
 
-        S, T = len(self.seeds), sc.rounds
-        rounds: List[int] = []
-        acc_t = [[] for _ in range(S)]
-        loss_t = [[] for _ in range(S)]
-        pe_t = [[] for _ in range(S)]
-        pi_t = [[] for _ in range(S)]
+        T = sc.rounds
+        # the [T] schedule in float32 on the device: both drivers read a
+        # round's powers from it, so a graph replays with its own window's
+        P_all, P_is_all = (
+            torch.as_tensor(np.asarray(p, np.float32), device=dev)
+            for p in power_schedule(np.arange(T), cfg.power_base,
+                                    cfg.power_slope, cfg.power_is_factor,
+                                    cfg.power_low))
+        windows = eval_windows(T, sc.eval_every)
+        states, metrics, dispatches, drive_s = self._drive(
+            round_fn, eval_state, states, keys, P_all, P_is_all, windows)
 
-        self._sync()
-        t_drive = time.perf_counter()
-        # a named range for profilers; it starts and ends synchronized,
-        # so the device work inside it is exactly the rounds' and evals'
-        with torch.profiler.record_function("SweepRunner.drive"):
-            for t in range(T):
-                P_t, P_is_t = power_schedule(
-                    t, cfg.power_base, cfg.power_slope, cfg.power_is_factor,
-                    cfg.power_low)
-                for s in range(S):
-                    keys[s], sub = prng.split(keys[s])
-                    states[s] = round_fn(states[s], sub, P_t, P_is_t)
-                if t % sc.eval_every == 0 or t == T - 1:
-                    rounds.append(t + 1)
-                    for s, st in enumerate(states):
-                        a, l = _eval(st["theta"])
-                        acc_t[s].append(a)
-                        loss_t[s].append(l)
-                        pe_t[s].append(float(
-                            st["power_edge"]
-                            / max(float(st["n_edge_tx"]), 1.0)))
-                        pi_t[s].append(float(
-                            st["power_is"]
-                            / max(float(st["n_is_tx"]), 1.0)))
-            self._sync()
-        drive_s = time.perf_counter() - t_drive
-
+        S = len(self.seeds)
+        rounds = list(np.cumsum(windows).tolist())
+        acc_t, loss_t, pe_t, pi_t = (
+            [[m[s][j] for m in metrics] for s in range(S)]
+            for j in range(len(METRIC_KEYS)))
         final = None
         if self.keep_state:
             final = self._finalize_state(
@@ -221,8 +239,46 @@ class SweepRunner:
             loss=loss_t, edge_power=pe_t, is_power=pi_t, n_traces=0,
             seconds=time.perf_counter() - t0,
             exec_info={**self._exec_info(topo, spec.two_n),
-                       "drive_seconds": drive_s},
+                       "driver": self.driver, "dispatches": dispatches,
+                       "drive_seconds": drive_s, "warmup": self.warmup},
             final_state=final)
+
+    def _drive(self, round_fn, eval_state, states, keys, P_all, P_is_all,
+               windows):
+        """Every eval window through `make_window_fn`'s window, its
+        metrics left on the device until one fetch at the end: eagerly
+        (stepwise: the host issues every round) or as a CUDA graph replay
+        per window (chunked, `make_chunk_fn`).  With ``warmup`` each
+        window length (stepwise: the first window) runs once first on
+        throwaway copies.  Dispatches count a graph replay per window
+        (chunked) or, as the reference counts its programs, a split and a
+        round per seed and round and an eval per seed and window
+        (stepwise)."""
+        run = (make_chunk_fn if self.driver == "chunked"
+               else make_window_fn)(round_fn, eval_state)
+        if self.warmup:
+            # a graph per window length; eager rounds need one window
+            lengths = (sorted(set(windows)) if self.driver == "chunked"
+                       else windows[:1])
+            for w in lengths:
+                run([tree_map(torch.clone, st) for st in states],
+                    [k.clone() for k in keys], P_all[:w], P_is_all[:w])
+        S = len(states)
+        pending, off, steps = [], 0, 0
+        self._sync()
+        t_drive = time.perf_counter()
+        with self._drive_range():
+            for w in windows:
+                states, keys, m = run(states, keys, P_all[off:off + w],
+                                      P_is_all[off:off + w])
+                pending.append(m)
+                off += w
+                steps += S * (2 * w + 1)
+            metrics = torch.stack(pending).cpu().tolist()
+            self._sync()
+        drive_s = time.perf_counter() - t_drive
+        dispatches = len(windows) if self.driver == "chunked" else steps
+        return states, metrics, dispatches, drive_s
 
     def run(self) -> List[SweepResult]:
         return [self.run_scenario(sc) for sc in self.scenarios]
@@ -254,7 +310,7 @@ def bench_doc(results: Sequence[SweepResult]) -> Dict:
             "drive_seconds": drive_s,
             "rounds_per_sec": (rounds / drive_s) if drive_s > 0 else 0.0,
             "driver": r.exec_info.get("driver", "stepwise"),
-            "dispatches": None,
+            "dispatches": r.exec_info.get("dispatches"),
             "exec": dict(r.exec_info),
         })
     return {"schema": BENCH_SCHEMA_VERSION,
@@ -301,6 +357,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--batch", default="map", choices=["vmap", "map"],
                     help="the reference's seed-batch mode; the port runs "
                          "seeds as a loop, i.e. map, and records that")
+    ap.add_argument("--driver", default="stepwise",
+                    help="round driver(s), comma-separated subset of "
+                         "{stepwise, chunked}: stepwise = the host issues "
+                         "every round; chunked = one CUDA graph replay "
+                         "per eval window (a plain loop per window on "
+                         "the CPU; bitwise == stepwise).  Listing both "
+                         "runs both and records each, e.g. for driver "
+                         "comparisons in --bench-out")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run every round program (the eager round, or "
+                         "each window's graph) once on throwaway copies "
+                         "first, so recorded rounds/sec measure steady-"
+                         "state dispatch+execution rather than capture "
+                         "and first-call costs")
     ap.add_argument("--exec", default="single", dest="exec_name",
                     choices=["single", "sharded"],
                     help="execution engine: single (one pass over all "
@@ -343,14 +413,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
              if args.seed_list else args.seeds)
     # lazy import: repro_torch.exec builds on this module
     from repro_torch.exec import make_runner
-    try:
-        runner = make_runner(args.exec_name, args.scenarios.split(","),
-                             seeds=seeds, quick=args.quick,
-                             batch=args.batch, mesh=args.mesh,
-                             combine=args.combine, device=args.device)
-    except (KeyError, ValueError, RuntimeError) as e:
-        ap.error(str(e.args[0] if e.args else e))
-    results = runner.run()
+    results = []
+    for driver in args.driver.split(","):
+        try:
+            runner = make_runner(args.exec_name, args.scenarios.split(","),
+                                 seeds=seeds, quick=args.quick,
+                                 batch=args.batch, mesh=args.mesh,
+                                 combine=args.combine,
+                                 driver=driver.strip(), warmup=args.warmup,
+                                 device=args.device)
+        except (KeyError, ValueError, RuntimeError) as e:
+            ap.error(str(e.args[0] if e.args else e))
+        results.extend(runner.run())
     doc = sweep_to_json(results, quick=args.quick)
     for line in csv_lines(doc):
         print(line)

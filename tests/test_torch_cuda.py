@@ -28,7 +28,9 @@ and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
 per-block sum, the noise draw and the finalize.
 """
+import contextlib
 import ctypes
+import time
 
 import numpy as np
 import pytest
@@ -85,6 +87,105 @@ def test_fused_mac_kernel_matches_plain_on_card(B, U, K, N, bases):
     err = max(float((y1[0] - want[0]).abs().max()),
               float((y1[1] - want[1]).abs().max()))
     assert err <= TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,U,K,N,bu", [
+    (4, 20, 100, 154197, 5),     # fig3 cluster hop: a ragged last N tile
+    (1, 4, 100, 154197, 32),     # fig3 IS->PS hop
+])
+def test_fused_mac_at_fig3_shapes_on_card(B, U, K, N, bu):
+    """The CIFAR CNN's N = 154,197 symbols, at the block size the round
+    gives each hop (`canonical_block_u(M)` on the cluster hop)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(N + B)
+    M = U // B
+    own = np.zeros((B, U), np.float32)
+    for b in range(B):
+        own[b, b * M:(b + 1) * M] = 1.0
+    tens = [torch.as_tensor(a, device="cuda") for a in (
+        1e-2 * rng.standard_normal((U, N)).astype(np.float32),
+        1e-2 * rng.standard_normal((U, N)).astype(np.float32),
+        rng.uniform(0.2, 1.2, (B, U)).astype(np.float32),
+        own if B > 1 else np.ones((B, U), np.float32))]
+    seed = torch.as_tensor(SEED, device="cuda")
+    kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0, block_u=bu)
+    y1 = fused_mac(seed, *tens, **kw)
+    y2 = fused_mac(seed, *tens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1[0], y2[0]) and torch.equal(y1[1], y2[1])
+    want = fused_mac_plain(seed, *tens, **kw)
+    scale = float(torch.complex(*want).abs().max())
+    err = max(float((y1[0] - want[0]).abs().max()),
+              float((y1[1] - want[1]).abs().max()))
+    assert err <= TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["single", "sharded 2x2 u_sharded"])
+def test_captured_windows_equal_eager_rounds_on_card(engine):
+    """The chunked driver's CUDA graphs (windows of 1 and 2 rounds) give
+    the stepwise driver's bits, final state and metrics, and launch what
+    it launches: the stepwise run's launch counters against the kernels
+    a device trace sees in the chunked drive (a replay runs no Python,
+    so the counters cannot see it).  fig3 faithful/fused cut to C 2,
+    M 2, warmed, so the drive holds replays only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chunked driver's graphs")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.exec import make_runner
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.sim.scenario import get_scenario
+    from repro_torch.tree import tree_leaves
+
+    kernels = {"fused_mac": "fused_mac_kernel",
+               "fused_mac_partials": "fused_partials_kernel",
+               "fused_partials_reduce": "fused_reduce_kernel"}
+    sc = get_scenario("fig3_cifar").replace(
+        C=2, M=2, batch=8, tau=2, n_train=400, n_test=64, K=4, K_ps=4,
+        total_IT=3, eval_every=2, ota_mode="faithful", ota_backend="fused")
+    name = "single" if engine == "single" else "sharded"
+
+    def runner(driver):
+        return make_runner(
+            name, [sc], seeds=2, keep_state=True, mesh="2x2",
+            combine="gathered" if name == "single" else "u_sharded",
+            driver=driver, warmup=driver == "chunked", device="cuda")
+
+    for fn, attr in LAUNCH_COUNTERS.values():
+        setattr(fn, attr, 0)
+    a = runner("stepwise").run()[0]
+    counted = {k: getattr(*LAUNCH_COUNTERS[k]) for k in kernels}
+    chunked = runner("chunked")
+    drive_range = chunked._drive_range
+    traces = []
+
+    @contextlib.contextmanager
+    def traced():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)        # a trace's first kernels can go unseen
+            with drive_range():
+                yield
+        traces.append(prof)
+
+    chunked._drive_range = traced
+    b = chunked.run()[0]
+    ops = [e.name() for e in traces[0].profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    seen = {k: sum(sym in op for op in ops) for k, sym in kernels.items()}
+    assert b.exec_info["dispatches"] == 2          # windows of 1 and 2
+    assert seen == counted
+    assert counted["fused_mac"] == 2 * 3 * (2 if name == "single" else 1)
+    for k in ("acc", "loss", "edge_power", "is_power"):
+        assert getattr(a, k) == getattr(b, k), k
+    for (p, x), (_, y) in zip(tree_leaves(a.final_state),
+                              tree_leaves(b.final_state)):
+        assert torch.equal(x, y), p
 
 
 def test_fused_mac_rejects_other_devices():

@@ -42,8 +42,7 @@ from repro.kernels.fused_mac import fused_partials_reduce as j_reduce
 from repro.sim.scenario import SCENARIOS as J_SCENARIOS
 from repro_torch.core.topology import pad_plan, pad_topology
 from repro_torch.exec import (ShardedSweepRunner, make_device_mesh,
-                              make_runner, make_sharded_chunk_fn,
-                              parse_mesh, validate_mesh_for)
+                              make_runner, parse_mesh, validate_mesh_for)
 from repro_torch.kernels import (fused_mac, fused_mac_partials,
                                  fused_mac_partials_plain, fused_mac_plain,
                                  fused_noise, fused_partials_reduce,
@@ -362,8 +361,6 @@ def test_cli_rejects_bad_engine_options(argv):
 
 
 def test_unported_sharded_options_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_sharded_chunk_fn()
     with pytest.raises(NotImplementedError, match="item 7"):
         ShardedSweepRunner(["fig2_drop10"], quick=True, device="cpu",
                            mesh="2x2").run()

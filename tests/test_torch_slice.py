@@ -162,7 +162,7 @@ def test_registry_matches_reference():
                                  "telemetry")
 
 
-@pytest.mark.parametrize("name", ["fig3_cifar", "fig2_drop10",
+@pytest.mark.parametrize("name", ["fig2_straggler", "fig2_drop10",
                                   "fig2_byzantine1_median"])
 def test_unported_scenarios_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
