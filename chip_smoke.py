@@ -24,7 +24,13 @@ Phases, in order; any failure exits non-zero:
    ragged last N tile and (1, 4, 100, 154197); `fused_mac_partials` then
    `fused_partials_reduce` must give `fused_mac`'s output bit for bit at
    every such shape, at a tile of Fig. 3's 2x5 mesh and at the
-   scale_u65536 1x1 one (there the plain versions run in phase 7); flash
+   scale_u65536 1x1 one (there the plain versions run in phase 7);
+   participation's precoded users (a Bernoulli round's transmit
+   multipliers with byzantine users: absent rows exactly 0, byzantine
+   rows -2 x) through `fused_mac` (bit for bit its plain version) and
+   `ota_combine` at fig2's cluster, IS->PS and conventional hops, and
+   through the partials and fold on a padded tile of fig2 on 3x2 (bit
+   for bit `fused_mac`); flash
    attention (through `flash_attention`,
    on the kernel `flash_route` picks, which alone must count both
    launches: bf16 on the tensor cores, ``flash_mha_wgmma``, float32 on
@@ -70,6 +76,19 @@ Phases, in order; any failure exits non-zero:
      counters do not see it: the chunked runs' counts are logged, not
      added to the kernels line, whose launches are the stepwise runs'
      counters alone;
+   - the participation family at fig2's paper sizes, 5 rounds, 2 seeds:
+     ``fig2_drop50`` and ``fig2_byzantine3`` faithful/fused (2
+     `fused_mac` launches per round and seed), ``fig2_straggler``
+     faithful/slab_kernel (2 `ota_combine` launches per round and seed)
+     and ``fig2_byzantine1_median`` as registered (the orthogonal
+     per-user hop, no kernel of ours), each through both drivers with
+     the card's realised masks against the CPU's bit for bit;
+     ``fig2_drop50`` fused on the sharded engine, u_sharded, on 1x1 (bit
+     for bit the single engine) and on 2x4 (M padded to 8; within the
+     W-HFL bounds of the single engine, beside fig2_iid fused's gap on
+     2x4: the users' gradients at batch 500 depend on the users a pass
+     holds on the card), and the 2x4 cluster hop on precoded deltas bit
+     for bit the single engine's;
    - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
      --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
      `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
@@ -135,10 +154,13 @@ Phases, in order; any failure exits non-zero:
    channel (``fig3_cifar_ideal``, the same cut), within the accuracy
    bound and, in learning-rate units as tests/test_torch_cifar.py holds
    it, the conv biases within 2 lr per local step and every other entry
-   within 0.1 lr;
+   within 0.1 lr; ``fig2_drop50`` faithful/fused and
+   ``fig2_byzantine1_median`` for 2 rounds, card vs CPU, within the
+   W-HFL bounds;
 6. where the time goes: one seed of each SweepRunner run of phase 4
-   (the reference run cut to 2 rounds), and of ``fig2_iid`` with the
-   slab backend, through
+   (the reference run cut to 2 rounds), of ``fig2_iid`` with the
+   slab backend, and of ``fig2_drop50`` fused and
+   ``fig2_byzantine1_median`` through both drivers, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
    wall ms per round from the runner's ``drive_seconds``, device time
    per round from the device ops inside the runner's
@@ -894,11 +916,13 @@ def kernel_inputs(B, U, K, N, seed, dev):
                 sigma_z2=1.0, block_u=32)
 
 
-def hop_inputs(sc, hop: str, seed: int, dev):
+def hop_inputs(sc, hop: str, seed: int, dev, mult=None):
     """The kernel's inputs at one hop of `sc`'s round, built as
     `FusedBackend` builds them: transmit symbols P * pack(deltas) from
     random deltas at a round's scale, the topology's amplitudes and
-    matched-filter weights, the round-0 power and the hop's antennas."""
+    matched-filter weights, the round-0 power and the hop's antennas.
+    `mult` [U], where given, precodes the deltas' rows (participation's
+    transmit multipliers: 0 for an absent user, -2 for a byzantine one)."""
     from repro_torch import prng
     from repro_torch.core import aggregation, channel
     from repro_torch.core.topology import power_schedule
@@ -915,25 +939,33 @@ def hop_inputs(sc, hop: str, seed: int, dev):
         U = topo.C * topo.M
         P, K, block_u = P_t, topo.K, canonical_block_u(topo.M)
         amp, w, _ = channel._cluster_geometry(topo, cfg.ota, dev)
-    else:
+    elif hop == "is_ps":
         U = topo.C
         P, K, block_u = P_is_t, topo.K_ps, 32
         amp, w, _ = channel._mac_geometry(topo.beta_is, dev)
+    else:                                               # conventional
+        U = topo.C * topo.M
+        P, K, block_u = P_t, topo.K_ps, 32
+        amp, w, _ = channel._mac_geometry(
+            np.asarray(topo.beta_mu_ps).reshape(-1), dev)
     deltas = (1e-2 * torch.randn(U, two_n, generator=g)).to(dev)
+    if mult is not None:
+        deltas = deltas * mult.to(dev)[:, None]
     t = torch.as_tensor(P, dtype=torch.float32) * channel.pack_cx(deltas)
     return dict(args=(t.real.contiguous(), t.imag.contiguous(), amp, w),
                 K=K, sigma_h2=topo.sigma_h2, sigma_z2=topo.sigma_z2,
                 block_u=block_u)
 
 
-def tile_inputs(sc, mesh, ci: int, ui: int, seed: int, dev):
+def tile_inputs(sc, mesh, ci: int, ui: int, seed: int, dev, mult=None):
     """`fused_mac_partials`' inputs at shard (ci, ui) of `sc`'s u-sharded
     cluster hop on `mesh`, built as
     `repro_torch.exec.round.make_fused_cluster_hop` builds them: the
     shard's user tile and symbols of P * pack(deltas) from random deltas
     at a round's scale, the padded topology's amplitudes and own-cluster
     weights of that tile, the round-0 power, and the tile origin as the
-    counter bases (rx_base, u_base, n_base)."""
+    counter bases (rx_base, u_base, n_base).  `mult` [C, M], where given,
+    precodes the deltas (as `hop_inputs`)."""
     import torch.nn.functional as F
     from repro_torch import prng
     from repro_torch.core import aggregation, channel
@@ -957,6 +989,8 @@ def tile_inputs(sc, mesh, ci: int, ui: int, seed: int, dev):
         :, r0:r0 + U_loc].contiguous()
     g = torch.Generator(device=dev).manual_seed(seed)
     deltas = 1e-2 * torch.randn(C, M, two_n, generator=g, device=dev)
+    if mult is not None:
+        deltas = deltas * mult.to(dev)[..., None]
     t = (torch.as_tensor(P_t, dtype=torch.float32)
          * channel.pack_cx(deltas).reshape(C * M, N))
     return dict(args=(_tile(t.real, r0, r0 + U_loc, c0, c0 + N_loc),
@@ -966,11 +1000,13 @@ def tile_inputs(sc, mesh, ci: int, ui: int, seed: int, dev):
                 block_u=canonical_block_u(M), bases=(0, r0, c0))
 
 
-def slab_inputs(sc, hop: str, seed: int, dev):
+def slab_inputs(sc, hop: str, seed: int, dev, mult=None):
     """`ota_combine`'s operands at one hop of `sc`'s round, built by
     `SlabKernelBackend` itself from random deltas at a round's scale, the
     topology, the round-0 power and the model's 2N: (h, t, z, w), with
-    the unbatched layout and all-ones weights on a single-cell hop."""
+    the unbatched layout and all-ones weights on a single-cell hop.
+    `mult` [U], where given, precodes the deltas' rows (as
+    `hop_inputs`)."""
     from repro_torch import prng
     from repro_torch.core import aggregation, channel
     from repro_torch.core.topology import power_schedule
@@ -986,14 +1022,16 @@ def slab_inputs(sc, hop: str, seed: int, dev):
     key = prng.PRNGKey(seed, dev)
     slab = channel.SlabKernelBackend
     C, M = topo.C, topo.M
+    precode = (lambda d: d) if mult is None else (
+        lambda d: d * mult.to(dev).reshape(*d.shape[:-1], 1))
     if hop == "cluster":
         deltas = (1e-2 * torch.randn(C, M, two_n, generator=g)).to(dev)
-        return slab.cluster_inputs(key, deltas, topo, P_t, cfg.ota)
+        return slab.cluster_inputs(key, precode(deltas), topo, P_t, cfg.ota)
     if hop == "is_ps":
         U, beta, P = C, topo.beta_is, P_is_t
     else:                                               # conventional
         U, beta, P = C * M, np.asarray(topo.beta_mu_ps).reshape(-1), P_t
-    deltas = (1e-2 * torch.randn(U, two_n, generator=g)).to(dev)
+    deltas = precode((1e-2 * torch.randn(U, two_n, generator=g)).to(dev))
     h, t, z = slab.mac_inputs(key, deltas, beta, topo.K_ps, topo.sigma_h2,
                               topo.sigma_z2, P)
     return h, t, z, torch.ones(U, device=dev)
@@ -1030,7 +1068,7 @@ def compare_runs(on_card, on_cpu) -> dict:
         "acc_max_abs": float(np.max(np.abs(np.subtract(on_card.acc,
                                                        on_cpu.acc)))),
         "theta_max_rel": max(
-            float((x.cpu() - y).abs().max() / y.abs().max())
+            float((x.cpu() - y.cpu()).abs().max() / y.cpu().abs().max())
             for (_, x), (_, y) in zip(
                 tree_leaves(on_card.final_state["theta"]),
                 tree_leaves(on_cpu.final_state["theta"])))}
@@ -1221,6 +1259,7 @@ def main() -> int:
     from repro_torch.core import channel
     from repro_torch.exec import (ShardedSweepRunner, make_device_mesh,
                                   make_fused_cluster_hop, parse_mesh)
+    from repro_torch.fed import ParticipationSchedule
     from repro_torch.kernels import (LAUNCH_COUNTERS, build, flash_attention,
                                      flash_attention_plain, flash_mha,
                                      flash_route, fused_mac,
@@ -1324,6 +1363,22 @@ def main() -> int:
                                    (fig3_fused, "is_ps")]):
         cases.append((f"{sc.name} {hop}", (0, 0, 0),
                       hop_inputs(sc, hop, 10 + i, dev)))
+    # participation's precoded users on fig2's three fused hops: the
+    # realised transmit multipliers of a Bernoulli round at fig2_drop50's
+    # rate with fig2_byzantine3's flags (absent rows exactly 0, byzantine
+    # rows -2 x), and the IS rows with one silent and one -2 x station
+    part = ParticipationSchedule(kind="bernoulli", rate=0.5, n_byzantine=3,
+                                 byzantine_scale=2.0)
+    mult = (part.present(0, fig2.C, fig2.M)
+            * torch.as_tensor(part.tx_base(fig2.C, fig2.M))).reshape(-1)
+    mult_is = torch.tensor([1.0, 0.0, -2.0, 1.0])
+    if not (bool((mult == 0).any()) and bool((mult == -2).any())):
+        raise SystemExit(f"the precoded rows hold no 0 or no -2: {mult}")
+    precoded = [("cluster", mult), ("is_ps", mult_is),
+                ("conventional", mult)]
+    for i, (hop, m) in enumerate(precoded):
+        cases.append((f"fig2 {hop} precoded", (0, 0, 0),
+                      hop_inputs(fig2_fused, hop, 110 + i, dev, m)))
     errors = {name: 0.0 for name in KERNELS}
     rel_errors = {name: 0.0 for name in KERNELS}
 
@@ -1344,7 +1399,9 @@ def main() -> int:
         rel_errors[name] = max(rel_errors[name], rel)
         log({"phase": "kernel_vs_plain", "kernel": name, "case": label,
              "shape_BUKN": list(shape), "max_abs_err": err,
-             "max_rel_err": rel, "bitwise_repeat": same})
+             "max_rel_err": rel, "bitwise_repeat": same,
+             "bitwise_equal_to_plain": all(torch.equal(a, b)
+                                           for a, b in zip(y1, want))})
         if not (same and rel <= TOL and math.isfinite(rel)):
             raise SystemExit(f"{name} disagrees with its plain version at "
                              f"{label} {shape}: rel {rel}, repeat {same}")
@@ -1369,6 +1426,11 @@ def main() -> int:
                       (fig2_slab, "cluster"), (fig2_slab, "is_ps"),
                       (fig2_slab.replace(mode="conventional"),
                        "conventional"), (u256_slab, "cluster")])]
+    slab_cases += [(f"fig2_iid {hop} precoded", lambda hop=hop, m=m, i=i:
+                    slab_inputs(fig2_slab.replace(mode="conventional")
+                                if hop == "conventional" else fig2_slab,
+                                hop, 120 + i, dev, m))
+                   for i, (hop, m) in enumerate(precoded)]
     for i, (U, K, N) in enumerate([(1, 1, 64), (4, 7, 130), (3, 33, 513)]):
         for B in (None, 3):
             slab_cases.append((f"edge B={B or 1}", lambda B=B, U=U, K=K,
@@ -1405,6 +1467,10 @@ def main() -> int:
         ("edge", edge_tile, True),
         ("fig3_cifar 2x5 tile (1, 3)",
          lambda: tile_inputs(fig3_fused, (2, 5), 1, 3, 64, dev), True),
+        # a padded tile (fig2 on 3x2 pads 4x5 to 6x6) fed precoded users
+        ("fig2_iid 3x2 tile (1, 1) precoded",
+         lambda: tile_inputs(fig2_fused, (3, 2), 1, 1, 65, dev,
+                             mult.reshape(fig2.C, fig2.M)), True),
         ("scale_u65536 1x1",
          lambda: tile_inputs(u65536, (1, 1), 0, 0, 63, dev), False)]
     for label, make, with_plain in partial_cases:
@@ -1630,6 +1696,8 @@ def main() -> int:
         res, launches = counted(lambda: make().run()[0])
         if label == "scale_u256":
             u256_on_card = res
+        if label == "fig2_iid_fused":
+            fig2_fused_on_card = res
         rounds = res.rounds[-1]
         log({"phase": "main_path", "run": label, "scenario": sc.name,
              "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
@@ -1747,6 +1815,121 @@ def main() -> int:
          "final_acc": [a[-1] for a in res.acc]})
     expect("fig2_iid_reference_quick", launches,
            {"fused_mac": 0, "ota_combine": 0}, finite(res))
+
+    # partial participation and the robust folds: fig2's participation
+    # family at the paper's sizes (C 4, M 5, K = K_ps = 100), cut to 5
+    # rounds, 2 seeds; the fused and slab hops take the precoded users,
+    # the median fold the orthogonal per-user hop of the equivalent
+    # backend (no kernel of ours).  Each run's realised masks, computed
+    # on the card from a device round index as the round computes them,
+    # against the CPU's
+    drop50_fused = get_scenario("fig2_drop50").replace(
+        total_IT=5, ota_mode="faithful", ota_backend="fused")
+    byz1_median = get_scenario("fig2_byzantine1_median").replace(total_IT=5)
+    part_runs = [
+        ("fig2_drop50_fused", drop50_fused, "fused_mac"),
+        ("fig2_byzantine3_fused", get_scenario("fig2_byzantine3").replace(
+            total_IT=5, ota_mode="faithful", ota_backend="fused"),
+         "fused_mac"),
+        ("fig2_straggler_slab", get_scenario("fig2_straggler").replace(
+            total_IT=5, ota_mode="faithful", ota_backend="slab_kernel"),
+         "ota_combine"),
+        ("fig2_byzantine1_median", byz1_median, None)]
+    part_on_card = {}
+    for label, sc, kernel in part_runs:
+        make = lambda driver="stepwise", warmup=False, sc=sc: SweepRunner(
+            [sc], seeds=2, device="cuda", keep_state=True, driver=driver,
+            warmup=warmup)
+        res, launches = counted(lambda: make().run()[0])
+        rounds = res.rounds[-1]
+        sched = sc.participation_schedule()
+        masks = {d: sched.history(rounds, sc.C, sc.M, device=d)
+                 for d in ("cuda", "cpu")}
+        same_masks = masks["cuda"].tobytes() == masks["cpu"].tobytes()
+        log({"phase": "main_path", "run": label, "scenario": sc.name,
+             "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
+             "ota": ota_label(sc), "cluster_agg": sc.cluster_agg,
+             "participation": sc.participation, "n_byzantine":
+             sc.n_byzantine, "seeds": res.seeds, "rounds": rounds,
+             "attendance": float(masks["cpu"].mean()),
+             "masks_card_equal_cpu": same_masks,
+             "rounds_per_sec": rounds / res.exec_info["drive_seconds"],
+             "final_acc": [a[-1] for a in res.acc],
+             "final_loss": [v[-1] for v in res.loss]})
+        if not same_masks:
+            raise SystemExit(f"{label}: the card's realised masks differ "
+                             f"from the CPU's")
+        # one cluster hop and one IS->PS hop per round and seed
+        want = ({kernel: rounds * (sc.I + 1) * len(res.seeds)} if kernel
+                else {})
+        expect(label, launches, want, finite(res))
+        chunked_rerun(label, lambda: make("chunked", True), res, want)
+        part_on_card[label] = res
+    # the fused participation run on the sharded engine, u_sharded, on
+    # 1x1 and on 2x4 (M 5 padded to 8): the partial kernels take the
+    # precoded tiles.  On 1x1 the run equals the single engine's bit for
+    # bit.  On 2x4 each shard trains 4 users a pass, and on the card the
+    # users' gradients at fig2's batch of 500 depend on the users a pass
+    # holds (the bias gradient's sum over the batch; PERF.md, PR 19), so
+    # that run is held to the W-HFL bounds, beside the same gap of
+    # fig2_iid fused at full attendance on 2x4; the 2x4 cluster hop
+    # itself, on precoded deltas, equals the single engine's bit for bit
+    for mesh in ("1x1", "2x4"):
+        mc, mu = parse_mesh(mesh)
+        make = (lambda driver="stepwise", warmup=False, mesh=mesh:
+                ShardedSweepRunner([drop50_fused], seeds=2, mesh=mesh,
+                                   combine="u_sharded", device="cuda",
+                                   keep_state=True, driver=driver,
+                                   warmup=warmup))
+        res, launches = counted(lambda: make().run()[0])
+        label = f"fig2_drop50_fused sharded {mesh} u_sharded"
+        hops = res.rounds[-1] * len(res.seeds)
+        want = {"fused_mac_partials": hops * mc * mu,
+                "fused_partials_reduce": hops * mu, "fused_mac": hops}
+        single_res = part_on_card["fig2_drop50_fused"]
+        same = bitwise_runs(single_res, res)
+        gaps = compare_runs(res, single_res)
+        rec = {"phase": "sharded_vs_single", "run": label,
+               "what": "final state and metrics, sharded vs single "
+                       "engine, both on the card", "exec": res.exec_info,
+               **same, **gaps}
+        if mesh == "1x1":
+            ok = same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
+        else:
+            ctrl = ShardedSweepRunner([fig2_fused], seeds=2, mesh=mesh,
+                                      combine="u_sharded", device="cuda",
+                                      keep_state=True).run()[0]
+            rec["control_fig2_iid_fused"] = {
+                **bitwise_runs(fig2_fused_on_card, ctrl),
+                **compare_runs(ctrl, fig2_fused_on_card)}
+            ok = (gaps["loss_max_rel"] <= TOL
+                  and gaps["acc_max_abs"] <= 2.0 / drop50_fused.n_test
+                  and gaps["theta_max_rel"] <= THETA_RTOL)
+        log(rec)
+        expect(label, launches, want, finite(res))
+        if not ok:
+            raise SystemExit(f"{label}: the sharded run differs from the "
+                             f"single engine's: {same}, {gaps}")
+        chunked_rerun(label, lambda: make("chunked", True), res, want)
+    from repro_torch import prng
+    topo2 = fig2.make_topology()
+    g = torch.Generator(device=dev).manual_seed(66)
+    deltas = (1e-2 * torch.randn(fig2.C, fig2.M, 7850, generator=g,
+                                 device=dev)
+              * mult.to(dev).reshape(fig2.C, fig2.M, 1))
+    key, P = prng.PRNGKey(66, dev), torch.tensor(0.5, device=dev)
+    ota2 = drop50_fused.whfl_config().ota
+    want_est = channel.cluster_ota(key, deltas, topo2, P, ota2)
+    got_est = make_fused_cluster_hop(topo2, ota2, make_device_mesh("2x4", dev),
+                                     3925, "u_sharded")(key, deltas, P)
+    same_hop = torch.equal(got_est[:fig2.C], want_est)
+    log({"phase": "sharded_vs_single", "run": "fig2 cluster hop precoded, "
+         "2x4 u_sharded vs fused", "bitwise_equal": same_hop,
+         "max_abs_gap": float((got_est[:fig2.C] - want_est).abs().max())})
+    if not same_hop:
+        raise SystemExit("the 2x4 u_sharded cluster hop on precoded users "
+                         "differs from the single engine's")
+    del part_on_card, res, ctrl, deltas, want_est, got_est
 
     # the sharded engine through the sweep CLI
     sharded_runs = [("scale_u256", "1x1", "u_sharded", 2),
@@ -1903,7 +2086,11 @@ def main() -> int:
             ("fig2_iid_slab", fig2_slab.replace(total_IT=2), single, None),
             ("fig2_iid_reference", fig2_ref.replace(total_IT=2), single,
              None),
-            ("fig2_iid", fig2.replace(total_IT=2), single, None)):
+            ("fig2_iid", fig2.replace(total_IT=2), single, None),
+            ("fig2_drop50_fused", drop50_fused.replace(total_IT=2), single,
+             None),
+            ("fig2_byzantine1_median", byz1_median.replace(total_IT=2),
+             single, None)):
         if card_res is None:
             card_res = run(sc, "cuda")
         t0 = time.perf_counter()
@@ -2033,6 +2220,16 @@ def main() -> int:
             ("fig2_iid_slab", fig2_slab)]:
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
+    # participation: the mask, precode and rescale on the fused round,
+    # and the median fold's per-user hops, through both drivers
+    for label, sc in (("fig2_drop50 fused", drop50_fused),
+                      ("fig2_byzantine1_median", byz1_median)):
+        for d in ("stepwise", "chunked"):
+            prof = device_profile(SweepRunner(
+                [sc], seeds=1, device="cuda", driver=d,
+                warmup=d == "chunked"), sc)
+            log({"phase": "profile", "run": f"{label} {d}", "card": card,
+                 **prof})
     for label, sc, mesh in (("sharded scale_u65536 1x1 u_sharded", u65536,
                              "1x1"),
                             ("sharded scale_u256 2x4 u_sharded", u256,

@@ -131,7 +131,10 @@ def _cached(key, build):
 
 
 def _const(x, device) -> torch.Tensor:
-    """A static float32 array on `device`, uploaded once per content."""
+    """A static float32 array on `device`, uploaded once per content (a
+    tensor, already on the device, passes through)."""
+    if isinstance(x, torch.Tensor):
+        return x
     a = np.ascontiguousarray(x, np.float32)
     return _cached(("const", a.tobytes(), a.shape, torch.device(device)),
                    lambda: _f32(a, device))
@@ -158,15 +161,16 @@ def _mac_geometry(beta: np.ndarray, device) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """(amp [1, U], w [1, U], sum beta) of a single-cell hop: amplitudes
     sqrt(beta), unit matched-filter weights and the normalization sum,
-    built once per beta and device."""
-    b = np.ascontiguousarray(beta, np.float32).reshape(-1)
-
-    def build():
-        bt = _f32(b, device)
+    built once per beta and device (per call for a beta tensor)."""
+    def build(bt):
         return (torch.sqrt(bt)[None, :].contiguous(),
-                torch.ones((1, b.size), device=device), bt.sum())
+                torch.ones((1, bt.numel()), device=device), bt.sum())
 
-    return _cached(("mac", b.tobytes(), torch.device(device)), build)
+    if isinstance(beta, torch.Tensor):
+        return build(beta.reshape(-1))
+    b = np.ascontiguousarray(beta, np.float32).reshape(-1)
+    return _cached(("mac", b.tobytes(), torch.device(device)),
+                   lambda: build(_f32(b, device)))
 
 
 def _build_cluster_geometry(topo: Topology, cfg: OTAConfig, device):
@@ -212,7 +216,8 @@ class ChannelBackend:
     def mac(self, key, deltas: torch.Tensor, beta: np.ndarray, K: int,
             sigma_h2: float, sigma_z2: float, P,
             cfg: OTAConfig) -> torch.Tensor:
-        """deltas [U, 2N], beta [U] -> eq.(17)-rescaled estimate [2N]."""
+        """deltas [U, 2N], beta [U] -> eq.(17)-rescaled estimate [2N].
+        beta is a static array, or a float32 tensor on deltas' device."""
         raise NotImplementedError
 
 
@@ -509,9 +514,50 @@ def conventional_ota(key, deltas: torch.Tensor, topo: Topology, P_t,
         topo.sigma_h2, topo.sigma_z2, P_t, cfg)
 
 
-def orthogonal_cluster_ota(key, deltas, topo, P_t, cfg=OTAConfig()):
-    """Per-user orthogonalized cluster hop (robust-aggregation substrate):
-    not ported yet."""
-    raise NotImplementedError(
-        "orthogonal_cluster_ota is not ported yet (ROADMAP queue A, "
-        "item 7: participation and robustness)")
+# ---------------------------------------------------------------------------
+# orthogonalized per-user reception (the robust folds' substrate)
+# ---------------------------------------------------------------------------
+
+# Backends whose receive fold can be evaluated one user at a time.  The
+# analog MAC delivers only the waveform sum P sum_m h_m x_m + z: a
+# coordinate median or trim is a nonlinear per-user order statistic,
+# which no matched filter (or any linear processing) of the sum can
+# recover.  Robust folds therefore need orthogonal uplink slots, one per
+# MU, modelled as single-user MAC hops.  `reference` and `equivalent`
+# fold one user exactly (moment-matched at U = 1); the `slab_kernel` and
+# `fused` kernels exist for the U-way superposition, and one user at a
+# time would make them many tiny launches, so they are rejected.
+ROBUST_CAPABLE_BACKENDS = ("reference", "equivalent")
+
+
+def orthogonal_cluster_ota(key, deltas: torch.Tensor, topo: Topology, P_t,
+                           cfg: OTAConfig = OTAConfig()) -> torch.Tensor:
+    """Per-user orthogonalized cluster hop: each MU transmits to its own
+    IS on a slot of its own, so the IS receives one noisy estimate per
+    user, which the robust cluster folds (`repro_torch.core.aggregation.
+    masked_median`, `masked_trimmed_mean`) fold over.
+
+    deltas [C, M, 2N] -> per-user estimates [C, M, 2N].  User (c, m)'s
+    slot is a U = 1 single-cell hop (eq. 15-17) with its own-cluster gain
+    ``topo.beta_own[c, m]`` and key ``split(key, C*M)[c*M + m]``, as in
+    the JAX package.  The gains are one cached [C, M] tensor, indexed
+    per user.  ``mode="ideal"`` returns `deltas`."""
+    if cfg.mode == "ideal":
+        return deltas
+    name = resolve_backend(cfg)
+    if name not in ROBUST_CAPABLE_BACKENDS:
+        raise ValueError(
+            f"robust cluster aggregation needs per-user reception; "
+            f"backend {name!r} implements the in-channel OTA "
+            f"superposition, which cannot be robustified (see "
+            f"repro_torch.core.channel.ROBUST_CAPABLE_BACKENDS). Use one "
+            f"of: {', '.join(ROBUST_CAPABLE_BACKENDS)}, or mode='ideal'.")
+    backend = get_backend(name)
+    C, M, _ = deltas.shape
+    beta_own = _const(topo.beta_own, deltas.device)              # [C, M]
+    keys = prng.split(key, C * M)
+    return torch.stack([torch.stack([
+        backend.mac(keys[c * M + m], deltas[c, m][None],
+                    beta_own[c, m:m + 1], topo.K, topo.sigma_h2,
+                    topo.sigma_z2, P_t, cfg)
+        for m in range(M)]) for c in range(C)])

@@ -17,6 +17,16 @@ order, the same users draw the same indices, and the OTA hops get the
 same keys.  Baselines: ``mode="conventional"`` (single-hop OTA FL) and
 ``OTAConfig(mode="ideal")`` (error-free).
 
+Partial participation and the robust cluster folds live in the round
+body (`make_round_body`), once for every engine: each round takes its
+attendance mask from `WHFLConfig.participation` at the round index
+(`repro_torch.fed.ParticipationSchedule.present`, on the device),
+precodes every user's flat delta with its transmit multiplier before any
+hop and before the power fold, and folds the cluster hop by the
+attendance-rescaled OTA mean or by a robust fold over orthogonalized
+per-user receptions (`WHFLConfig.cluster_agg`).  A full schedule with the
+mean fold inserts no op.
+
 `make_window_fn` is the drivers' unit: the rounds of one eval window
 and the eval.  The stepwise driver runs it eagerly; `make_chunk_fn`
 replays it as one CUDA graph per window length on the card.
@@ -26,17 +36,23 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.core import aggregation as agg
-from repro_torch.core.channel import (OTAConfig, cluster_ota,
-                                      conventional_ota, global_ota)
+from repro_torch.core.channel import (ROBUST_CAPABLE_BACKENDS, OTAConfig,
+                                      _const, cluster_ota, conventional_ota,
+                                      global_ota, orthogonal_cluster_ota,
+                                      resolve_backend)
 from repro_torch.core.topology import Topology
+from repro_torch.fed.clients import ParticipationSchedule
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
 MODES = ("whfl", "conventional")
+CLUSTER_AGGREGATORS = ("mean", "median", "trimmed_mean")
 
 
 @dataclass(frozen=True)
@@ -50,6 +66,41 @@ class WHFLConfig:
     power_slope: float = 1e-2
     power_is_factor: float = 20.0
     power_low: bool = False      # P_t,low = 0.5 P_t (paper's I=1 runs)
+    # per-round MU attendance and behaviour (repro_torch.fed); the
+    # default full schedule inserts no op
+    participation: ParticipationSchedule = field(
+        default_factory=ParticipationSchedule)
+    # cluster-hop fold: "mean" (the paper's OTA superposition) |
+    # "median" | "trimmed_mean" (robust folds over orthogonalized
+    # per-user receptions; reference/equivalent/ideal only)
+    cluster_agg: str = "mean"
+    agg_trim: float = 0.25       # trim fraction for "trimmed_mean"
+
+
+def validate_participation(cfg: WHFLConfig) -> None:
+    """Fail fast on configs no round can run: an unknown cluster
+    aggregator, a robust fold in conventional mode (there is no cluster
+    hop to make robust), or a robust fold on a superposition backend
+    (`repro_torch.core.channel.ROBUST_CAPABLE_BACKENDS`)."""
+    if cfg.cluster_agg not in CLUSTER_AGGREGATORS:
+        raise ValueError(
+            f"unknown cluster_agg {cfg.cluster_agg!r}; known: "
+            f"{', '.join(CLUSTER_AGGREGATORS)}")
+    if cfg.cluster_agg == "mean":
+        return
+    if cfg.mode != "whfl":
+        raise ValueError(
+            "robust cluster aggregation (cluster_agg="
+            f"{cfg.cluster_agg!r}) needs the W-HFL cluster hop; "
+            f"mode={cfg.mode!r} has none")
+    if cfg.ota.mode != "ideal":
+        backend = resolve_backend(cfg.ota)
+        if backend not in ROBUST_CAPABLE_BACKENDS:
+            raise ValueError(
+                f"cluster_agg={cfg.cluster_agg!r} needs per-user "
+                f"reception; backend {backend!r} is an in-channel OTA "
+                f"superposition (see repro_torch.core.channel."
+                f"ROBUST_CAPABLE_BACKENDS)")
 
 
 def init_round_state(params, opt: Optimizer, C: int, M: int):
@@ -129,20 +180,71 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
     iterations and the IS -> PS hop.  An engine supplies how its users
     train and how its cluster hop runs:
 
-    - ``users_train(theta_IS, opt_state, key, step) -> (flat, opt_state,
-      energy)``: every real user's local training from its cluster's
-      model in the [n_rx]-stacked `theta_IS`; flat [C, M, 2N] deltas,
-      energy [C, M] their symbol energies (`agg.user_energy`);
+    - ``users_train(theta_IS, opt_state, key, step) -> (flat,
+      opt_state)``: every real user's local training from its cluster's
+      model in the [n_rx]-stacked `theta_IS`; flat [C, M, 2N] deltas;
     - ``cluster_estimate(key, flat, P_t) -> [n_rx, 2N]``: the cluster
       hop, each rx station's estimate of its cluster's mean delta.
 
     `n_rx` is C, or more where an engine pads clusters in; only the
-    first C cluster models transmit to the PS.
+    first C cluster models transmit to the PS, and the padded rows of
+    an estimate stay zero.
+
+    Participation (`cfg.participation`) and the cluster fold
+    (`cfg.cluster_agg`) are applied here, on the real [C, M] block, so
+    every engine runs them alike.  Each round's mask ``claimed`` and
+    multiplier ``mult = claimed * tx_base`` come from the round index on
+    its device.  Each hop precodes the users' flat deltas by ``mult``
+    and takes their energies for the power fold from the precoded flat
+    (a multiplier that is not a power of two changes the energy's
+    rounding).  The mean fold rescales the hop's estimate by
+    `agg.attendance_rescale` (padded rx rows by 1); a robust fold runs
+    `orthogonal_cluster_ota` and the masked median or trimmed mean (its
+    padded rows 0).  A full schedule with the mean fold adds no op.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; known: "
                          f"{', '.join(MODES)}")
-    C, N = topo.C, spec.two_n // 2
+    validate_participation(cfg)
+    C, M, N = topo.C, topo.M, spec.two_n // 2
+    schedule = cfg.participation
+    partial = not schedule.is_full
+    robust = cfg.cluster_agg != "mean"
+    ideal = cfg.ota.mode == "ideal"
+    # static [C, M] grids, uploaded once per device (`_const`): the
+    # transmit multipliers' base and the weights the rescale sums over
+    # (the ideal mean weighs users alike, the OTA folds by their gains)
+    tx_base = schedule.tx_base(C, M)
+    ones = np.ones((C, M), np.float32)
+    rx_w = ones if ideal else np.asarray(topo.beta_own, np.float32)
+    rx_w_conv = (ones if ideal
+                 else np.asarray(topo.beta_mu_ps, np.float32)).reshape(-1)
+
+    def pad_rx(x, fill):
+        """[C, ...] -> [n_rx, ...], the padded rows `fill`."""
+        if n_rx == C:
+            return x
+        return F.pad(x, (0, 0) * (x.dim() - 1) + (0, n_rx - C), value=fill)
+
+    def cluster_fold(key, flat, claimed, P_t):
+        """The cluster hop's receive fold: the OTA superposition mean
+        (rescaled to the claimed users under partial participation) or
+        a robust masked fold over per-user receptions."""
+        if robust:
+            mask = (claimed if partial
+                    else torch.ones((C, M), device=flat.device))
+            per_user = orthogonal_cluster_ota(key, flat, topo, P_t, cfg.ota)
+            if cfg.cluster_agg == "median":
+                est = agg.masked_median(per_user, mask)
+            else:
+                est = agg.masked_trimmed_mean(per_user, mask, cfg.agg_trim)
+            return pad_rx(est, 0.0)
+        est = cluster_estimate(key, flat, P_t)               # [n_rx, 2N]
+        if partial:
+            resc = agg.attendance_rescale(_const(rx_w, flat.device),
+                                          claimed)
+            est = est * pad_rx(resc, 1.0)[:, None]
+        return est
 
     def round_fn(state, key, P_t, P_is_t):
         P_t = torch.as_tensor(P_t, dtype=torch.float32)
@@ -150,12 +252,26 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
         theta = state["theta"]
         step = state["t"]
         theta_IS = tree_map(lambda x: x.expand(n_rx, *x.shape), theta)
+        if partial:
+            claimed = schedule.present(step, C, M)
+            mult = claimed * _const(tx_base, step.device)
+        else:
+            claimed = None
+
+        def train(th, opt_state, k):
+            """The users' flat deltas, precoded, and their energies."""
+            flat, opt_state = users_train(th, opt_state, k, step)
+            if partial:
+                flat = agg.cotaf_precode(flat, mult)
+            return flat, opt_state, agg.user_energy(flat)
 
         if cfg.mode == "conventional":
             k1, k2 = prng.split(key)
-            flat, opt_state, pw = users_train(theta_IS, state["opt"], k1,
-                                              step)
+            flat, opt_state, pw = train(theta_IS, state["opt"], k1)
             est = conventional_ota(k2, flat, topo, P_t, cfg.ota)
+            if partial:
+                est = est * agg.attendance_rescale(
+                    _const(rx_w_conv, flat.device), claimed.reshape(-1))
             return {**state, "theta": apply_updates(
                         theta, agg.unflatten(spec, est)),
                     "opt": opt_state, "t": step + 1,
@@ -169,8 +285,8 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
         p_edge = torch.zeros((), device=step.device)
         for i in range(cfg.I):
             k1, k2 = prng.split(keys[i])
-            flat, opt_state, pw = users_train(theta_IS, opt_state, k1, step)
-            est = cluster_estimate(k2, flat, P_t)            # [n_rx, 2N]
+            flat, opt_state, pw = train(theta_IS, opt_state, k1)
+            est = cluster_fold(k2, flat, claimed, P_t)       # [n_rx, 2N]
             theta_IS = apply_updates(theta_IS, agg.unflatten(spec, est))
             p_edge = p_edge + agg.symbol_power_from_energy(pw, P_t, N)
 
@@ -213,8 +329,7 @@ def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
         st_u = tree_map(lambda x: x.reshape(U, *x.shape[2:]), opt_state)
         deltas, st_u = local_train(th_u, st_u, Xu, Yu, keys, step)
         flat = agg.flatten(spec, deltas).reshape(C, M, -1)
-        return (flat, tree_map(lambda x: x.reshape(C, M, *x.shape[1:]),
-                               st_u), agg.user_energy(flat))
+        return flat, tree_map(lambda x: x.reshape(C, M, *x.shape[1:]), st_u)
 
     def cluster_estimate(key, flat, P_t):
         return cluster_ota(key, flat, topo, P_t, cfg.ota)

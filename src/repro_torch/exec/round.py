@@ -12,10 +12,15 @@ Phase 1 -- local training.  Every shard trains only its own
 ``(C_loc, M_loc)`` block of users (`repro_torch.core.whfl.
 make_local_train`, vmapped over that block as the single engine vmaps
 all users), from per-user keys split over the *real* (C, M) grid and
-then padded.  The users' symbol energies for the power fold are taken
-once, over the assembled real block: a row sum's order on the card (or
-over CPU threads) follows the number of rows, so summing per shard
-would make the power depend on the mesh.
+then padded.  The shards' deltas are assembled into the real [C, M]
+block, and the round body (`make_round_body`) precodes it with the
+round's participation multipliers and takes the users' symbol energies
+for the power fold over it once: a row sum's order on the card (or over
+CPU threads) follows the number of rows, so summing per shard would
+make the power depend on the mesh.  The fused hop's tiles are cut from
+that precoded block, so a sampled-out user enters them as a zero row,
+exactly as an inactive pad slot does.  A robust cluster fold runs in
+the body on the real block, as on the single engine.
 
 Phase 2 -- the OTA hops.  With the ``fused`` backend the cluster hop
 keeps its shard structure (`make_fused_cluster_hop`):
@@ -222,9 +227,8 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
 
     def users_train(theta_IS, opt_state, key, step):
         """Every shard trains its own users from the [Cp]-stacked
-        cluster models.  Returns the real users' flat deltas [C, M, 2N],
-        the opt state [Cp, Mp, ...] and the real users' symbol energies
-        [C, M]."""
+        cluster models.  Returns the real users' flat deltas [C, M, 2N]
+        and the opt state [Cp, Mp, ...]."""
         keys = plan.pad_users(prng.split(key, C * M).reshape(C, M, 2))
         flats, states = {}, {}
         for ci, ui in shards:
@@ -241,8 +245,7 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
                 lambda x: x.reshape(C_loc, M_loc, *x.shape[1:]), st)
         opt_state = tree_map(lambda *xs: assemble(dict(zip(shards, xs))),
                              *(states[s] for s in shards))
-        flat = real(assemble(flats))
-        return flat, opt_state, agg.user_energy(flat)
+        return real(assemble(flats)), opt_state
 
     def cluster_estimate(key, flat, P_t):
         """[Cp, 2N]: the real rows are the single engine's estimate."""

@@ -9,9 +9,11 @@ mode.  Seeds are not part of a scenario: the sweep supplies them (model
 init + minibatch sampling + channel noise follow the per-seed key;
 geometry and the data partition follow `data_seed`).
 
-Scenarios whose features the port has not reached yet (partial
-participation, robust folds, telemetry) are registered all the same;
-building their round raises and names the ROADMAP item.
+The participation family (`PARTICIPATION_FAMILIES`: Bernoulli
+attendance, stragglers, byzantine users, the median fold) carries its
+schedule in the scenario (`Scenario.participation_schedule`).  A
+scenario with telemetry, which the port has not reached yet, raises when
+its round config is built and names the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core import OTAConfig, random_topology, uniform_topology
 from repro_torch.core.topology import Topology
 from repro_torch.core.whfl import WHFLConfig
 from repro_torch.data import get_partitioner, synthetic_cifar, synthetic_mnist
+from repro_torch.fed.clients import ParticipationSchedule
 from repro_torch.models.paper_models import (cifar_apply, cifar_init,
                                              dropout_masks, mnist_apply,
                                              mnist_init)
@@ -99,8 +102,9 @@ class Scenario:
     n_test: int = 2000
     data_seed: int = 0               # partition + geometry seed
     eval_every: int = 1
-    # participation & robustness; the defaults are the paper's
-    # full-attendance mean, the only setting the port runs so far
+    # participation & robustness (repro_torch.fed.clients /
+    # repro_torch.core.whfl.CLUSTER_AGGREGATORS); the defaults are the
+    # paper's full-attendance mean, which adds no op to the round
     participation: str = "full"      # "full" | "bernoulli" | "stragglers"
     participation_rate: float = 1.0  # bernoulli attendance probability
     participation_seed: int = 17
@@ -120,17 +124,18 @@ class Scenario:
     def rounds(self) -> int:
         return max(1, self.total_IT // self.I)
 
+    def participation_schedule(self) -> ParticipationSchedule:
+        return ParticipationSchedule(
+            kind=self.participation, rate=self.participation_rate,
+            seed=self.participation_seed,
+            straggler_every=self.straggler_every,
+            straggler_frac=self.straggler_frac,
+            n_byzantine=self.n_byzantine,
+            byzantine_scale=self.byzantine_scale,
+            n_free_riders=self.n_free_riders)
+
     def whfl_config(self) -> WHFLConfig:
-        """The round config; raises for features not ported yet."""
-        if (self.participation != "full" or self.n_byzantine
-                or self.n_free_riders):
-            raise NotImplementedError(
-                f"{self.name}: partial participation is not ported yet "
-                f"(ROADMAP queue A, item 7)")
-        if self.cluster_agg != "mean":
-            raise NotImplementedError(
-                f"{self.name}: robust cluster folds are not ported yet "
-                f"(ROADMAP queue A, item 7)")
+        """The round config; raises for telemetry, not ported yet."""
         if self.telemetry:
             raise NotImplementedError(
                 f"{self.name}: telemetry is not ported yet "
@@ -139,7 +144,10 @@ class Scenario:
                           mode=self.mode,
                           ota=OTAConfig(mode=self.ota_mode,
                                         backend=self.ota_backend),
-                          power_low=(self.I == 1))
+                          power_low=(self.I == 1),
+                          participation=self.participation_schedule(),
+                          cluster_agg=self.cluster_agg,
+                          agg_trim=self.agg_trim)
 
     def make_topology(self) -> Topology:
         if self.topology == "uniform":

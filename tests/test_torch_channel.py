@@ -127,8 +127,21 @@ def test_backend_registry_and_resolution():
 
 
 def test_orthogonal_cluster_hop_is_not_ported_yet():
-    """Participation's orthogonalized hop comes with ROADMAP item 7."""
+    """The orthogonalized hop (ROADMAP queue A, item 7) is ported: it
+    gives one estimate per user on the per-user backends and the ideal
+    channel, and the superposition kernels refuse it with the JAX
+    package's error.  Its values against JAX are held by
+    tests/test_torch_participation.py."""
     _, tt = _topos(C=2, M=2)
     d = torch.zeros((2, 2, 8))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tch.orthogonal_cluster_ota(prng.PRNGKey(0), d, tt, 1.0)
+    key = prng.PRNGKey(0)
+    assert tch.orthogonal_cluster_ota(
+        key, d, tt, 1.0, tch.OTAConfig(mode="ideal")) is d
+    for backend in tch.ROBUST_CAPABLE_BACKENDS:
+        est = tch.orthogonal_cluster_ota(
+            key, d, tt, torch.tensor(1.0), tch.OTAConfig(backend=backend))
+        assert est.shape == d.shape and bool(torch.isfinite(est).all())
+    for backend in ("fused", "slab_kernel"):
+        with pytest.raises(ValueError, match="per-user reception"):
+            tch.orthogonal_cluster_ota(key, d, tt, 1.0,
+                                       tch.OTAConfig(backend=backend))

@@ -188,6 +188,35 @@ def test_captured_windows_equal_eager_rounds_on_card(engine):
         assert torch.equal(x, y), p
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fig2_drop50", "fig2_straggler",
+                                  "fig2_byzantine1_median"])
+def test_participation_masks_in_captured_rounds_on_card(name):
+    """A participation round takes its mask from the device round index,
+    so the chunked driver's graphs replay every round's own mask: the
+    chunked run equals the stepwise one bit for bit (quick, 5 rounds,
+    windows of 1 and 2), and the card's realised masks equal the CPU's
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chunked driver's graphs")
+    from repro_torch.sim import sweep
+    from repro_torch.sim.scenario import get_scenario
+    from repro_torch.tree import tree_leaves
+
+    sc = get_scenario(name).quick().replace(total_IT=5)
+    a, b = (sweep.SweepRunner([sc], seeds=2, keep_state=True, driver=d,
+                              warmup=d == "chunked", device="cuda").run()[0]
+            for d in ("stepwise", "chunked"))
+    for k in ("acc", "loss", "edge_power", "is_power"):
+        assert getattr(a, k) == getattr(b, k), k
+    for (p, x), (_, y) in zip(tree_leaves(a.final_state),
+                              tree_leaves(b.final_state)):
+        assert torch.equal(x, y), p
+    sched = sc.participation_schedule()
+    assert (sched.history(9, 4, 5, device="cuda").tobytes()
+            == sched.history(9, 4, 5, device="cpu").tobytes())
+
+
 def test_fused_mac_rejects_other_devices():
     """A tensor on neither the CPU nor a CUDA card is refused, not run
     through the plain version."""

@@ -361,9 +361,11 @@ def test_cli_rejects_bad_engine_options(argv):
 
 
 def test_unported_sharded_options_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ShardedSweepRunner(["fig2_drop10"], quick=True, device="cpu",
-                           mesh="2x2").run()
+    # participation runs on the sharded engine; telemetry (ROADMAP
+    # queue A, item 9) still raises
+    sc = get_scenario("fig2_drop10").quick().replace(telemetry=True)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ShardedSweepRunner([sc], device="cpu", mesh="2x2").run()
     with pytest.raises(ValueError, match="unknown execution engine"):
         make_runner("turbo", ["scale_u256"], device="cpu")
     assert type(make_runner("single", ["scale_u256"], device="cpu")) \
