@@ -56,7 +56,7 @@ Phases, in order; any failure exits non-zero:
      seed on the fused runs (one cluster hop, one IS->PS hop);
    - ``fig3_cifar`` (the CIFAR CNN) at the paper's sizes (C 4, M 5,
      K = K_ps = 100, batch 128, tau 5, n_train 20,000, n_test 1,000,
-     Adam at 1e-3), its 400 rounds cut to 2: as registered (equivalent
+     Adam at 1e-3), its 400 rounds cut to 1: as registered (equivalent
      channel, no kernel), faithful with the fused backend (2
      `fused_mac` launches per round per seed), and on the sharded
      engine, 1x1 and 2x5, u_sharded, 2 seeds each; the sharded runs'
@@ -83,12 +83,27 @@ Phases, in order; any failure exits non-zero:
      and ``fig2_byzantine1_median`` as registered (the orthogonal
      per-user hop, no kernel of ours), each through both drivers with
      the card's realised masks against the CPU's bit for bit;
-     ``fig2_drop50`` fused on the sharded engine, u_sharded, on 1x1 (bit
-     for bit the single engine) and on 2x4 (M padded to 8; within the
-     W-HFL bounds of the single engine, beside fig2_iid fused's gap on
-     2x4: the users' gradients at batch 500 depend on the users a pass
-     holds on the card), and the 2x4 cluster hop on precoded deltas bit
-     for bit the single engine's;
+     ``fig2_drop50`` fused on the sharded engine, u_sharded, on 1x1 and
+     on 2x4 (M padded to 8), each bit for bit the single engine (every
+     engine's gradients run in passes of M users), and the 2x4 cluster
+     hop on precoded deltas bit for bit the single engine's;
+   - the sweep's telemetry, guard, faults and checkpoints (after the
+     sharded CLI runs below) on ``fig2_iid`` fused at the paper's sizes,
+     5 rounds, 2 seeds: ``telemetry`` with guard ``skip_round`` bit for
+     bit the plain run in every other output through both drivers (2
+     `fused_mac` launches per round and seed; the chunked telemetry
+     equal to the stepwise one; the block within 1e-4 of the CPU's over
+     2 rounds); ``poison=nan@2:0:1`` with ``zero_fill`` (finite, one
+     trip a seed) and ``halt`` (stops after round 3), both drivers bit
+     for bit alike; a subprocess killed after round 3 (exit 173) and a
+     second one resuming from its checkpoint, per driver, bit for bit
+     the uninterrupted run (final carry and metrics);
+     ``scale_u256`` sharded 2x4 u_sharded with telemetry bit for bit the
+     single engine's; ``fig2_iid`` slab (3 rounds) with telemetry bit
+     for bit the plain slab run; the CLI's ``--profile`` Chrome trace
+     holding `fused_mac`'s device records (retaken if lossy); and
+     ``fig2_iid`` fused at batch 500 sharded on 2x4, 2x5 and 4x5 bit for
+     bit the single engine;
    - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
      --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
      `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
@@ -129,7 +144,7 @@ Phases, in order; any failure exits non-zero:
    every other count stays 0, and every metric must be finite;
 5. the main paths' output against a reference: ``scale_u256`` as
    registered, and ``fig2_iid`` at the paper's sizes with the
-   ``slab_kernel`` and the ``reference`` backends for 2 rounds, run on
+   ``slab_kernel`` and the ``reference`` backends for 1 round, run on
    the CPU (plain versions) with the same seeds, must agree with their
    runs on the card (kernels, and cuBLAS's complex products without
    TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
@@ -222,8 +237,10 @@ import dataclasses
 import importlib.util
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -279,7 +296,7 @@ LM_ARCH = "qwen2-0.5b"
 F32_HD128_ARCH, F32_HD128_LAYERS = "qwen2-1.5b", 4
 # Fig. 3's rounds in phase 4 (the paper runs 400): each is ~1 s on the
 # card, and each SweepRunner run goes through both drivers
-FIG3_ROUNDS = 2
+FIG3_ROUNDS = 1
 # fig3 with Adam on the error-free channel, card vs CPU (phase 5): the
 # gap's norm against the update's (theta - theta0), off the conv biases.
 # Adam's step is lr m/sqrt(v) whatever the gradient's size, so an entry
@@ -298,6 +315,37 @@ GRAD_CHUNK = 5
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
                     (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
+
+
+# the kill-and-resume check's subprocess: fig2_iid fused at the paper's
+# sizes, 5 rounds, 2 seeds, through one driver with a checkpoint
+# directory and a fault plan or a resume; it writes the final carry
+# (`state_doc`), the metrics and the checkpoint seconds
+RESUME_SNIPPET = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+from repro_torch.ft import FaultPlan
+from repro_torch.sim import get_scenario, sweep
+a = json.loads(sys.argv[1])
+sc = get_scenario("fig2_iid").replace(total_IT=5, ota_mode="faithful",
+                                      ota_backend="fused")
+res = sweep.SweepRunner(
+    [sc], seeds=2, device="cuda", keep_state=True, driver=a["driver"],
+    checkpoint=a["ckpt"], resume=a.get("resume", False),
+    faults=FaultPlan.parse(a["inject"]) if "inject" in a else None).run()
+info = res[0].exec_info
+json.dump({"state": sweep.state_doc(res)["scenarios"][0]["state"],
+           "metrics": sweep.sweep_to_json(res)["scenarios"][0]["metrics"],
+           "resumed_from": info["resumed_from"],
+           "ckpt_save_seconds": info["ckpt_save_seconds"],
+           "ckpt_load_seconds": info["ckpt_load_seconds"]},
+          open(a["out"], "w"))
+"""
 
 
 T_START = time.perf_counter()
@@ -1189,6 +1237,13 @@ def traced_drives(runner_cls, traces):
         runner_cls._drive_range = drive_range
 
 
+def without_blocks(res, drop=("telemetry", "guard_trips")):
+    """`res` with its final state's telemetry and guard blocks left out,
+    to hold it against a run without them."""
+    return dataclasses.replace(res, final_state={
+        k: v for k, v in res.final_state.items() if k not in drop})
+
+
 def bitwise_runs(a, b) -> dict:
     """Two runs' final states and metrics: equal bit for bit, and the
     largest gap in the final state where they are not."""
@@ -1867,13 +1922,10 @@ def main() -> int:
         part_on_card[label] = res
     # the fused participation run on the sharded engine, u_sharded, on
     # 1x1 and on 2x4 (M 5 padded to 8): the partial kernels take the
-    # precoded tiles.  On 1x1 the run equals the single engine's bit for
-    # bit.  On 2x4 each shard trains 4 users a pass, and on the card the
-    # users' gradients at fig2's batch of 500 depend on the users a pass
-    # holds (the bias gradient's sum over the batch; PERF.md, PR 19), so
-    # that run is held to the W-HFL bounds, beside the same gap of
-    # fig2_iid fused at full attendance on 2x4; the 2x4 cluster hop
-    # itself, on precoded deltas, equals the single engine's bit for bit
+    # precoded tiles, and the run equals the single engine's bit for bit
+    # (every engine's gradients run in passes of M users); the 2x4
+    # cluster hop itself, on precoded deltas, equals the single engine's
+    # bit for bit
     for mesh in ("1x1", "2x4"):
         mc, mu = parse_mesh(mesh)
         make = (lambda driver="stepwise", warmup=False, mesh=mesh:
@@ -1893,18 +1945,7 @@ def main() -> int:
                "what": "final state and metrics, sharded vs single "
                        "engine, both on the card", "exec": res.exec_info,
                **same, **gaps}
-        if mesh == "1x1":
-            ok = same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
-        else:
-            ctrl = ShardedSweepRunner([fig2_fused], seeds=2, mesh=mesh,
-                                      combine="u_sharded", device="cuda",
-                                      keep_state=True).run()[0]
-            rec["control_fig2_iid_fused"] = {
-                **bitwise_runs(fig2_fused_on_card, ctrl),
-                **compare_runs(ctrl, fig2_fused_on_card)}
-            ok = (gaps["loss_max_rel"] <= TOL
-                  and gaps["acc_max_abs"] <= 2.0 / drop50_fused.n_test
-                  and gaps["theta_max_rel"] <= THETA_RTOL)
+        ok = same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
         log(rec)
         expect(label, launches, want, finite(res))
         if not ok:
@@ -1929,7 +1970,7 @@ def main() -> int:
     if not same_hop:
         raise SystemExit("the 2x4 u_sharded cluster hop on precoded users "
                          "differs from the single engine's")
-    del part_on_card, res, ctrl, deltas, want_est, got_est
+    del part_on_card, res, deltas, want_est, got_est
 
     # the sharded engine through the sweep CLI
     sharded_runs = [("scale_u256", "1x1", "u_sharded", 2),
@@ -2001,6 +2042,224 @@ def main() -> int:
              "theta_max_abs_gap": gap,
              "theta_max_rel_gap": gap / max(float(theta[k].abs().max())
                                             for k in theta)})
+
+    # -- the sweep's telemetry, guard, faults and checkpoints ---------------
+    # (queue A items 9 and 10) at fig2's full width: fig2_iid fused at the
+    # paper's sizes (C 4, M 5, K = K_ps = 100, batch 500, n_train 20,000),
+    # 5 rounds, 2 seeds, against phase 4's plain stepwise run of it
+    from repro_torch.ft import CRASH_EXIT_CODE, FaultPlan
+    from repro_torch.obs import telemetry as tele_mod
+
+    fused_want = lambda res: {"fused_mac": 2 * res.rounds[-1]
+                              * len(res.seeds)}
+    tele_card = {}
+    for driver in ("stepwise", "chunked"):
+        label = f"fig2_iid_fused telemetry+guard {driver}"
+        make = (lambda driver=driver: SweepRunner(
+            [fig2_fused], seeds=2, device="cuda", keep_state=True,
+            driver=driver, warmup=driver == "chunked", telemetry=True,
+            guard="skip_round"))
+        if driver == "stepwise":
+            res, launches = counted(lambda: make().run()[0])
+            expect(label, launches, fused_want(res), finite(res))
+        else:
+            res = chunked_launches(label, lambda: make().run()[0],
+                                   {"fused_mac": 2 * fig2_fused.rounds * 2})
+        same = bitwise_runs(fig2_fused_on_card, without_blocks(res))
+        tele = res.to_record()["telemetry"]
+        tele_ok = all(np.isfinite(np.asarray(tele[k], np.float64)).all()
+                      for k in tele_mod.TELEMETRY_KEYS)
+        log({"phase": "telemetry_guard", "run": label,
+             "what": "telemetry and the guard (skip_round, no fault) on, "
+                     "against the plain stepwise run", **same,
+             "guard_trips": res.exec_info["guard_trips"],
+             "telemetry_finite": tele_ok,
+             "snr_round1": tele["snr"][0][0],
+             "grad_ratio_round1": tele["grad_ratio"][0][0]})
+        if not (same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
+                and tele_ok and res.exec_info["guard_trips"] == 0):
+            raise SystemExit(f"{label}: telemetry or the guard changed the "
+                             f"run: {same}")
+        tele_card[driver] = tele
+    if tele_card["stepwise"] != tele_card["chunked"]:
+        raise SystemExit("the chunked driver's telemetry differs from the "
+                         "stepwise one's")
+    # the card's telemetry against the CPU's (its first 2 rounds, seed 0)
+    t0 = time.perf_counter()
+    tele_cpu = SweepRunner([fig2_fused.replace(total_IT=2)], seeds=[0],
+                           device="cpu", telemetry=True).run()[0]
+    tele_cpu = tele_cpu.to_record()["telemetry"]
+    gaps = {k: float(np.max(np.abs(
+                np.asarray(tele_card["stepwise"][k][0][:2], np.float64)
+                - np.asarray(tele_cpu[k][0], np.float64)))
+            / max(float(np.max(np.abs(np.asarray(tele_cpu[k][0],
+                                                 np.float64)))), 1e-30))
+            for k in tele_mod.TELEMETRY_KEYS}
+    log({"phase": "reference", "run": "fig2_iid_fused telemetry",
+         "what": "the card's telemetry block (2 rounds, seed 0) against "
+                 "the CPU's, max gap over max |value| per field",
+         "gaps": gaps, "bound": TOL, "cpu_seconds": time.perf_counter() - t0})
+    if max(gaps.values()) > TOL:
+        raise SystemExit(f"the card's telemetry disagrees with the CPU's: "
+                         f"{gaps}")
+
+    # a NaN in user (0, 1)'s delta at round index 2: zero_fill keeps the
+    # run finite with one trip a seed (the cluster hop's), through both
+    # drivers alike; halt stops at the window ending round 3
+    poison = FaultPlan.parse("poison=nan@2:0:1")
+    for guard in ("zero_fill", "halt"):
+        poisoned = {}
+        for driver in ("stepwise", "chunked"):
+            label = f"fig2_iid_fused poison=nan@2:0:1 {guard} {driver}"
+            res, launches = counted(lambda: SweepRunner(
+                [fig2_fused], seeds=2, device="cuda", keep_state=True,
+                driver=driver, guard=guard, faults=poison).run()[0])
+            info = res.exec_info
+            ok = (finite(res) and info["guard_trips"] == 2
+                  and info["guard_halted"] == (guard == "halt")
+                  and res.rounds == ([1, 2, 3] if guard == "halt"
+                                     else list(range(1, 6))))
+            log({"phase": "guard", "run": label, "rounds": res.rounds,
+                 "guard_trips": info["guard_trips"],
+                 "guard_halted": info["guard_halted"], "finite": finite(res),
+                 "final_loss": [v[-1] for v in res.loss]})
+            if driver == "stepwise":
+                expect(label, launches, fused_want(res), ok)
+            elif not ok:
+                raise SystemExit(f"{label}: {info}")
+            poisoned[driver] = res
+        same = bitwise_runs(poisoned["stepwise"], poisoned["chunked"])
+        log({"phase": "chunked_vs_stepwise",
+             "run": f"fig2_iid_fused poison {guard}", **same})
+        if not (same["state_bitwise_equal"]
+                and same["metrics_bitwise_equal"]):
+            raise SystemExit(f"poison {guard}: chunked != stepwise: {same}")
+
+    # a process killed after round 3 (exit 173), then resumed from its
+    # checkpoint in a new process: the whole carry and every metric
+    # equal the uninterrupted run's (the chunked resume captures its
+    # graphs afresh)
+    # (each step's two drivers run side by side, in two processes)
+    drivers = ("stepwise", "chunked")
+    cks = {d: tempfile.mkdtemp(prefix=f"ck_{d}_") for d in drivers}
+    rcs, secs = defaultdict(dict), defaultdict(dict)
+    for step, extra in (("crash", {"inject": "crash_round=3"}),
+                        ("resume", {"resume": True})):
+        t0 = time.perf_counter()
+        procs = {d: subprocess.Popen(
+            [sys.executable, "-c", RESUME_SNIPPET, json.dumps(
+                {"driver": d, "ckpt": cks[d], **extra,
+                 "out": str(Path(cks[d]) / f"{step}.json")})],
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for d in drivers}
+        for d, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            rcs[d][step] = proc.returncode
+            secs[d][step] = time.perf_counter() - t0
+            if proc.returncode not in (0, CRASH_EXIT_CODE):
+                print(err[-3000:], file=sys.stderr)
+    for driver in drivers:
+        ref = SweepRunner([fig2_fused], seeds=2, device="cuda",
+                          keep_state=True, driver=driver).run()
+        out = Path(cks[driver]) / "resume.json"
+        outs = json.load(open(out)) if rcs[driver]["resume"] == 0 else {}
+        want_state = sweep.state_doc(ref)["scenarios"][0]["state"]
+        want_doc = sweep.sweep_to_json(ref)["scenarios"][0]
+        ok = (rcs[driver] == {"crash": CRASH_EXIT_CODE, "resume": 0}
+              and outs.get("state") == want_state
+              and outs.get("metrics") == want_doc["metrics"]
+              and outs.get("resumed_from") == 3)
+        log({"phase": "kill_and_resume", "run": f"fig2_iid_fused {driver}",
+             "exit_codes": rcs[driver], "seconds": secs[driver],
+             "resumed_from": outs.get("resumed_from"),
+             "ckpt_save_seconds": outs.get("ckpt_save_seconds"),
+             "ckpt_load_seconds": outs.get("ckpt_load_seconds"),
+             "state_bitwise_equal": outs.get("state") == want_state,
+             "metrics_bitwise_equal": outs.get("metrics")
+             == want_doc["metrics"]})
+        if not ok:
+            raise SystemExit(f"kill and resume ({driver}): {rcs[driver]}")
+        shutil.rmtree(cks[driver], ignore_errors=True)
+
+    # scale_u256 sharded 2x4 u_sharded with telemetry: bit for bit the
+    # single engine's run with telemetry (the block on the real C)
+    u_tele = SweepRunner([u256], seeds=2, device="cuda", keep_state=True,
+                         telemetry=True).run()[0]
+    res, launches = counted(lambda: ShardedSweepRunner(
+        [u256], seeds=2, mesh="2x4", combine="u_sharded", device="cuda",
+        keep_state=True, telemetry=True).run()[0])
+    hops = res.rounds[-1] * len(res.seeds) * u256.I
+    expect("scale_u256 sharded 2x4 u_sharded telemetry", launches,
+           {"fused_mac_partials": hops * 8, "fused_partials_reduce":
+            hops * 4, "fused_mac": res.rounds[-1] * len(res.seeds)},
+           finite(res))
+    same = bitwise_runs(u_tele, res)
+    same_tele = (u_tele.to_record()["telemetry"]
+                 == res.to_record()["telemetry"])
+    log({"phase": "sharded_vs_single", "run": "scale_u256 2x4 u_sharded "
+         "telemetry", **same, "telemetry_equal": same_tele})
+    if not (same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
+            and same_tele):
+        raise SystemExit("scale_u256 2x4 with telemetry != single")
+
+    # the slab kernel with telemetry, against the plain slab run
+    slab3 = fig2_slab.replace(total_IT=3)
+    slab_plain = SweepRunner([slab3], seeds=2, device="cuda",
+                             keep_state=True).run()[0]
+    res, launches = counted(lambda: SweepRunner(
+        [slab3], seeds=2, device="cuda", keep_state=True,
+        telemetry=True).run()[0])
+    expect("fig2_iid_slab telemetry", launches,
+           {"ota_combine": 2 * res.rounds[-1] * 2}, finite(res))
+    same = bitwise_runs(slab_plain, without_blocks(res))
+    log({"phase": "telemetry_guard", "run": "fig2_iid_slab telemetry",
+         **same})
+    if not (same["state_bitwise_equal"] and same["metrics_bitwise_equal"]):
+        raise SystemExit("fig2 slab: telemetry changed the run")
+
+    # --profile: the CLI's Chrome trace holds fused_mac's device records
+    # (a trace that lost some is taken again)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        pdir = tempfile.mkdtemp(prefix="prof_")
+        doc, launches = counted(lambda: sweep.main(
+            ["--scenarios", "scale_u256", "--seeds", "1", "--profile",
+             pdir]))
+        events = json.load(open(Path(pdir) / "trace.json"))["traceEvents"]
+        seen = sum(KERNELS["fused_mac"][1] in e.get("name", "")
+                   for e in events if e.get("cat") == "kernel")
+        log({"phase": "profile_cli", "run": "scale_u256 --profile",
+             "fused_mac_records": seen,
+             "fused_mac_launches": launches["fused_mac"],
+             "trace_attempt": attempt})
+        shutil.rmtree(pdir, ignore_errors=True)
+        if seen >= launches["fused_mac"] > 0:
+            break
+    if not seen >= launches["fused_mac"] > 0:
+        raise SystemExit(f"--profile: {seen} fused_mac records in the "
+                         f"trace, {launches['fused_mac']} launches")
+
+    # the repaired gate: fig2_iid fused at batch 500 on 2x4, 2x5 and 4x5
+    # bit for bit the single engine (every engine's gradients in passes
+    # of M users)
+    for mesh in ("2x4", "2x5", "4x5"):
+        mc, mu = parse_mesh(mesh)
+        res, launches = counted(lambda: ShardedSweepRunner(
+            [fig2_fused], seeds=2, mesh=mesh, combine="u_sharded",
+            device="cuda", keep_state=True).run()[0])
+        hops = res.rounds[-1] * len(res.seeds)
+        label = f"fig2_iid_fused sharded {mesh} u_sharded"
+        expect(label, launches, {"fused_mac_partials": hops * mc * mu,
+                                 "fused_partials_reduce": hops * mu,
+                                 "fused_mac": hops}, finite(res))
+        same = bitwise_runs(fig2_fused_on_card, res)
+        log({"phase": "sharded_vs_single", "run": label,
+             "what": "fig2 at batch 500, sharded vs single, both on the "
+                     "card", **same, **compare_runs(res, fig2_fused_on_card)})
+        if not (same["state_bitwise_equal"]
+                and same["metrics_bitwise_equal"]):
+            raise SystemExit(f"{label}: differs from the single engine: "
+                             f"{same}")
+    del u_tele, slab_plain, res, ref
 
     # dense-LM serving: qwen2-0.5b at full width, weights from a seed
     from repro_torch.configs import INPUT_SHAPES, get_config
@@ -2083,8 +2342,8 @@ def main() -> int:
             ("scale_u256", u256, single, u256_on_card),
             ("scale_u256 sharded 2x4 u_sharded", u256, u256_sharded,
              u256_sharded_on_card),
-            ("fig2_iid_slab", fig2_slab.replace(total_IT=2), single, None),
-            ("fig2_iid_reference", fig2_ref.replace(total_IT=2), single,
+            ("fig2_iid_slab", fig2_slab.replace(total_IT=1), single, None),
+            ("fig2_iid_reference", fig2_ref.replace(total_IT=1), single,
              None),
             ("fig2_iid", fig2.replace(total_IT=2), single, None),
             ("fig2_drop50_fused", drop50_fused.replace(total_IT=2), single,

@@ -12,11 +12,11 @@ two error-free baselines, every seed of every scheme through
     PYTHONPATH=src python examples/whfl_mnist_torch.py --device cpu \\
         --quick --ota faithful --backend slab_kernel
 
-It runs on the CUDA card unless ``--device`` names another.  The JAX
-driver's ``--exec``, ``--mesh`` and ``--driver`` are not here yet
-(ROADMAP queue A, item 12): this driver runs the single engine with the
-stepwise driver only; the sweep CLI (`repro_torch.sim.sweep`) has both
-engines and both drivers.
+It runs on the CUDA card unless ``--device`` names another.  As in the
+JAX driver, ``--exec sharded --mesh CxU`` runs the schemes on the
+sharded engine and ``--driver chunked`` replays each eval window as one
+CUDA graph (`repro_torch.exec.make_runner`); both give the single
+engine's stepwise bits.
 """
 import argparse
 import json
@@ -27,8 +27,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 from repro_torch.core.channel import BACKENDS  # noqa: E402
-from repro_torch.sim import (FIG2_FAMILIES, SweepRunner,  # noqa: E402
-                             get_scenario, sweep_to_json)
+from repro_torch.exec import ENGINES, make_runner  # noqa: E402
+from repro_torch.sim import (FIG2_FAMILIES, get_scenario,  # noqa: E402
+                             sweep_to_json)
+from repro_torch.sim.sweep import DRIVERS  # noqa: E402
 
 # (display name, registry suffix): the six schemes of Fig. 2
 SCHEMES = [
@@ -61,6 +63,19 @@ def main(argv=None):
                     help="channel backend for the non-ideal schemes "
                          "('' = the --ota mode's default; see "
                          "repro_torch.core.channel.BACKENDS)")
+    ap.add_argument("--exec", default="single", dest="exec_name",
+                    choices=list(ENGINES),
+                    help="execution engine (sharded runs the round as a "
+                         "--mesh of shards, one after the other on the "
+                         "card)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="CxU shard mesh for --exec sharded, e.g. 4x1; "
+                         "axes need not divide --C/--M (inactive users "
+                         "are padded in, bit for bit the unpadded run)")
+    ap.add_argument("--driver", default="stepwise", choices=list(DRIVERS),
+                    help="round driver: stepwise (the host issues every "
+                         "round) or chunked (one CUDA graph replay per "
+                         "eval window; bit for bit stepwise)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
     ap.add_argument("--quick", action="store_true")
@@ -82,10 +97,11 @@ def main(argv=None):
 
     seeds = list(range(args.seed, args.seed + args.seeds))
     try:
-        runner = SweepRunner([sc for _, sc in named], seeds=seeds,
-                             quick=args.quick, device=args.device)
-    except RuntimeError as e:       # no CUDA card and no --device cpu
-        ap.error(str(e))
+        runner = make_runner(args.exec_name, [sc for _, sc in named],
+                             seeds=seeds, quick=args.quick, mesh=args.mesh,
+                             driver=args.driver, device=args.device)
+    except (RuntimeError, ValueError) as e:   # e.g. no CUDA card and no
+        ap.error(str(e))                      # --device cpu
     results = runner.run()
 
     doc = {"dist": args.dist, **sweep_to_json(results, quick=args.quick)}

@@ -9,12 +9,13 @@ Per global round t:
     the round (eqs. 15-18).
 
 `make_round_fn` builds the per-round function ``round_fn(state, key,
-P_t, P_is_t) -> state``.  Local training runs batched over all C*M users
-in one pass (`torch.func.vmap` of `torch.func.grad`), with every user's
-minibatch indices drawn at once by the batched `jax.random` emulation,
-so a seed reproduces the JAX package's round: keys split in the same
-order, the same users draw the same indices, and the OTA hops get the
-same keys.  Baselines: ``mode="conventional"`` (single-hop OTA FL) and
+P_t, P_is_t) -> state``.  Local training runs batched over the C*M users
+in vmapped passes of M (`torch.func.vmap` of `torch.func.grad`; every
+engine uses that width, so a user's gradient has the same bits whoever
+shares its pass), with every user's minibatch indices drawn at once by
+the batched `jax.random` emulation, so a seed reproduces the JAX
+package's round: keys split in the same order, the same users draw the
+same indices, and the OTA hops get the same keys.  Baselines: ``mode="conventional"`` (single-hop OTA FL) and
 ``OTAConfig(mode="ideal")`` (error-free).
 
 Partial participation and the robust cluster folds live in the round
@@ -46,8 +47,13 @@ from repro_torch.core.channel import (ROBUST_CAPABLE_BACKENDS, OTAConfig,
                                       _const, cluster_ota, conventional_ota,
                                       global_ota, orthogonal_cluster_ota,
                                       resolve_backend)
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, power_schedule
+from repro_torch.device import resolve_device
 from repro_torch.fed.clients import ParticipationSchedule
+from repro_torch.ft.faults import GradPoison
+from repro_torch.ft.guard import guard_estimate, validate_guard
+from repro_torch.obs.telemetry import (cluster_telemetry, is_telemetry,
+                                       is_telemetry_zero, telemetry_init)
 from repro_torch.optim import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -75,6 +81,16 @@ class WHFLConfig:
     # per-user receptions; reference/equivalent/ideal only)
     cluster_agg: str = "mean"
     agg_trim: float = 0.25       # trim fraction for "trimmed_mean"
+    # in-program round diagnostics (repro_torch.obs.telemetry): the
+    # state gains a "telemetry" block, recomputed every round; False
+    # adds no op (a Python-level gate)
+    telemetry: bool = False
+    # non-finite guard over the hops' estimates (repro_torch.ft.guard):
+    # "off" | "halt" | "skip_round" | "zero_fill"; "off" adds no op
+    guard: str = "off"
+    # fault injection (repro_torch.ft.faults.GradPoison): user (c, m)'s
+    # transmitted flat made NaN or Inf at round t; None adds no op
+    poison: Optional[GradPoison] = None
 
 
 def validate_participation(cfg: WHFLConfig) -> None:
@@ -103,15 +119,23 @@ def validate_participation(cfg: WHFLConfig) -> None:
                 f"ROBUST_CAPABLE_BACKENDS)")
 
 
-def init_round_state(params, opt: Optimizer, C: int, M: int):
+def init_round_state(params, opt: Optimizer, C: int, M: int,
+                     telemetry_C: Optional[int] = None,
+                     guard: bool = False):
     """Fresh per-run round state: the global model, per-user optimizer
     state ``[C, M, ...]`` (carried across rounds), the round index and
-    the transmit-power accumulators."""
+    the transmit-power accumulators.
+
+    ``telemetry_C`` (the real cluster count, never a mesh-padded one)
+    adds the zero ``"telemetry"`` block a ``WHFLConfig.telemetry``
+    round updates; ``guard=True`` (for ``WHFLConfig.guard != "off"``)
+    adds the int32 ``"guard_trips"`` count.  The defaults leave the
+    state as it was without either."""
     dev = next(tree_leaves(params))[1].device
     opt_state = tree_map(lambda x: x.expand(C, M, *x.shape).clone(),
                          opt.init(params))
     zero = torch.zeros((), device=dev)
-    return {
+    state = {
         "theta": params,
         "opt": opt_state,
         "t": torch.zeros((), dtype=torch.int32, device=dev),
@@ -120,10 +144,16 @@ def init_round_state(params, opt: Optimizer, C: int, M: int):
         "n_edge_tx": zero.clone(),    # transmissions counted
         "n_is_tx": zero.clone(),
     }
+    if telemetry_C is not None:
+        state["telemetry"] = telemetry_init(telemetry_C, dev)
+    if guard:
+        state["guard_trips"] = torch.zeros((), dtype=torch.int32,
+                                           device=dev)
+    return state
 
 
-def make_local_train(loss_fn: Callable, opt: Optimizer,
-                     cfg: WHFLConfig) -> Callable:
+def make_local_train(loss_fn: Callable, opt: Optimizer, cfg: WHFLConfig,
+                     pass_width: int) -> Callable:
     """Build the batched local-training step ``local_train(theta,
     opt_state, X, Y, keys, step) -> (delta, opt_state)``: every user
     takes `cfg.tau` optimizer steps from its own `theta` on its own
@@ -135,6 +165,16 @@ def make_local_train(loss_fn: Callable, opt: Optimizer,
     per-user program does; where the loss has a ``draw_rng``, it draws
     from every user's kd at once what the model would draw (the CNN's
     dropout masks), and each user's share is its `rng`.
+
+    The gradients run in vmapped passes of `pass_width` users.  A pass's
+    users never mix, but on the card the algorithm of a batched GEMM and
+    of the bias gradient's sum over the batch follows the number of
+    users in the pass, and with it the bits of every user's gradient.  So every
+    engine gives the same width (the round builders pass the scenario's
+    M): the caller's users are cut into passes of exactly `pass_width`,
+    the last one filled with zero users whose gradients are dropped, and
+    a user's gradient then has the same bits on every engine and mesh,
+    whoever shares its pass.
 
     Where the loss sets ``per_user_grads`` each user's gradient is
     `torch.func.grad` of fresh copies of its own unbatched inputs, so it
@@ -148,10 +188,27 @@ def make_local_train(loss_fn: Callable, opt: Optimizer,
     draw = getattr(loss_fn, "draw_rng", None)
     per_user = getattr(loss_fn, "per_user_grads", False)
 
+    def in_passes(args):
+        """`grad_fn` over the user axis in passes of exactly
+        `pass_width` users."""
+        U, W = args[1].shape[0], pass_width
+        parts = []
+        for u0 in range(0, U, W):
+            n = min(W, U - u0)
+            part = tree_map(lambda a: a[u0:u0 + n].contiguous(), args)
+            if n < W:
+                part = tree_map(lambda a: torch.cat(
+                    [a, a.new_zeros((W - n, *a.shape[1:]))]), part)
+            g = grad_fn(*part)
+            parts.append(g if n == W else tree_map(lambda x: x[:n], g))
+        if len(parts) == 1:
+            return parts[0]
+        return tree_map(lambda *xs: torch.cat(xs), *parts)
+
     def grads_of(th, xb, yb, rng):
         args = [th, xb, yb, rng]
         if not per_user:
-            return grad_fn(*args)
+            return in_passes(args)
         parts = [one_grad(*tree_map(lambda a: a[u].clone(), args))
                  for u in range(xb.shape[0])]
         return tree_map(lambda *xs: torch.stack(xs), *parts)
@@ -201,12 +258,32 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
     `agg.attendance_rescale` (padded rx rows by 1); a robust fold runs
     `orthogonal_cluster_ota` and the masked median or trimmed mean (its
     padded rows 0).  A full schedule with the mean fold adds no op.
+
+    Telemetry (`cfg.telemetry`, `repro_torch.obs.telemetry`) reads the
+    real [C, M] precoded flat, the real rows of the last cluster
+    iteration's estimate after the guard, and the IS deltas; the guard
+    (`cfg.guard`) runs on each hop's estimate before it is applied and
+    counts its trips in ``state["guard_trips"]``; a planned poison
+    (`cfg.poison`) is added to the flat the fold hears (not to the one
+    the power fold and telemetry read), selected on the device from the
+    round index.  Each is a Python-level gate: off, it adds no op.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}; known: "
                          f"{', '.join(MODES)}")
     validate_participation(cfg)
+    validate_guard(cfg.guard)
     C, M, N = topo.C, topo.M, spec.two_n // 2
+    tele_on = cfg.telemetry
+    guard_on = cfg.guard != "off"
+    poison = cfg.poison
+    if poison is not None:
+        if poison.c >= C or poison.m >= M:
+            raise ValueError(
+                f"poison targets user ({poison.c}, {poison.m}) outside "
+                f"the ({C}, {M}) grid")
+        poison_at = np.zeros((C, M), np.float32)
+        poison_at[poison.c, poison.m] = 1.0
     schedule = cfg.participation
     partial = not schedule.is_full
     robust = cfg.cluster_agg != "mean"
@@ -246,6 +323,18 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
             est = est * pad_rx(resc, 1.0)[:, None]
         return est
 
+    def maybe_poison(flat, step):
+        """The planned poison added to the poisoned user's row at its
+        round, chosen on the device from the round index (a CUDA graph
+        replays it)."""
+        if poison is None:
+            return flat
+        hit = (step == poison.t) & (_const(poison_at, step.device) > 0)
+        return flat + torch.where(hit, float(poison.value), 0.0)[..., None]
+
+    def real_rows(est):
+        return est if n_rx == C else est[:C]
+
     def round_fn(state, key, P_t, P_is_t):
         P_t = torch.as_tensor(P_t, dtype=torch.float32)
         P_is_t = torch.as_tensor(P_is_t, dtype=torch.float32)
@@ -265,19 +354,29 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
                 flat = agg.cotaf_precode(flat, mult)
             return flat, opt_state, agg.user_energy(flat)
 
+        trips = state["guard_trips"] if guard_on else None
         if cfg.mode == "conventional":
             k1, k2 = prng.split(key)
             flat, opt_state, pw = train(theta_IS, state["opt"], k1)
-            est = conventional_ota(k2, flat, topo, P_t, cfg.ota)
+            est = conventional_ota(k2, maybe_poison(flat, step), topo,
+                                   P_t, cfg.ota)
             if partial:
                 est = est * agg.attendance_rescale(
                     _const(rx_w_conv, flat.device), claimed.reshape(-1))
-            return {**state, "theta": apply_updates(
-                        theta, agg.unflatten(spec, est)),
-                    "opt": opt_state, "t": step + 1,
-                    "power_edge": state["power_edge"]
-                    + agg.symbol_power_from_energy(pw, P_t, N),
-                    "n_edge_tx": state["n_edge_tx"] + 1.0}
+            out = {**state, "opt": opt_state, "t": step + 1,
+                   "power_edge": state["power_edge"]
+                   + agg.symbol_power_from_energy(pw, P_t, N),
+                   "n_edge_tx": state["n_edge_tx"] + 1.0}
+            if guard_on:
+                est, trip = guard_estimate(est, cfg.guard)
+                out["guard_trips"] = trips + trip
+            out["theta"] = apply_updates(theta, agg.unflatten(spec, est))
+            if tele_on:
+                out["telemetry"] = {
+                    **cluster_telemetry(flat, est, claimed, topo, P_t,
+                                        mode="conventional"),
+                    **is_telemetry_zero(step.device)}
+            return out
 
         # --- W-HFL ---
         keys = prng.split(key, cfg.I + 1)
@@ -286,21 +385,34 @@ def make_round_body(topo: Topology, cfg: WHFLConfig, spec: agg.FlatSpec,
         for i in range(cfg.I):
             k1, k2 = prng.split(keys[i])
             flat, opt_state, pw = train(theta_IS, opt_state, k1)
-            est = cluster_fold(k2, flat, claimed, P_t)       # [n_rx, 2N]
+            est = cluster_fold(k2, maybe_poison(flat, step), claimed,
+                               P_t)                          # [n_rx, 2N]
+            if guard_on:
+                est, trip = guard_estimate(est, cfg.guard)
+                trips = trips + trip
             theta_IS = apply_updates(theta_IS, agg.unflatten(spec, est))
             p_edge = p_edge + agg.symbol_power_from_energy(pw, P_t, N)
+            if tele_on and i == cfg.I - 1:   # the last iteration's block
+                tele = cluster_telemetry(flat, real_rows(est), claimed,
+                                         topo, P_t)
 
         is_deltas = agg.flatten(
             spec, tree_map(lambda a, b: a[:C] - b, theta_IS, theta))
         est = global_ota(keys[-1], is_deltas, topo, P_is_t, cfg.ota)
-        return {**state,
-                "theta": apply_updates(theta, agg.unflatten(spec, est)),
-                "opt": opt_state, "t": step + 1,
-                "power_edge": state["power_edge"] + p_edge,
-                "n_edge_tx": state["n_edge_tx"] + float(cfg.I),
-                "power_is": state["power_is"]
-                + agg.symbol_power(is_deltas, P_is_t),
-                "n_is_tx": state["n_is_tx"] + 1.0}
+        out = {**state, "opt": opt_state, "t": step + 1,
+               "power_edge": state["power_edge"] + p_edge,
+               "n_edge_tx": state["n_edge_tx"] + float(cfg.I),
+               "power_is": state["power_is"]
+               + agg.symbol_power(is_deltas, P_is_t),
+               "n_is_tx": state["n_is_tx"] + 1.0}
+        if guard_on:
+            est, trip = guard_estimate(est, cfg.guard)
+            out["guard_trips"] = trips + trip
+        out["theta"] = apply_updates(theta, agg.unflatten(spec, est))
+        if tele_on:
+            out["telemetry"] = {**tele,
+                                **is_telemetry(is_deltas, topo, P_is_t)}
+        return out
 
     return round_fn
 
@@ -309,8 +421,9 @@ def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
                   cfg: WHFLConfig, spec: agg.FlatSpec, X: torch.Tensor,
                   Y: torch.Tensor) -> Callable:
     """Build the single engine's per-round function ``round_fn(state,
-    key, P_t, P_is_t) -> state`` (`make_round_body`): all C*M users
-    train in one vmapped pass, and the cluster hop is `cluster_ota`.
+    key, P_t, P_is_t) -> state`` (`make_round_body`): the C*M users
+    train in C vmapped passes of M (`make_local_train`), and the cluster
+    hop is `cluster_ota`.
 
     X [C, M, n, ...] and Y [C, M, n] are the users' shards on the run's
     device.  P_t and P_is_t enter as float32 scalars, as they enter the
@@ -320,7 +433,7 @@ def make_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
     U = C * M
     Xu = X.reshape(U, *X.shape[2:])
     Yu = Y.reshape(U, *Y.shape[2:])
-    local_train = make_local_train(loss_fn, opt, cfg)
+    local_train = make_local_train(loss_fn, opt, cfg, pass_width=M)
 
     def users_train(theta_IS, opt_state, key, step):
         keys = prng.split(key, U)
@@ -412,6 +525,7 @@ class _ChunkFn:
         self.graphs: Dict[int, tuple] = {}
         self.carry = None
         self.pool = None
+        self.captures = 0          # graphs captured (the run journal's)
 
     def __call__(self, states, keys, P_win, P_is_win):
         if P_win.device.type != "cuda":
@@ -460,6 +574,7 @@ class _ChunkFn:
                     dst.copy_(src)
         self.pool = graph.pool()
         self.graphs[w] = (graph, P, P_is, metrics)
+        self.captures += 1
 
 
 def make_chunk_fn(round_fn: Callable,
@@ -471,6 +586,58 @@ def make_chunk_fn(round_fn: Callable,
     loop, so the two drivers agree bit for bit.
     """
     return _ChunkFn(make_window_fn(round_fn, eval_fn))
+
+
+class WHFLTrainer:
+    """loss_fn(params, xb, yb, rng) -> scalar; data X/Y: [C, M, n, ...].
+
+    A thin stateful wrapper over `make_round_fn`, the counterpart of the
+    JAX package's `repro.core.whfl.WHFLTrainer`: it holds the round and
+    the power schedule.  `round_fn` (built by `init_state`) is the round
+    itself, for callers that drive it themselves (`repro_torch.sim`).
+    Runs on the CUDA card unless `device` names another.
+    """
+
+    def __init__(self, loss_fn: Callable, local_opt: Optimizer,
+                 topo: Topology, cfg: WHFLConfig, X, Y,
+                 device: Optional[str] = None):
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self.opt = local_opt
+        self.topo = topo
+        self.cfg = cfg
+        self.X = torch.as_tensor(X, device=self.device)
+        self.Y = torch.as_tensor(Y, device=self.device)
+        self.C, self.M = topo.C, topo.M
+        self._spec = None
+        self.round_fn: Optional[Callable] = None
+
+    def init_state(self, params):
+        spec = agg.make_flat_spec(params)
+        if spec != self._spec:   # (re)build on first use or a new model
+            self._spec = spec
+            self.round_fn = make_round_fn(self.loss_fn, self.opt, self.topo,
+                                          self.cfg, spec, self.X, self.Y)
+        return init_round_state(
+            params, self.opt, self.C, self.M,
+            telemetry_C=self.C if self.cfg.telemetry else None,
+            guard=self.cfg.guard != "off")
+
+    def round(self, state, key):
+        t = int(state["t"])
+        P_t, P_is_t = (torch.tensor(p, dtype=torch.float32,
+                                    device=self.device)
+                       for p in power_schedule(
+                           t, self.cfg.power_base, self.cfg.power_slope,
+                           self.cfg.power_is_factor, self.cfg.power_low))
+        return self.round_fn(state, key, P_t, P_is_t)
+
+    def avg_edge_power(self, state) -> float:
+        return float(state["power_edge"]) / max(float(state["n_edge_tx"]),
+                                                1.0)
+
+    def avg_is_power(self, state) -> float:
+        return float(state["power_is"]) / max(float(state["n_is_tx"]), 1.0)
 
 
 @torch.no_grad()

@@ -4,7 +4,7 @@ Two engines share one contract (the `repro_torch.sim` sweep API and
 JSON schema):
 
 - ``single`` -- `repro_torch.sim.SweepRunner`: the whole round on one
-  device, all users' local training in one vmapped pass.
+  device, the users' local training in vmapped passes of M users.
 - ``sharded`` -- `ShardedSweepRunner`: the round on a ``("cluster",
   "user")`` mesh of shards (`repro_torch.exec.mesh`), each shard
   training its own users and launching the fused cluster-hop kernels on
@@ -36,9 +36,12 @@ def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
                 *, seeds=1, quick: bool = False, batch: str = "map",
                 mesh: Union[str, tuple] = "1x1", keep_state: bool = False,
                 combine: str = "gathered", driver: str = "stepwise",
-                warmup: bool = False, device=None) -> SweepRunner:
+                warmup: bool = False, device=None, **ft_obs) -> SweepRunner:
     """Engine factory behind the ``--exec`` CLI flag.  Both engines take
-    both round drivers (``stepwise``, ``chunked``)."""
+    both round drivers (``stepwise``, ``chunked``) and the runner's
+    telemetry, trace, checkpoint and fault keywords (`ft_obs`:
+    ``telemetry``, ``trace``, ``checkpoint``, ``ckpt_every``,
+    ``resume``, ``guard``, ``faults``), passed through as they are."""
     if exec_name == "single":
         if combine != "gathered":
             raise ValueError(
@@ -47,12 +50,13 @@ def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
                 f"distribution to select")
         return SweepRunner(scenarios, seeds=seeds, quick=quick,
                            keep_state=keep_state, batch=batch,
-                           driver=driver, warmup=warmup, device=device)
+                           driver=driver, warmup=warmup, device=device,
+                           **ft_obs)
     if exec_name == "sharded":
         return ShardedSweepRunner(scenarios, seeds=seeds, quick=quick,
                                   keep_state=keep_state, mesh=mesh,
                                   combine=combine, driver=driver,
-                                  warmup=warmup, device=device)
+                                  warmup=warmup, device=device, **ft_obs)
     raise ValueError(
         f"unknown execution engine {exec_name!r}; known: "
         f"{', '.join(ENGINES)}")

@@ -10,9 +10,9 @@ shard is computed once.
 
 Phase 1 -- local training.  Every shard trains only its own
 ``(C_loc, M_loc)`` block of users (`repro_torch.core.whfl.
-make_local_train`, vmapped over that block as the single engine vmaps
-all users), from per-user keys split over the *real* (C, M) grid and
-then padded.  The shards' deltas are assembled into the real [C, M]
+make_local_train`, in vmapped passes of M users as on the single
+engine, the last pass filled with zero users), from per-user keys split
+over the *real* (C, M) grid and then padded.  The shards' deltas are assembled into the real [C, M]
 block, and the round body (`make_round_body`) precodes it with the
 round's participation multipliers and takes the users' symbol energies
 for the power fold over it once: a row sum's order on the card (or over
@@ -196,7 +196,9 @@ def make_sharded_round_fn(loss_fn: Callable, opt: Optimizer, topo: Topology,
     mc, mu = mesh.shape
     C_loc, M_loc = plan.Cp // mc, plan.Mp // mu
     N = spec.two_n // 2
-    local_train = make_local_train(loss_fn, opt, cfg)
+    # passes of M users, as on the single engine: a user's gradient then
+    # has the same bits whichever shard holds it
+    local_train = make_local_train(loss_fn, opt, cfg, pass_width=M)
     backend = "" if cfg.ota.mode == "ideal" else resolve_backend(cfg.ota)
     fused_hop = (make_fused_cluster_hop(topo, cfg.ota, mesh, N, combine)
                  if cfg.mode != "conventional" and backend == "fused"

@@ -41,10 +41,11 @@ class ShardedSweepRunner(SweepRunner):
                  seeds=1, quick: bool = False, keep_state: bool = False,
                  mesh: Union[str, tuple] = "1x1",
                  combine: str = "gathered", driver: str = "stepwise",
-                 warmup: bool = False, device: Optional[str] = None):
+                 warmup: bool = False, device: Optional[str] = None,
+                 **ft_obs):
         super().__init__(scenarios, seeds=seeds, quick=quick,
                          keep_state=keep_state, batch="map", driver=driver,
-                         warmup=warmup, device=device)
+                         warmup=warmup, device=device, **ft_obs)
         if combine not in COMBINES:
             raise ValueError(f"unknown combine {combine!r}; known: "
                              f"{', '.join(COMBINES)}")
@@ -55,18 +56,40 @@ class ShardedSweepRunner(SweepRunner):
     def _pad_plan(self, topo) -> PadPlan:
         return pad_plan(topo.C, topo.M, self.mesh_shape)
 
-    def _init_states(self, params, opt, topo):
+    def _init_states(self, params, opt, topo, cfg):
         plan = self._pad_plan(topo)
-        return [init_round_state(p, opt, plan.Cp, plan.Mp) for p in params]
+        # telemetry reads the real (C, M) block: its cluster axis is C
+        return [init_round_state(p, opt, plan.Cp, plan.Mp,
+                                 telemetry_C=topo.C if cfg.telemetry
+                                 else None, guard=cfg.guard != "off")
+                for p in params]
 
     def _finalize_state(self, state, topo):
         """Strip the padded opt rows/cols (the leading axis is the seed
-        batch), so final states compare equal across engines and
-        meshes."""
+        batch), so final states compare equal across engines and meshes
+        and a checkpoint (which stores this view) resumes on any mesh."""
         if self._pad_plan(topo).is_identity:
             return state
         return {**state, "opt": tree_map(lambda x: x[:, :topo.C, :topo.M],
                                          state["opt"])}
+
+    def _restore_state(self, state, topo):
+        """The inverse of `_finalize_state` for a resume: the opt axes of
+        a canonical (C, M) carry padded with zeros to this mesh's (Cp,
+        Mp) grid.  A padded user's opt state is carried but never
+        transmitted, and its gradient pass is as wide with any
+        neighbours (`make_local_train`), so the real users continue bit
+        for bit."""
+        plan = self._pad_plan(topo)
+        if plan.is_identity:
+            return state
+
+        def pad(x):   # [S, C, M, ...] -> [S, Cp, Mp, ...]
+            out = x.new_zeros((x.shape[0], plan.Cp, plan.Mp, *x.shape[3:]))
+            out[:, :topo.C, :topo.M] = x
+            return out
+
+        return {**state, "opt": tree_map(pad, state["opt"])}
 
     def _build_round(self, loss_fn, opt, topo, cfg, spec, X, Y):
         return make_sharded_round_fn(loss_fn, opt, topo, cfg, spec, X, Y,

@@ -11,9 +11,9 @@ geometry and the data partition follow `data_seed`).
 
 The participation family (`PARTICIPATION_FAMILIES`: Bernoulli
 attendance, stragglers, byzantine users, the median fold) carries its
-schedule in the scenario (`Scenario.participation_schedule`).  A
-scenario with telemetry, which the port has not reached yet, raises when
-its round config is built and names the ROADMAP item.
+schedule in the scenario (`Scenario.participation_schedule`), and
+``telemetry`` turns on the round's diagnostics block
+(`repro_torch.obs.telemetry`).
 """
 from __future__ import annotations
 
@@ -115,7 +115,8 @@ class Scenario:
     n_free_riders: int = 0
     cluster_agg: str = "mean"        # "mean" | "median" | "trimmed_mean"
     agg_trim: float = 0.25
-    # in-program diagnostics (not ported yet: must stay False)
+    # in-program diagnostics (repro_torch.obs.telemetry); False adds
+    # no op to the round
     telemetry: bool = False
 
     # -- derived ------------------------------------------------------------
@@ -135,11 +136,7 @@ class Scenario:
             n_free_riders=self.n_free_riders)
 
     def whfl_config(self) -> WHFLConfig:
-        """The round config; raises for telemetry, not ported yet."""
-        if self.telemetry:
-            raise NotImplementedError(
-                f"{self.name}: telemetry is not ported yet "
-                f"(ROADMAP queue A, item 9)")
+        """The round config."""
         return WHFLConfig(tau=self.tau, I=self.I, batch=self.batch,
                           mode=self.mode,
                           ota=OTAConfig(mode=self.ota_mode,
@@ -147,7 +144,8 @@ class Scenario:
                           power_low=(self.I == 1),
                           participation=self.participation_schedule(),
                           cluster_agg=self.cluster_agg,
-                          agg_trim=self.agg_trim)
+                          agg_trim=self.agg_trim,
+                          telemetry=self.telemetry)
 
     def make_topology(self) -> Topology:
         if self.topology == "uniform":

@@ -590,3 +590,86 @@ def test_flash_refuses_offsets_and_strided_views_on_card():
             flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                             kv, kv)
         assert _launch_counts() == before
+
+
+def _fig2_fused(rounds=3):
+    from repro_torch.sim import get_scenario
+    return get_scenario("fig2_iid").replace(
+        total_IT=rounds, ota_mode="faithful", ota_backend="fused")
+
+
+def _bitwise(a, b, drop=("telemetry", "guard_trips")):
+    """Two runs' metrics and final states (without `drop`), bit for bit."""
+    from repro_torch.tree import tree_leaves
+    assert a.rounds == b.rounds
+    for k in ("acc", "loss", "edge_power", "is_power"):
+        assert getattr(a, k) == getattr(b, k), k
+    la = [(p, x) for p, x in tree_leaves(a.final_state) if p[0] not in drop]
+    lb = [(p, x) for p, x in tree_leaves(b.final_state) if p[0] not in drop]
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        assert torch.equal(x, y), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["stepwise", "chunked"])
+def test_fig2_telemetry_and_guard_change_no_bit_on_card(driver):
+    """fig2_iid fused at the paper's sizes (batch 500): with telemetry
+    and the guard (no fault) every other output is the plain run's bit
+    for bit; `fused_mac` launches twice a round and seed (stepwise; a
+    replay runs no Python); a poison with zero_fill stays finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.ft import FaultPlan
+    from repro_torch.sim import SweepRunner
+    sc = _fig2_fused()
+    run = lambda **kw: SweepRunner([sc], seeds=2, device="cuda",
+                                   keep_state=True, driver=driver,
+                                   **kw).run()[0]
+    plain = run()
+    before = fused_mac.launches
+    both = run(telemetry=True, guard="skip_round")
+    if driver == "stepwise":
+        assert fused_mac.launches - before == 2 * sc.rounds * 2
+    _bitwise(plain, both)
+    assert both.exec_info["guard_trips"] == 0
+    tele = both.to_record()["telemetry"]
+    assert np.isfinite(np.asarray(tele["snr"], np.float64)).all()
+    zf = run(guard="zero_fill", faults=FaultPlan.parse("poison=nan@2:0:1"))
+    assert np.isfinite(np.asarray(zf.loss)).all()
+    assert zf.exec_info["guard_trips"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["2x4", "2x5", "4x5"])
+def test_fig2_sharded_equals_single_bitwise_on_card(mesh):
+    """The users' gradients run in passes of M users on every engine and
+    mesh, so fig2 at batch 500 sharded equals the single engine bit for
+    bit on the card, and a checkpoint cut on the single engine resumes
+    on the mesh bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import os
+    import tempfile
+
+    from repro_torch.exec import ShardedSweepRunner
+    from repro_torch.sim import SweepRunner
+    sc = _fig2_fused()
+    single = SweepRunner([sc], seeds=2, device="cuda",
+                         keep_state=True).run()[0]
+    sharded = ShardedSweepRunner([sc], seeds=2, mesh=mesh,
+                                 combine="u_sharded", device="cuda",
+                                 keep_state=True).run()[0]
+    _bitwise(single, sharded)
+    with tempfile.TemporaryDirectory() as d:
+        SweepRunner([sc], seeds=2, device="cuda", checkpoint=d).run()
+        scdir = os.path.join(d, sc.name)
+        for f in os.listdir(scdir):
+            if f != "round_2.npz":
+                os.unlink(os.path.join(scdir, f))
+        res = ShardedSweepRunner([sc], seeds=2, mesh=mesh,
+                                 combine="u_sharded", device="cuda",
+                                 keep_state=True, checkpoint=d,
+                                 resume=True).run()[0]
+    assert res.exec_info["resumed_from"] == 2
+    _bitwise(single, res)

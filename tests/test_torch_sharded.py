@@ -361,11 +361,14 @@ def test_cli_rejects_bad_engine_options(argv):
 
 
 def test_unported_sharded_options_raise():
-    # participation runs on the sharded engine; telemetry (ROADMAP
-    # queue A, item 9) still raises
-    sc = get_scenario("fig2_drop10").quick().replace(telemetry=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ShardedSweepRunner([sc], device="cpu", mesh="2x2").run()
+    # participation and telemetry (ROADMAP queue A, items 7 and 9) run
+    # on the sharded engine: the block on the real C; an unknown engine
+    # still raises
+    sc = get_scenario("fig2_drop10").quick().replace(telemetry=True,
+                                                     total_IT=2)
+    rec = ShardedSweepRunner([sc], device="cpu",
+                             mesh="2x2").run()[0].to_record()
+    assert np.asarray(rec["telemetry"]["snr"][0][0]).shape == (sc.C,)
     with pytest.raises(ValueError, match="unknown execution engine"):
         make_runner("turbo", ["scale_u256"], device="cpu")
     assert type(make_runner("single", ["scale_u256"], device="cpu")) \

@@ -165,12 +165,13 @@ def test_registry_matches_reference():
 @pytest.mark.parametrize("name", ["fig2_straggler", "fig2_drop10",
                                   "fig2_byzantine1_median"])
 def test_unported_scenarios_raise(name):
-    """The participation family runs now; with telemetry (ROADMAP queue
-    A, item 9) the same scenario still raises."""
+    """The participation family runs, and with telemetry (ROADMAP queue
+    A, item 9) the same scenario records its block."""
     sc = get_scenario(name).quick().replace(total_IT=1)
     assert len(sweep.SweepRunner([sc], device="cpu").run()[0].acc[0]) == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweep.SweepRunner([sc.replace(telemetry=True)], device="cpu").run()
+    rec = sweep.SweepRunner([sc.replace(telemetry=True)],
+                            device="cpu").run()[0].to_record()
+    assert len(rec["telemetry"]["attendance"][0]) == 1
 
 
 def test_params_and_state_round_trip():
