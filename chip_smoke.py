@@ -45,7 +45,17 @@ Phases, in order; any failure exits non-zero:
    ``tests/test_flash_attn.py``'s shapes (hd 16, 32, 64 and 128, f32
    and bf16, both masks): f32 within 1e-5 of max |o|,
    bf16 within that plus one bf16 ULP of each value (both sides round
-   once from float32), two launches identical;
+   once from float32), two launches identical; seed batching
+   (``batch="vmap"``): `fused_mac` and `ota_combine` at 4 seeds of
+   fig2's and scale_u256's hops and `fused_mac` at 2 seeds of Fig. 3's
+   (the fig3_cifar_fused vmap run's) in one launch (the gains shared
+   with a seed stride of 0; `ota_combine` at B = 1 split over a
+   cluster), bit for bit the unbatched launches and within 1e-4 of the
+   plain version with its seed axis (at Fig. 3's cluster hop the plain
+   version computes two windows of 4,096 symbols, its first and its
+   last, through ``n_base``: a symbol's output depends on its column
+   alone, and the full hop at 2 seeds would not fit beside the plain
+   version's intermediates);
 4. the main paths on ``cuda`` at full width, every launch count set to
    0 just before each run and read just after:
    - through `repro_torch.sim.SweepRunner`: ``scale_u256`` as
@@ -60,9 +70,22 @@ Phases, in order; any failure exits non-zero:
      channel, no kernel), faithful with the fused backend (2
      `fused_mac` launches per round per seed), and on the sharded
      engine, 1x1 and 2x5, u_sharded, 2 seeds each; the sharded runs'
-     final state and metrics against the single engine's (logged);
+     final state and metrics against the single engine's (logged); the fused
+     run again with its 2 seeds as one vmapped program through the
+     chunked driver (2 `fused_mac` launches a round for both seeds, in
+     its trace), held to its map run by accuracy and the update's norm
+     off the conv biases (as phase 5 holds Adam);
      whether the CNN's gradient runs under
      ``torch.use_deterministic_algorithms(True)`` (logged);
+   - every run above and below passes ``batch="map"`` (seeds one by
+     one) where it holds a per-seed launch count or a bitwise contract
+     with the sharded engine, unless it is named vmap;
+   - seed batching (``batch="vmap"``, the sweep's default):
+     ``fig2_iid`` fused and slab with 4 seeds, ``fig2_drop50`` fused
+     and ``scale_u256`` with 2, 5 rounds (scale_u256 its 2): the OTA
+     kernel launched once a hop for all seeds (2 a round), every seed
+     within the W-HFL bounds (1e-4 / 2/n_test / 1e-4) of its own map
+     run on the card, and through the chunked driver below;
    - every SweepRunner run above and every sharded CLI run below again
      through the chunked driver (each eval window one CUDA graph,
      captured and replayed once on throwaway copies before the drive):
@@ -96,8 +119,9 @@ Phases, in order; any failure exits non-zero:
      2 rounds); ``poison=nan@2:0:1`` with ``zero_fill`` (finite, one
      trip a seed) and ``halt`` (stops after round 3), both drivers bit
      for bit alike; a subprocess killed after round 3 (exit 173) and a
-     second one resuming from its checkpoint, per driver, bit for bit
-     the uninterrupted run (final carry and metrics);
+     second one resuming from its checkpoint, per driver and seed mode
+     (four side by side), bit for bit the uninterrupted run (final
+     carry and metrics);
      ``scale_u256`` sharded 2x4 u_sharded with telemetry bit for bit the
      single engine's; ``fig2_iid`` slab (3 rounds) with telemetry bit
      for bit the plain slab run; the CLI's ``--profile`` Chrome trace
@@ -105,10 +129,11 @@ Phases, in order; any failure exits non-zero:
      ``fig2_iid`` fused at batch 500 sharded on 2x4, 2x5 and 4x5 bit for
      bit the single engine;
    - the Fig. 2 driver ``examples/whfl_mnist_torch.py --ota faithful
-     --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults:
-     `ota_combine` launches rounds x (I + 1) times per seed for W-HFL,
-     rounds times for conventional FL and never for the error-free
-     baselines, 92 in all;
+     --backend slab_kernel --IT 8 --seeds 2`` at its paper defaults,
+     its 2 seeds as one vmapped program: `ota_combine` launches rounds
+     x (I + 1) times for W-HFL, rounds times for conventional FL and
+     never for the error-free baselines, each for both seeds, 46 in
+     all;
    - ``fig2_iid`` quick at faithful fidelity with the mode's default
      ``reference`` backend, 2 seeds: no kernel launches;
    - the sharded engine through the sweep CLI (``--exec sharded``):
@@ -144,8 +169,9 @@ Phases, in order; any failure exits non-zero:
    every other count stays 0, and every metric must be finite;
 5. the main paths' output against a reference: ``scale_u256`` as
    registered, and ``fig2_iid`` at the paper's sizes with the
-   ``slab_kernel`` and the ``reference`` backends for 1 round, run on
-   the CPU (plain versions) with the same seeds, must agree with their
+   ``slab_kernel`` and the ``reference`` backends for 1 round, 2 seeds
+   as every fig2 run of this phase, run on the CPU (plain versions)
+   with the same seeds, must agree with their
    runs on the card (kernels, and cuBLAS's complex products without
    TF32); ``fig2_iid`` as registered (no kernel) runs beside them as
    the control; ``scale_u256`` on the sharded engine (2x4, u_sharded)
@@ -174,7 +200,7 @@ Phases, in order; any failure exits non-zero:
    W-HFL bounds;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 2 rounds), of ``fig2_iid`` with the
-   slab backend, and of ``fig2_drop50`` fused and
+   slab backend, of ``fig2_drop50`` fused and
    ``fig2_byzantine1_median`` through both drivers, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
    wall ms per round from the runner's ``drive_seconds``, device time
@@ -204,7 +230,12 @@ Phases, in order; any failure exits non-zero:
    host time bounds back-to-back launches), beside the least
    time the card could take for the same work (``fused_mac_bound_ms``,
    ``ota_combine_bound_ms``,
-   ``partials_bound_ms``, ``reduce_bound_ms``); at scale_u65536 1x1 both
+   ``partials_bound_ms``, ``reduce_bound_ms``); `fused_mac` and
+   `ota_combine` at 4 seeds of fig2's cluster and IS->PS hops in one
+   launch against the 4 unbatched launches, in turns, beside 4 times
+   one seed's bound; `fused_mac` at Fig. 3's IS->PS hop (1, 4, 100,
+   154197) and the partials at a tile of its 2x5 mesh (4, 10, 100,
+   30840); at scale_u65536 1x1 both
    partial kernels are also held to the output of the plain calls
    timed there, as in phase 3; the whole slab cluster
    hop (emulated draw of the slab and the combine) against the fused hop
@@ -243,7 +274,9 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -294,6 +327,14 @@ LM_ARCH = "qwen2-0.5b"
 # the float32 prefill at hd 128 (the tf32 kernel's hd-128 instance):
 # qwen2-1.5b at full width, its 28 layers cut to 4 for the run's time
 F32_HD128_ARCH, F32_HD128_LAYERS = "qwen2-1.5b", 4
+# seeds a seed-batched (``batch="vmap"``) kernel call or run holds in
+# phases 3, 4 and 7
+S_SEEDS = 4
+# the seeds of phase 4's fig3_cifar_fused vmap run, at which phase 3
+# also holds the seed-batched fused_mac at Fig. 3's hops; at the cluster
+# hop its plain version computes FIG3_WINDOW symbols at each end
+FIG3_VMAP_SEEDS = 2
+FIG3_WINDOW = 4096
 # Fig. 3's rounds in phase 4 (the paper runs 400): each is ~1 s on the
 # card, and each SweepRunner run goes through both drivers
 FIG3_ROUNDS = 1
@@ -318,7 +359,7 @@ JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
 
 
 # the kill-and-resume check's subprocess: fig2_iid fused at the paper's
-# sizes, 5 rounds, 2 seeds, through one driver with a checkpoint
+# sizes, 5 rounds, 2 seeds, through one driver and seed mode with a checkpoint
 # directory and a fault plan or a resume; it writes the final carry
 # (`state_doc`), the metrics and the checkpoint seconds
 RESUME_SNIPPET = """
@@ -336,7 +377,7 @@ sc = get_scenario("fig2_iid").replace(total_IT=5, ota_mode="faithful",
                                       ota_backend="fused")
 res = sweep.SweepRunner(
     [sc], seeds=2, device="cuda", keep_state=True, driver=a["driver"],
-    checkpoint=a["ckpt"], resume=a.get("resume", False),
+    batch=a["batch"], checkpoint=a["ckpt"], resume=a.get("resume", False),
     faults=FaultPlan.parse(a["inject"]) if "inject" in a else None).run()
 info = res[0].exec_info
 json.dump({"state": sweep.state_doc(res)["scenarios"][0]["state"],
@@ -346,6 +387,31 @@ json.dump({"state": sweep.state_doc(res)["scenarios"][0]["state"],
            "ckpt_load_seconds": info["ckpt_load_seconds"]},
           open(a["out"], "w"))
 """
+
+
+# the CPU side of the card-vs-CPU checks (phases 4 and 5): one
+# SweepRunner run of a scenario, in a process of its own.  A CPU run sums
+# with one intra-op thread (`repro_torch.device.pinned_cpu_threads`), so
+# these runs go side by side, CPU_WORKERS at a time, started before
+# phase 4 and read where they are compared; each writes its metrics,
+# telemetry and final state
+CPU_RUN_SNIPPET = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch.exec import ShardedSweepRunner
+from repro_torch.sim import SweepRunner
+from repro_torch.sim.scenario import Scenario
+a = json.loads(sys.argv[1])
+kw = dict(seeds=a["seeds"], device="cpu", keep_state=True)
+sc = [Scenario(**a["scenario"])]
+res = (ShardedSweepRunner(sc, mesh=a["mesh"], combine="u_sharded", **kw)
+       if a["mesh"] else SweepRunner(sc, batch="map", **kw)).run()[0]
+torch.save({k: getattr(res, k) for k in (
+    "seeds", "rounds", "acc", "loss", "edge_power", "is_power",
+    "final_state", "telemetry")}, a["out"])
+"""
+CPU_WORKERS = 6
 
 
 T_START = time.perf_counter()
@@ -1123,9 +1189,10 @@ def compare_runs(on_card, on_cpu) -> dict:
 
 
 def expected_slab_launches(doc: dict) -> int:
-    """`ota_combine` launches a Fig. 2 driver document implies: per seed,
-    rounds x (I + 1) for W-HFL (I cluster hops and one IS->PS hop per
-    round), rounds for conventional FL, none for the ideal baselines."""
+    """`ota_combine` launches a Fig. 2 driver document implies: per seed
+    (``batch="map"``) or once for all seeds (``"vmap"``), rounds x (I +
+    1) for W-HFL (I cluster hops and one IS->PS hop per round), rounds
+    for conventional FL, none for the ideal baselines."""
     total = 0
     for rec in doc["scenarios"]:
         sc, rounds = rec["scenario"], rec["rounds"][-1]
@@ -1135,7 +1202,8 @@ def expected_slab_launches(doc: dict) -> int:
             per_seed = rounds
         else:
             per_seed = rounds * (sc["I"] + 1)
-        total += per_seed * len(rec["seeds"])
+        total += per_seed * (len(rec["seeds"])
+                             if rec["exec"]["batch"] == "map" else 1)
     return total
 
 
@@ -1502,6 +1570,90 @@ def main() -> int:
         check("ota_combine", label, shape, (y1,), (y2,), (want,))
         del args, y1, y2, want
 
+    # seed batching (``batch="vmap"``): S_SEEDS seeds of fig2's and
+    # scale_u256's hops, and FIG3_VMAP_SEEDS of Fig. 3's (the seeds of
+    # phase 4's fig3 vmap run), in one launch, their gains shared with a
+    # seed stride of 0 as the vmapped hops pass them; the launch against
+    # the S unbatched ones bit for bit, and against the plain version
+    # with its seed axis within TOL
+    def seed_batched(name, label, shape, call, args):
+        """One seed-batched launch (twice, for the repeat check) against
+        S unbatched ones, S the leading axis of `args`; returns its
+        outputs."""
+        fn = counters[name][0]
+        before = fn.launches
+        y1, y2 = call(*args), call(*args)
+        torch.cuda.synchronize()
+        launches = fn.launches - before
+        pair = lambda y: y if isinstance(y, tuple) else (y,)
+        S = args[0].shape[0]
+        singles = [pair(call(*(a[s] for a in args))) for s in range(S)]
+        same = all(torch.equal(a[s], b) for s, one in enumerate(singles)
+                   for a, b in zip(pair(y1), one))
+        log({"phase": "seed_batched", "kernel": name, "case": label,
+             "shape_SBUKN": list(shape), "launches_for_two_calls": launches,
+             "bitwise_equal_to_unbatched_launches": same})
+        if not same or launches != 2:
+            raise SystemExit(f"{name} at {label}: a seed-batched launch "
+                             f"differs from {S} unbatched ones")
+        return pair(y1), pair(y2)
+
+    counters = LAUNCH_COUNTERS
+    for i, (sc, hop, S) in enumerate([
+            (fig2_fused, "cluster", S_SEEDS), (fig2_fused, "is_ps", S_SEEDS),
+            (u256, "cluster", S_SEEDS), (u256, "is_ps", S_SEEDS),
+            (fig3_fused, "cluster", FIG3_VMAP_SEEDS),
+            (fig3_fused, "is_ps", FIG3_VMAP_SEEDS)]):
+        inps = [hop_inputs(sc, hop, 200 + 10 * i + s, dev) for s in range(S)]
+        inp = inps[0]
+        amp, w = inp["args"][2:]          # the geometry: every seed's
+        args = (torch.tensor([[0xC0FFEE, 42 + s] for s in range(S)],
+                             dtype=torch.int64, device=dev),
+                *(torch.stack([x["args"][j] for x in inps]) for j in (0, 1)),
+                amp.expand(S, *amp.shape), w.expand(S, *w.shape))
+        del inps
+        kw = dict(K=inp["K"], sigma_h2=inp["sigma_h2"],
+                  sigma_z2=inp["sigma_z2"], block_u=inp["block_u"])
+        N = args[1].shape[-1]
+        shape = (S, *amp.shape, inp["K"], N)
+        label = f"{sc.name} {hop} S={S}"
+        y1, y2 = seed_batched("fused_mac", label, shape,
+                              lambda *a: fused_mac(*a, **kw), args)
+        if sc is fig3_fused and hop == "cluster":
+            # the plain version on the first and the last FIG3_WINDOW
+            # symbols (its intermediates at the whole hop and 2 seeds
+            # would not fit on the card): a symbol's output depends on
+            # its own column alone, and n_base numbers the columns
+            cols = [(0, FIG3_WINDOW), (N - FIG3_WINDOW, N)]
+            cut = lambda ys: tuple(torch.cat([y[..., a:b] for a, b in cols],
+                                             -1) for y in ys)
+            want = [fused_mac_plain(args[0], args[1][..., a:b],
+                                    args[2][..., a:b], *args[3:],
+                                    n_base=a, **kw) for a, b in cols]
+            want = tuple(torch.cat(p, -1) for p in zip(*want))
+            check("fused_mac", f"{label} symbols {cols}", shape, cut(y1),
+                  cut(y2), want)
+        else:
+            check("fused_mac", label, shape, y1, y2,
+                  fused_mac_plain(*args, **kw))
+        del args, y1, y2
+    for i, (sc, hop) in enumerate([(fig2_slab, "cluster"),
+                                   (fig2_slab, "is_ps"),
+                                   (u256_slab, "cluster")]):
+        ops = [slab_inputs(sc, hop, 230 + 10 * i + s, dev)
+               for s in range(S_SEEDS)]
+        h, t, z = (torch.stack([o[j] for o in ops]) for j in range(3))
+        w = ops[0][3]                     # all ones or the own-cluster mask
+        if h.dim() == 4:                  # a single-cell hop: B = 1
+            h, z, w = h[:, None], z[:, None], w[None]
+        args = (h, t, z, w.expand(S_SEEDS, *w.shape))
+        label = f"{sc.name} {hop} S={S_SEEDS}"
+        y1, y2 = seed_batched("ota_combine", label, tuple(h.shape),
+                              ota_combine, args)
+        check("ota_combine", label, tuple(h.shape), y1, y2,
+              (ota_combine_plain(*args),))
+        del ops, h, t, z, args, y1, y2
+
     # the partial combine at the u-sharded hop's shapes: each kernel
     # against its plain version, and partials + fold against fused_mac
     # bit for bit (at scale_u65536 the kernels only here: its plain
@@ -1563,9 +1715,6 @@ def main() -> int:
             raise SystemExit(f"partials + reduce differ from fused_mac at "
                              f"{label}")
         del inp, args, p1, p2, y1, y2, y
-
-    # each kernel's launch count: (wrapper, attribute)
-    counters = LAUNCH_COUNTERS
 
     # flash attention at the serving path's shapes and the JAX tests'
     def flash_counts():
@@ -1662,6 +1811,56 @@ def main() -> int:
 
     # -- phase 4: the main paths -------------------------------------------
     main_launches = {name: 0 for name in KERNELS}
+    fig2_ref = fig2.replace(ota_mode="faithful")          # reference backend
+    drop50_fused = get_scenario("fig2_drop50").replace(
+        total_IT=5, ota_mode="faithful", ota_backend="fused")
+    byz1_median = get_scenario("fig2_byzantine1_median").replace(total_IT=5)
+    fig3_cut = dict(total_IT=1, C=2, M=2, batch=32)
+    # the CPU runs phase 5 (and the telemetry check) compare with, longest
+    # first: (label, scenario, seeds, mesh)
+    cpu_dir = tempfile.mkdtemp(prefix="cpu_runs_")
+    cpu_pool = ThreadPoolExecutor(max_workers=CPU_WORKERS)
+    cpu_jobs = {}
+
+    def cpu_run(label, sc, seeds, mesh=None):
+        out = str(Path(cpu_dir) / f"{len(cpu_jobs)}.pt")
+        arg = json.dumps({"scenario": sc.to_json(), "seeds": seeds,
+                          "mesh": mesh, "out": out})
+
+        def job():
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", CPU_RUN_SNIPPET,
+                                   arg], cwd=str(ROOT), capture_output=True,
+                                  text=True, timeout=1000)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the CPU run {label} failed:\n"
+                                   f"{proc.stderr[-3000:]}")
+            return out, time.perf_counter() - t0
+
+        cpu_jobs[label] = cpu_pool.submit(job)
+
+    def cpu_result(label):
+        """A CPU run's result, and its seconds (in its own process)."""
+        out, seconds = cpu_jobs.pop(label).result()
+        return SimpleNamespace(**torch.load(out)), seconds
+
+    for label, sc, seeds, mesh in (
+            ("scale_u256", u256, 2, None),
+            ("fig3_cifar_fused sgd", fig3_fused.replace(opt="sgd",
+                                                        **fig3_cut), 1, None),
+            ("fig3_cifar_fused", fig3_fused.replace(**fig3_cut), 1, None),
+            ("scale_u256 sharded 2x4 u_sharded", u256, 2, "2x4"),
+            ("fig2_iid_slab", fig2_slab.replace(total_IT=1), 2, None),
+            ("fig2_drop50_fused", drop50_fused.replace(total_IT=2), 2, None),
+            ("fig2_iid_reference", fig2_ref.replace(total_IT=1), 2, None),
+            ("fig2_iid_fused telemetry", fig2_fused.replace(
+                total_IT=2, telemetry=True), [0], None),
+            ("fig2_byzantine1_median", byz1_median.replace(total_IT=2), 2,
+             None),
+            ("fig2_iid", fig2.replace(total_IT=2), 2, None),
+            ("fig3_cifar_ideal", get_scenario("fig3_cifar_ideal").replace(
+                **fig3_cut), 1, None)):
+        cpu_run(label, sc, seeds, mesh)
 
     def counted(run):
         """`run()` with every launch count set to 0 just before it; the
@@ -1741,13 +1940,12 @@ def main() -> int:
             raise SystemExit(f"{label}: the chunked driver's run differs "
                              f"from the stepwise one: {same}")
 
-    fig2_ref = fig2.replace(ota_mode="faithful")          # reference backend
     runs = [("scale_u256", u256, True), ("fig2_iid_fused", fig2_fused, True),
             ("fig2_iid_reference", fig2_ref, False), ("fig2_iid", fig2, False)]
     for label, sc, fused in runs:
         make = lambda driver="stepwise", warmup=False, sc=sc: SweepRunner(
             [sc], seeds=2, device="cuda", keep_state=True, driver=driver,
-            warmup=warmup)
+            warmup=warmup, batch="map")
         res, launches = counted(lambda: make().run()[0])
         if label == "scale_u256":
             u256_on_card = res
@@ -1779,7 +1977,7 @@ def main() -> int:
             kw = dict(seeds=2, device="cuda", keep_state=True, driver=driver,
                       warmup=warmup)
             if mesh is None:
-                return SweepRunner([sc], **kw)
+                return SweepRunner([sc], batch="map", **kw)
             return ShardedSweepRunner([sc], mesh=mesh, combine="u_sharded",
                                       **kw)
 
@@ -1815,8 +2013,39 @@ def main() -> int:
                      "gradients one at a time on every engine and mesh)",
              **bitwise_runs(fig3_on_card["fig3_cifar_fused"],
                             fig3_on_card[label])})
+    # the CNN's seeds as one vmapped program through the chunked driver
+    # (one graph for both seeds; each user's gradient a grouped
+    # convolution over the seeds), held to the map run on the card by
+    # the update off the conv biases, by its norm, as phase 5 holds
+    # Adam (Adam turns the conv biases' rounding noise into steps of up
+    # to lr, so the accuracy gap is logged)
+    from repro_torch import prng as _prng
+    from repro_torch.sim.scenario import TASKS
+    res = chunked_launches(
+        "fig3_cifar_fused vmap chunked", lambda: SweepRunner(
+            [fig3_fused], seeds=FIG3_VMAP_SEEDS, device="cuda",
+            keep_state=True, driver="chunked", warmup=True).run()[0],
+        {"fused_mac": 2 * FIG3_ROUNDS})
+    map_res = fig3_on_card["fig3_cifar_fused"]
+    inits = [TASKS["cifar"][0](_prng.PRNGKey(s)) for s in res.seeds]
+    from repro_torch.tree import tree_map as _tree_map
+    theta0 = _tree_map(lambda *xs: torch.stack(xs), *inits)
+    map_cpu = dataclasses.replace(map_res, final_state={
+        "theta": _tree_map(lambda t: t.cpu(), map_res.final_state["theta"])})
+    gaps = {**compare_runs(res, map_res),
+            **theta_gaps(res, map_cpu, theta0, fig3_fused.lr)}
+    log({"phase": "vmap_vs_map", "run": "fig3_cifar_fused vmap chunked",
+         "seeds": res.seeds, "batch": res.exec_info["batch"],
+         "dispatches": res.exec_info["dispatches"], **gaps,
+         "rounds_per_sec": res.rounds[-1] / res.exec_info["drive_seconds"],
+         "bound_update_rel": FIG3_ADAM_UPDATE_RTOL})
+    if not (res.exec_info["batch"] == "vmap" and finite(res)
+            and gaps["update_rel_gap_off_conv_biases_and_partners"]
+            <= FIG3_ADAM_UPDATE_RTOL):
+        raise SystemExit(f"fig3 under vmap disagrees with its map run: "
+                         f"{gaps}")
     # phase 6 reads peak device memory: free the Fig. 3 runs' states
-    del fig3_on_card, res
+    del fig3_on_card, res, map_res, map_cpu
     # max_pool2d's backward under PyTorch's deterministic-algorithms
     # mode (the runners set only cuDNN's flags): accepted or refused
     from repro_torch import prng as _prng
@@ -1853,17 +2082,20 @@ def main() -> int:
              "seeds": rec["seeds"], "rounds": r,
              "rounds_per_sec": r / rec["exec"]["drive_seconds"],
              "final_acc": [a[-1] for a in rec["metrics"]["acc"]]})
+    # the driver runs its 2 seeds as one vmapped program: 46 launches,
+    # each for both seeds (92 when seeds ran one by one)
     want = expected_slab_launches(doc)
-    if want != 92:
+    if want != 46 or {rec["exec"]["batch"] for rec in doc["scenarios"]} \
+            != {"vmap"}:
         raise SystemExit(f"the Fig. 2 driver's schemes imply {want} "
-                         f"ota_combine launches, not 92")
+                         f"ota_combine launches, not 46 under vmap")
     expect("fig2_driver_slab", launches,
            {"fused_mac": 0, "ota_combine": want},
            all(np.all(np.isfinite(np.asarray(rec["metrics"][k], np.float64)))
                for rec in doc["scenarios"] for k in rec["metrics"]))
 
     res, launches = counted(lambda: SweepRunner(
-        [fig2_ref], seeds=2, quick=True, device="cuda").run()[0])
+        [fig2_ref], seeds=2, quick=True, device="cuda", batch="map").run()[0])
     log({"phase": "main_path", "run": "fig2_iid_reference_quick",
          "ota": "faithful/reference", "seeds": res.seeds,
          "rounds": res.rounds[-1],
@@ -1878,9 +2110,6 @@ def main() -> int:
     # backend (no kernel of ours).  Each run's realised masks, computed
     # on the card from a device round index as the round computes them,
     # against the CPU's
-    drop50_fused = get_scenario("fig2_drop50").replace(
-        total_IT=5, ota_mode="faithful", ota_backend="fused")
-    byz1_median = get_scenario("fig2_byzantine1_median").replace(total_IT=5)
     part_runs = [
         ("fig2_drop50_fused", drop50_fused, "fused_mac"),
         ("fig2_byzantine3_fused", get_scenario("fig2_byzantine3").replace(
@@ -1894,7 +2123,7 @@ def main() -> int:
     for label, sc, kernel in part_runs:
         make = lambda driver="stepwise", warmup=False, sc=sc: SweepRunner(
             [sc], seeds=2, device="cuda", keep_state=True, driver=driver,
-            warmup=warmup)
+            warmup=warmup, batch="map")
         res, launches = counted(lambda: make().run()[0])
         rounds = res.rounds[-1]
         sched = sc.participation_schedule()
@@ -1970,7 +2199,46 @@ def main() -> int:
     if not same_hop:
         raise SystemExit("the 2x4 u_sharded cluster hop on precoded users "
                          "differs from the single engine's")
-    del part_on_card, res, deltas, want_est, got_est
+    # seed batching (``batch="vmap"``, the sweep's default): each run's
+    # seeds as one program, the OTA kernel launched once a hop for all
+    # of them, through both drivers (chunked == stepwise bit for bit, one
+    # graph for all seeds); every seed within the W-HFL bounds of its own
+    # map run on the card
+    vmap_runs = [
+        ("fig2_iid_fused", fig2_fused, S_SEEDS, "fused_mac", None),
+        ("fig2_iid_slab", fig2_slab, S_SEEDS, "ota_combine", None),
+        ("fig2_drop50_fused", drop50_fused, 2, "fused_mac",
+         part_on_card["fig2_drop50_fused"]),
+        ("scale_u256", u256, 2, "fused_mac", u256_on_card)]
+    for label, sc, S, kernel, map_res in vmap_runs:
+        make = (lambda driver="stepwise", warmup=False, sc=sc, S=S:
+                SweepRunner([sc], seeds=S, device="cuda", keep_state=True,
+                            driver=driver, warmup=warmup))
+        res, launches = counted(lambda: make().run()[0])
+        rounds = res.rounds[-1]
+        if map_res is None:
+            map_res = SweepRunner([sc], seeds=S, device="cuda",
+                                  keep_state=True, batch="map").run()[0]
+        gaps = compare_runs(res, map_res)
+        log({"phase": "vmap_vs_map", "run": f"{label} vmap S={S}",
+             "scenario": sc.name, "ota": ota_label(sc), "seeds": res.seeds,
+             "rounds": rounds, "batch": res.exec_info["batch"],
+             "dispatches": res.exec_info["dispatches"], **gaps,
+             "rounds_per_sec": rounds / res.exec_info["drive_seconds"],
+             "rounds_per_sec_map": rounds
+             / map_res.exec_info["drive_seconds"]})
+        # one cluster hop and one IS->PS hop a round, for all seeds
+        want = {kernel: rounds * (sc.I + 1)}
+        expect(f"{label} vmap S={S}", launches, want,
+               finite(res) and res.exec_info["batch"] == "vmap")
+        if not (gaps["loss_max_rel"] <= TOL
+                and gaps["acc_max_abs"] <= 2.0 / sc.n_test
+                and gaps["theta_max_rel"] <= THETA_RTOL):
+            raise SystemExit(f"{label} under vmap disagrees with its map "
+                             f"run: {gaps}")
+        chunked_rerun(f"{label} vmap S={S}", lambda: make("chunked", True),
+                      res, want)
+    del part_on_card, res, deltas, want_est, got_est, map_res
 
     # the sharded engine through the sweep CLI
     sharded_runs = [("scale_u256", "1x1", "u_sharded", 2),
@@ -2058,7 +2326,7 @@ def main() -> int:
         make = (lambda driver=driver: SweepRunner(
             [fig2_fused], seeds=2, device="cuda", keep_state=True,
             driver=driver, warmup=driver == "chunked", telemetry=True,
-            guard="skip_round"))
+            guard="skip_round", batch="map"))
         if driver == "stepwise":
             res, launches = counted(lambda: make().run()[0])
             expect(label, launches, fused_want(res), finite(res))
@@ -2085,10 +2353,8 @@ def main() -> int:
         raise SystemExit("the chunked driver's telemetry differs from the "
                          "stepwise one's")
     # the card's telemetry against the CPU's (its first 2 rounds, seed 0)
-    t0 = time.perf_counter()
-    tele_cpu = SweepRunner([fig2_fused.replace(total_IT=2)], seeds=[0],
-                           device="cpu", telemetry=True).run()[0]
-    tele_cpu = tele_cpu.to_record()["telemetry"]
+    tele_cpu, cpu_s = cpu_result("fig2_iid_fused telemetry")
+    tele_cpu = tele_cpu.telemetry
     gaps = {k: float(np.max(np.abs(
                 np.asarray(tele_card["stepwise"][k][0][:2], np.float64)
                 - np.asarray(tele_cpu[k][0], np.float64)))
@@ -2098,7 +2364,7 @@ def main() -> int:
     log({"phase": "reference", "run": "fig2_iid_fused telemetry",
          "what": "the card's telemetry block (2 rounds, seed 0) against "
                  "the CPU's, max gap over max |value| per field",
-         "gaps": gaps, "bound": TOL, "cpu_seconds": time.perf_counter() - t0})
+         "gaps": gaps, "bound": TOL, "cpu_seconds": cpu_s})
     if max(gaps.values()) > TOL:
         raise SystemExit(f"the card's telemetry disagrees with the CPU's: "
                          f"{gaps}")
@@ -2113,7 +2379,8 @@ def main() -> int:
             label = f"fig2_iid_fused poison=nan@2:0:1 {guard} {driver}"
             res, launches = counted(lambda: SweepRunner(
                 [fig2_fused], seeds=2, device="cuda", keep_state=True,
-                driver=driver, guard=guard, faults=poison).run()[0])
+                driver=driver, guard=guard, faults=poison,
+                batch="map").run()[0])
             info = res.exec_info
             ok = (finite(res) and info["guard_trips"] == 2
                   and info["guard_halted"] == (guard == "halt")
@@ -2138,39 +2405,42 @@ def main() -> int:
     # a process killed after round 3 (exit 173), then resumed from its
     # checkpoint in a new process: the whole carry and every metric
     # equal the uninterrupted run's (the chunked resume captures its
-    # graphs afresh)
-    # (each step's two drivers run side by side, in two processes)
-    drivers = ("stepwise", "chunked")
-    cks = {d: tempfile.mkdtemp(prefix=f"ck_{d}_") for d in drivers}
+    # graphs afresh), for both drivers in both seed modes
+    # (each step's four runs side by side, in four processes)
+    modes = [(d, b) for d in ("stepwise", "chunked") for b in ("map", "vmap")]
+    cks = {m: tempfile.mkdtemp(prefix=f"ck_{m[0]}_{m[1]}_") for m in modes}
     rcs, secs = defaultdict(dict), defaultdict(dict)
     for step, extra in (("crash", {"inject": "crash_round=3"}),
                         ("resume", {"resume": True})):
         t0 = time.perf_counter()
-        procs = {d: subprocess.Popen(
+        procs = {m: subprocess.Popen(
             [sys.executable, "-c", RESUME_SNIPPET, json.dumps(
-                {"driver": d, "ckpt": cks[d], **extra,
-                 "out": str(Path(cks[d]) / f"{step}.json")})],
+                {"driver": m[0], "batch": m[1], "ckpt": cks[m], **extra,
+                 "out": str(Path(cks[m]) / f"{step}.json")})],
             cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for d in drivers}
-        for d, proc in procs.items():
+            text=True) for m in modes}
+        for m, proc in procs.items():
             _, err = proc.communicate(timeout=600)
-            rcs[d][step] = proc.returncode
-            secs[d][step] = time.perf_counter() - t0
+            rcs[m][step] = proc.returncode
+            secs[m][step] = time.perf_counter() - t0
             if proc.returncode not in (0, CRASH_EXIT_CODE):
                 print(err[-3000:], file=sys.stderr)
-    for driver in drivers:
+    for driver, batch in modes:
         ref = SweepRunner([fig2_fused], seeds=2, device="cuda",
-                          keep_state=True, driver=driver).run()
-        out = Path(cks[driver]) / "resume.json"
-        outs = json.load(open(out)) if rcs[driver]["resume"] == 0 else {}
+                          keep_state=True, driver=driver,
+                          batch=batch).run()
+        m = (driver, batch)
+        out = Path(cks[m]) / "resume.json"
+        outs = json.load(open(out)) if rcs[m]["resume"] == 0 else {}
         want_state = sweep.state_doc(ref)["scenarios"][0]["state"]
         want_doc = sweep.sweep_to_json(ref)["scenarios"][0]
-        ok = (rcs[driver] == {"crash": CRASH_EXIT_CODE, "resume": 0}
+        ok = (rcs[m] == {"crash": CRASH_EXIT_CODE, "resume": 0}
               and outs.get("state") == want_state
               and outs.get("metrics") == want_doc["metrics"]
               and outs.get("resumed_from") == 3)
-        log({"phase": "kill_and_resume", "run": f"fig2_iid_fused {driver}",
-             "exit_codes": rcs[driver], "seconds": secs[driver],
+        log({"phase": "kill_and_resume",
+             "run": f"fig2_iid_fused {driver} {batch}",
+             "exit_codes": rcs[m], "seconds": secs[m],
              "resumed_from": outs.get("resumed_from"),
              "ckpt_save_seconds": outs.get("ckpt_save_seconds"),
              "ckpt_load_seconds": outs.get("ckpt_load_seconds"),
@@ -2178,13 +2448,14 @@ def main() -> int:
              "metrics_bitwise_equal": outs.get("metrics")
              == want_doc["metrics"]})
         if not ok:
-            raise SystemExit(f"kill and resume ({driver}): {rcs[driver]}")
-        shutil.rmtree(cks[driver], ignore_errors=True)
+            raise SystemExit(f"kill and resume ({driver}, {batch}): "
+                             f"{rcs[m]}")
+        shutil.rmtree(cks[m], ignore_errors=True)
 
     # scale_u256 sharded 2x4 u_sharded with telemetry: bit for bit the
     # single engine's run with telemetry (the block on the real C)
     u_tele = SweepRunner([u256], seeds=2, device="cuda", keep_state=True,
-                         telemetry=True).run()[0]
+                         telemetry=True, batch="map").run()[0]
     res, launches = counted(lambda: ShardedSweepRunner(
         [u256], seeds=2, mesh="2x4", combine="u_sharded", device="cuda",
         keep_state=True, telemetry=True).run()[0])
@@ -2205,10 +2476,10 @@ def main() -> int:
     # the slab kernel with telemetry, against the plain slab run
     slab3 = fig2_slab.replace(total_IT=3)
     slab_plain = SweepRunner([slab3], seeds=2, device="cuda",
-                             keep_state=True).run()[0]
+                             keep_state=True, batch="map").run()[0]
     res, launches = counted(lambda: SweepRunner(
         [slab3], seeds=2, device="cuda", keep_state=True,
-        telemetry=True).run()[0])
+        telemetry=True, batch="map").run()[0])
     expect("fig2_iid_slab telemetry", launches,
            {"ota_combine": 2 * res.rounds[-1] * 2}, finite(res))
     same = bitwise_runs(slab_plain, without_blocks(res))
@@ -2333,33 +2604,28 @@ def main() -> int:
     # fig2_iid as registered (no kernel) is the control: Adam turns any
     # difference between the card's and the CPU's arithmetic into a
     # larger gap in the model than SGD does
-    single = lambda sc, device: SweepRunner([sc], seeds=2, device=device,
-                                            keep_state=True).run()[0]
-    u256_sharded = lambda sc, device: ShardedSweepRunner(
-        [sc], seeds=2, mesh="2x4", combine="u_sharded", device=device,
-        keep_state=True).run()[0]
-    for label, sc, run, card_res in (
-            ("scale_u256", u256, single, u256_on_card),
-            ("scale_u256 sharded 2x4 u_sharded", u256, u256_sharded,
-             u256_sharded_on_card),
-            ("fig2_iid_slab", fig2_slab.replace(total_IT=1), single, None),
-            ("fig2_iid_reference", fig2_ref.replace(total_IT=1), single,
-             None),
-            ("fig2_iid", fig2.replace(total_IT=2), single, None),
-            ("fig2_drop50_fused", drop50_fused.replace(total_IT=2), single,
-             None),
+    # each run takes 2 seeds on both sides (the CPU side ran in the
+    # processes started before phase 4); scale_u256's are phase 4's
+    single = lambda sc: SweepRunner([sc], seeds=2, device="cuda",
+                                    keep_state=True, batch="map").run()[0]
+    for label, sc, card_res in (
+            ("scale_u256", u256, u256_on_card),
+            ("scale_u256 sharded 2x4 u_sharded", u256, u256_sharded_on_card),
+            ("fig2_iid_slab", fig2_slab.replace(total_IT=1), None),
+            ("fig2_iid_reference", fig2_ref.replace(total_IT=1), None),
+            ("fig2_iid", fig2.replace(total_IT=2), None),
+            ("fig2_drop50_fused", drop50_fused.replace(total_IT=2), None),
             ("fig2_byzantine1_median", byz1_median.replace(total_IT=2),
-             single, None)):
+             None)):
         if card_res is None:
-            card_res = run(sc, "cuda")
-        t0 = time.perf_counter()
-        cpu_res = run(sc, "cpu")
+            card_res = single(sc)
+        cpu_res, cpu_s = cpu_result(label)
         gaps = compare_runs(card_res, cpu_res)
         log({"phase": "reference", "run": label, "scenario": sc.name,
              "ota": ota_label(sc),
              "what": "the card (kernels) vs the CPU (plain versions)",
              "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
-             "n_test": sc.n_test, "cpu_seconds": time.perf_counter() - t0})
+             "n_test": sc.n_test, "cpu_seconds": cpu_s})
         if not (gaps["loss_max_rel"] <= TOL
                 and gaps["acc_max_abs"] <= 2.0 / sc.n_test
                 and gaps["theta_max_rel"] <= THETA_RTOL):
@@ -2384,18 +2650,15 @@ def main() -> int:
     from repro_torch.sim.scenario import TASKS
     from repro_torch.tree import tree_leaves, tree_map
 
-    fig3_cut = dict(total_IT=1, C=2, M=2, batch=32)
     for label, sc, gate in (
             ("fig3_cifar_fused sgd", fig3_fused.replace(opt="sgd",
                                                         **fig3_cut), "all"),
             ("fig3_cifar_ideal", get_scenario("fig3_cifar_ideal").replace(
                 **fig3_cut), "adam"),
             ("fig3_cifar_fused", fig3_fused.replace(**fig3_cut), "acc")):
-        run = lambda device, sc=sc: SweepRunner(
-            [sc], seeds=1, device=device, keep_state=True).run()[0]
-        card_res = run("cuda")
-        t0 = time.perf_counter()
-        cpu_res = run("cpu")
+        card_res = SweepRunner([sc], seeds=1, device="cuda", keep_state=True,
+                               batch="map").run()[0]
+        cpu_res, cpu_s = cpu_result(label)
         theta0 = TASKS["cifar"][0](prng.PRNGKey(cpu_res.seeds[0]))
         gaps = {**compare_runs(card_res, cpu_res),
                 **theta_gaps(card_res, cpu_res, theta0, sc.lr)}
@@ -2406,7 +2669,7 @@ def main() -> int:
              "cut": "C 4 -> 2, M 5 -> 2, batch 128 -> 32, 1 round",
              "seeds": cpu_res.seeds, "rounds": cpu_res.rounds[-1], **gaps,
              "gate": gate, "lr": sc.lr, "tau": sc.tau, "n_test": sc.n_test,
-             "cpu_seconds": time.perf_counter() - t0})
+             "cpu_seconds": cpu_s})
         ok = gaps["acc_max_abs"] <= 2.0 / sc.n_test
         if gate == "all":
             ok &= (gaps["loss_max_rel"] <= TOL
@@ -2455,6 +2718,12 @@ def main() -> int:
     small_vs_cpu(small_runs, params_small, small_shape)
     del params_small
 
+    cpu_pool.shutdown()
+    shutil.rmtree(cpu_dir, ignore_errors=True)
+    if cpu_jobs:
+        raise SystemExit(f"CPU runs started and never compared: "
+                         f"{sorted(cpu_jobs)}")
+
     # -- phase 6: where the time goes --------------------------------------
     # the LM first: its weights are freed before the sharded runs' peak
     # device memory is read
@@ -2477,7 +2746,8 @@ def main() -> int:
     for label, sc in [(label, sc.replace(total_IT=2) if sc is fig2_ref
                        else sc) for label, sc, _ in runs] + [
             ("fig2_iid_slab", fig2_slab)]:
-        prof = device_profile(SweepRunner([sc], seeds=1, device="cuda"), sc)
+        prof = device_profile(SweepRunner([sc], seeds=1, device="cuda",
+                                          batch="map"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
     # participation: the mask, precode and rescale on the fused round,
     # and the median fold's per-user hops, through both drivers
@@ -2486,7 +2756,7 @@ def main() -> int:
         for d in ("stepwise", "chunked"):
             prof = device_profile(SweepRunner(
                 [sc], seeds=1, device="cuda", driver=d,
-                warmup=d == "chunked"), sc)
+                warmup=d == "chunked", batch="map"), sc)
             log({"phase": "profile", "run": f"{label} {d}", "card": card,
                  **prof})
     for label, sc, mesh in (("sharded scale_u65536 1x1 u_sharded", u65536,
@@ -2519,23 +2789,23 @@ def main() -> int:
             ("fig3_cifar_fused chunked", fig3_fused, "chunked")):
         sc = sc.replace(total_IT=1)
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda",
-                                          driver=driver,
+                                          driver=driver, batch="map",
                                           warmup=driver == "chunked"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
     # rounds/s of both drivers, each warmed before its drive
     for label, make in (
             ("fig2_iid_fused", lambda d: SweepRunner(
                 [fig2_fused], seeds=1, device="cuda", driver=d,
-                warmup=True)),
+                warmup=True, batch="map")),
             ("scale_u256", lambda d: SweepRunner(
                 [u256.replace(total_IT=10)], seeds=1, device="cuda",
-                driver=d, warmup=True)),
+                driver=d, warmup=True, batch="map")),
             ("sharded scale_u256 2x4 u_sharded", lambda d: ShardedSweepRunner(
                 [u256.replace(total_IT=10)], seeds=1, mesh="2x4",
                 combine="u_sharded", device="cuda", driver=d, warmup=True)),
             ("fig3_cifar_fused", lambda d: SweepRunner(
                 [fig3_fused], seeds=1, device="cuda", driver=d,
-                warmup=True))):
+                warmup=True, batch="map"))):
         rates = {}
         for d in ("stepwise", "chunked"):
             r = make(d).run()[0]
@@ -2688,6 +2958,101 @@ def main() -> int:
              "plain_ms": ps, "bound_ms": bound, "bound_by": bound_by,
              "card": card})
         del args
+
+    # seed batching: S_SEEDS seeds of fig2's hops in one launch against
+    # S unbatched launches, in turns, beside S times one seed's bound and
+    # the plain version with its seed axis
+    S = S_SEEDS
+    seeds_s = torch.tensor([[0xC0FFEE, 42 + s] for s in range(S)],
+                           dtype=torch.int64, device=dev)
+    for label, hop in (("fig2_iid cluster", "cluster"),
+                       ("fig2_iid is_ps", "is_ps")):
+        inps = [hop_inputs(fig2_fused, hop, 300 + s, dev) for s in range(S)]
+        inp = inps[0]
+        amp, w = inp["args"][2:]
+        args = (seeds_s, *(torch.stack([x["args"][j] for x in inps])
+                           for j in (0, 1)),
+                amp.expand(S, *amp.shape), w.expand(S, *w.shape))
+        kw = dict(K=inp["K"], sigma_h2=inp["sigma_h2"],
+                  sigma_z2=inp["sigma_z2"], block_u=inp["block_u"])
+        (B, U), K, N = amp.shape, inp["K"], args[1].shape[-1]
+        ks, ls = in_turns(
+            lambda: fused_mac(*args, **kw),
+            lambda: [fused_mac(*(a[s] for a in args), **kw)
+                     for s in range(S)], 20, 20)
+        ps = [time_ms(lambda: fused_mac_plain(*args, **kw), 2)
+              for _ in range(2)]
+        bound, bound_by, issue = fused_mac_bound_ms(B, U, K, N,
+                                                    cycles["fused_mac"])
+        timings["fused_mac", f"{label} S={S}"] = dict(
+            ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=S * bound,
+            bound_by=bound_by, unbatched_launches_ms=sum(ls) / 2,
+            shape_SBUKN=[S, B, U, K, N])
+        log({"phase": "times", "kernel": "fused_mac",
+             "shape": f"{label} S={S}", "shape_SBUKN": [S, B, U, K, N],
+             "kernel_ms": ks, f"{S}_unbatched_launches_ms": ls,
+             "plain_ms": ps, "bound_ms": S * bound, "bound_by": bound_by,
+             "card": card})
+        ops = [slab_inputs(fig2_slab, hop, 310 + s, dev) for s in range(S)]
+        h, t, z = (torch.stack([o[j] for o in ops]) for j in range(3))
+        w = ops[0][3]
+        if h.dim() == 4:
+            h, z, w = h[:, None], z[:, None], w[None]
+        args = (h, t, z, w.expand(S, *w.shape))
+        _, B, U, K, N = h.shape
+        ks, ls = in_turns(
+            lambda: ota_combine(*args),
+            lambda: [ota_combine(*(a[s] for a in args)) for s in range(S)],
+            20, 20)
+        ps = [time_ms(lambda: ota_combine_plain(*args), 5) for _ in range(2)]
+        bound, bound_by = ota_combine_bound_ms(B, U, K, N)
+        timings["ota_combine", f"{label} S={S}"] = dict(
+            ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=S * bound,
+            bound_by=bound_by, unbatched_launches_ms=sum(ls) / 2,
+            shape_SBUKN=[S, B, U, K, N])
+        log({"phase": "times", "kernel": "ota_combine",
+             "shape": f"{label} S={S}", "shape_SBUKN": [S, B, U, K, N],
+             "cluster_blocks": cluster_fn(B, K, N), "kernel_ms": ks,
+             f"{S}_unbatched_launches_ms": ls, "plain_ms": ps,
+             "bound_ms": S * bound, "bound_by": bound_by, "card": card})
+        del inps, args, ops, h, t, z
+
+    # the two shapes phase 3 holds but earlier runs did not time:
+    # fused_mac at Fig. 3's IS->PS hop and the partials at a tile of its
+    # 2x5 mesh
+    inp = hop_inputs(fig3_fused, "is_ps", 320, dev)
+    args = inp["args"]
+    (B, U), K, N = args[2].shape, inp["K"], args[0].shape[1]
+    kw = dict(K=K, sigma_h2=inp["sigma_h2"], sigma_z2=inp["sigma_z2"],
+              block_u=inp["block_u"])
+    ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
+                      lambda: fused_mac_plain(seed, *args, **kw), 20, 2)
+    bound, bound_by, issue = fused_mac_bound_ms(B, U, K, N,
+                                                cycles["fused_mac"])
+    timings["fused_mac", "fig3_cifar is_ps"] = dict(
+        ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
+        bound_by=bound_by, shape_BUKN=[B, U, K, N])
+    log({"phase": "times", "kernel": "fused_mac", "shape": "fig3_cifar is_ps",
+         "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
+         "bound_ms": bound, "bound_by": bound_by, "card": card})
+    inp = tile_inputs(fig3_fused, (2, 5), 1, 3, 321, dev)
+    args, (rb, ub, nb), bu = inp["args"], inp["bases"], inp["block_u"]
+    (B, U), K, N = args[2].shape, inp["K"], args[0].shape[1]
+    kw = dict(K=K, sigma_h2=inp["sigma_h2"], rx_base=rb, u_base=ub,
+              n_base=nb, block_u=bu)
+    ks, ps = in_turns(lambda: fused_mac_partials(seed, *args, **kw),
+                      lambda: fused_mac_partials_plain(seed, *args, **kw),
+                      20, 1)
+    bound, bound_by, issue = partials_bound_ms(
+        B, U, K, N, U // bu, cycles["fused_mac_partials"])
+    timings["fused_mac_partials", "fig3_cifar 2x5 tile"] = dict(
+        ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
+        bound_by=bound_by, shape=[B, U, K, N])
+    log({"phase": "times", "kernel": "fused_mac_partials",
+         "shape": "fig3_cifar 2x5 tile", "shape_BUKN": [B, U, K, N],
+         "block_u": bu, "kernel_ms": ks, "plain_ms": ps, "bound_ms": bound,
+         "bound_by": bound_by, "card": card})
+    del inp, args
 
     # the whole cluster hop at the scale_u256 shape: the slab backend
     # (emulated draw of the slab, then the combine) against the fused one

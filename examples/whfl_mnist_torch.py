@@ -4,8 +4,9 @@ The counterpart of ``examples/whfl_mnist.py`` over `repro_torch.sim`:
 the full paper setting (C=4 x M=5, K=K'=100, P_t = 1 + 1e-2 t,
 P_IS = 20 P_t, sigma_z^2 = 10, normalized time IT) for one of the three
 data distributions, with W-HFL at I in {1,2,4}, conventional FL and the
-two error-free baselines, every seed of every scheme through
-`SweepRunner`.  It writes the same ``repro.sim.sweep/v1`` document.
+two error-free baselines, all seeds of a scheme through `SweepRunner`
+as one vmapped program (``batch="vmap"``, the OTA kernels launched once
+for all seeds).  It writes the same ``repro.sim.sweep/v1`` document.
 
     PYTHONPATH=src python examples/whfl_mnist_torch.py \\
         --dist iid --IT 400 --seeds 3 --out results/fig2_iid.json
@@ -55,7 +56,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="data/geometry seed and first training seed")
     ap.add_argument("--seeds", type=int, default=1,
-                    help="training seeds per scheme")
+                    help="training seeds per scheme (one vmapped "
+                         "program; the sharded engine runs them one by "
+                         "one)")
     ap.add_argument("--ota", default="equivalent",
                     choices=["equivalent", "faithful", "ideal"])
     ap.add_argument("--backend", default="",

@@ -5,8 +5,9 @@ from repro_torch.core.topology import (Topology, random_topology,
 from repro_torch.core.channel import (ChannelBackend, OTAConfig, cluster_ota,
                                       conventional_ota, get_backend,
                                       global_ota, list_backends,
-                                      register_backend, resolve_backend)
-from repro_torch.core import aggregation, whfl
+                                      register_backend, resolve_backend,
+                                      vmap_seeds)
+from repro_torch.core import aggregation, bound, whfl
 
 __all__ = [
     "Topology",
@@ -21,6 +22,8 @@ __all__ = [
     "cluster_ota",
     "global_ota",
     "conventional_ota",
+    "vmap_seeds",
     "aggregation",
+    "bound",
     "whfl",
 ]

@@ -78,6 +78,24 @@ def resolve_backend(cfg: OTAConfig) -> str:
             f"{', '.join(sorted(_MODE_DEFAULT_BACKEND))}, ideal") from None
 
 
+def vmap_seeds(hop_fn):
+    """Lift an OTA hop over a leading seed/realization axis.
+
+    ``hop_fn(key, deltas, topo, P, cfg) -> est`` (any of `cluster_ota`,
+    `global_ota`, `conventional_ota`) becomes a function taking keys
+    ``[S, 2]`` and deltas with a leading ``S`` axis, drawing S
+    independent channel/noise realizations in one `torch.func.vmap`
+    (the kernel backends as one launch for all S,
+    `repro_torch.kernels.ops`).  Geometry, power and config are shared
+    across the batch; each seed's draws equal its own call's, as they
+    depend only on its key.  The hop-level view of what the sweep's
+    ``batch="vmap"`` does to the whole round."""
+    def batched(keys, deltas, topo, P, cfg: OTAConfig = OTAConfig()):
+        return torch.func.vmap(lambda k, d: hop_fn(k, d, topo, P, cfg))(
+            keys, deltas)
+    return batched
+
+
 # ---------------------------------------------------------------------------
 # packing R^{2N} <-> C^N (eq. 7)
 # ---------------------------------------------------------------------------
@@ -104,7 +122,8 @@ def _cn(key, shape, var: float) -> torch.Tensor:
 
 
 def _seed_words(key: torch.Tensor) -> torch.Tensor:
-    """PRNG key -> the two uint32 seed words of the fused kernel."""
+    """PRNG key -> the two uint32 seed words of the fused kernel (under a
+    seed vmap, each seed's own)."""
     return key.reshape(-1)[:2]
 
 

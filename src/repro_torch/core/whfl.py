@@ -29,13 +29,15 @@ per-user receptions (`WHFLConfig.cluster_agg`).  A full schedule with the
 mean fold inserts no op.
 
 `make_window_fn` is the drivers' unit: the rounds of one eval window
-and the eval.  The stepwise driver runs it eagerly; `make_chunk_fn`
-replays it as one CUDA graph per window length on the card.
+and the eval, over a sweep's seeds run one by one (``batch="map"``) or
+as one program under `torch.func.vmap` (``batch="vmap"``).  The
+stepwise driver runs it eagerly; `make_chunk_fn` replays it as one CUDA
+graph per window length on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -465,29 +467,73 @@ def eval_windows(T: int, eval_every: int) -> list:
     return out
 
 
+BATCH_MODES = ("vmap", "map")
+
+
+def stack_seeds(trees):
+    """Per-seed trees -> the seed-stacked carry: one tree of [S, ...]
+    leaves."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def make_window_fn(round_fn: Callable,
-                   eval_fn: Optional[Callable] = None) -> Callable:
+                   eval_fn: Optional[Callable] = None,
+                   batch: str = "map") -> Callable:
     """Lift the per-seed round into an eval window: ``window(states,
     keys, P_win, P_is_win) -> (states, keys, metrics)`` runs
     ``len(P_win)`` rounds of every seed, then ``eval_fn(state)`` on each
     seed's state (metrics: their [S, ...] stack, or None).
 
-    states and keys are per-seed lists (the port runs seeds as a loop);
-    P_win and P_is_win are float32 [w] tensors of the window's powers on
-    the run's device.  Per round and seed the carried key splits into
-    (next_key, sub) and `round_fn` takes sub with that round's powers.
+    The carry is seed-stacked in both modes: states is one tree of
+    [S, ...] leaves (`stack_seeds`) and keys [S, 2].  Per round and seed
+    the carried key splits into (next_key, sub) and `round_fn` takes sub
+    with that round's powers.  P_win and P_is_win are float32 [w]
+    tensors of the window's powers on the run's device.  The seeds run
+
+    - ``batch="map"``: one after the other, each on its own copy of its
+      slice of the carry (restacked at the window's end), so a seed's
+      bits do not depend on the others;
+    - ``batch="vmap"``: as one program, `round_fn` and `eval_fn` under
+      `torch.func.vmap` over the seed axis.  Each op runs once for all
+      seeds (the OTA kernels as one launch, `repro_torch.kernels.ops`),
+      so a batched GEMM may round a seed's gradient otherwise than its
+      map run does; its random draws are the same.
+
     Both drivers run this one loop: the stepwise driver calls it eagerly
     and the chunked driver replays it as a graph (`make_chunk_fn`).
     """
-    def window(states: List, keys: List, P_win, P_is_win):
-        states, keys = list(states), list(keys)
+    if batch not in BATCH_MODES:
+        raise ValueError(f"batch must be one of {BATCH_MODES}, got "
+                         f"{batch!r}")
+    if batch == "vmap":
+        def seed_round(state, key, P_t, P_is_t):
+            key, sub = prng.split(key)
+            return round_fn(state, sub, P_t, P_is_t), key
+
+        step = torch.func.vmap(seed_round, in_dims=(0, 0, None, None))
+        evals = None if eval_fn is None else torch.func.vmap(eval_fn)
+
+        def window(states, keys, P_win, P_is_win):
+            for i in range(P_win.shape[0]):
+                states, keys = step(states, keys, P_win[i], P_is_win[i])
+            return states, keys, None if evals is None else evals(states)
+
+        return window
+
+    def window(states, keys, P_win, P_is_win):
+        # fresh allocations, as a seed run alone holds its state: a view
+        # into the stack may sit at an offset that changes a kernel's
+        # vectorization, and with it a reduction's order
+        S = keys.shape[0]
+        per = [tree_map(lambda x: x[s].clone(), states) for s in range(S)]
+        ks = [keys[s].clone() for s in range(S)]
         for i in range(P_win.shape[0]):
-            for s in range(len(states)):
-                keys[s], sub = prng.split(keys[s])
-                states[s] = round_fn(states[s], sub, P_win[i], P_is_win[i])
+            for s in range(S):
+                ks[s], sub = prng.split(ks[s])
+                per[s] = round_fn(per[s], sub, P_win[i], P_is_win[i])
         metrics = (None if eval_fn is None
-                   else torch.stack([eval_fn(st) for st in states]))
-        return states, keys, metrics
+                   else torch.stack([eval_fn(st) for st in per]))
+        return stack_seeds(per), torch.stack(ks), metrics
 
     return window
 
@@ -500,9 +546,10 @@ class _ChunkFn:
     window length is captured once as a `torch.cuda.CUDAGraph` (at most
     three: 1, eval_every and the tail) and every later call replays it:
 
-    - the seeds' states and keys live in static buffers that every graph
-      reads and, at its end, overwrites in place, so a call returns them
-      as the carried state (pass them back unchanged);
+    - the seed-stacked carry (states and keys) lives in static buffers
+      that every graph reads and, at its end, overwrites in place, so a
+      call returns them as the carried state (pass them back
+      unchanged);
     - the window's powers are copied into the graph's float32 [w]
       buffers before each replay, so every round of every replay reads
       its own;
@@ -539,8 +586,7 @@ class _ChunkFn:
         P_is.copy_(P_is_win)
         graph.replay()
         states, keys = self.carry
-        return (list(states), list(keys),
-                None if metrics is None else metrics.clone())
+        return states, keys, None if metrics is None else metrics.clone()
 
     def _load(self, carry) -> None:
         """Copy (states, keys) into the static buffers, unless they are
@@ -578,14 +624,16 @@ class _ChunkFn:
 
 
 def make_chunk_fn(round_fn: Callable,
-                  eval_fn: Optional[Callable] = None) -> Callable:
+                  eval_fn: Optional[Callable] = None,
+                  batch: str = "map") -> Callable:
     """The chunked driver's window executor: `make_window_fn`'s window,
     ``chunk_fn(states, keys, P_win, P_is_win) -> (states, keys,
     metrics)``, as one CUDA graph per window length on the card
-    (`_ChunkFn`) and eagerly on the CPU.  It runs the stepwise driver's
-    loop, so the two drivers agree bit for bit.
+    (`_ChunkFn`; under ``batch="vmap"`` one graph for all seeds) and
+    eagerly on the CPU.  It runs the stepwise driver's loop, so the two
+    drivers agree bit for bit.
     """
-    return _ChunkFn(make_window_fn(round_fn, eval_fn))
+    return _ChunkFn(make_window_fn(round_fn, eval_fn, batch))
 
 
 class WHFLTrainer:

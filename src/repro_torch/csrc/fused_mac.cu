@@ -206,6 +206,13 @@ __device__ __forceinline__ void store_row_sum(float acc_re, float acc_im,
 // blocks) and the combine runs slower at the main path's shapes; with
 // it, 40 registers and a few local-memory words per k row, none on the
 // u loop.
+//
+// Seed batching: blockIdx.z is the seed s.  Seed s reads its own words
+// (words + 8 s), transmit symbols (t + s * seed_t) and gains (amp, w +
+// s * seed_g; a stride of 0 shares one [B, U] block) and writes y[s];
+// every (s, b, n) cell runs exactly the arithmetic of an unbatched
+// launch with seed s's words, so a batched launch equals S unbatched
+// ones bit for bit.
 __global__ void __launch_bounds__(kTN * kTK, 6)
 fused_mac_kernel(const uint32_t* __restrict__ words,
                  const float* __restrict__ t_re,
@@ -214,15 +221,20 @@ fused_mac_kernel(const uint32_t* __restrict__ words,
                  const float* __restrict__ w,
                  float* __restrict__ y_re, float* __restrict__ y_im,
                  int U, int K, int N, int block_u, uint32_t kstride,
-                 float sigma_h, float sigma_z) {
+                 float sigma_h, float sigma_z, long long seed_t,
+                 long long seed_g) {
   const int b = blockIdx.y;
+  const int s = blockIdx.z;
   const int n = blockIdx.x * kTN + threadIdx.x;
+  words += 8 * s;
+  t_re += s * seed_t;
+  t_im += s * seed_t;
   const Keys key = stream_keys(words, b);
   float acc_re = 0.0f, acc_im = 0.0f;
   if (n < N) {
     const uint32_t nn = static_cast<uint32_t>(n) + words[4];
-    const float* amp_b = amp + static_cast<size_t>(b) * U;
-    const float* w_b = w + static_cast<size_t>(b) * U;
+    const float* amp_b = amp + s * seed_g + static_cast<size_t>(b) * U;
+    const float* w_b = w + s * seed_g + static_cast<size_t>(b) * U;
     for (int k = threadIdx.y; k < K; k += kTK) {
       float r_re, r_im;
       cx_normal(key.k0, key.noise, static_cast<uint32_t>(k), nn, sigma_z,
@@ -240,8 +252,8 @@ fused_mac_kernel(const uint32_t* __restrict__ words,
       add_conj_product(acc_re, acc_im, mf_re, mf_im, r_re, r_im);
     }
   }
-  store_row_sum(acc_re, acc_im, n, N, y_re + static_cast<size_t>(b) * N,
-                y_im + static_cast<size_t>(b) * N);
+  const size_t row = (static_cast<size_t>(s) * gridDim.y + b) * N;
+  store_row_sum(acc_re, acc_im, n, N, y_re + row, y_im + row);
 }
 
 // Grid (N / 32, G, B); blockDim.y = min(8, K) rows over the antennas.
@@ -321,25 +333,30 @@ uint32_t k_stride(int K) {
 
 // The entry points below take device pointers to contiguous tensors and
 // `words`, uint32 [8] on the device = (s0, s1, rx_base, u_base, n_base,
-// 0, 0, 0).  Each launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() as an int.
+// 0, 0, 0) (`fused_mac_launch`: [S, 8], one row a seed).  Each launches
+// on `stream`, does not synchronise, and returns cudaGetLastError() as an
+// int.
 
-// t_re, t_im: float32 [U, N]; amp, w: float32 [B, U]; y_re, y_im:
-// float32 [B, N].  block_u >= 1.
+// S seeds in one launch: t_re, t_im: float32 [S, U, N], seed s's block
+// at s * seed_t; amp, w: float32 [S, B, U], seed s's at s * seed_g (0:
+// one block for all seeds); y_re, y_im: float32 [S, B, N], contiguous.
+// block_u >= 1, S <= 65535.
 extern "C" int fused_mac_launch(const void* words, const void* t_re,
                                 const void* t_im, const void* amp,
                                 const void* w, void* y_re, void* y_im,
-                                int B, int U, int K, int N, int block_u,
-                                float sigma_h, float sigma_z, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
+                                int S, int B, int U, int K, int N,
+                                int block_u, long long seed_t,
+                                long long seed_g, float sigma_h,
+                                float sigma_z, void* stream) {
+  if (S <= 0 || B <= 0 || N <= 0) return 0;
   const dim3 block(kTN, kTK);
-  const dim3 grid((N + kTN - 1) / kTN, B);
+  const dim3 grid((N + kTN - 1) / kTN, B, S);
   fused_mac_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(t_re),
       static_cast<const float*>(t_im), static_cast<const float*>(amp),
       static_cast<const float*>(w), static_cast<float*>(y_re),
       static_cast<float*>(y_im), U, K, N, block_u, k_stride(K), sigma_h,
-      sigma_z);
+      sigma_z, seed_t, seed_g);
   return static_cast<int>(cudaGetLastError());
 }
 

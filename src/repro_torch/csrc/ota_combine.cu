@@ -61,12 +61,26 @@ constexpr int kClusterFill = 2048 / (kTN * kTK);
 constexpr int kSplitBelow = 2;   // split only grids of fewer blocks an SM
 constexpr int kMaxCluster = 8;   // the portable cluster size
 
+//
+// Seed batching (kSeeded): blockIdx.z is the seed s, which reads h, t, z
+// and w at s times their seed strides (a stride of 0 shares one block
+// among the seeds) and writes row s * B + b of y.  The cluster size
+// follows one seed's B, and the u loop is the unbatched kernel's, so
+// every (s, b, n) cell is summed exactly as in an unbatched launch with
+// seed s's operands: a batched launch equals S unbatched ones bit for
+// bit.  A single seed runs the instance without the seed offsets, the
+// unbatched kernel as it was: one kernel taking the offsets at every
+// launch ran 5-15% slower at the main path's single-seed shapes, timed
+// in turns against it on an H100 (`python -m repro_torch.kernels.ab`,
+// PERF.md section 6).
+template <bool kSeeded>
 __global__ void __launch_bounds__(kTN * kTK, kMinBlocks)
 ota_combine_kernel(const float2* __restrict__ h,
                    const float2* __restrict__ t,
                    const float2* __restrict__ z,
                    const float* __restrict__ w, float2* __restrict__ y,
-                   int U, int K, int N) {
+                   int U, int K, int N, long long seed_h, long long seed_t,
+                   long long seed_z, long long seed_w) {
   __shared__ float s_re[kTK][kTN];
   __shared__ float s_im[kTK][kTN];
   __shared__ float2 s_sum[kTN];
@@ -77,6 +91,14 @@ ota_combine_kernel(const float2* __restrict__ h,
   const int ty = threadIdx.y;
   const int b = blockIdx.y;
   const int n = blockIdx.x / R * kTN + tx;
+  if (kSeeded) {
+    const long long s = blockIdx.z;
+    h += s * seed_h;
+    t += s * seed_t;
+    z += s * seed_z;
+    w += s * seed_w;
+    y += s * gridDim.y * static_cast<long long>(N);
+  }
 
   float acc_re = 0.0f, acc_im = 0.0f;
   if (n < N) {
@@ -152,24 +174,30 @@ int cluster_size(int B, int K, int N) {
 
 }  // namespace
 
-// The cluster size the launch below uses for (B, K, N).
+// The cluster size the launch below uses for B rx stations a seed,
+// whatever the number of seeds.
 extern "C" int ota_combine_cluster_size(int B, int K, int N) {
   return B > 0 && N > 0 && K > 0 ? cluster_size(B, K, N) : 1;
 }
 
-// h: complex64 [B, U, K, N]; t: complex64 [U, N]; z: complex64
-// [B, K, N]; w: float32 [B, U]; y: complex64 [B, N].  Complex tensors
-// are interleaved (re, im) float pairs; all contiguous.  Launches on
-// `stream` as clusters of `ota_combine_cluster_size(B, K, N)` blocks,
-// does not synchronise, and returns cudaGetLastError() as an int.
+// S seeds in one launch: h: complex64 [S, B, U, K, N]; t: complex64
+// [S, U, N]; z: complex64 [S, B, K, N]; w: float32 [S, B, U]; y:
+// complex64 [S, B, N].  Complex tensors are interleaved (re, im) float
+// pairs.  Each operand is contiguous past its seed axis, and seed s's
+// block starts s * seed_x elements in (0: one block for all seeds); y is
+// contiguous.  B, S <= 65535.  Launches on `stream` as clusters of
+// `ota_combine_cluster_size(B, K, N)` blocks, does not synchronise, and
+// returns cudaGetLastError() as an int.
 extern "C" int ota_combine_launch(const void* h, const void* t,
                                   const void* z, const void* w, void* y,
-                                  int B, int U, int K, int N,
+                                  int S, int B, int U, int K, int N,
+                                  long long seed_h, long long seed_t,
+                                  long long seed_z, long long seed_w,
                                   void* stream) {
-  if (B <= 0 || N <= 0) return 0;
+  if (S <= 0 || B <= 0 || N <= 0) return 0;
   const int R = cluster_size(B, K, N);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((N + kTN - 1) / kTN) * R, B);
+  cfg.gridDim = dim3(static_cast<unsigned>((N + kTN - 1) / kTN) * R, B, S);
   cfg.blockDim = dim3(kTN, kTK);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -180,10 +208,15 @@ extern "C" int ota_combine_launch(const void* h, const void* t,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  void (*const kernel)(const float2*, const float2*, const float2*,
+                       const float*, float2*, int, int, int, long long,
+                       long long, long long, long long) =
+      S > 1 ? &ota_combine_kernel<true> : &ota_combine_kernel<false>;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, ota_combine_kernel, static_cast<const float2*>(h),
+      &cfg, kernel, static_cast<const float2*>(h),
       static_cast<const float2*>(t), static_cast<const float2*>(z),
-      static_cast<const float*>(w), static_cast<float2*>(y), U, K, N);
+      static_cast<const float*>(w), static_cast<float2*>(y), U, K, N,
+      seed_h, seed_t, seed_z, seed_w);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

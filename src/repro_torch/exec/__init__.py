@@ -33,12 +33,15 @@ ENGINES = ("single", "sharded")
 
 
 def make_runner(exec_name: str, scenarios: Sequence[Union[str, Scenario]],
-                *, seeds=1, quick: bool = False, batch: str = "map",
+                *, seeds=1, quick: bool = False, batch: str = "vmap",
                 mesh: Union[str, tuple] = "1x1", keep_state: bool = False,
                 combine: str = "gathered", driver: str = "stepwise",
                 warmup: bool = False, device=None, **ft_obs) -> SweepRunner:
-    """Engine factory behind the ``--exec`` CLI flag.  Both engines take
-    both round drivers (``stepwise``, ``chunked``) and the runner's
+    """Engine factory behind the ``--exec`` CLI flag.  The single engine
+    runs the seeds in `batch` mode (``vmap`` by default, or ``map``);
+    the sharded one always runs them as ``map``, as the reference's
+    does.  Both engines take both round drivers (``stepwise``,
+    ``chunked``) and the runner's
     telemetry, trace, checkpoint and fault keywords (`ft_obs`:
     ``telemetry``, ``trace``, ``checkpoint``, ``ckpt_every``,
     ``resume``, ``guard``, ``faults``), passed through as they are."""

@@ -1,9 +1,10 @@
 """`ShardedSweepRunner`: the sweep engine on a mesh of shards.
 
-A `repro_torch.sim.SweepRunner` subclass -- same scenarios, same seed
-loop, same JSON schema -- that swaps the single-engine round for
-`repro_torch.exec.round.make_sharded_round_fn` on a ``("cluster",
-"user")`` mesh whose shards all run on the runner's one device.
+A `repro_torch.sim.SweepRunner` subclass -- same scenarios, same JSON
+schema, its seeds always one by one (``batch="map"``) -- that swaps the
+single-engine round for `repro_torch.exec.round.make_sharded_round_fn`
+on a ``("cluster", "user")`` mesh whose shards all run on the runner's
+one device.
 
     python -m repro_torch.sim.sweep --scenarios scale_u256 --seeds 2 \
         --exec sharded --mesh 2x4 --combine u_sharded
@@ -30,9 +31,11 @@ class ShardedSweepRunner(SweepRunner):
     users (amp = w = 0; `pad_plan_for`), the ``opt`` state axes are
     sized to the padded (Cp, Mp) grid here and stripped again before
     ``final_state`` is stored.  combine: the fused cluster hop's
-    strategy, ``"gathered"`` or ``"u_sharded"``.  Seeds run as a loop
-    (``batch="map"``), and ``driver="chunked"`` replays each eval window
-    as one CUDA graph of the whole sharded round (every shard's
+    strategy, ``"gathered"`` or ``"u_sharded"``.  Seeds run one by one
+    (``batch="map"``), as in the reference's sharded engine: the engine's
+    contract is sharded == single bit for bit, which a seed vmap's
+    batched GEMMs would break.  ``driver="chunked"`` replays each eval
+    window as one CUDA graph of the whole sharded round (every shard's
     training, the partial kernels, the fold and the IS -> PS hop), as in
     the single engine.
     """

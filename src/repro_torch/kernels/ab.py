@@ -84,12 +84,14 @@ FLASH_ENTRIES = {torch.bfloat16: ("flash_attn_wgmma_launch",
 # hops (the last two unbatched, as B = 1) and scale_u256's cluster hop
 OTA_SHAPES = [(4, 20, 100, 3925), (1, 4, 100, 3925), (1, 20, 100, 3925),
               (4, 256, 16, 3925)]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 
 
 def build_source(src: Path, out_dir: Path):
     """(library, nvcc log, whether `fused_mac_launch`, where the source
-    has it, takes block_u)."""
+    has it, takes block_u, and which launch entry points take a leading
+    seed count S and seed strides)."""
     lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
     # -I: an older source from elsewhere finds the package's csrc/ headers
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
@@ -98,9 +100,15 @@ def build_source(src: Path, out_dir: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     text = src.read_text()
-    at = text.find('"C" int fused_mac_launch')
-    takes_block_u = at >= 0 and "block_u" in text[at:text.index(")", at)]
-    return lib, proc.stdout + proc.stderr, takes_block_u
+
+    def params(entry):
+        at = text.find(f'"C" int {entry}(')
+        return text[at:text.index(")", at)] if at >= 0 else ""
+
+    takes_block_u = "block_u" in params("fused_mac_launch")
+    seeded = {e for e in ("fused_mac_launch", "ota_combine_launch")
+              if "int S," in params(e)}
+    return lib, proc.stdout + proc.stderr, (takes_block_u, seeded)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -142,9 +150,9 @@ def main(argv=None) -> int:
     built = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, src in zip(names, a.sources):
-            lib, log, takes_bu = build_source(src, Path(tmp))
+            lib, log, entries = build_source(src, Path(tmp))
             dis = sass.disassemble(lib)
-            built[name] = (ctypes.CDLL(str(lib)), takes_bu)
+            built[name] = (ctypes.CDLL(str(lib)), entries)
             for kernel, rec in sass.analyse(dis, log).items():
                 rec.pop("per_draw_by_opcode", None)
                 print(json.dumps({"source": name, "kernel": kernel, **rec}),
@@ -160,14 +168,17 @@ def main(argv=None) -> int:
         t_re, t_im, amp, w = inputs(B, U, N, 0, dev)
 
         def call(name):
-            lib, takes_bu = built[name]
+            lib, (takes_bu, seeded) = built[name]
             fn = lib.fused_mac_launch
             fn.restype = _I
             y = torch.empty(2, B, N, device=dev)
-            args = [words, t_re, t_im, amp, w, y[0], y[1], B, U, K, N,
-                    *([bu] if takes_bu else []), 0.70710677, 0.70710677]
-            fn.argtypes = [_P] * 7 + [_I] * (5 if takes_bu else 4) + \
-                [_F] * 2 + [_P]
+            # one seed; a seeded source also takes the seed strides
+            s = "fused_mac_launch" in seeded
+            args = [words, t_re, t_im, amp, w, y[0], y[1], *([1] * s), B,
+                    U, K, N, *([bu] if takes_bu else []),
+                    *([U * N, B * U] * s), 0.70710677, 0.70710677]
+            fn.argtypes = [_P] * 7 + [_I] * (4 + takes_bu + s) + \
+                [_L] * (2 * s) + [_F] * 2 + [_P]
             err = fn(*[x.data_ptr() if isinstance(x, torch.Tensor) else x
                        for x in args], stream)
             if err:
@@ -235,10 +246,14 @@ def main(argv=None) -> int:
 
         def ocall(name):
             fn = built[name][0].ota_combine_launch
+            s = "ota_combine_launch" in built[name][1][1]
             fn.restype = _I
-            fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+            fn.argtypes = [_P] * 5 + [_I] * (4 + s) + [_L] * (4 * s) + [_P]
             y = torch.empty(B, N, dtype=torch.complex64, device=dev)
-            err = fn(*[x.data_ptr() for x in (h, t, z, w, y)], B, U, K, N,
+            # one seed; a seeded source also takes the seed strides
+            err = fn(*[x.data_ptr() for x in (h, t, z, w, y)],
+                     *([1] * s), B, U, K, N,
+                     *([B * U * K * N, U * N, B * K * N, B * U] * s),
                      stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")

@@ -20,6 +20,15 @@ is how the u-sharded cluster hop runs it over tiles of the user axis:
   the noise draw and the finalize); on the CPU the plain versions share
   `_block_sums`, `fused_noise` and `_finalize` and agree the same way.
 
+`fused_mac` and its plain version also take S seeds at once: seed
+words [S, 2], transmit symbols [S, U, N] and gains [S, B, U] give y
+[S, B, N] in one launch, each seed's rows bit for bit those of its own
+unbatched launch (the seed axis of a gain may have stride 0, one block
+shared by every seed).  This is how the sweep's ``batch="vmap"`` seeds
+reach the kernel (`repro_torch.kernels.ops.fused_combine`).  The
+partials and the fold serve the sharded engine, which runs seeds one by
+one, and take one seed.
+
 Each kernel has a wrapper and a plain version:
 
 - the wrapper (`fused_mac`, `fused_mac_partials`,
@@ -63,23 +72,44 @@ def _sigma(var: float) -> float:
     return float(np.sqrt(var / 2.0))
 
 
-def _check(t_re, t_im, amp, w, K: int):
+def seed_stride(x: torch.Tensor, name: str) -> int:
+    """The stride of `x`'s leading seed axis, for a kernel that reads
+    seed s's block at s times it: `x` must be contiguous past that axis,
+    and the stride is 0 (one block shared by every seed) or one block."""
+    inner = x[0] if x.shape[0] else x
+    block = inner.numel()
+    if not inner.is_contiguous() or (x.shape[0] > 1
+                                     and x.stride(0) not in (0, block)):
+        raise ValueError(f"{name} {tuple(x.shape)} must be contiguous "
+                         f"past its seed axis, whose stride is 0 or "
+                         f"{block}, got strides {x.stride()}")
+    return x.stride(0) if x.shape[0] > 1 else block
+
+
+def _check(t_re, t_im, amp, w, K: int, lead: int = 0):
+    """`lead` = 1 where every operand carries a leading seed axis (its
+    stride checked by `seed_stride`)."""
     if K < 1:
         raise ValueError(f"K must be >= 1, got {K}")
     for name, x in (("t_re", t_re), ("t_im", t_im), ("amp", amp), ("w", w)):
-        if (x.dtype != torch.float32 or x.dim() != 2
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous 2-D float32 "
-                             f"tensor, got {x.dtype} {tuple(x.shape)}")
+        if (x.dtype != torch.float32 or x.dim() != 2 + lead
+                or not (lead or x.is_contiguous())):
+            raise ValueError(f"{name} must be a contiguous {2 + lead}-D "
+                             f"float32 tensor, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if lead:
+            seed_stride(x, name)
         if x.device != t_re.device:
             raise ValueError(f"{name} is on {x.device}, t_re on "
                              f"{t_re.device}")
     if t_im.shape != t_re.shape:
         raise ValueError(f"t_im {tuple(t_im.shape)} != t_re "
                          f"{tuple(t_re.shape)}")
-    if w.shape != amp.shape or amp.shape[1] != t_re.shape[0]:
+    if (w.shape != amp.shape or amp.shape[-1] != t_re.shape[-2]
+            or amp.shape[:lead] != t_re.shape[:lead]):
         raise ValueError(f"amp {tuple(amp.shape)} and w {tuple(w.shape)} "
-                         f"must be [B, U] with U = {t_re.shape[0]}")
+                         f"must be [{'S, ' * lead}B, U] with U = "
+                         f"{t_re.shape[-2]}")
 
 
 def _device(x: torch.Tensor, name: str) -> torch.device:
@@ -104,19 +134,23 @@ def _base_words(rx_base: int, u_base: int, n_base: int,
 
 def _launch_words(seed, rx_base, u_base, n_base, device) -> torch.Tensor:
     """(s0, s1, rx_base, u_base, n_base, 0, 0, 0) as the uint32 bit
-    patterns of an int32 device tensor.  The seed words stay on the
-    device: the low 32-bit half of each little-endian int64 word is that
-    word's bit pattern, so a view selects it and one `cat` joins it to
-    the cached bases."""
-    s = as_words(seed, device).reshape(-1)[:2].contiguous()
-    return torch.cat([s.view(torch.int32)[0::2],
-                      _base_words(int(rx_base), int(u_base), int(n_base),
-                                  torch.device(device))])
+    patterns of an int32 device tensor, [8] for one seed's words [2] and
+    [S, 8] for S seeds' [S, 2].  The seed words stay on the device: the
+    low 32-bit half of each little-endian int64 word is that word's bit
+    pattern, so a view selects it and one `cat` joins it to the cached
+    bases."""
+    s = as_words(seed, device)
+    s = (s.reshape(-1)[:2] if s.dim() < 2 else s).contiguous()
+    lo = s.view(torch.int32)[..., 0::2]
+    bases = _base_words(int(rx_base), int(u_base), int(n_base),
+                        torch.device(device))
+    return torch.cat([lo, bases.expand(*lo.shape[:-1], 6)], dim=-1)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
-    "fused_mac_launch": [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P],
+    "fused_mac_launch": [_P] * 7 + [_I] * 6 + [_L] * 2 + [_F] * 2 + [_P],
     "fused_mac_partials_launch": [_P] * 9 + [_I] * 5 + [_F] + [_P],
     "fused_partials_reduce_launch": [_P] * 7 + [_I] * 4 + [_F] + [_P],
 }
@@ -161,70 +195,101 @@ def fused_mac(seed, t_re: torch.Tensor, t_im: torch.Tensor,
     bases shift the global (rx, u, n) indices of the draws.  `block_u`
     sets the u-blocking of the sums; it changes float summation order
     only, never a draw.
+
+    S seeds in one launch: seed [S, 2], t_re, t_im [S, U, N], amp, w
+    [S, B, U] (each contiguous past the seed axis, whose stride may be
+    0) give y_re, y_im [S, B, N]; seed s's rows equal the unbatched
+    call with seed s's operands bit for bit.
     """
-    _check(t_re, t_im, amp, w, K)
+    lead = t_re.dim() - 2
+    _check(t_re, t_im, amp, w, K, lead)
     dev = _device(t_re, "fused_mac")
     if dev.type == "cpu":
         return fused_mac_plain(seed, t_re, t_im, amp, w, K=K,
                                sigma_h2=sigma_h2, sigma_z2=sigma_z2,
                                rx_base=rx_base, u_base=u_base,
                                n_base=n_base, block_u=block_u)
-    B, U = amp.shape
-    N = t_re.shape[1]
-    y_re = torch.empty((B, N), dtype=torch.float32, device=dev)
-    y_im = torch.empty((B, N), dtype=torch.float32, device=dev)
-    _launch("fused_mac_launch", dev,
-            _launch_words(seed, rx_base, u_base, n_base, dev), t_re, t_im,
-            amp, w, y_re, y_im, B, U, K, N, max(1, min(int(block_u), U)),
+    words = _launch_words(seed, rx_base, u_base, n_base, dev)
+    if not lead:
+        words, t_re, t_im, amp, w = (words[None], t_re[None], t_im[None],
+                                     amp[None], w[None])
+    S, B, U = amp.shape
+    N = t_re.shape[-1]
+    if words.shape != (S, 8):
+        raise ValueError(f"{words.shape[0]} seeds' words for {S} seeds' "
+                         f"operands")
+    if t_im.stride() != t_re.stride() or w.stride() != amp.stride():
+        raise ValueError("t_re and t_im, and amp and w, must share their "
+                         "strides")
+    y_re = torch.empty((S, B, N), dtype=torch.float32, device=dev)
+    y_im = torch.empty((S, B, N), dtype=torch.float32, device=dev)
+    _launch("fused_mac_launch", dev, words, t_re, t_im, amp, w, y_re,
+            y_im, S, B, U, K, N, max(1, min(int(block_u), U)),
+            seed_stride(t_re, "t_re"), seed_stride(amp, "amp"),
             _sigma(sigma_h2), _sigma(sigma_z2))
     fused_mac.launches += 1
-    return y_re, y_im
+    return (y_re, y_im) if lead else (y_re[0], y_im[0])
 
 
 fused_mac.launches = 0
 
 
+def _seed_keys(seed, device=None):
+    """Seed words -> (s0, s1) for the plain versions: one seed's [2]
+    gives two scalars, S seeds' [S, 2] two [S, 1, 1, 1] tensors, which
+    broadcast against [B, K, N] draws to put the seed axis in front."""
+    s = as_words(seed, device)
+    if s.dim() < 2:
+        s = s.reshape(-1)[:2]
+        return s[0], s[1]
+    return s[:, 0, None, None, None], s[:, 1, None, None, None]
+
+
 def fused_noise(seed, B: int, K: int, N: int, sigma_z2: float,
                 rx_base: int = 0, n_base: int = 0):
     """The kernels' receiver-noise draws as a separate term: (z_re,
-    z_im), each float32 [B, K, N], keyed on stream `_TAG_NOISE` of rx
-    ``rx_base + b`` at counter ``(k, n + n_base)``, on the seed's
-    device.  Elementwise, so no blocking changes a draw."""
-    s = as_words(seed).reshape(-1)[:2]
-    dev = s.device
+    z_im), each float32 [B, K, N] ([S, B, K, N] for S seeds' words
+    [S, 2]), keyed on stream `_TAG_NOISE` of rx ``rx_base + b`` at
+    counter ``(k, n + n_base)``, on the seed's device.  Elementwise, so
+    no blocking changes a draw."""
+    s0, s1 = _seed_keys(seed)
+    dev = s0.device
     rx = (torch.arange(B, device=dev) + rx_base)[:, None, None]
     kk = torch.arange(K, device=dev)[None, :, None]
     nn = (torch.arange(N, device=dev) + n_base)[None, None, :]
-    zk0, zk1 = _stream_keys(s[0], s[1], rx, _TAG_NOISE)
+    zk0, zk1 = _stream_keys(s0, s1, rx, _TAG_NOISE)
     return _cx_normal(zk0, zk1, kk, nn, _sigma(sigma_z2))
 
 
-def _block_sums(s, t_re, t_im, amp, w, u0: int, u1: int, *, K: int,
+def _block_sums(keys, t_re, t_im, amp, w, u0: int, u1: int, *, K: int,
                 sigma_h: float, rx_base: int, u_base: int, n_base: int):
     """One u-block's sums over users u0 <= u < u1 of the tile: (pr_re,
-    pr_im, pm_re, pm_im), each [B, K, N]."""
+    pr_im, pm_re, pm_im), each [B, K, N], or [S, B, K, N] for S seeds'
+    keys (`_seed_keys`) and operands t [S, U, N], amp, w [S, B, U]."""
+    s0, s1 = keys
     dev = t_re.device
-    B, N = amp.shape[0], t_re.shape[1]
-    rx = (torch.arange(B, device=dev) + rx_base)[:, None, None, None]
+    B, N = amp.shape[-2], t_re.shape[-1]
+    rx = (torch.arange(B, device=dev) + rx_base)[:, None, None]
     kk = torch.arange(K, device=dev)[None, :, None]
     nn = (torch.arange(N, device=dev) + n_base)[None, None, :]
-    hk0, hk1 = _stream_keys(s[0], s[1], rx, _TAG_CHAN)
+    # the keys with an axis for the users: [.., B, 1, 1, 1]
+    hk0, hk1 = (k[..., None] for k in _stream_keys(s0, s1, rx, _TAG_CHAN))
     uu = torch.arange(u0, u1, device=dev) + u_base
     w0 = (_mul32(uu, _k_stride(K))[:, None, None] + kk) & MASK32  # [bu,K,1]
-    g_re, g_im = _cx_normal(hk0, hk1, w0[None], nn[None], sigma_h)
-    a = amp[:, u0:u1, None, None]
-    wa = (w[:, u0:u1] * amp[:, u0:u1])[:, :, None, None]
+    g_re, g_im = _cx_normal(hk0, hk1, w0, nn, sigma_h)
+    a = amp[..., u0:u1, None, None]
+    wa = (w[..., u0:u1] * amp[..., u0:u1])[..., None, None]
     h_re, h_im = a * g_re, a * g_im                      # [B, bu, K, N]
-    tr = t_re[None, u0:u1, None, :]
-    ti = t_im[None, u0:u1, None, :]
+    tr = t_re[..., None, u0:u1, None, :]
+    ti = t_im[..., None, u0:u1, None, :]
     terms = (h_re * tr - h_im * ti, h_re * ti + h_im * tr, wa * g_re,
              wa * g_im)
     # added one user at a time, as the kernels add them: a torch
     # reduction's order would depend on the tile's width N
-    sums = tuple(torch.zeros_like(x[:, 0]) for x in terms)
+    sums = tuple(torch.zeros_like(x.select(-3, 0)) for x in terms)
     for j in range(u1 - u0):
         for acc, x in zip(sums, terms):
-            acc += x[:, j]
+            acc += x.select(-3, j)
     return sums
 
 
@@ -232,17 +297,17 @@ _ROWS = 8   # the kernels' thread rows over the antennas
 
 
 def _finalize(r_re, r_im, mf_re, mf_im):
-    """y = sum_k conj(mf) * r: [B, K, N] -> (y_re, y_im) [B, N], in the
-    kernels' order: row j sums k = j, j + 8, ... ascending, then the
-    rows are added in order."""
-    K = r_re.shape[1]
+    """y = sum_k conj(mf) * r: [.., B, K, N] -> (y_re, y_im) [.., B, N],
+    in the kernels' order: row j sums k = j, j + 8, ... ascending, then
+    the rows are added in order."""
+    K = r_re.shape[-2]
     out = []
     for term in (mf_re * r_re + mf_im * r_im, mf_re * r_im - mf_im * r_re):
-        y = torch.zeros_like(term[:, 0])
+        y = torch.zeros_like(term.select(-2, 0))
         for j in range(min(_ROWS, K)):
             acc = torch.zeros_like(y)
             for k in range(j, K, _ROWS):
-                acc += term[:, k]
+                acc += term.select(-2, k)
             y += acc
         out.append(y)
     return tuple(out)
@@ -256,11 +321,12 @@ def fused_mac_plain(seed, t_re, t_im, amp, w, *, K: int, sigma_h2: float,
     r starts from the noise z and mf from zero; both accumulate over
     u-blocks of `block_u` users in ascending order, then
     ``y = sum_k conj(mf) * r``.  Same counters, same keys, same
-    Box-Muller as the CUDA kernel and the JAX reference."""
-    dev = t_re.device
-    s = as_words(seed, dev).reshape(-1)[:2]
-    B, U = amp.shape
-    N = t_re.shape[1]
+    Box-Muller as the CUDA kernel and the JAX reference.  Seed-batched
+    as `fused_mac` is: seed [S, 2] with operands [S, ...] gives
+    [S, B, N]."""
+    s = as_words(seed, t_re.device)
+    B, U = amp.shape[-2:]
+    N = t_re.shape[-1]
     r_re, r_im = fused_noise(s, B, K, N, sigma_z2, rx_base=rx_base,
                              n_base=n_base)
     mf_re = torch.zeros_like(r_re)
@@ -268,7 +334,7 @@ def fused_mac_plain(seed, t_re, t_im, amp, w, *, K: int, sigma_h2: float,
     bu = max(1, min(int(block_u), U))
     for u0 in range(0, U, bu):
         pr_re, pr_im, pm_re, pm_im = _block_sums(
-            s, t_re, t_im, amp, w, u0, min(u0 + bu, U), K=K,
+            _seed_keys(s), t_re, t_im, amp, w, u0, min(u0 + bu, U), K=K,
             sigma_h=_sigma(sigma_h2), rx_base=rx_base, u_base=u_base,
             n_base=n_base)
         r_re += pr_re
@@ -330,9 +396,9 @@ def fused_mac_partials_plain(seed, t_re, t_im, amp, w, *, K: int,
                              block_u: int = 32):
     """`fused_mac_partials` in plain torch ops: `fused_mac_plain`'s block
     sums, each written to its own slot."""
-    s = as_words(seed, t_re.device).reshape(-1)[:2]
+    keys = _seed_keys(seed, t_re.device)
     U = amp.shape[1]
-    blocks = [_block_sums(s, t_re, t_im, amp, w, u0, u0 + block_u, K=K,
+    blocks = [_block_sums(keys, t_re, t_im, amp, w, u0, u0 + block_u, K=K,
                           sigma_h=_sigma(sigma_h2), rx_base=rx_base,
                           u_base=u_base, n_base=n_base)
               for u0 in range(0, U, block_u)]

@@ -34,6 +34,7 @@ _TAG_CHAN = 1
 _TAG_NOISE = 2
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _U24 = 2.0 ** -24
+_U23 = 2.0 ** -23
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,31 +67,27 @@ def _mul32(a, b):
     return (lo + hi) & MASK32
 
 
-def _rotl_(x: torch.Tensor, r: int) -> torch.Tensor:
-    """Rotate the 32-bit words of `x` left by r, in place."""
-    t = x >> (32 - r)
-    return x.bitwise_left_shift_(r).bitwise_and_(MASK32).bitwise_or_(t)
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The 32-bit words of `x` rotated left by r."""
+    return ((x << r) & MASK32) | (x >> (32 - r))
 
 
 def _threefry2x32(k0, k1, x0, x1):
     """The 20-round threefry2x32 block cipher (jax.random's generator).
     Keys and counters are words (ints or int64 tensors) of any
-    broadcastable shapes; returns the two output word tensors."""
+    broadcastable shapes; returns the two output word tensors.  Every
+    step writes a new tensor, so under `torch.func.vmap` a batched key
+    or counter may meet an unbatched one anywhere."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = torch.add(x0, k0).bitwise_and_(MASK32)
-    x1 = torch.add(x1, k1).bitwise_and_(MASK32)
-    shape = torch.broadcast_shapes(x0.shape, x1.shape)
-    if x0.shape != shape:
-        x0 = x0.expand(shape).contiguous()
-    if x1.shape != shape:
-        x1 = x1.expand(shape).contiguous()
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
     rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
     for i in range(5):
         for r in rotations[i % 2]:
-            x0.add_(x1).bitwise_and_(MASK32)
-            _rotl_(x1, r).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK32)
-        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK32)
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
     return x0, x1
 
 
@@ -206,7 +203,7 @@ def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
 def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """32-bit `jax.random.bits`: keys [..., 2] -> words [..., *shape]."""
     b0, b1 = _iota_bits(key, _shape(shape))
-    return b0.bitwise_xor_(b1)
+    return b0 ^ b1
 
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
@@ -234,10 +231,11 @@ def randint(key: torch.Tensor, shape: Shape, minval: int,
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 `jax.random.uniform` in [minval, maxval): 23 random
-    mantissa bits under exponent 0, shifted and scaled."""
+    mantissa bits under exponent 0, shifted and scaled.  The float 1.m
+    less 1 is m * 2^-23 exactly, which is computed so: no view of the
+    words' bits, which `torch.func.vmap` cannot batch."""
     bits = random_bits(key, shape)
-    fb = (bits >> 9).bitwise_or_(0x3F800000).to(torch.int32)
-    floats = fb.view(torch.float32) - 1.0
+    floats = (bits >> 9).to(torch.float32) * _U23
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
 

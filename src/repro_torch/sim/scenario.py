@@ -303,8 +303,9 @@ register_scenario(Scenario(
     total_IT=48, lr=5e-2, opt="sgd", n_train=1024, n_test=256,
     eval_every=8))
 
-# Sharded-engine tiers of the reference (the port's sharded engine is
-# ROADMAP queue A, item 11).
+# Sharded-engine tiers of the reference (the port's sharded engine runs
+# them on one card, its shards one after the other; spreading the shards
+# over several cards is ROADMAP queue A, item 11).
 register_scenario(Scenario(
     name="scale_u16384", dataset="mnist", partition="iid",
     tau=1, I=1, batch=8, mode="whfl", ota_mode="faithful",

@@ -2,11 +2,20 @@
 
 `SweepRunner` runs ``S seeds x M scenarios``: per scenario it builds the
 W-HFL round (`repro_torch.core.whfl.make_round_fn`) once and drives every
-seed through it round by round.  Seeds run as a loop, which gives the
-reference's ``batch="map"`` semantics: each seed's trajectory is the one
-it would have swept alone, and every random draw follows the per-seed
-key exactly as in the JAX package (model init from ``PRNGKey(s)``, the
-round keys from ``split`` of ``PRNGKey(s + 1)``).
+seed through it round by round, in the reference's two seed modes:
+
+- ``batch="vmap"`` (the default): the S seeds run as one program, the
+  round and the eval under `torch.func.vmap` over the seed-stacked
+  state, each op (the OTA kernels included) once for all seeds.  A
+  batched GEMM may round a seed's floats otherwise than its run alone.
+- ``batch="map"``: the seeds run one after the other, so each seed's
+  trajectory is bit for bit the one it would have swept alone.
+
+Either way every random draw follows the per-seed key exactly as in the
+JAX package (model init from ``PRNGKey(s)``, the round keys from
+``split`` of ``PRNGKey(s + 1)``).  On the CPU a scenario runs under one
+intra-op thread (`repro_torch.device.pinned_cpu_threads`), so its sums'
+order does not follow the host's load.
 
     python -m repro_torch.sim.sweep --scenarios fig2_iid --seeds 2 \
         --out sweep.json
@@ -51,10 +60,12 @@ import torch
 from repro_torch import prng
 from repro_torch.core import aggregation as agg
 from repro_torch.core.topology import power_schedule
-from repro_torch.core.whfl import (eval_windows, init_round_state,
-                                   make_chunk_fn, make_round_fn,
-                                   make_window_fn)
-from repro_torch.device import resolve_device
+from repro_torch.core.whfl import (BATCH_MODES, eval_windows,
+                                   init_round_state, make_chunk_fn,
+                                   make_round_fn, make_window_fn,
+                                   stack_seeds)
+from repro_torch.device import (CPU_THREADS, pinned_cpu_threads,
+                                resolve_device)
 from repro_torch.ft import ckpt as ft_ckpt
 from repro_torch.ft.faults import FaultPlan, hard_crash
 from repro_torch.ft.guard import GUARD_POLICIES, validate_guard
@@ -165,8 +176,9 @@ class SweepRunner:
     quick: substitute each scenario's CI-sized `.quick()` variant.
     keep_state: keep each scenario's final round state, stacked over
       seeds, in `SweepResult.final_state`.
-    batch: the reference's seed-batch mode, "vmap" or "map".  Seeds run
-      as a loop either way, which is "map"; records say so.
+    batch: the seed mode: "vmap" (one program for all seeds, the
+      default) or "map" (seed by seed, each seed bit for bit its run
+      alone).  Records carry it in ``exec["batch"]``.
     driver: "stepwise" (the host issues every round) or "chunked" (one
       CUDA graph per eval window, `repro_torch.core.whfl.make_chunk_fn`;
       a plain loop per window on the CPU).  Both give the same bits.
@@ -189,7 +201,7 @@ class SweepRunner:
     def __init__(self, scenarios: Sequence[Union[str, Scenario]],
                  seeds: Union[int, Sequence[int]] = 1,
                  quick: bool = False, keep_state: bool = False,
-                 batch: str = "map", driver: str = "stepwise",
+                 batch: str = "vmap", driver: str = "stepwise",
                  warmup: bool = False, device: Optional[str] = None,
                  telemetry: bool = False, trace=None,
                  checkpoint: Optional[str] = None, ckpt_every: int = 1,
@@ -208,8 +220,9 @@ class SweepRunner:
         self.seeds = (list(range(seeds)) if isinstance(seeds, int)
                       else list(seeds))
         self.keep_state = keep_state
-        if batch not in ("vmap", "map"):
+        if batch not in BATCH_MODES:
             raise ValueError(f"batch must be 'vmap' or 'map', got {batch!r}")
+        self.batch = batch
         if driver not in DRIVERS:
             raise ValueError(f"driver must be one of {DRIVERS}, "
                              f"got {driver!r}")
@@ -261,9 +274,13 @@ class SweepRunner:
         """Execution-engine metadata recorded with every result;
         `topo`/`two_n` let the sharded engine add its padded shape and
         symbol-buffer bytes.  ``device_count`` is the number of torch
-        devices the engine runs on."""
-        return {"name": "single", "mesh": None, "device_count": 1,
-                "batch": "map", "device": device_name(self.device)}
+        devices the engine runs on; ``cpu_threads`` (CPU runs only) the
+        intra-op threads the run summed with."""
+        info = {"name": "single", "mesh": None, "device_count": 1,
+                "batch": self.batch, "device": device_name(self.device)}
+        if self.device.type == "cpu":
+            info["cpu_threads"] = CPU_THREADS
+        return info
 
     def _drive_range(self):
         """The named range around a drive, for profilers: it starts and
@@ -277,6 +294,10 @@ class SweepRunner:
             torch.cuda.synchronize(self.device)
 
     def run_scenario(self, sc: Scenario) -> SweepResult:
+        with pinned_cpu_threads(self.device):
+            return self._run_scenario(sc)
+
+    def _run_scenario(self, sc: Scenario) -> SweepResult:
         t0 = time.perf_counter()
         dev = self.device
         cfg = sc.whfl_config()
@@ -297,8 +318,10 @@ class SweepRunner:
 
         params = [init_fn(prng.PRNGKey(s, dev)) for s in self.seeds]
         spec = agg.make_flat_spec(params[0])
-        states = self._init_states(params, opt, topo, cfg)
-        keys = [prng.PRNGKey(s + 1, dev) for s in self.seeds]
+        # the carry, in both seed modes: the seed-stacked state and keys
+        # [S, 2] (`make_window_fn`)
+        states = stack_seeds(self._init_states(params, opt, topo, cfg))
+        keys = torch.stack([prng.PRNGKey(s + 1, dev) for s in self.seeds])
         round_fn = self._build_round(loss_fn, opt, topo, cfg, spec,
                                      torch.as_tensor(X, device=dev),
                                      torch.as_tensor(Y, device=dev))
@@ -353,9 +376,7 @@ class SweepRunner:
         if self.resume and ckpt_mgr is not None:
             # the payload is the canonical (unpadded) carry, keys as the
             # reference's uint32 words
-            template = {"state": self._finalize_state(
-                            tree_map(lambda *xs: torch.stack(xs), *states),
-                            topo),
+            template = {"state": self._finalize_state(states, topo),
                         "keys": np.zeros((S, 2), np.uint32)}
 
             def _check(man):
@@ -370,13 +391,11 @@ class SweepRunner:
             loaded = ckpt_mgr.load_latest(template, check=_check)
             if loaded is not None:
                 payload, man = loaded
-                stacked = self._restore_state(
+                states = self._restore_state(
                     tree_map(lambda a: torch.as_tensor(a, device=dev),
                              payload["state"]), topo)
-                states = [tree_map(lambda x: x[s].clone(), stacked)
-                          for s in range(S)]
-                keys = [torch.as_tensor(k.astype(np.int64), device=dev)
-                        for k in payload["keys"]]
+                keys = torch.as_tensor(payload["keys"].astype(np.int64),
+                                       device=dev)
                 start_round = int(man["round"])
                 ev = man["eval"]
                 rounds.extend(int(r) for r in ev["rounds"])
@@ -416,11 +435,9 @@ class SweepRunner:
                                   if tele_on else None),
                 },
             }
-            stacked = tree_map(lambda *xs: torch.stack(xs), *states_now)
             ckpt_mgr.save(int(cursor), {
-                "state": self._finalize_state(stacked, topo),
-                "keys": np.stack([k.cpu().numpy() for k in keys_now]
-                                 ).astype(np.uint32)}, manifest)
+                "state": self._finalize_state(states_now, topo),
+                "keys": keys_now.cpu().numpy().astype(np.uint32)}, manifest)
 
         ft = _FTContext(guard_on=guard_on, guard_halt=cfg.guard == "halt",
                         ckpt=ckpt_mgr, ckpt_every=self.ckpt_every,
@@ -428,7 +445,7 @@ class SweepRunner:
                         faults=self.faults, save=save_ckpt)
 
         def check_guard(states_now, round_idx):
-            total = sum(int(st["guard_trips"]) for st in states_now)
+            total = int(states_now["guard_trips"].sum())
             if total > ft.trips:
                 ft.trips = total
                 self._emit("guard", scenario=sc.name, round=round_idx,
@@ -477,8 +494,7 @@ class SweepRunner:
                 resumed_from=start_round if self.resume else None)
         final = None
         if self.keep_state:
-            final = self._finalize_state(
-                tree_map(lambda *xs: torch.stack(xs), *states), topo)
+            final = self._finalize_state(states, topo)
         seconds = time.perf_counter() - t0
         self._emit("scenario_end", scenario=sc.name, seconds=seconds,
                    drive_seconds=drive_s, dispatches=dispatches,
@@ -503,8 +519,9 @@ class SweepRunner:
         length (stepwise: the first window) runs once first on
         throwaway copies.  Dispatches count a graph replay per window
         (chunked) or, as the reference counts its programs, a split and
-        a round per seed and round and an eval per seed and window
-        (stepwise)."""
+        a round per round and an eval per window (stepwise), each once
+        for all seeds under ``batch="vmap"`` and once per seed under
+        ``"map"``."""
         T = sum(windows)
         # a checkpoint is cut at a window boundary, so a resume point is
         # the end of a prefix of the windows
@@ -517,16 +534,16 @@ class SweepRunner:
                 f"resume round {ft.start_round} is not an eval-window "
                 f"boundary of T={T}, eval_every={sc.eval_every}")
         chunked = self.driver == "chunked"
-        run = (make_chunk_fn if chunked else make_window_fn)(round_fn,
-                                                             eval_state)
+        run = (make_chunk_fn if chunked else make_window_fn)(
+            round_fn, eval_state, self.batch)
         todo = windows[skip:]
         if self.warmup and todo:
             # a graph per window length; eager rounds need one window
             lengths = sorted(set(todo)) if chunked else todo[:1]
             for w in lengths:
-                run([tree_map(torch.clone, st) for st in states],
-                    [k.clone() for k in keys], P_all[:w], P_is_all[:w])
-        S = len(states)
+                run(tree_map(torch.clone, states), tree_map(torch.clone, keys),
+                    P_all[:w], P_is_all[:w])
+        programs = 1 if self.batch == "vmap" else len(self.seeds)
         faults = ft.faults
         pending, off, steps, driven = [], ft.start_round, 0, 0
         windows_done = ft.windows_done
@@ -547,8 +564,8 @@ class SweepRunner:
                         and off < faults.crash_round < off + w):
                     # the stepwise driver stops at the round itself
                     k = faults.crash_round
-                    make_window_fn(round_fn)(states, keys, P_all[off:k],
-                                             P_is_all[off:k])
+                    make_window_fn(round_fn, batch=self.batch)(
+                        states, keys, P_all[off:k], P_is_all[off:k])
                     self._sync()
                     self._emit("fault", scenario=sc.name,
                                kind="crash_round", round=k)
@@ -560,7 +577,7 @@ class SweepRunner:
                 pending.append(m)
                 off += w
                 rounds.append(off)
-                steps += S * (2 * w + 1)
+                steps += programs * (2 * w + 1)
                 driven += 1
                 windows_done += 1
                 captures = getattr(run, "captures", 0)
@@ -716,9 +733,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     help="explicit comma-separated seeds (overrides --seeds)")
     ap.add_argument("--quick", action="store_true",
                     help="CI-sized scenario variants (seconds, not hours)")
-    ap.add_argument("--batch", default="map", choices=["vmap", "map"],
-                    help="the reference's seed-batch mode; the port runs "
-                         "seeds as a loop, i.e. map, and records that")
+    ap.add_argument("--batch", default="vmap", choices=list(BATCH_MODES),
+                    help="seed mode: vmap (default) runs the seeds as one "
+                         "program, every op (the OTA kernels included) "
+                         "once for all seeds; map runs them one by one, "
+                         "each seed bit for bit its run alone")
     ap.add_argument("--driver", default="stepwise",
                     help="round driver(s), comma-separated subset of "
                          "{stepwise, chunked}: stepwise = the host issues "

@@ -325,7 +325,8 @@ def test_every_fig3_scenario_runs_on_both_engines(name):
     bits."""
     sc = get_scenario(name).replace(**{**CUT, "tau": 1, "n_test": 20},
                                     total_IT=get_scenario(name).I)
-    single = sweep.SweepRunner([sc], device="cpu", keep_state=True).run()[0]
+    single = sweep.SweepRunner([sc], device="cpu", keep_state=True,
+                               batch="map").run()[0]
     sharded = ShardedSweepRunner([sc], device="cpu", keep_state=True,
                                  mesh="2x2", combine="u_sharded",
                                  driver="chunked").run()[0]
@@ -355,8 +356,8 @@ def test_quick_fig3_sweep_on_cpu(tmp_path):
 def _fig3_fused_single():
     sc = get_scenario("fig3_cifar").replace(
         **CUT, total_IT=2, ota_mode="faithful", ota_backend="fused")
-    return sc, sweep.SweepRunner([sc], device="cpu",
-                                 keep_state=True).run()[0]
+    return sc, sweep.SweepRunner([sc], device="cpu", keep_state=True,
+                                 batch="map").run()[0]
 
 
 @pytest.mark.parametrize("mesh", ["1x1", "2x2", "1x3"])

@@ -153,7 +153,8 @@ def test_captured_windows_equal_eager_rounds_on_card(engine):
         return make_runner(
             name, [sc], seeds=2, keep_state=True, mesh="2x2",
             combine="gathered" if name == "single" else "u_sharded",
-            driver=driver, warmup=driver == "chunked", device="cuda")
+            driver=driver, warmup=driver == "chunked", device="cuda",
+            batch="map")
 
     for fn, attr in LAUNCH_COUNTERS.values():
         setattr(fn, attr, 0)
@@ -205,7 +206,8 @@ def test_participation_masks_in_captured_rounds_on_card(name):
 
     sc = get_scenario(name).quick().replace(total_IT=5)
     a, b = (sweep.SweepRunner([sc], seeds=2, keep_state=True, driver=d,
-                              warmup=d == "chunked", device="cuda").run()[0]
+                              warmup=d == "chunked", device="cuda",
+                              batch="map").run()[0]
             for d in ("stepwise", "chunked"))
     for k in ("acc", "loss", "edge_power", "is_power"):
         assert getattr(a, k) == getattr(b, k), k
@@ -258,6 +260,86 @@ def test_ota_combine_kernel_matches_plain_on_card(B, U, K, N):
     want = ota_combine_plain(*args)
     assert y1.shape == want.shape == (*lead, N)
     assert float((y1 - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,S,B,U,K,N,shared", [
+    ("fused_mac", 4, 4, 20, 100, 3925, True),    # fig2 cluster hop
+    ("fused_mac", 4, 1, 4, 100, 3925, False),    # fig2 IS->PS hop
+    ("fused_mac", 3, 3, 5, 7, 130, False),
+    ("fused_mac", 2, 4, 256, 16, 3925, True),    # scale_u256 cluster hop
+    ("ota_combine", 4, 4, 20, 100, 3925, True),  # fig2 cluster hop
+    ("ota_combine", 4, 1, 4, 100, 3925, False),  # fig2 IS->PS, split
+    ("ota_combine", 4, 1, 20, 100, 3925, False),  # conventional, split
+    ("ota_combine", 2, 4, 256, 16, 3925, True),  # scale_u256 cluster hop
+])
+def test_seed_batched_launch_equals_unbatched_launches_on_card(
+        kernel, S, B, U, K, N, shared):
+    """S seeds in one launch (the gains shared with a seed stride of 0
+    where `shared`, as the vmapped hops pass them) equal S unbatched
+    launches bit for bit, and the plain version within TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(S * 1000 + B + U + K + N)
+    rnd = lambda *s: torch.randn(*s, generator=g).to("cuda")
+    gains = (rnd(B, U).abs() + 0.5).expand(S, B, U) if shared else (
+        rnd(S, B, U).abs() + 0.5)
+    fn = fused_mac if kernel == "fused_mac" else ota_combine
+    if kernel == "fused_mac":
+        seeds = torch.randint(0, 2 ** 32, (S, 2), generator=g).to("cuda")
+        args = (rnd(S, U, N), rnd(S, U, N), gains, gains)
+        kw = dict(K=K, sigma_h2=1.0, sigma_z2=2.0, block_u=min(U, 32))
+        call = lambda *a: fused_mac(*a, **kw)
+        plain = lambda *a: fused_mac_plain(*a, **kw)
+        args = (seeds, *args)
+    else:
+        cx = lambda *s: torch.complex(rnd(*s), rnd(*s))
+        args = (cx(S, B, U, K, N), cx(S, U, N), cx(S, B, K, N), gains)
+        call, plain = ota_combine, ota_combine_plain
+    before = fn.launches
+    y = call(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    y = torch.stack(y, -1) if isinstance(y, tuple) else torch.view_as_real(y)
+    assert y.shape[:3] == (S, B, N)
+    for s in range(S):
+        one = call(*(a[s] for a in args))
+        one = (torch.stack(one, -1) if isinstance(one, tuple)
+               else torch.view_as_real(one))
+        assert torch.equal(y[s], one), s
+    want = plain(*args)
+    want = (torch.stack(want, -1) if isinstance(want, tuple)
+            else torch.view_as_real(want))
+    scale = float(torch.linalg.vector_norm(want, dim=-1).max())
+    assert float((y - want).abs().max()) <= TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "slab_kernel"])
+def test_vmapped_hops_launch_once_for_all_seeds_on_card(backend):
+    """`vmap_seeds` over fig2's cluster and IS->PS hops: one launch a
+    hop for 4 seeds, each seed's estimate its own call's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch import prng
+    from repro_torch.core import (OTAConfig, cluster_ota, global_ota,
+                                  vmap_seeds)
+    from repro_torch.sim.scenario import get_scenario
+    topo = get_scenario("fig2_iid").make_topology()
+    cfg = OTAConfig(mode="faithful", backend=backend)
+    fn = fused_mac if backend == "fused" else ota_combine
+    keys = prng.split(prng.PRNGKey(3, "cuda"), 4)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P = torch.tensor(2.0, device="cuda")
+    for hop, shape in ((cluster_ota, (4, topo.C, topo.M, 7850)),
+                       (global_ota, (4, topo.C, 7850))):
+        d = 1e-2 * torch.randn(*shape, generator=g, device="cuda")
+        before = fn.launches
+        est = vmap_seeds(hop)(keys, d, topo, P, cfg)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for s in range(4):
+            assert torch.equal(est[s], hop(keys[s], d[s], topo, P, cfg))
 
 
 @pytest.mark.cuda
@@ -625,7 +707,7 @@ def test_fig2_telemetry_and_guard_change_no_bit_on_card(driver):
     sc = _fig2_fused()
     run = lambda **kw: SweepRunner([sc], seeds=2, device="cuda",
                                    keep_state=True, driver=driver,
-                                   **kw).run()[0]
+                                   batch="map", **kw).run()[0]
     plain = run()
     before = fused_mac.launches
     both = run(telemetry=True, guard="skip_round")
@@ -655,14 +737,15 @@ def test_fig2_sharded_equals_single_bitwise_on_card(mesh):
     from repro_torch.exec import ShardedSweepRunner
     from repro_torch.sim import SweepRunner
     sc = _fig2_fused()
-    single = SweepRunner([sc], seeds=2, device="cuda",
-                         keep_state=True).run()[0]
+    single = SweepRunner([sc], seeds=2, device="cuda", keep_state=True,
+                         batch="map").run()[0]
     sharded = ShardedSweepRunner([sc], seeds=2, mesh=mesh,
                                  combine="u_sharded", device="cuda",
                                  keep_state=True).run()[0]
     _bitwise(single, sharded)
     with tempfile.TemporaryDirectory() as d:
-        SweepRunner([sc], seeds=2, device="cuda", checkpoint=d).run()
+        SweepRunner([sc], seeds=2, device="cuda", checkpoint=d,
+                    batch="map").run()
         scdir = os.path.join(d, sc.name)
         for f in os.listdir(scdir):
             if f != "round_2.npz":

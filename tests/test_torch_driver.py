@@ -50,7 +50,7 @@ def _run(engine, sc, driver, warmup=False, seeds=2):
     if engine == "single":
         runner = sweep.SweepRunner([sc], seeds=seeds, keep_state=True,
                                    driver=driver, warmup=warmup,
-                                   device="cpu")
+                                   device="cpu", batch="map")
     else:
         runner = ShardedSweepRunner([sc], seeds=seeds, keep_state=True,
                                     mesh="2x2", combine="u_sharded",
@@ -100,7 +100,8 @@ def test_warmup_changes_no_result(driver):
 def test_chunk_fn_runs_windows_of_every_length(make):
     """The window the stepwise driver runs eagerly (`make_window_fn`) and
     the chunked driver's executor (`make_chunk_fn`) on the CPU: every
-    round of every seed with its powers, the eval stacked over seeds."""
+    round of every seed with its powers, the eval stacked over seeds,
+    the carry seed-stacked in and out."""
     calls = []
 
     def round_fn(state, key, P, P_is):
@@ -108,12 +109,13 @@ def test_chunk_fn_runs_windows_of_every_length(make):
         return {"x": state["x"] + P * key[0].to(torch.float32)}
 
     chunk = make(round_fn, lambda st: st["x"][None])
-    keys = [torch.tensor([0, 1]), torch.tensor([0, 2])]
-    states = [{"x": torch.zeros(())}, {"x": torch.ones(())}]
+    keys = torch.tensor([[0, 1], [0, 2]])
+    states = whfl.stack_seeds([{"x": torch.zeros(())}, {"x": torch.ones(())}])
     P = torch.arange(5, dtype=torch.float32)
     states, keys, m = chunk(states, keys, P[:3], 2 * P[:3])
     states, keys, m = chunk(states, keys, P[3:], 2 * P[3:])
     assert m.shape == (2, 1)
+    assert states["x"].shape == (2,) and keys.shape == (2, 2)
     # every round of every seed, in round-major order, with its powers
     assert calls == [(float(p), 2 * float(p)) for p in P for _ in range(2)]
 
@@ -130,8 +132,10 @@ def test_cli_records_both_drivers_with_the_reference_exec_keys(tmp_path):
     assert sweep.DRIVERS == J_DRIVERS
     ref = JSweepRunner([J_SCENARIOS["fig2_iid"].quick().replace(
         total_IT=1)], batch="map", driver="chunked").run()[0]
-    # the port also names the torch device that ran it
-    assert set(recs[1]["exec"]) == set(ref.exec_info) | {"device"}
+    # the port also names the torch device that ran it and, on the
+    # CPU, the intra-op threads it summed with
+    assert set(recs[1]["exec"]) == set(ref.exec_info) | {"device",
+                                                         "cpu_threads"}
     assert list(recs[1]["exec"])[-4:] == list(ref.exec_info)[-4:] == [
         "driver", "dispatches", "drive_seconds", "warmup"]
     # the sharded engine's extra keys, as the reference's engine names
@@ -143,7 +147,7 @@ def test_cli_records_both_drivers_with_the_reference_exec_keys(tmp_path):
     mine = make_runner("sharded", [sc], mesh="1x1", combine="u_sharded",
                        driver="chunked", device="cpu")
     assert set(mine._exec_info(sc.make_topology(), 7850)) == set(
-        j_info) | {"device"}
+        j_info) | {"device", "cpu_threads"}
     records = json.loads(bench.read_text())["records"]
     assert [r["dispatches"] for r in records] == [
         r["exec"]["dispatches"] for r in recs]

@@ -36,6 +36,7 @@ from repro.ft import scenario_fingerprint as j_scenario_fingerprint
 from repro.obs.trace import validate_trace as j_validate_trace
 from repro.sim.scenario import SCENARIOS as J_SCENARIOS
 from repro.sim.sweep import SweepRunner as JSweepRunner
+from repro_torch.checkpoint import store
 from repro_torch.exec import ShardedSweepRunner
 from repro_torch.ft import (CRASH_EXIT_CODE, CheckpointManager, FaultPlan,
                             GradPoison, backoff_delay, check_manifest,
@@ -58,7 +59,7 @@ def _tiny(**kw):
 def _runner(sc, engine="single", mesh="2x3", **kw):
     kw = {"seeds": 2, "keep_state": True, "device": "cpu", **kw}
     if engine == "single":
-        return sweep.SweepRunner([sc], **kw)
+        return sweep.SweepRunner([sc], batch="map", **kw)
     return ShardedSweepRunner([sc], mesh=mesh, combine="u_sharded", **kw)
 
 
@@ -277,6 +278,42 @@ def test_resume_mid_run_is_bitwise(tmp_path, engine, driver):
     assert res.exec_info["resumed_from"] == 3
     _same(res, ref)
     assert res.to_record()["telemetry"] == ref.to_record()["telemetry"]
+
+
+@pytest.mark.parametrize("batch", ["map", "vmap"])
+def test_cpu_resume_under_four_ambient_threads_is_bitwise(tmp_path,
+                                                          monkeypatch, batch):
+    """A CPU run sums with one intra-op thread whatever its caller set:
+    a run resumed under an ambient ``torch.set_num_threads(4)`` drives
+    under one thread, equals the uninterrupted run bit for bit, and
+    gives the caller its 4 threads back; the checkpoint's manifest and
+    the record's ``exec`` carry ``cpu_threads``."""
+    sc = _tiny()
+    ckdir = str(tmp_path / "ck")
+    kw = dict(seeds=2, keep_state=True, device="cpu", batch=batch)
+    ref = sweep.SweepRunner([sc], **kw).run()[0]
+    sweep.SweepRunner([sc], checkpoint=ckdir, **kw).run()
+    _keep_only(ckdir, sc.name, "round_3.npz")
+    man = store.read_meta(os.path.join(ckdir, sc.name,
+                                       "round_3.npz"))["extra"]
+    assert man["engine"]["cpu_threads"] == 1
+    assert man["engine"]["batch"] == batch
+    seen = []
+    drive = sweep.SweepRunner._drive
+    monkeypatch.setattr(sweep.SweepRunner, "_drive", lambda self, *a: (
+        seen.append(torch.get_num_threads()), drive(self, *a))[1])
+    before = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        res = sweep.SweepRunner([sc], checkpoint=ckdir, resume=True,
+                                **kw).run()[0]
+        after = torch.get_num_threads()
+    finally:
+        torch.set_num_threads(before)
+    assert seen == [1] and after == 4
+    assert res.exec_info["resumed_from"] == 3
+    assert res.exec_info["cpu_threads"] == 1
+    _same(res, ref)
 
 
 @pytest.mark.parametrize("driver", ["stepwise", "chunked"])

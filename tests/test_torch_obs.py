@@ -102,7 +102,7 @@ def test_trajectories_match_jax_sweep(case):
     ref = JSweepRunner([J_SCENARIOS[name].quick().replace(**cut)], seeds=2,
                        batch="map", telemetry=True).run()[0].to_record()
     got = sweep.SweepRunner([get_scenario(name).quick().replace(**cut)],
-                            seeds=2, telemetry=True,
+                            seeds=2, telemetry=True, batch="map",
                             device="cpu").run()[0].to_record()
     assert got["scenario"] == ref["scenario"]
     assert got["scenario"]["telemetry"] is True
@@ -122,7 +122,7 @@ def _run(engine, driver, tele, sc=None):
     if engine == "single":
         return sweep.SweepRunner([sc], seeds=2, keep_state=True,
                                  driver=driver, telemetry=tele,
-                                 device="cpu").run()[0]
+                                 batch="map", device="cpu").run()[0]
     return ShardedSweepRunner([sc], seeds=2, keep_state=True, mesh="2x3",
                               combine="u_sharded", driver=driver,
                               telemetry=tele, device="cpu").run()[0]
@@ -275,7 +275,8 @@ def test_port_and_jax_documents_pass_rtol(tmp_path, capsys):
     mine, ref = tmp_path / "port.json", tmp_path / "jax.json"
     args = ["--scenarios", "fig2_iid", "--quick", "--seeds", "2",
             "--telemetry"]
-    sweep.main(args + ["--device", "cpu", "--out", str(mine)])
+    sweep.main(args + ["--batch", "map", "--device", "cpu", "--out",
+                       str(mine)])
     j_sweep_main(args + ["--batch", "map", "--out", str(ref)])
     res = diff.diff_trees(json.load(open(mine)), json.load(open(ref)),
                           rtol=RTOL)

@@ -235,7 +235,7 @@ def test_edge_power_of_the_precoded_symbols():
 
 def _run(sc, seeds=1, **kw):
     return sweep.SweepRunner([sc], seeds=seeds, keep_state=True,
-                             device="cpu", **kw).run()[0]
+                             batch="map", device="cpu", **kw).run()[0]
 
 
 def test_bernoulli_rate_one_equals_full_bitwise():
@@ -347,9 +347,10 @@ def _single(run):
     if run not in _SINGLE:
         sc = get_scenario(name).quick().replace(total_IT=ROUNDS, **kw)
         step = sweep.SweepRunner([sc], seeds=2, keep_state=True,
-                                 device="cpu").run()[0]
+                                 batch="map", device="cpu").run()[0]
         chunk = sweep.SweepRunner([sc], seeds=2, keep_state=True,
-                                  driver="chunked", device="cpu").run()[0]
+                                  driver="chunked", batch="map",
+                                  device="cpu").run()[0]
         _assert_same(step, chunk)
         _SINGLE[run] = (sc, step)
     return _SINGLE[run]

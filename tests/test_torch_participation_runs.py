@@ -53,7 +53,8 @@ def test_scenario_matches_reference(name, cut):
     ref = JSweepRunner([_cut(J_SCENARIOS[name], cut)], seeds=2,
                        batch="map", keep_state=True).run()[0]
     got = sweep.SweepRunner([_cut(get_scenario(name), cut)], seeds=2,
-                            keep_state=True, device="cpu").run()[0]
+                            keep_state=True, batch="map",
+                            device="cpu").run()[0]
     assert got.scenario.to_json() == ref.scenario.to_json()
     assert got.rounds == ref.rounds and got.seeds == ref.seeds
     np.testing.assert_allclose(got.acc, ref.acc, rtol=0,

@@ -274,7 +274,7 @@ def _equal(a, b) -> bool:
 def single_runs():
     """The single engine's runs the sharded ones are held to."""
     return {name: sweep.SweepRunner([sc], seeds=2, keep_state=True,
-                                    device="cpu").run()[0]
+                                    batch="map", device="cpu").run()[0]
             for name, sc in (("fused", _small()),
                              ("equivalent", _small(
                                  ota_mode="equivalent", ota_backend="")),

@@ -198,7 +198,7 @@ def faithful_runs(request):
     tsc = SCENARIOS["fig2_iid"].replace(**kw).quick().replace(total_IT=4)
     ref = JSweepRunner([jsc], seeds=2, batch="map", keep_state=True).run()[0]
     got = sweep.SweepRunner([tsc], seeds=2, keep_state=True,
-                            device="cpu").run()[0]
+                            batch="map", device="cpu").run()[0]
     return ref, got
 
 

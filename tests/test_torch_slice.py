@@ -65,7 +65,7 @@ def both_runs(request):
     ref = JSweepRunner([name], seeds=2, quick=True, batch="map",
                        keep_state=True).run()[0]
     got = sweep.SweepRunner([name], seeds=2, quick=True, keep_state=True,
-                            device="cpu").run()[0]
+                            batch="map", device="cpu").run()[0]
     return ref, got
 
 
@@ -205,7 +205,9 @@ def test_cli_writes_reference_schema(tmp_path):
     assert doc["schema"] == "repro.sim.sweep/v1"
     rec = doc["scenarios"][0]
     assert tuple(rec) == sweep.RECORD_KEYS
-    assert rec["exec"]["batch"] == "map" and rec["exec"]["device"] == "cpu"
+    # the CLI runs its seeds as one vmapped program by default, as the
+    # reference's does, and records the mode that ran
+    assert rec["exec"]["batch"] == "vmap" and rec["exec"]["device"] == "cpu"
     assert out.exists() and bench.exists()
     assert sweep.main(["--list"]) == {}
 
