@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero:
    (ptxas' registers and spills logged per kernel instance), and count
    each draw kernel's instructions per draw by pipe in its SASS
    (`repro_torch.kernels.sass`: the operations its bound counts); the
-   tensor-core flash kernels' instances (bf16 at hd 16, 32, 64 and 128;
-   float32 at hd 32, 64 and 128 and hd 16 on the hd-32 one) must hold
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their SASS;
+   tensor-core flash kernels' instances (bf16 at hd 16, 32, 64 and 128
+   and hd 112 on the hd-128 one; float32 at hd 32, 64 and 128, hd 16 on
+   the hd-32 one and hd 112 on the hd-128 one) must hold ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA loads) in their SASS;
 3. each kernel against its plain PyTorch version on the card, at every
    shape the main paths give it, with inputs built as the channel
    backends and the sharded round build them, plus a few edge shapes
@@ -41,9 +42,11 @@ Phases, in order; any failure exits non-zero:
    fold groups; also f32, both masks) and L 77, the hd-128 shapes of
    qwen2-1.5b (also bidirectional, and f32 at L 200 and L 77) and
    qwen3-4b (f32 bidirectional at L 1000), the serving example's
-   reduced model at B 4, L 4096 (hd 32, bf16 and f32) and
+   reduced model at B 4, L 4096 (hd 32, bf16 and f32),
    ``tests/test_flash_attn.py``'s shapes (hd 16, 32, 64 and 128, f32
-   and bf16, both masks): f32 within 1e-5 of max |o|,
+   and bf16, both masks) and zamba2-7b's hd 112 (one tile, its prefill
+   shape B 4, L 4096, 32 heads over 32 KV heads in both dtypes and
+   masks, L 1000, and 8 heads over 2 at L 200): f32 within 1e-5 of max |o|,
    bf16 within that plus one bf16 ULP of each value (both sides round
    once from float32), two launches identical; seed batching
    (``batch="vmap"``): `fused_mac` and `ota_combine` at 4 seeds of
@@ -253,8 +256,35 @@ Phases, in order; any failure exits non-zero:
    expanded to H heads beforehand, as its GQA mode would send float32
    to the MATH backend), ``flash_bound_ms`` (bf16 at the tensor-core
    peak, float32 at the 3xTF32 rate, and also at the TF32 peak) and
-   ``exp_floor_ms`` (one exp2 per kept pair on the MUFU pipe);
-8. the run's seconds, one JSON line of kernel records, then the last
+   ``exp_floor_ms`` (one exp2 per kept pair on the MUFU pipe), and both
+   at zamba2-7b's prefill shape (B 4, L 4096, 32 heads of hd 112);
+8. the LM families at full width through `repro_torch.launch.serve`,
+   weights from `lm.init_params` at seed 0, one arch at a time
+   (``FAMILY_RUNS``): mamba2-780m (48 layers), zamba2-7b (81: 13 groups
+   of 6 Mamba2 layers, each followed by the shared attention block at
+   hd 112, and 3 more), qwen3-moe-235b-a22b (2 of its 94 layers, 128
+   experts, top 8), seamless-m4t-medium (12 encoder + 12 decoder
+   layers) and llava-next-34b (8 of 60 layers): a prefill of 4 x 4,096
+   positions at bf16 (llava's 2,880 patch embeddings + 1,216 tokens;
+   seamless' 4,096 tokens over 1,024 source frames; zamba2 also at
+   float32), exactly one flash launch per attention layer of the bf16
+   (float32) tensor-core kernel and none of the others, by the count
+   and in the profiler (none for mamba2; 13 for zamba2; 24 for
+   seamless, 12 of them bidirectional), finite logits, and its time
+   (wall, device ms, busy share, each flash record's share, device ops:
+   warm, then under `torch.profiler`); one warm decode step at (batch,
+   cache) = (128, 32,768) for mamba2 (its O(1) state), (2, 32,768) for
+   zamba2 and (8, 32,768) for the others, through `build_decode_step`
+   (no kernel of ours), finite, and its time; 2 x 32 tokens streamed
+   through an empty cache against their prefill, float32, within rtol
+   = atol = 5e-3 (a MoE at a capacity that drops nothing, the vlm
+   without patches, the encdec with its encoded frames in the cache);
+   then each family (and arctic-480b, the MoE's dense residual) at its
+   reduced config, card vs CPU on the same weights: prefill at float32
+   within 1e-4 of max |logit| and at bf16 within 5e-2 (a bf16 MoE: at
+   most 3% of a layer's tokens may route apart, and the rows whose
+   routes agree are held), and a decode step at float32 within 1e-4;
+9. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -265,6 +295,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -295,9 +326,10 @@ KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel"),
            "flash_mha_tf32": ("flash_attn_tf32", "flash_tf32_kernel")}
 # the tensor-core flash kernels and their template instances (bf16 at hd
-# 16, 32, 64, 128; float32 at hd 32, 64, 128 and hd 16 on the hd-32
-# one): wgmma (HGMMA) fed by TMA (UTMALDG) in each one's SASS
-TENSOR_CORE_FLASH = {"flash_mha_wgmma": 4, "flash_mha_tf32": 4}
+# 16, 32, 64, 128 and hd 112 on the hd-128 one; float32 at hd 32, 64,
+# 128, hd 16 on the hd-32 one and hd 112 on the hd-128 one): wgmma
+# (HGMMA) fed by TMA (UTMALDG) in each one's SASS
+TENSOR_CORE_FLASH = {"flash_mha_wgmma": 5, "flash_mha_tf32": 5}
 # the kernels a flash record's entry point launches before its own, once
 # per call: the tf32 kernel's pre-pass (K and V^T split into scratch)
 FLASH_PREPASS = {"flash_mha_tf32": ("tf32_split_k_kernel",
@@ -353,6 +385,23 @@ ADAM_STEP_RTOL = 1e-6
 # users per vmapped pass in phase 7's timing of the CNN's gradients (one
 # of fig3's 20 users at a time is the round's way)
 GRAD_CHUNK = 5
+# the LM families served at full width: (arch, layers run (None: all),
+# prefill (B, positions), decode (batch, cache)), with their cuts; the
+# qwen3-moe and llava depths are cut to fit the run's time and the card
+# (94 layers of 128 experts are ~440 GB in bf16; llava's 60 ~68 GB)
+FAMILY_RUNS = (
+    ("mamba2-780m", None, (4, 4096), (128, 32768)),
+    ("zamba2-7b", None, (4, 4096), (2, 32768)),
+    ("qwen3-moe-235b-a22b", 2, (4, 4096), (8, 32768)),
+    ("seamless-m4t-medium", None, (4, 4096), (8, 32768)),
+    ("llava-next-34b", 8, (4, 4096), (8, 32768)))
+# the families' decode against their prefill on the card: (B, T) tokens
+# streamed into an empty cache, float32
+FAMILY_DECODE_CHECK = (2, 32)
+# the share of a bf16 MoE layer's tokens that may route apart between
+# two platforms (tests/test_torch_lm_families.py's MOE_BF16_PARTED: a
+# token whose two best experts score within a rounding of each other)
+MOE_BF16_PARTED = 0.03
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
                     (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
@@ -577,27 +626,55 @@ def device_trace():
         yield prof
 
 
-def lm_profile(fn) -> dict:
-    """`fn()` (one serving step, ending in a synchronize) warm, timed on
-    the host clock, then under `torch.profiler`: device ms, busy share,
-    each flash record's share (its kernel and any pre-pass its entry
-    point launches, whose time is also given alone) and the device ops
-    of one call."""
+# A trace taken late in this run lost the device records of the first
+# ~30 kernels of the call it held (seamless-m4t-medium's prefill, whose
+# first flash kernel is about its 25th, showed 23 of its 24 in each of 4
+# traces on the H100 80GB HBM3 at 700.00 W, after the pause above), so
+# the LM traces start with this many throwaway spin kernels
+# (`torch.cuda._sleep`, named SPIN_KERNEL), which `device_ops` leaves out.
+TRACE_LEAD_IN = 128
+SPIN_KERNEL = "spin_kernel"
+
+
+def lead_in() -> None:
+    """TRACE_LEAD_IN spin kernels of ~1,000 clocks each."""
+    for _ in range(TRACE_LEAD_IN):
+        torch.cuda._sleep(1000)
+
+
+def device_ops(prof) -> list:
+    """(name, ms) of every device op a trace holds (kernels, copies,
+    sets; no annotations, no `lead_in` spins), read from kineto's
+    records, which read far faster than `prof.events()` for a trace of
+    ~40k ops."""
     from torch.autograd import DeviceType
 
-    fn()
+    return [(e.name(), e.duration_ns() / 1e6) for e in raw_events(prof)
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation() and SPIN_KERNEL not in e.name()]
+
+
+def lm_profile(fn, warmed=False) -> dict:
+    """`fn()` (one serving step, ending in a synchronize) warm (run once
+    first unless `warmed`), timed on the host clock, then under
+    `torch.profiler`: device ms, busy share, each flash record's share
+    (its kernel and any pre-pass its entry point launches, whose time is
+    also given alone) and the device ops of one call."""
+    if not warmed:
+        fn()
     t0 = time.perf_counter()
     fn()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with device_trace() as prof:
+        lead_in()
         fn()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = device_ops(prof)
     if not ops:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in ops:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
+    for name, ms in ops:
+        by_name[name][0] += ms
+        by_name[name][1] += 1
     device_ms = sum(ms for ms, _ in by_name.values())
     flash = {}
     for name in FLASH_RECORDS.values():
@@ -606,7 +683,10 @@ def lm_profile(fn) -> dict:
                   if any(fn in k for fn in FLASH_PREPASS.get(name, ())))
         ms = pre + sum(t for k, (t, _) in by_name.items()
                        if KERNELS[name][1] in k)
-        flash.update({f"{name}_ms": ms, f"{name}_share": ms / device_ms})
+        flash.update({f"{name}_ms": ms, f"{name}_share": ms / device_ms,
+                      f"{name}_records": sum(
+                          n for k, (_, n) in by_name.items()
+                          if KERNELS[name][1] in k)})
         if name in FLASH_PREPASS:
             flash[f"{name}_prepass_ms"] = pre
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
@@ -641,9 +721,7 @@ def flash_kernels_in(prof) -> dict:
     """{record: launches} of each flash kernel a `torch.profiler` trace
     saw on the card, and {"<record> pre-pass": [launches of each
     pre-pass kernel]} for the records that have one."""
-    from torch.autograd import DeviceType
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    names = [name for name, _ in device_ops(prof)]
     seen = {name: sum(KERNELS[name][1] in k for k in names)
             for name in FLASH_RECORDS.values()}
     for name, fns in FLASH_PREPASS.items():
@@ -652,25 +730,44 @@ def flash_kernels_in(prof) -> dict:
     return seen
 
 
-def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
-                 expect, cut):
-    """One prefill of random tokens at `pre_shape` through
-    `serve.build_prefill_step` at `cfg`'s compute dtype: exactly
-    ``cfg.n_layers`` launches of the flash kernel `record` and none of
-    the others, by the count and in the profiler, finite logits and
-    greedy tokens in the vocabulary.  Returns (step, tokens)."""
+def prefill_batch(cfg, specs, dev) -> dict:
+    """A batch for `specs` (`batch_specs()`'s meta tensors) on `dev`:
+    random tokens in the vocabulary, and random normal patch embeddings
+    or source frames in the compute dtype, from seeds."""
     from repro_torch import prng
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    return {name: (prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
+                                cfg.vocab).to(spec.dtype)
+                   if name == "tokens" else
+                   torch.randn(tuple(spec.shape), generator=g,
+                               device=dev).to(spec.dtype))
+            for name, spec in specs.items()}
+
+
+def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
+                 expect, cut, n_flash=None):
+    """One prefill of a random batch at `pre_shape` through
+    `serve.build_prefill_step` at `cfg`'s compute dtype: exactly
+    `n_flash` (default ``cfg.n_layers``) launches of the flash kernel
+    `record` and none of the others, by the count and in the profiler,
+    finite logits and greedy tokens in the vocabulary.  Returns (step,
+    batch)."""
     from repro_torch.launch import serve
 
     step, batch_specs = serve.build_prefill_step(cfg, pre_shape,
                                                  device=dev.type)
-    spec = batch_specs()["tokens"]
-    tokens = prng.randint(prng.PRNGKey(2, dev), tuple(spec.shape), 0,
-                          cfg.vocab).to(spec.dtype)
+    batch = prefill_batch(cfg, batch_specs(), dev)
+    n_flash = cfg.n_layers if n_flash is None else n_flash
+    want = {name: n_flash if name == record else 0
+            for name in FLASH_RECORDS.values()}
+    for name, fns in FLASH_PREPASS.items():
+        want[f"{name} pre-pass"] = [want[name]] * len(fns)
 
     def run_prefill():
         with device_trace() as prof:
-            out = step(run_params, {"tokens": tokens})
+            lead_in()
+            out = step(run_params, batch)
             torch.cuda.synchronize()
         return out, flash_kernels_in(prof)
 
@@ -678,22 +775,33 @@ def prefill_path(label, cfg, run_params, record, pre_shape, dev, counted,
     (logits, traced), launches = counted(run_prefill)
     greedy = logits.argmax(-1)
     log({"phase": "main_path", "run": label, "cut": cut,
-         "shape_BL": list(spec.shape), "compute_dtype": cfg.compute_dtype,
+         "shape_BL": list(batch["tokens"].shape),
+         **{f"{k}_shape": list(v.shape) for k, v in batch.items()
+            if k != "tokens"},
+         "compute_dtype": cfg.compute_dtype,
          "seconds_cold": time.perf_counter() - t0,
          "flash_kernels_in_profiler": traced, "greedy": greedy.tolist(),
          "max_abs_logit": float(logits.abs().max())})
-    want = {name: cfg.n_layers if name == record else 0
-            for name in FLASH_RECORDS.values()}
-    for name, fns in FLASH_PREPASS.items():
-        want[f"{name} pre-pass"] = [want[name]] * len(fns)
+    seen = [traced]
+    # a trace that lost device records (fewer of a kernel, none more) is
+    # taken again, as the chunked drives' are (TRACE_ATTEMPTS)
+    while traced != want and len(seen) < TRACE_ATTEMPTS and all(
+            np.all(np.asarray(traced[k]) <= np.asarray(want[k]))
+            for k in want):
+        _, traced = run_prefill()
+        seen.append(traced)
+    if len(seen) > 1:
+        log({"phase": "main_path", "run": f"{label} traced again",
+             "traces": seen, "launches": launches})
     if traced != want:
         raise SystemExit(f"the profiler saw flash kernels {traced} in "
-                         f"{label}, not {want}")
-    expect(label, launches, {record: cfg.n_layers},
-           tuple(logits.shape) == (spec.shape[0], cfg.vocab)
+                         f"{label}, not {want} (the counters: "
+                         f"{launches})")
+    expect(label, launches, {record: n_flash},
+           tuple(logits.shape) == (batch["tokens"].shape[0], cfg.vocab)
            and bool(torch.isfinite(logits).all())
            and bool(((greedy >= 0) & (greedy < cfg.vocab)).all()))
-    return step, tokens
+    return step, batch
 
 
 def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
@@ -728,9 +836,10 @@ def serve_lm(cfg, dev, card, counted, expect, pre_shape, dec_shape, cuts,
 
     f32 = cfg.with_(compute_dtype="float32")
     served_f32 = serve.compute_params(params, f32)
-    prefill_step, pre_tokens = prefill_path(
+    prefill_step, pre_batch = prefill_path(
         f"{cfg.name} prefill", cfg, served, "flash_mha_wgmma", pre_shape,
         dev, counted, expect, cuts["prefill"])
+    pre_tokens = pre_batch["tokens"]
     prefill_f32_step, _ = prefill_path(
         f"{cfg.name} prefill f32", f32, served_f32, "flash_mha_tf32",
         pre_shape, dev, counted, expect, cuts["prefill"])
@@ -929,6 +1038,293 @@ def lm_profiles(run: dict, dev, card) -> None:
                        f"S{shape.seq_len}", decode_call)):
         log({"phase": "profile", "run": label, "card": card,
              **lm_profile(fn)})
+
+
+def flash_layers(cfg) -> int:
+    """The flash launches of one prefill of `cfg`: one per attention
+    layer of its decoder (the hybrid's shared block once per group) and
+    of its encoder."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers + (cfg.n_enc_layers if cfg.family == "encdec"
+                           else 0)
+
+
+@contextlib.contextmanager
+def moe_trace():
+    """What a prefill inside the block routes and computes: "routes",
+    (top_e [G, T, K], keep [G, T*K]) of every `mlp.route` call in call
+    order (one per MoE layer), and "hidden", the float32 hidden states
+    [B, L, D] of the last `lm.backbone` call."""
+    from repro_torch.models import lm
+    from repro_torch.nn import mlp
+
+    seen = {"routes": [], "hidden": None}
+    route, backbone = mlp.route, lm.backbone
+
+    def spy_route(*args, **kw):
+        out = route(*args, **kw)
+        seen["routes"].append((out["top_e"].cpu(), out["keep"].cpu()))
+        return out
+
+    def spy_backbone(*args, **kw):
+        out = backbone(*args, **kw)
+        seen["hidden"] = out[0].float().cpu()
+        return out
+
+    mlp.route, lm.backbone = spy_route, spy_backbone
+    try:
+        yield seen
+    finally:
+        mlp.route, lm.backbone = route, backbone
+
+
+def logits_gap(label, cfg, on_card, on_cpu, rtol, traces=None) -> dict:
+    """The card's logits [B, vocab] against the CPU's within `rtol` of
+    max |logit|.  With `traces` (the two runs' `moe_trace`), a bf16 MoE
+    run: a token whose two best experts score within a rounding of each
+    other may route apart, which moves its row's logits by whole
+    experts, so at most MOE_BF16_PARTED of a layer's tokens may part;
+    the final hidden states of each row's leading tokens whose experts
+    and drops agree in every layer (causal attention and a per-token
+    combine keep them free of the parted tokens) are held within `rtol`
+    of max |h|, and there must be at least one such token; and so are
+    the logits of each row whose tokens all agree."""
+    B = on_card.shape[0]
+    gaps = (on_card - on_cpu).abs().amax(-1) / on_cpu.abs().max()
+    held = torch.ones(B, dtype=torch.bool)
+    parted, tokens_ok = [], True
+    if traces is not None:
+        card, cpu = traces
+        T = cpu["hidden"].shape[1]
+        clean = torch.full((B,), T)
+        for (card_e, card_k), (cpu_e, cpu_k) in zip(card["routes"],
+                                                    cpu["routes"]):
+            diff = (card_e != cpu_e).any(-1).reshape(B, T)
+            parted.append(float(diff.float().mean()))
+            diff |= (card_k != cpu_k).reshape(B, T, -1).any(-1)
+            clean = torch.minimum(clean, torch.where(
+                diff.any(-1), diff.int().argmax(-1), T))
+        held = clean == T
+        tokens = torch.arange(T)[None, :] < clean[:, None]
+        n_tokens = int(tokens.sum())
+        hidden_gap = (float((card["hidden"] - cpu["hidden"]).abs()[tokens]
+                            .max() / cpu["hidden"].abs().max())
+                      if n_tokens else float("nan"))
+        tokens_ok = n_tokens > 0 and hidden_gap <= rtol
+    ok = (tokens_ok and bool((gaps[held] <= rtol).all())
+          and all(p <= MOE_BF16_PARTED for p in parted))
+    rec = {"max_rel_gap": float(gaps.max()), "rel_gap_by_row":
+           gaps.tolist(), "rtol": rtol}
+    if traces is not None:
+        rec.update(moe_parted_share_by_layer=parted,
+                   rows_held=int(held.sum()), tokens_held=n_tokens,
+                   tokens_held_by_row=clean.tolist(),
+                   hidden_rel_gap=hidden_gap)
+    if not ok:
+        raise SystemExit(f"{label}: the card disagrees with the CPU: "
+                         f"{rec}")
+    return rec
+
+
+def family_vs_cpu(arch, dev) -> None:
+    """Phase 8's card-vs-CPU check of one family at its reduced config:
+    `prefill_logits` (B 2, 64 positions) on the card against the CPU on
+    the same weights, at float32 compute within TOL of max |logit| and
+    at the config's bf16 within LM_BF16_RTOL (the dense family's bounds;
+    a bf16 MoE as `logits_gap` holds it), then one `decode_step` from
+    the prefill's empty cache, float32, within TOL."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    g = torch.Generator().manual_seed(8)
+    n_tok = 64 - (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, n_tok), generator=g,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(2, cfg.n_patches, cfg.d_model,
+                                            generator=g)
+    if cfg.family == "encdec":
+        batch["src_frames"] = torch.randn(2, cfg.enc_src_frames,
+                                          cfg.d_model, generator=g)
+    for run_cfg, rtol in ((cfg.with_(compute_dtype="float32"), TOL),
+                          (cfg, LM_BF16_RTOL)):
+        b = {k: v if k == "tokens" else v.to(run_cfg.cdt())
+             for k, v in batch.items()}
+        with moe_trace() as card_trace:
+            on_card = lm.prefill_logits(
+                params, {k: v.to(dev) for k, v in b.items()}, run_cfg).cpu()
+        with moe_trace() as cpu_trace:
+            on_cpu = lm.prefill_logits(cpu_params, b, run_cfg)
+        bf16_moe = cfg.family == "moe" and run_cfg.compute_dtype != "float32"
+        rec = logits_gap(f"{arch} reduced {run_cfg.compute_dtype}", cfg,
+                         on_card, on_cpu, rtol,
+                         (card_trace, cpu_trace) if bf16_moe else None)
+        log({"phase": "families", "run": f"{arch} reduced prefill B2 L64 "
+             f"{run_cfg.compute_dtype}", "what": "the card (flash kernels) "
+             "vs the CPU (plain versions), the same weights", **rec})
+    f32 = cfg.with_(compute_dtype="float32")
+    steps = {}
+    for where, p in ((dev.type, params), ("cpu", cpu_params)):
+        cache = lm.init_decode_cache(f32, 2, 16, device=where)
+        for _, t in tree_leaves(cache):
+            t.zero_()
+        steps[where], _ = lm.decode_step(
+            p, cache, {"tokens": batch["tokens"][:, :1].to(where)}, f32)
+    rec = logits_gap(f"{arch} reduced decode step", cfg,
+                     steps[dev.type].cpu(), steps["cpu"], TOL)
+    log({"phase": "families", "run": f"{arch} reduced decode step B2 f32",
+         "what": "the card vs the CPU, the same weights", **rec})
+
+
+def decode_vs_prefill(cfg, params, dev) -> None:
+    """FAMILY_DECODE_CHECK's (B, T) tokens streamed through an empty
+    cache on the card against their prefill on the card, float32,
+    within rtol = atol = 5e-3 (tests/test_arch_smoke.py's bound): a MoE
+    at a capacity that drops no token (c_f = E / K), a vlm with no
+    patches, an encdec with its encoded frames in the cache."""
+    from repro_torch import prng
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    f32 = cfg.with_(compute_dtype="float32")
+    if cfg.family == "moe":
+        f32 = f32.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    B, T = FAMILY_DECODE_CHECK
+    batch = {"tokens": prng.randint(prng.PRNGKey(5, dev), (B, T), 0,
+                                    cfg.vocab).to(torch.int32)}
+    g = torch.Generator(device=dev).manual_seed(9)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(B, 0, cfg.d_model, device=dev)
+    if cfg.family == "encdec":
+        batch["src_frames"] = torch.randn(B, 64, cfg.d_model, generator=g,
+                                          device=dev)
+    want = lm.prefill_logits(params, batch, f32)
+    cache = lm.init_decode_cache(f32, B, T, device=dev)
+    for _, t in tree_leaves(cache):
+        t.zero_()
+    if cfg.family == "encdec":
+        cache["enc_out"] = lm._encode(params, batch, f32)
+    for t in range(T):
+        got, cache = lm.decode_step(
+            params, cache, {"tokens": batch["tokens"][:, t:t + 1]}, f32)
+    gap = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, rtol=5e-3, atol=5e-3))
+    log({"phase": "families", "run": f"{cfg.name} decode vs prefill B{B} "
+         f"T{T} f32", "what": "streamed decode vs prefill, both on the "
+         "card", "max_abs_gap": gap,
+         "max_rel_gap": gap / float(want.abs().max()),
+         "allclose_5e-3": close})
+    if not close:
+        raise SystemExit(f"{cfg.name}: streamed decode disagrees with the "
+                         f"prefill by {gap}")
+
+
+def serve_family(arch, n_layers, pre, dec, dev, card, counted,
+                 expect) -> None:
+    """Phase 8's serving path for one family at full width: weights from
+    `lm.init_params` at seed 0 (depth cut to `n_layers` where given); a
+    prefill of `pre` = (B, positions) through `serve.build_prefill_step`
+    at bf16 (and, for the hybrid, float32) compute, its flash launches
+    by the count and in the profiler (`flash_layers`), finite logits;
+    its time (`lm_profile`); one `build_decode_step` step at `dec` =
+    (batch, cache) against `init_decode_cache`'s prefilled cache (no
+    kernel of ours: decode attends in plain torch), finite, and its
+    time; then `decode_vs_prefill`."""
+    from repro_torch import prng
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(arch)
+    cfg = full if n_layers is None else full.with_(n_layers=n_layers)
+    depth = ("" if n_layers is None
+             else f"; depth {full.n_layers} -> {n_layers} layers")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    served = serve.compute_params(params, cfg)
+    leaves = [t for _, t in tree_leaves(params)]
+    log({"phase": "families", "run": f"{arch} init", "arch": arch,
+         "family": cfg.family, "n_layers": cfg.n_layers,
+         "d_model": cfg.d_model, "vocab": cfg.vocab,
+         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+         "head_dim": cfg.head_dim, "param_dtype": cfg.param_dtype,
+         "n_params": sum(t.numel() for t in leaves),
+         "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+         "served_bytes": sum(t.numel() * t.element_size()
+                             for _, t in tree_leaves(served)),
+         "init_seconds": init_s,
+         "device_allocated_bytes": torch.cuda.memory_allocated()})
+    B, positions = pre
+    n_patches = cfg.n_patches if cfg.family == "vlm" else 0
+    pre_shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                    global_batch=B,
+                                    seq_len=positions - n_patches)
+    cut = (f"prefill_32k: batch 32 -> {B}, length 32768 -> {positions}"
+           + (f" ({n_patches} patches + {positions - n_patches} tokens)"
+              if n_patches else "") + depth)
+    runs = [(cfg, served, "flash_mha_wgmma", "")]
+    if cfg.family == "hybrid":
+        f32 = cfg.with_(compute_dtype="float32")
+        runs.append((f32, serve.compute_params(params, f32),
+                     "flash_mha_tf32", " f32"))
+    for run_cfg, run_params, record, suffix in runs:
+        label = f"{arch} prefill{suffix}"
+        step, batch = prefill_path(label, run_cfg, run_params, record,
+                                   pre_shape, dev, counted, expect, cut,
+                                   n_flash=flash_layers(cfg))
+
+        def prefill_call():
+            step(run_params, batch)
+            torch.cuda.synchronize()
+
+        log({"phase": "profile", "run": f"{label} B{B} L{positions}",
+             "cut": cut, "flash_launches": flash_layers(cfg),
+             "card": card, **lm_profile(prefill_call, warmed=True)})
+        del step, batch, run_params
+    del runs
+    Bd, S = dec
+    dec_shape = dataclasses.replace(INPUT_SHAPES["decode_32k"],
+                                    global_batch=Bd, seq_len=S)
+    dec_cut = (f"decode_32k: batch 128 -> {Bd}, cache {S}" if Bd != 128
+               else f"decode_32k: batch 128, cache {S}") + depth
+    serve_step, token_specs = serve.build_decode_step(cfg, dec_shape,
+                                                      device=dev.type)
+    cache = lm.init_decode_cache(cfg, Bd, S, window=serve.decode_window(
+        cfg, dec_shape), device=dev)
+    tok = torch.zeros(tuple(token_specs().shape), dtype=torch.int32,
+                      device=dev)
+
+    def one_step():
+        out = serve_step(served, cache, tok)
+        torch.cuda.synchronize()
+        return out
+
+    (logits, _), launches = counted(one_step)
+    expect(f"{arch} decode step", launches, {},
+           bool(torch.isfinite(logits).all()))
+    log({"phase": "profile", "run": f"{arch} decode step B{Bd} S{S}",
+         "cut": dec_cut, "cache_bytes": sum(
+             t.numel() * t.element_size() for _, t in tree_leaves(cache)),
+         "card": card, **lm_profile(one_step, warmed=True)})
+    del cache, served, logits
+    decode_vs_prefill(cfg, params, dev)
+    log({"phase": "families", "run": f"{arch} memory",
+         "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del params, leaves
+    torch.cuda.empty_cache()
 
 
 def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
@@ -1797,7 +2193,23 @@ def main() -> int:
          True),
         (f"{LM_ARCH} reduced prefill B4 L4096", (4, 4096, 4, 2, 32), f32,
          True),
-        ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True)] + [
+        ("test_flash_attn bf16", (1, 64, 4, 2, 32), bf16, True),
+        # hd 112 (zamba2-7b's shared attention) on the hd-128 instances,
+        # columns 112 .. 127 read as zeros: one tile first, then its
+        # prefill shape (32 heads over 32 KV heads), both masks and
+        # dtypes, and a ragged L (1,000 rows: 7 full tiles and 104)
+        ("one tile hd 112", (1, 64, 1, 1, 112), bf16, True),
+        ("one tile hd 112", (1, 64, 1, 1, 112), f32, True),
+        ("zamba2-7b prefill B4 L4096", (4, 4096, 32, 32, 112), bf16, True),
+        ("zamba2-7b prefill B4 L4096", (4, 4096, 32, 32, 112), f32, True),
+        ("zamba2-7b B4 L4096 bidirectional", (4, 4096, 32, 32, 112), bf16,
+         False),
+        ("zamba2-7b B4 L4096 bidirectional", (4, 4096, 32, 32, 112), f32,
+         False),
+        ("zamba2-7b heads L1000", (1, 1000, 32, 32, 112), bf16, True),
+        ("zamba2-7b heads L1000", (1, 1000, 32, 32, 112), f32, True),
+        ("hd 112 G 4 L200 (fold straddles tiles)", (2, 200, 8, 2, 112),
+         f32, False)] + [
         ("test_flash_attn", shape, dtype, causal)
         for shape in JAX_FLASH_SHAPES for dtype in (f32, bf16)
         for causal in (True, False)]
@@ -2557,13 +2969,14 @@ def main() -> int:
          "heads": q15.n_heads, "kv_heads": q15.n_kv_heads,
          "head_dim": q15.head_dim, "compute_dtype": "float32"})
     served15 = serve.compute_params(params15, q15_f32)
-    q15_step, q15_tokens = prefill_path(
+    q15_step, q15_batch = prefill_path(
         f"{q15.name} prefill f32", q15_f32, served15, "flash_mha_tf32",
         dataclasses.replace(INPUT_SHAPES["prefill_32k"], global_batch=1,
                             seq_len=4096),
         dev, counted, expect,
         f"prefill_32k: batch 32 -> 1, length 32768 -> 4096; "
         f"depth {q15.n_layers} -> {F32_HD128_LAYERS} layers")
+    q15_tokens = q15_batch["tokens"]
     # the hd-32 instances' main path: the serving example's model
     # (examples/serve_decode_torch.py runs LM_ARCH's reduced() config,
     # head_dim 32), prefilled at qwen2-0.5b's prefill shape through the
@@ -2582,11 +2995,11 @@ def main() -> int:
             (small.with_(compute_dtype="float32"), "flash_mha_tf32", " f32")):
         served_p = serve.compute_params(params_small, run_cfg)
         label = f"{small.name} reduced prefill{suffix}"
-        step, tokens = prefill_path(
+        step, batch = prefill_path(
             label, run_cfg, served_p, record, small_shape, dev, counted,
             expect, "the serving example's reduced() config; prefill_32k: "
             "batch 32 -> 4, length 32768 -> 4096")
-        small_runs.append((label, run_cfg, step, served_p, tokens))
+        small_runs.append((label, run_cfg, step, served_p, batch["tokens"]))
     del params15
     spec = importlib.util.spec_from_file_location(
         "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
@@ -3158,13 +3571,30 @@ def main() -> int:
             (f"{LM_ARCH} reduced prefill f32 B4 L4096", (4, 4096, 4, 2, 32),
              f32, (20, 3)),
             ("hd 16 B4 L4096", (4, 4096, 4, 2, 16), bf16, (20, 3)),
-            ("hd 16 f32 B4 L4096", (4, 4096, 4, 2, 16), f32, (20, 3))):
+            ("hd 16 f32 B4 L4096", (4, 4096, 4, 2, 16), f32, (20, 3)),
+            ("zamba2-7b prefill B4 L4096", (4, 4096, 32, 32, 112), bf16,
+             (10, 2)),
+            ("zamba2-7b prefill f32 B4 L4096", (4, 4096, 32, 32, 112), f32,
+             (5, 2))):
         name, times = flash_times(label, shape, dtype, reps, dev, card,
                                   in_turns, time_ms, flash_pair, check_flash,
                                   queued=shape[-1] <= 32)
         timings[name, label] = times
 
-    # -- phase 8: the records ----------------------------------------------
+    # -- phase 8: the LM families ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "families", "run": "start",
+         "device_allocated_bytes": torch.cuda.memory_allocated()})
+    for arch, n_layers, pre, dec in FAMILY_RUNS:
+        serve_family(arch, n_layers, pre, dec, dev, card, counted, expect)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # arctic-480b too: the MoE's dense residual branch
+    for arch in [run[0] for run in FAMILY_RUNS] + ["arctic-480b"]:
+        family_vs_cpu(arch, dev)
+
+    # -- phase 9: the records ----------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",

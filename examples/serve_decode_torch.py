@@ -3,10 +3,12 @@ on the PyTorch port: the counterpart of ``examples/serve_decode.py``.
 
 Prefills a batch of prompts by streaming them through the decode cache,
 then decodes greedy tokens against it with the same `lm.decode_step`
-that `repro_torch.launch.serve.build_decode_step` runs.  Only the dense
-family is ported; the others raise, naming their ROADMAP item.
+that `repro_torch.launch.serve.build_decode_step` runs.  Text-only
+archs: the dense, moe, ssm and hybrid families (a vlm or encdec arch is
+refused, as in the JAX example).
 
     PYTHONPATH=src python examples/serve_decode_torch.py --device cpu
+    PYTHONPATH=src python examples/serve_decode_torch.py --arch zamba2-7b
     PYTHONPATH=src python examples/serve_decode_torch.py   # on the card
 """
 import argparse
@@ -23,6 +25,7 @@ from repro_torch import prng  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 
 def _sync(dev: torch.device) -> None:
@@ -53,7 +56,8 @@ def main(argv=None):
     # tests/test_torch_lm.py holds against the flash prefill)
     cap = T + args.new_tokens
     cache = lm.init_decode_cache(cfg, B, cap, device=dev)
-    cache["attn"]["pos"].zero_()
+    for _, t in tree_leaves(cache):     # an empty cache: pos 0, zero state
+        t.zero_()
 
     def dstep(c, t):
         return lm.decode_step(params, c, {"tokens": t}, cfg)

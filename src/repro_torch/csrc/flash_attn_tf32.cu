@@ -1,6 +1,6 @@
 // Causal or bidirectional online-softmax attention (flash attention) with
-// grouped KV heads, float32 at head_dim 16, 32, 64 or 128, on Hopper's
-// tensor cores (sm_90a) through a 3xTF32 split.
+// grouped KV heads, float32 at head_dim 16, 32, 64, 112 or 128, on
+// Hopper's tensor cores (sm_90a) through a 3xTF32 split.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
@@ -79,6 +79,10 @@
 //     columns add +0 to every dot product, so the scores are unchanged;
 //     no model runs hd 16, so it takes the width's products twice over
 //     rather than a 64-byte-swizzle instance of its own;
+//   - hd 112 (zamba2-7b's shared attention) runs the hd-128 instance the
+//     same way: the pre-pass writes 128 columns of K and rows of V^T,
+//     zeros past 112, and q and o have 112 columns (8/7 of the
+//     products);
 // - Q is loaded once by the consumers, 16 bytes a thread, split into hi
 //   and lo and stored in the 128-byte-swizzled layout wgmma reads (not
 //   by TMA: a 128-row tile can straddle two fold groups);
@@ -285,8 +289,8 @@ tf32_split_vt_kernel(const float* __restrict__ v, float* __restrict__ vts,
 // -- the kernel ---------------------------------------------------------
 
 // HD: the instance's width (32, 64 or 128); COLS: the columns of q and o
-// (HD, or 16 on the hd-32 instance: Q's columns past COLS load as zeros
-// and o's are not stored).
+// (HD, or 16 on the hd-32 instance, or 112 on the hd-128 one: Q's
+// columns past COLS load as zeros and o's are not stored).
 template <int HD, int COLS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
@@ -294,7 +298,9 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
                   const float* __restrict__ q, float* __restrict__ o,
                   int NB, int KV, int G, int L, int S, Layout lq, Layout lout,
                   float scale, int causal) {
-  static_assert(COLS == HD || (HD == kMinHD && COLS == 16), "columns");
+  static_assert(COLS == HD || (HD == kMinHD && COLS == 16) ||
+                    (HD == 128 && COLS == 112),
+                "columns");
   using C = Cfg<HD>;
   constexpr int KB = C::KB, PN = C::PN;
   constexpr int CPR = HD / 4;            // 16-byte chunks per operand row
@@ -598,14 +604,15 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 }  // namespace
 
 // q, o: NB * G * L query rows; k, v: NB * S keys; float32 (dtype 0, the
-// wrapper's code; any other dtype is refused), head_dim `hd` 16, 32, 64
-// or 128 (any other is refused).  Pair n = b * KV + kv
+// wrapper's code; any other dtype is refused), head_dim `hd` 16, 32, 64,
+// 112 or 128 (any other is refused).  Pair n = b * KV + kv
 // reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides
 // in elements, head_dim contiguous, every row 16-byte aligned.
-// `scratch`: 4 * NB * S_pad * max(hd, 32) floats, 16-byte aligned, S_pad
+// `scratch`: 4 * NB * S_pad * hdp floats (hdp the instance's width: hd,
+// 32 for hd 16, 128 for hd 112), 16-byte aligned, S_pad
 // = S rounded up to a multiple of 64; the pre-pass overwrites it.  Launches
 // the pre-pass's two kernels and the attention kernel on `stream`, does
 // not synchronise, and returns the first cudaGetLastError() that is not
@@ -617,7 +624,8 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
                                       int G, int L, int S,
                                       const long long* strides, float scale,
                                       void* scratch, void* stream) {
-  if (dtype != 0 || (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+  if (dtype != 0 ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 112 && hd != 128))
     return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0 || NB % KV || NB > 65535)
@@ -632,7 +640,8 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
   const Layout lk{strides[3], strides[4], strides[5]};
   const Layout lv{strides[6], strides[7], strides[8]};
   const Layout lout{strides[9], strides[10], strides[11]};
-  const int hdp = hd < kMinHD ? kMinHD : hd;    // the scratch's width
+  // the scratch's width: the instance's
+  const int hdp = hd < kMinHD ? kMinHD : hd == 112 ? 128 : hd;
   float* ks = static_cast<float*>(scratch);
   float* vts = ks + 2LL * NB * S_pad * hdp;
 
@@ -662,6 +671,9 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
     case 64:
       return launch<64, 64>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
                             tiles, lq, lout, scale, st);
+    case 112:
+      return launch<128, 112>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
+                              tiles, lq, lout, scale, st);
     case 128:
       return launch<128, 128>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
                               tiles, lq, lout, scale, st);

@@ -1,6 +1,6 @@
 // Causal or bidirectional online-softmax attention (flash attention) with
-// grouped KV heads, bfloat16 at head_dim 16, 32, 64 or 128, on Hopper's
-// tensor cores (sm_90a).
+// grouped KV heads, bfloat16 at head_dim 16, 32, 64, 112 or 128, on
+// Hopper's tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attn.py:
 // `_flash_kernel` (wrapper `flash_mha`, GQA wrapper `flash_attention`),
@@ -39,7 +39,14 @@
 // 128-byte block at hd 64, two at hd 128, one 64-byte block at hd 32 and
 // one 32-byte block at hd 16.  hd 16 and 32 are instances of their own,
 // not hd 64 zero-padded: the narrow swizzle keeps every product the
-// width of the data.
+// width of the data.  hd 112 (zamba2-7b's shared attention) runs the
+// hd-128 instance with COLS = 112: the TMA maps declare a head extent of
+// 112, so the second 64-column box of each K and V row is zero-filled
+// past column 112 (a 224-byte row pitch is a multiple of 16, as TMA
+// needs); Q's columns 112 .. 127 load as zeros and o's are not stored.
+// Zero columns add +0 to every score and leave o's first 112 columns
+// as they are; the scale is 1 / sqrt(112).  It costs 8/7 of the
+// products, one instance fewer to build and tune.
 //
 // - one block per (pair n, tile of QB = 128 folded query rows), three
 //   warpgroups: WG0 the producer, WG1 and WG2 the consumers, 64 query
@@ -184,17 +191,22 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 
 // -- the kernel ---------------------------------------------------------
 
-template <int HD>
+// HD: the instance's width; COLS: the columns of q, k, v and o (HD, or
+// 112 on the hd-128 instance: columns past COLS read as zeros and are
+// not stored).
+template <int HD, int COLS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                    const __grid_constant__ CUtensorMap tmap_v,
                    const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ o, int KV, int G, int L,
                    int S, Layout lq, Layout lo, float scale, int causal) {
+  static_assert(COLS == HD || (HD == 128 && COLS == 112), "columns");
   using C = Cfg<HD>;
   constexpr int STAGES = C::STAGES;
   constexpr int SW = C::SW, CPB = C::CPB;
   constexpr int CPR = HD / 8;            // 16-byte chunks per row
+  constexpr int OUT_CPR = COLS / 8;      // 16-byte chunks per q or o row
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -258,11 +270,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const uint32_t q_slot = base + w * C::WG_Q_BYTES;
     uint8_t* q_smem = smem + w * C::WG_Q_BYTES;
 
-    // Q once: 16 bytes a thread, zeros past the last row
+    // Q once: 16 bytes a thread, zeros past the last row and past
+    // column COLS
     for (int i = tid; i < kWgRows * CPR; i += 128) {
       const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows) {
+      if (r < rows && (COLS == HD || ch < OUT_CPR)) {
         const int pos = r % L, h = kv * G + r / L;
         val = *reinterpret_cast<const uint4*>(
             q + b * lq.b + pos * lq.row + h * lq.head + ch * 8);
@@ -395,8 +408,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       }
     }
     named_barrier(1 + w);
-    for (int i = tid; i < kWgRows * CPR; i += 128) {
-      const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
+    for (int i = tid; i < kWgRows * OUT_CPR; i += 128) {
+      const int row = i / OUT_CPR, ch = i % OUT_CPR, r = wg_r0 + row;
       if (r >= rows) break;
       const int pos_r = r % L, h = kv * G + r / L;
       *reinterpret_cast<uint4*>(o + b * lo.b + pos_r * lo.row + h * lo.head +
@@ -413,7 +426,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 // A map of keys (or values) as the 4-D bf16 tensor (hd, KV, S, B),
 // innermost first, with element strides (1, head, row, batch); boxes of
 // (SW / 2, 1, KB, 1), one column block, with the SW-byte swizzle, zeros
-// past S.
+// past S and past column hd (hd 112 in a 128-wide instance).
 template <int SW>
 int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
              int B, long long head, long long row, long long batch) {
@@ -440,7 +453,7 @@ int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
   return res == CUDA_SUCCESS ? 0 : 10000 + static_cast<int>(res);
 }
 
-template <int HD>
+template <int HD, int COLS = HD>
 int launch(const void* q, const void* k, const void* v, void* o, int causal,
            int NB, int KV, int G, int L, int S, const long long* st,
            float scale, cudaStream_t stream) {
@@ -450,19 +463,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
   if (tiles > 0x7FFFFFFFLL || rows > 0x7FFFFFFFLL || NB > 65535 || NB % KV)
     return cudaErrorInvalidValue;
   CUtensorMap tmap_k, tmap_v;
-  int err = make_map<C::SW>(&tmap_k, k, HD, KV, S, NB / KV, st[5], st[4],
+  int err = make_map<C::SW>(&tmap_k, k, COLS, KV, S, NB / KV, st[5], st[4],
                             st[3]);
   if (err == 0)
-    err = make_map<C::SW>(&tmap_v, v, HD, KV, S, NB / KV, st[8], st[7],
+    err = make_map<C::SW>(&tmap_v, v, COLS, KV, S, NB / KV, st[8], st[7],
                           st[6]);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      flash_wgmma_kernel<HD, COLS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   const Layout lq{st[0], st[1], st[2]}, lo{st[9], st[10], st[11]};
-  flash_wgmma_kernel<HD><<<dim3(static_cast<unsigned>(tiles), NB), kThreads,
-                           C::SMEM, stream>>>(
+  flash_wgmma_kernel<HD, COLS><<<dim3(static_cast<unsigned>(tiles), NB),
+                                 kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), KV, G, L, S, lq, lo, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -473,7 +486,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 // q, o: NB * G * L query rows; k, v: NB * S keys; bfloat16 (dtype 1, the
 // wrapper's code; csrc/flash_attn_tf32.cu's entry point, which shares
 // this signature but for its scratch, takes float32, 0), head_dim `hd`
-// of 16, 32, 64 or 128.  Pair
+// of 16, 32, 64, 112 or 128.  Pair
 // n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
@@ -501,6 +514,9 @@ extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
   if (hd == 64)
     return launch<64>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
                       st);
+  if (hd == 112)
+    return launch<128, 112>(q, k, v, o, causal, NB, KV, G, L, S, strides,
+                            scale, st);
   if (hd == 128)
     return launch<128>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
                        st);

@@ -18,8 +18,9 @@ picks one from the input tensors alone:
   HEAD_DIMS, the hand-written Hopper kernel ``csrc/flash_attn_wgmma.cu``
   (tensor cores: wgmma, TMA-fed K/V ring, warp specialisation; 128 query
   rows and 128 keys a tile; a row of hd 16 or 32 is one 32- or 64-byte
-  swizzled block), counted in ``flash_mha.wgmma_launches``.  This is
-  the serving path's prefill.
+  swizzled block; hd 112, zamba2-7b's, runs the hd-128 instance with
+  columns 112 to 127 read as zeros), counted in
+  ``flash_mha.wgmma_launches``.  This is the serving path's prefill.
 - ``"flash_attn_tf32"``: float32 on a CUDA card, at every head dim of
   HEAD_DIMS (qwen2-0.5b's and qwen2-1.5b's float32 prefills at hd 64
   and 128, the serving example's reduced model at hd 32),
@@ -29,9 +30,9 @@ picks one from the input tensors alone:
   TF32 alone would not.  Its entry point first launches a pre-pass (two
   more kernels per call) that writes K and V^T, split, into a scratch
   tensor the wrapper allocates (`tf32_prepass_plain` is its plain
-  version); hd 16 runs its hd-32 instance with K and V^T zero-padded to
-  TF32_MIN_HEAD_DIM.  Counted in ``flash_mha.tf32_launches``, once per
-  call.
+  version); hd 16 runs its hd-32 instance and hd 112 its hd-128 one,
+  with K and V^T zero-padded to that width (`tf32_width`).  Counted in
+  ``flash_mha.tf32_launches``, once per call.
 - ``"plain"``: CPU tensors, `flash_mha_plain` and
   `flash_attention_plain`, the plain PyTorch versions: the same loop
   nest as the Pallas kernel in interpret mode (``q_block`` x
@@ -63,7 +64,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MIN_DENOMINATOR = 1e-30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 # the tf32 kernel's scratch pads S to a multiple of this (its key tile at
 # hd 32 and 64; hd 128's 32-key tile divides it), and the order its
 # pre-pass stores each group of 8 keys of V^T in: the column order of the
@@ -73,6 +74,9 @@ TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # its narrowest instance: the pre-pass pads K's columns and V^T's rows of
 # a smaller head dim to this width with zeros
 TF32_MIN_HEAD_DIM = 32
+# head dims that run a wider instance of the tf32 kernel, zero-padded to
+# it by the pre-pass
+TF32_WIDTHS = {16: TF32_MIN_HEAD_DIM, 112: 128}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -108,6 +112,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda tensors, "
                          f"got {q.device}")
+
+
+def tf32_width(hd: int) -> int:
+    """The width of the tf32 kernel's instance that runs head dim `hd`:
+    the scratch's columns of K and rows of V^T."""
+    return TF32_WIDTHS.get(hd, hd)
 
 
 def route(q: torch.Tensor) -> str:
@@ -150,9 +160,9 @@ def _kernel_fn(name: str):
 def tf32_scratch(NB: int, S: int, hd: int, device) -> torch.Tensor:
     """The tf32 kernel's scratch: K hi, K lo [NB, S_pad, hdp] and V^T hi,
     V^T lo [NB, hdp, S_pad], S_pad = S rounded up to TF32_KEY_TILE, hdp
-    = max(hd, TF32_MIN_HEAD_DIM)."""
+    = tf32_width(hd)."""
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    return torch.empty(4 * NB * s_pad * max(hd, TF32_MIN_HEAD_DIM),
+    return torch.empty(4 * NB * s_pad * tf32_width(hd),
                        dtype=torch.float32, device=device)
 
 
@@ -260,13 +270,13 @@ def tf32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> tuple:
     """The tf32 kernel's pre-pass on folded float32 k, v [N, S, hd]:
     (K split [2, N, S_pad, hdp], V^T split [2, N, hdp, S_pad]), hi then
     lo, S_pad = S rounded up to TF32_KEY_TILE with zero keys, hdp =
-    max(hd, TF32_MIN_HEAD_DIM) with zero columns of K and rows of V^T
+    tf32_width(hd) with zero columns of K and rows of V^T
     past hd, and V^T's keys stored in TF32_KEY_ORDER within each group
     of 8 (stored position p of a group holds key TF32_KEY_ORDER[p]).
     The kernel's scratch holds the two, flattened, one after the other."""
     N, S, hd = k.shape
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    hdp = max(hd, TF32_MIN_HEAD_DIM)
+    hdp = tf32_width(hd)
     pad = lambda x: torch.nn.functional.pad(x.float(),
                                             (0, hdp - hd, 0, s_pad - S))
     order = torch.tensor(TF32_KEY_ORDER, device=k.device)

@@ -1,46 +1,47 @@
-"""The LM stack's dense family: a GQA decoder, prefill and single-token
-decode (the port of `repro.models.lm`).
+"""The LM over the assigned architecture families: prefill and
+single-token decode (the port of `repro.models.lm`).
+
+Families: dense (GQA), moe (top-k experts, optional dense residual),
+ssm (Mamba2/SSD), hybrid (Zamba2: Mamba2 layers with one weight-shared
+attention block after every `shared_attn_every` of them, and a tail of
+Mamba2 layers when that does not divide the depth), encdec (the
+SeamlessM4T backbone: a bidirectional encoder over stubbed frame
+embeddings, a decoder with cross-attention) and vlm (the LLaVA-NeXT LM
+backbone, stubbed patch embeddings put in front of the tokens).
 
 Parameters are the JAX package's tree as nested dicts of tensors: the
-layers' leaves stacked on a leading axis under "layers", with the same
+layers' leaves stacked on a leading axis ("layers", "enc_layers",
+"tail"; the hybrid's "groups" on two, group and layer), with the same
 leaf keys, so `repro_torch.convert.params_from_jax` carries a JAX tree
-across unchanged.  The JAX package scans over that axis; here the layer
-loop is a Python loop over it.  `init_params` follows the JAX key splits
-through the `jax.random` emulation, so one integer seed gives the JAX
-package's weights.
+across unchanged.  The JAX package scans over those axes; here the layer
+loop is a Python loop over them.  `init_params` follows the JAX key
+splits through the `jax.random` emulation, so one integer seed gives the
+JAX package's weights.
 
-Only the dense family is ported.  The moe, ssm, hybrid, encdec (with
-its encoder and cross-attention) and vlm families, and `lm_loss`
-(training), raise `NotImplementedError` naming their ROADMAP item.
+`decode_step` writes the caches in place: the KV caches at each row's
+slot (`attention.decode`), the SSM states and conv windows whole
+(`ssm.decode`).  `lm_loss` (training) raises `NotImplementedError`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn import attention, core, mlp
+from repro_torch.nn import attention, core, mlp, ssm
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = {
-    "moe": "the moe family (top-k experts)",
-    "ssm": "the ssm family (Mamba2/SSD)",
-    "hybrid": "the hybrid family (Zamba2)",
-    "encdec": "the encdec family (SeamlessM4T)",
-    "vlm": "the vlm family (LLaVA-NeXT)",
-}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family == "dense":
-        return
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: {_NOT_PORTED[cfg.family]} is not ported yet "
-            f"(ROADMAP queue A item 13); only the dense family runs")
-    raise ValueError(f"unknown family {cfg.family!r}")
+def _check_family(cfg: ArchConfig) -> str:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return cfg.family
 
 
 # ---------------------------------------------------------------------------
@@ -48,9 +49,22 @@ def _require_dense(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _stack_layers(key: torch.Tensor, n: int, init_fn):
+    """n layers from `init_fn` on the n keys of ``split(key, n)``, each
+    leaf stacked on a new leading axis.  The stack is allocated once and
+    filled a layer at a time, so building it takes the stack and one
+    layer of memory."""
     keys = prng.split(key, n)
-    ps = [init_fn(keys[i]) for i in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs), *ps)
+    first = init_fn(keys[0])
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+
+    def put(i, tree):
+        tree_map(lambda o, t: o[i].copy_(t), out, tree)
+
+    put(0, first)
+    del first
+    for i in range(1, n):
+        put(i, init_fn(keys[i]))
+    return out
 
 
 def _attn_cfg(cfg: ArchConfig,
@@ -64,15 +78,48 @@ def _attn_cfg(cfg: ArchConfig,
         kv_block=cfg.kv_block)
 
 
-def _init_tblock(key: torch.Tensor, cfg: ArchConfig):
-    """One transformer block: ln1 + attn + ln2 + ffn."""
+def _moe_cfg(cfg: ArchConfig) -> mlp.MoEConfig:
+    return mlp.MoEConfig(
+        d_model=cfg.d_model, d_ff_expert=cfg.d_ff_expert,
+        n_experts=cfg.n_experts, top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        dense_residual_ff=cfg.dense_residual_ff,
+        dispatch=cfg.moe_dispatch)
+
+
+def _ssm_cfg(cfg: ArchConfig) -> ssm.SSMConfig:
+    return ssm.SSMConfig(
+        d_model=cfg.d_model, d_state=cfg.ssm_state,
+        head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+        chunk=cfg.ssm_chunk)
+
+
+def _init_tblock(key: torch.Tensor, cfg: ArchConfig, *, cross: bool = False):
+    """One transformer block: ln1 + attn [+ lnx + xattn] + ln2 + ffn
+    (the MoE where the config has experts, but never in a cross block)."""
     ks = prng.split(key, 4)
     dt = cfg.pdt()
-    return {
-        "ln1": core.rmsnorm_init(cfg.d_model, dtype=dt, device=key.device),
+    dev = key.device
+    p = {
+        "ln1": core.rmsnorm_init(cfg.d_model, dtype=dt, device=dev),
         "attn": attention.init(ks[0], _attn_cfg(cfg), dtype=dt),
-        "ln2": core.rmsnorm_init(cfg.d_model, dtype=dt, device=key.device),
-        "mlp": mlp.swiglu_init(ks[1], cfg.d_model, cfg.d_ff, dtype=dt),
+        "ln2": core.rmsnorm_init(cfg.d_model, dtype=dt, device=dev),
+    }
+    if cfg.n_experts and not cross:
+        p["moe"] = mlp.moe_init(ks[1], _moe_cfg(cfg), dtype=dt)
+    else:
+        p["mlp"] = mlp.swiglu_init(ks[1], cfg.d_model, cfg.d_ff, dtype=dt)
+    if cross:
+        p["lnx"] = core.rmsnorm_init(cfg.d_model, dtype=dt, device=dev)
+        p["xattn"] = attention.init(ks[2], _attn_cfg(cfg), dtype=dt)
+    return p
+
+
+def _init_sblock(key: torch.Tensor, cfg: ArchConfig):
+    dt = cfg.pdt()
+    return {
+        "ln": core.rmsnorm_init(cfg.d_model, dtype=dt, device=key.device),
+        "ssm": ssm.init(key, _ssm_cfg(cfg), dtype=dt),
     }
 
 
@@ -80,42 +127,106 @@ def init_params(key: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree on `key`'s device (make the key with
     ``prng.PRNGKey(seed, device)``): the values of the JAX package's
     `split_params(init_params(PRNGKey(seed), cfg))[0]`."""
-    _require_dense(cfg)
+    fam = _check_family(cfg)
     k_emb, k_layers, k_head, _ = prng.split(key, 4)
     dt = cfg.pdt()
-    return {
+    p: Dict[str, Any] = {
         "embed": core.embedding_init(k_emb, cfg.vocab, cfg.d_model, dtype=dt),
         "final_norm": core.rmsnorm_init(cfg.d_model, dtype=dt,
                                         device=key.device),
         "lm_head": core.dense_init(k_head, cfg.d_model, cfg.vocab, dtype=dt),
-        "layers": _stack_layers(k_layers, cfg.n_layers,
-                                lambda k: _init_tblock(k, cfg)),
     }
+    if fam in ("dense", "vlm", "moe"):
+        p["layers"] = _stack_layers(k_layers, cfg.n_layers,
+                                    lambda k: _init_tblock(k, cfg))
+    elif fam == "ssm":
+        p["layers"] = _stack_layers(k_layers, cfg.n_layers,
+                                    lambda k: _init_sblock(k, cfg))
+    elif fam == "hybrid":
+        every = cfg.shared_attn_every
+        n_groups, tail = divmod(cfg.n_layers, every)
+        kg, kt, ksh = prng.split(k_layers, 3)
+        p["groups"] = _stack_layers(
+            kg, n_groups, lambda k: _stack_layers(
+                k, every, lambda k2: _init_sblock(k2, cfg)))
+        if tail:
+            p["tail"] = _stack_layers(kt, tail,
+                                      lambda k: _init_sblock(k, cfg))
+        p["shared"] = _init_tblock(ksh, cfg)
+    else:                                                     # encdec
+        ke, kd = prng.split(k_layers)
+        p["enc_layers"] = _stack_layers(ke, cfg.n_enc_layers,
+                                        lambda k: _init_tblock(k, cfg))
+        p["layers"] = _stack_layers(
+            kd, cfg.n_layers, lambda k: _init_tblock(k, cfg, cross=True))
+        p["enc_norm"] = core.rmsnorm_init(cfg.d_model, dtype=dt,
+                                          device=key.device)
+    return p
 
 
-def _layer(params, i: int):
-    """Layer i's parameters: views into the stacked leaves."""
-    return tree_map(lambda t: t[i], params["layers"])
+def _at(tree, *idx):
+    """The leaves of a stacked tree at `idx` on their leading axes
+    (views)."""
+    return tree_map(lambda t: t[idx], tree)
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _tblock_fwd(p, x, positions, acfg):
+def _ffn(p, hin: torch.Tensor, cfg: ArchConfig):
+    """The block's feed-forward: (out, aux), aux a float32 zero for the
+    dense MLP."""
+    if "moe" in p:
+        return mlp.moe(p["moe"], hin, _moe_cfg(cfg))
+    return mlp.swiglu(p["mlp"], hin), torch.zeros(
+        (), dtype=torch.float32, device=hin.device)
+
+
+def _tblock_fwd(p, x, positions, cfg: ArchConfig, acfg, *, enc_out=None):
     h = attention.prefill(p["attn"], core.rmsnorm(p["ln1"], x), positions,
                           acfg)
     x = x + h
-    h = mlp.swiglu(p["mlp"], core.rmsnorm(p["ln2"], x))
-    return x + h
+    if "xattn" in p:
+        x = x + _cross_attn(p["xattn"], core.rmsnorm(p["lnx"], x), enc_out,
+                            acfg)
+    h, aux = _ffn(p, core.rmsnorm(p["ln2"], x), cfg)
+    return x + h, aux
 
 
-def _tblock_decode(p, x, cache, acfg):
+def _cross_attn(p, x, enc_out, acfg: attention.AttnConfig):
+    """Full (non-causal) attention of decoder queries over the encoder's
+    output, in plain attention (`attention._sdpa`) as the reference
+    computes it."""
+    B, L, _ = x.shape
+    Se = enc_out.shape[1]
+    H, KV, hd = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim
+    q = core.dense(p["wq"], x).reshape(B, L, H, hd)
+    k = core.dense(p["wk"], enc_out).reshape(B, Se, KV, hd)
+    v = core.dense(p["wv"], enc_out).reshape(B, Se, KV, hd)
+    mask = torch.ones((B, L, Se), dtype=torch.bool, device=x.device)
+    return core.dense(p["wo"], attention._sdpa(q, k, v, mask, acfg))
+
+
+def _tblock_decode(p, x, cache, cfg: ArchConfig, acfg, *, enc_out=None):
     h, new_cache = attention.decode(p["attn"], core.rmsnorm(p["ln1"], x),
                                     cache, acfg)
     x = x + h
-    h = mlp.swiglu(p["mlp"], core.rmsnorm(p["ln2"], x))
+    if "xattn" in p:
+        x = x + _cross_attn(p["xattn"], core.rmsnorm(p["lnx"], x), enc_out,
+                            acfg)
+    h, _ = _ffn(p, core.rmsnorm(p["ln2"], x), cfg)
     return x + h, new_cache
+
+
+def _sblock_fwd(p, x, cfg: ArchConfig):
+    return x + ssm.prefill(p["ssm"], core.rmsnorm(p["ln"], x), _ssm_cfg(cfg))
+
+
+def _sblock_decode(p, x, cache, cfg: ArchConfig):
+    h, _ = ssm.decode(p["ssm"], core.rmsnorm(p["ln"], x), cache,
+                      _ssm_cfg(cfg))
+    return x + h
 
 
 # ---------------------------------------------------------------------------
@@ -123,26 +234,69 @@ def _tblock_decode(p, x, cache, acfg):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
-    """Token embed.  Returns (x [B, L, D] in the compute dtype,
-    positions [B, L] int32)."""
-    tokens = batch["tokens"]
-    x = core.embed(params["embed"], tokens, dtype=cfg.cdt())
+    """Token embed, the vlm's patch embeddings [B, n_patches, D] put in
+    front.  Returns (x [B, L, D] in the compute dtype, positions [B, L]
+    int32)."""
+    cdt = cfg.cdt()
+    x = core.embed(params["embed"], batch["tokens"], dtype=cdt)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(cdt), x], dim=1)
     B, L, _ = x.shape
     positions = torch.arange(L, dtype=torch.int32,
                              device=x.device)[None].expand(B, L)
     return x, positions
 
 
+def _encode(params, batch, cfg: ArchConfig):
+    """The encoder stack over the stubbed frame embeddings
+    batch["src_frames"] [B, Ls, D], bidirectional, through
+    `flash_attention`.  Returns the normed output [B, Ls, D]."""
+    x = batch["src_frames"].to(cfg.cdt())
+    B, Ls, _ = x.shape
+    pos = torch.arange(Ls, dtype=torch.int32,
+                       device=x.device)[None].expand(B, Ls)
+    acfg = dataclasses.replace(_attn_cfg(cfg), causal=False)
+    for i in range(cfg.n_enc_layers):
+        lp = _at(params["enc_layers"], i)
+        x = x + attention.prefill(lp["attn"], core.rmsnorm(lp["ln1"], x),
+                                  pos, acfg)
+        x = x + mlp.swiglu(lp["mlp"], core.rmsnorm(lp["ln2"], x))
+    return core.rmsnorm(params["enc_norm"], x)
+
+
 def backbone(params, batch, cfg: ArchConfig):
-    """Runs the stack, returns (hidden [B, L, D], aux_loss), aux_loss a
-    float32 zero: the dense family has no auxiliary loss."""
-    _require_dense(cfg)
+    """Runs the stack, returns (hidden [B, L, D], aux_loss): aux_loss is
+    the float32 sum of the MoE layers' load-balance losses (zero for the
+    other families)."""
+    fam = _check_family(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     acfg = _attn_cfg(cfg)
-    for i in range(cfg.n_layers):
-        x = _tblock_fwd(_layer(params, i), x, positions, acfg)
+    if fam in ("dense", "vlm", "moe"):
+        for i in range(cfg.n_layers):
+            x, aux = _tblock_fwd(_at(params["layers"], i), x, positions, cfg,
+                                 acfg)
+            aux_total = aux_total + aux
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = _sblock_fwd(_at(params["layers"], i), x, cfg)
+    elif fam == "hybrid":
+        every = cfg.shared_attn_every
+        n_groups = cfg.n_layers // every
+        for g in range(n_groups):
+            for j in range(every):
+                x = _sblock_fwd(_at(params["groups"], g, j), x, cfg)
+            x, _ = _tblock_fwd(params["shared"], x, positions, cfg, acfg)
+        for i in range(cfg.n_layers - n_groups * every):
+            x = _sblock_fwd(_at(params["tail"], i), x, cfg)
+    else:                                                     # encdec
+        enc_out = _encode(params, batch, cfg)
+        for i in range(cfg.n_layers):
+            x, aux = _tblock_fwd(_at(params["layers"], i), x, positions, cfg,
+                                 acfg, enc_out=enc_out)
+            aux_total = aux_total + aux
     x = core.rmsnorm(params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def lm_loss(params, batch, cfg: ArchConfig, **kw):
@@ -151,7 +305,9 @@ def lm_loss(params, batch, cfg: ArchConfig, **kw):
 
 
 def prefill_logits(params, batch, cfg: ArchConfig) -> torch.Tensor:
-    """Prefill forward; returns last-position logits [B, vocab] float32."""
+    """Prefill forward; returns last-position logits [B, vocab] float32.
+    batch: {"tokens": [B, L]}, with "patch_embeds" [B, n_patches, D]
+    (vlm) or "src_frames" [B, Ls, D] (encdec)."""
     hidden, _ = backbone(params, batch, cfg)
     last = hidden[:, -1, :]
     logits = last @ params["lm_head"]["w"].to(last.dtype)
@@ -164,44 +320,103 @@ def prefill_logits(params, batch, cfg: ArchConfig) -> torch.Tensor:
 
 def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                       window: Optional[int] = None, device=None):
-    """The cache for `decode_step`: {"attn": {"k", "v": [n_layers, B, S,
-    KV, hd] zeros in the compute dtype, "pos": [n_layers, B] int32 set to
-    seq_len - 1}}, the JAX package's layout.  Unlike its broadcast
-    zeros, every layer has storage of its own, since `decode_step`
-    writes the cache in place; on the "meta" device it only describes
-    the shapes."""
-    _require_dense(cfg)
+    """The cache for `decode_step`, in the JAX package's layout:
+
+    - "attn": {"k", "v": [n, B, S, KV, hd] zeros in the compute dtype,
+      "pos": [n, B] int32 set to seq_len - 1}, n the attention layers
+      (dense, moe, vlm, encdec) or the hybrid's groups;
+    - "ssm" (ssm), "ssm_groups" and "ssm_tail" (hybrid): {"h": [..., B,
+      H, P, N] float32, "conv": {"x", "B", "C": [..., B, K-1, C]}} zeros,
+      on the layers' leading axes;
+    - "enc_out" (encdec): [B, min(enc_src_frames, seq_len), D] zeros (the
+      reference's too: a caller that decodes against encoded frames puts
+      them there).
+
+    Unlike the reference's broadcast zeros, every layer has storage of
+    its own, since `decode_step` writes the caches in place; on the
+    "meta" device it only describes the shapes."""
+    fam = _check_family(cfg)
+    cdt = cfg.cdt()
     acfg = _attn_cfg(cfg, window=window)
-    one = attention.init_cache(batch, acfg, seq_len, dtype=cfg.cdt(),
-                               prefilled=seq_len - 1, device="meta")
-    n = cfg.n_layers
-    return {"attn": {
-        "k": torch.zeros((n,) + tuple(one["k"].shape), dtype=cfg.cdt(),
-                         device=device),
-        "v": torch.zeros((n,) + tuple(one["v"].shape), dtype=cfg.cdt(),
-                         device=device),
-        "pos": torch.full((n, batch), seq_len - 1, dtype=torch.int32,
-                          device=device)}}
+
+    def attn_caches(n):
+        one = attention.init_cache(batch, acfg, seq_len, dtype=cdt,
+                                   prefilled=seq_len - 1, device="meta")
+        return {"k": torch.zeros((n,) + tuple(one["k"].shape), dtype=cdt,
+                                 device=device),
+                "v": torch.zeros((n,) + tuple(one["v"].shape), dtype=cdt,
+                                 device=device),
+                "pos": torch.full((n, batch), seq_len - 1,
+                                  dtype=torch.int32, device=device)}
+
+    def ssm_caches(*lead):
+        one = ssm.init_cache(batch, _ssm_cfg(cfg), dtype=cdt, device="meta")
+        return tree_map(lambda t: torch.zeros(lead + tuple(t.shape),
+                                              dtype=t.dtype, device=device),
+                        one)
+
+    if fam in ("dense", "vlm", "moe"):
+        return {"attn": attn_caches(cfg.n_layers)}
+    if fam == "ssm":
+        return {"ssm": ssm_caches(cfg.n_layers)}
+    if fam == "hybrid":
+        every = cfg.shared_attn_every
+        n_groups, tail = divmod(cfg.n_layers, every)
+        caches = {"ssm_groups": ssm_caches(n_groups, every),
+                  "attn": attn_caches(n_groups)}
+        if tail:
+            caches["ssm_tail"] = ssm_caches(tail)
+        return caches
+    enc_len = min(cfg.enc_src_frames, seq_len)
+    return {"attn": attn_caches(cfg.n_layers),
+            "enc_out": torch.zeros((batch, enc_len, cfg.d_model), dtype=cdt,
+                                   device=device)}
 
 
 def decode_step(params, cache, batch, cfg: ArchConfig, *,
                 window: Optional[int] = None):
     """One-token decode. batch: {"tokens": [B, 1]}.  Returns (logits
-    [B, vocab] float32, cache).  The returned cache's "k" and "v" are
-    the input's tensors, written in place at each row's slot (see
-    `attention.decode`); its "pos" is a new tensor."""
-    _require_dense(cfg)
+    [B, vocab] float32, cache).  The returned cache holds the input's
+    tensors, written in place (the KV caches at each row's slot, see
+    `attention.decode`; the SSM states and conv windows whole), but for
+    "attn"'s "pos", a new tensor."""
+    fam = _check_family(cfg)
     x = core.embed(params["embed"], batch["tokens"], dtype=cfg.cdt())
     acfg = _attn_cfg(cfg, window=window)
-    c = cache["attn"]
+    new_cache = dict(cache)
     pos = []
-    for i in range(cfg.n_layers):
-        x, nc = _tblock_decode(_layer(params, i), x,
-                               {"k": c["k"][i], "v": c["v"][i],
-                                "pos": c["pos"][i]}, acfg)
+
+    def attn_layer(p, x, i, enc_out=None):
+        c = cache["attn"]
+        x, nc = _tblock_decode(p, x, {"k": c["k"][i], "v": c["v"][i],
+                                      "pos": c["pos"][i]}, cfg, acfg,
+                               enc_out=enc_out)
         pos.append(nc["pos"])
+        return x
+
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        enc_out = cache.get("enc_out")
+        for i in range(cfg.n_layers):
+            x = attn_layer(_at(params["layers"], i), x, i, enc_out)
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = _sblock_decode(_at(params["layers"], i), x,
+                               _at(cache["ssm"], i), cfg)
+    else:                                                     # hybrid
+        every = cfg.shared_attn_every
+        n_groups = cfg.n_layers // every
+        for g in range(n_groups):
+            for j in range(every):
+                x = _sblock_decode(_at(params["groups"], g, j), x,
+                                   _at(cache["ssm_groups"], g, j), cfg)
+            x = attn_layer(params["shared"], x, g)
+        for i in range(cfg.n_layers - n_groups * every):
+            x = _sblock_decode(_at(params["tail"], i), x,
+                               _at(cache["ssm_tail"], i), cfg)
+    if pos:
+        new_cache["attn"] = {"k": cache["attn"]["k"],
+                             "v": cache["attn"]["v"],
+                             "pos": torch.stack(pos)}
     x = core.rmsnorm(params["final_norm"], x)[:, 0, :]
     logits = x @ params["lm_head"]["w"].to(x.dtype)
-    new_cache = dict(cache)
-    new_cache["attn"] = {"k": c["k"], "v": c["v"], "pos": torch.stack(pos)}
     return logits.float(), new_cache

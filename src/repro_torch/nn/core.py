@@ -24,9 +24,22 @@ from repro_torch import prng
 # Initializers
 # ---------------------------------------------------------------------------
 
+# a draw past this many elements is made this many at a time
+# (`prng.normal_slice`): the emulation's int64 temporaries take ~50 bytes
+# an element, 40 GB for one of qwen3-moe-235b-a22b's expert leaves whole
+DRAW_SLICE = 1 << 25
+
+
 def _normal(key: torch.Tensor, shape: Sequence[int], scale: float,
             dtype: torch.dtype) -> torch.Tensor:
-    return (scale * prng.normal(key, shape)).to(dtype)
+    n = math.prod(shape)
+    if n <= DRAW_SLICE:
+        return (scale * prng.normal(key, shape)).to(dtype)
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    for s in range(0, n, DRAW_SLICE):
+        e = min(s + DRAW_SLICE, n)
+        out[s:e] = (scale * prng.normal_slice(key, s, e)).to(dtype)
+    return out.reshape(tuple(shape))
 
 
 def dense_init(key: torch.Tensor, d_in: int, d_out: int, *,

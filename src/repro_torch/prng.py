@@ -183,10 +183,12 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         dtype=torch.int64, device=device)
 
 
-def _iota_bits(key: torch.Tensor, shape: Tuple[int, ...]):
+def _iota_bits(key: torch.Tensor, shape: Tuple[int, ...], start: int = 0):
     """threefry2x32 of every key in `key [..., 2]` over the flat-index
-    counters of `shape` (high word, low word): `iota_2x32_shape`."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+    counters of `shape` (high word, low word): `iota_2x32_shape`; with
+    `start`, over the counters start, start + 1, ... instead (a slice of
+    a larger draw's flat counters)."""
+    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
                        device=key.device).reshape(shape)
     lead = key.shape[:-1] + (1,) * len(shape)
     k0 = key[..., 0].reshape(lead)
@@ -234,7 +236,11 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     mantissa bits under exponent 0, shifted and scaled.  The float 1.m
     less 1 is m * 2^-23 exactly, which is computed so: no view of the
     words' bits, which `torch.func.vmap` cannot batch."""
-    bits = random_bits(key, shape)
+    return _uniform_of_bits(random_bits(key, shape), minval, maxval)
+
+
+def _uniform_of_bits(bits: torch.Tensor, minval: float,
+                     maxval: float) -> torch.Tensor:
     floats = (bits >> 9).to(torch.float32) * _U23
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
@@ -275,6 +281,15 @@ def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     (nextafter(-1, +inf), 1)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * _erf_inv(u)
+
+
+def normal_slice(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Elements [start, stop) of ``normal(key, shape).reshape(-1)``, for
+    one key [2] and any shape of at least `stop` elements: a draw's
+    counters are its flat indices, so a large draw can be made a slice
+    at a time, with the same bits and a slice's working memory."""
+    b0, b1 = _iota_bits(key, (stop - start,), start)
+    return _SQRT2 * _erf_inv(_uniform_of_bits(b0 ^ b1, _NORMAL_LO, 1.0))
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:

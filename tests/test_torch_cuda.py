@@ -18,7 +18,9 @@ order).  bfloat16 runs on the tensor-core kernel
 two bf16 parts to stay inside that gate; float32 on the float32
 tensor-core kernel (``csrc/flash_attn_tf32.cu``, 3xTF32: every product
 split into tf32 hi and lo parts; hd 16 on its hd-32 instance,
-zero-padded); both at hd 16, 32, 64 and 128.  Each test checks which
+zero-padded, as hd 112 on its hd-128 one); both at hd 16, 32, 64, 112
+and 128 (the bf16 kernel's hd 112 on its hd-128 instance, TMA boxes
+zero-filled past column 112).  Each test checks which
 kernel served it by the wrapper's two launch counts.
 `ota_combine` splits its antennas over a thread-block cluster where B
 alone would not fill the card; its cluster size comes from the built
@@ -547,13 +549,16 @@ def test_flash_kernel_matches_plain_on_card(B, L, H, KV, hd, dtype, causal):
     (2, 300, 130, 4, 2, 16),      # ragged keys, S != L
     (1, 1000, 1000, 4, 2, 32),
     (3, 5, 7, 4, 1, 16),
+    (1, 200, 333, 4, 2, 112),     # hd 112 on the hd-128 instance, its
+    (2, 300, 130, 32, 32, 112),   # boxes zero-filled past column 112
+    (3, 5, 7, 4, 1, 112),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
                                                   causal):
     """The tensor-core kernel at its edges: L not a multiple of the
     128-row tile (a tile holds rows of two heads), S != L, S not a
-    multiple of the 128-key tile, hd 16, 32, 64 and 128."""
+    multiple of the 128-key tile, hd 16, 32, 64, 112 and 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.bfloat16, L + S + hd, S)
@@ -590,6 +595,9 @@ def test_flash_wgmma_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
     (1, 64, 64, 1, 1, 16),        # hd 16 on the hd-32 instance, padded
     (2, 300, 130, 4, 2, 16),
     (3, 5, 7, 4, 1, 16),
+    (1, 200, 333, 4, 2, 112),     # hd 112 on the hd-128 instance, padded
+    (2, 300, 130, 32, 32, 112),
+    (3, 5, 7, 4, 1, 112),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
@@ -597,8 +605,8 @@ def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
     """The float32 tensor-core kernel at its edges: L not a multiple of
     the 128-row tile (a tile holds rows of two heads), S != L, S not a
     multiple of the key tile (64 keys at hd 32 and 64, 32 at hd 128) or
-    of 8, hd 16 zero-padded to 32; within 1e-5 of max |o|, one count per
-    call, identical repeats."""
+    of 8, hd 16 zero-padded to 32 and hd 112 to 128; within 1e-5 of max
+    |o|, one count per call, identical repeats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     q, k, v = _flash_inputs(B, L, H, KV, hd, torch.float32, L + S + hd, S)
@@ -614,11 +622,12 @@ def test_flash_tf32_kernel_matches_plain_on_card(B, L, S, H, KV, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("B,S,KV", [(2, 333, 2), (1, 64, 1), (1, 1, 2)])
 def test_flash_tf32_prepass_matches_its_plain_version_on_card(B, S, KV, hd):
     """The scratch the kernel's pre-pass writes (K and V^T split into
-    tf32 hi and lo, V^T's keys permuted, hd 16 zero-padded to 32) equals
+    tf32 hi and lo, V^T's keys permuted, hd 16 zero-padded to 32 and hd
+    112 to 128) equals
     `tf32_prepass_plain`'s, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")

@@ -19,7 +19,8 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   ascending order as hi hi + hi lo + lo hi, scaled by
   1/sqrt(hd) * log2(e) (the exp2 prescale); the online softmax in
   float32 with p = 2^(s - m); p split the same way and P V as three
-  products; hd 16 optionally zero-padded to 32, as the kernel runs it.
+  products; hd 16 optionally zero-padded to 32 and hd 112 to 128, as
+  the kernel runs them.
   At the tensor-core kernels' test shapes (a fold that straddles the
   128-row tile, keys not a multiple of the key tile, S != L, hd 64 and
   128, and ``tests/test_flash_attn.py``'s hd-16 and hd-32 shapes and
@@ -49,13 +50,13 @@ from repro_torch.kernels.flash_attn import (MIN_DENOMINATOR, NEG_INF,
                                             TF32_KEY_ORDER, TF32_KEY_TILE,
                                             TF32_MIN_HEAD_DIM,
                                             tf32_prepass_plain, tf32_rna,
-                                            tf32_split)
+                                            tf32_split, tf32_width)
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5          # chip_smoke.py's FLASH_F32_RTOL
 # the kernel's keys per tile at each of its instances' widths (its
-# Cfg<HD>::KB); hd 16 runs the hd-32 instance
+# Cfg<HD>::KB); hd 16 runs the hd-32 instance, hd 112 the hd-128 one
 KEY_TILES = {32: 64, 64: 64, 128: 32}
 
 # (B, L, S, H, KV, hd, Pallas q_block, Pallas kv_block):
@@ -68,6 +69,8 @@ SHAPES = [
     (2, 64, 64, 4, 2, 16, 32, 32),
     (2, 96, 96, 6, 2, 32, 32, 48),
     (1, 32, 32, 2, 1, 16, 64, 32),         # a q block straddles the fold
+    # zamba2-7b's head dim, on the hd-128 instance zero-padded
+    (1, 96, 200, 4, 2, 112, 96, 40),
     # the reduced model's width over several key tiles: 320 = 5 x 64
     (1, 256, 320, 4, 2, 32, 128, 64),
     (2, 160, 160, 4, 1, 16, 160, 32),
@@ -113,11 +116,11 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert tf32_rna(x).tolist() == want
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("N,S", [(3, 70), (2, 64), (1, 1)])
 def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
     """At hd 16 the pre-pass pads K's columns and V^T's rows to 32 with
-    zeros: the width of the instance that runs it."""
+    zeros, at hd 112 to 128: the width of the instance that runs it."""
     rng = np.random.default_rng(N * 100 + S + hd)
     k, v = (torch.as_tensor(
         (rng.standard_normal((N, S, hd))
@@ -125,7 +128,7 @@ def test_prepass_plain_splits_and_lays_out_keys(N, S, hd):
         for _ in range(2))
     ks, vts = tf32_prepass_plain(k, v)
     s_pad = -(-S // TF32_KEY_TILE) * TF32_KEY_TILE
-    hdp = max(hd, TF32_MIN_HEAD_DIM)
+    hdp = tf32_width(hd)
     assert ks.shape == (2, N, s_pad, hdp) and vts.shape == (2, N, hdp, s_pad)
     assert flash_module.tf32_scratch(N, S, hd, "cpu").numel() == (
         ks.numel() + vts.numel())
@@ -154,13 +157,14 @@ def emulate_tf32(q, k, v, *, causal: bool, split: bool = True,
     [B, L, H * hd].  `split` False runs every product in plain TF32 (hi
     only) instead of 3xTF32.  `pad` runs a head dim below
     TF32_MIN_HEAD_DIM as the kernel does: q, k and v zero-padded to it,
-    the scale still 1/sqrt(hd), the first hd columns of o kept."""
+    the scale still 1/sqrt(hd), the first hd columns of o kept; hd 112
+    likewise to 128."""
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / np.sqrt(hd)
-    if pad and hd < TF32_MIN_HEAD_DIM:
-        q, k, v = (torch.nn.functional.pad(x, (0, TF32_MIN_HEAD_DIM - hd))
+    if pad and tf32_width(hd) != hd:
+        q, k, v = (torch.nn.functional.pad(x, (0, tf32_width(hd) - hd))
                    for x in (q, k, v))
         o = _emulate_tf32(q, k, v, causal=causal, split=split, scale=scale)
         return o.reshape(B, L, H, -1)[..., :hd].reshape(B, L, H * hd)
@@ -184,7 +188,7 @@ def _emulate_tf32(q, k, v, *, causal: bool, split: bool, scale: float):
     acc = torch.zeros(B, H, L, hd)
     m = torch.full((B, H, L, 1), NEG_INF)
     den = torch.zeros(B, H, L, 1)
-    kb = KEY_TILES[max(hd, TF32_MIN_HEAD_DIM)]
+    kb = KEY_TILES[tf32_width(hd)]
     for j0 in range(0, S, kb):
         j1 = min(j0 + kb, S)
         kh, kl = (x[:, :, j0:j1].transpose(-1, -2) for x in (k_hi, k_lo))
@@ -239,11 +243,11 @@ def test_3xtf32_emulation_matches_pallas_kernel(B, L, S, H, KV, hd, qb, kb,
 
 
 @pytest.mark.parametrize("B,L,S,H,KV,hd,qb,kb",
-                         [s for s in SHAPES if s[5] < TF32_MIN_HEAD_DIM])
+                         [s for s in SHAPES if tf32_width(s[5]) != s[5]])
 def test_zero_padding_leaves_the_emulation_unchanged(B, L, S, H, KV, hd, qb,
                                                      kb):
-    """hd 16 on the hd-32 instance: zero columns add +0 to every score
-    and every output column kept."""
+    """hd 16 on the hd-32 instance and hd 112 on the hd-128 one: zero
+    columns add +0 to every score and every output column kept."""
     q, k, v = _inputs(B, L, S, H, KV, hd, L + S + hd)
     assert torch.equal(emulate_tf32(q, k, v, causal=True, pad=True),
                        emulate_tf32(q, k, v, causal=True))
@@ -289,8 +293,9 @@ def test_entry_point_parses_against_the_wrappers_prototype():
 @pytest.mark.parametrize("hd", flash_module.HEAD_DIMS)
 def test_entry_point_dispatches_every_head_dim(hd):
     """Each head dim goes to the instance of its width, hd 16 to the
-    hd-32 one with 16 columns of q and o; any other is refused."""
+    hd-32 one with 16 columns of q and o, hd 112 to the hd-128 one with
+    112; any other is refused."""
     src = (Path(flash_module.__file__).parent.parent / "csrc"
            / "flash_attn_tf32.cu").read_text()
-    width = max(hd, TF32_MIN_HEAD_DIM)
+    width = tf32_width(hd)
     assert f"case {hd}:\n      return launch<{width}, {hd}>(" in src

@@ -5,7 +5,8 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold it to the plain version there).  Here:
 
 - `flash_route` picks the implementation from the tensors alone:
-  bfloat16 on CUDA -> the tensor-core kernel, at hd 16, 32, 64 and 128;
+  bfloat16 on CUDA -> the tensor-core kernel, at hd 16, 32, 64, 112 and
+  128;
   float32 on CUDA -> the float32 tensor-core kernel (3xTF32,
   ``tests/test_torch_flash_tf32.py``), at every head dim; the CPU -> the
   plain version.  CUDA inputs are stand-ins that carry a device, a
@@ -18,8 +19,11 @@ The kernel itself runs only on a card (``tests/test_torch_cuda.py`` and
   float32.  At small qwen-like shapes (a fold that straddles the
   kernel's 128-row tile, keys not a multiple of its 128-key tile, S !=
   L, hd 64 and 128), at ``tests/test_flash_attn.py``'s hd-16 and hd-32
-  shapes and at hd 16 and 32 over several key tiles (the reduced
-  model's width), it is held to the JAX package's Pallas
+  shapes, at hd 16 and 32 over several key tiles (the reduced
+  model's width) and at zamba2-7b's hd 112 (which the kernel runs on
+  its hd-128 instance with zero columns, adding +0 to every product, so
+  the emulation at hd 112 is the padded kernel's), it is held to the
+  JAX package's Pallas
   `flash_attention` in interpret mode:
   its float32 output on the same values within 1e-5 of max |o|
   (``chip_smoke.py``'s FLASH_F32_RTOL), and its bf16 output within
@@ -64,6 +68,8 @@ SHAPES = [
     # the reduced model's width over several key tiles: 320 = 2 x 128 + 64
     (1, 256, 320, 4, 2, 32, 128, 64),
     (2, 160, 160, 4, 1, 16, 160, 32),
+    # zamba2-7b's head dim, a fold that straddles the 128-row tile
+    (1, 96, 200, 4, 2, 112, 96, 40),
 ]
 
 
@@ -74,10 +80,12 @@ SHAPES = [
     ("cuda", torch.bfloat16, 16, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 32, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 64, "flash_attn_wgmma"),
+    ("cuda", torch.bfloat16, 112, "flash_attn_wgmma"),
     ("cuda", torch.bfloat16, 128, "flash_attn_wgmma"),
     ("cuda", torch.float32, 16, "flash_attn_tf32"),
     ("cuda", torch.float32, 32, "flash_attn_tf32"),
     ("cuda", torch.float32, 64, "flash_attn_tf32"),
+    ("cuda", torch.float32, 112, "flash_attn_tf32"),
     ("cuda", torch.float32, 128, "flash_attn_tf32"),
 ])
 def test_route_by_device_dtype_and_head_dim(device, dtype, hd, want):
@@ -219,8 +227,9 @@ def test_model_strides_are_the_contiguous_layouts():
 @pytest.mark.parametrize("hd", flash_module.HEAD_DIMS)
 def test_entry_point_has_an_instance_of_every_head_dim(hd):
     """The route sends bfloat16 at every head dim here, so the entry point
-    dispatches each to an instance of its own width (any other is
-    refused)."""
+    dispatches each to an instance of its own width, hd 112 to the
+    hd-128 one with 112 columns (any other is refused)."""
     src = (Path(flash_module.__file__).parent.parent / "csrc"
            / "flash_attn_wgmma.cu").read_text()
-    assert f"if (hd == {hd})\n    return launch<{hd}>(" in src
+    inst = "128, 112" if hd == 112 else f"{hd}"
+    assert f"if (hd == {hd})\n    return launch<{inst}>(" in src

@@ -38,6 +38,7 @@ from repro_torch import convert, prng
 from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
 from repro_torch.launch import serve
 from repro_torch.models import lm
+from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -190,7 +191,7 @@ def test_decode_matches_prefill(arch):
 
 def test_serve_specs_match_reference():
     """As tests/test_serve.py: the window at decode_32k and long_500k,
-    and the cache's shapes and dtypes."""
+    and the cache's shapes and dtypes, for every cache layout."""
     for arch in ("qwen2-1.5b", "mamba2-780m"):
         for shape in ("decode_32k", "long_500k"):
             assert serve.decode_window(get_config(arch), INPUT_SHAPES[
@@ -207,6 +208,21 @@ def test_serve_specs_match_reference():
             assert t.dtype == getattr(torch, str(r.dtype)), (shape, name)
     assert serve.cache_specs(cfg, INPUT_SHAPES["long_500k"])[
         "attn"]["k"].shape[2] == 8192
+    # the ssm, hybrid and encdec caches: every leaf (SSM states and conv
+    # windows on their layers' axes, the encoder's output)
+    for arch in ("mamba2-780m", "zamba2-7b", "seamless-m4t-medium"):
+        for shape in ("decode_32k", "long_500k"):
+            mine = dict(tree_leaves(serve.cache_specs(
+                get_config(arch), INPUT_SHAPES[shape])))
+            ref = {path: r for path, r in tree_leaves(dict(j_cache_specs(
+                j_get_config(arch), J_INPUT_SHAPES[shape])))}
+            assert set(mine) == set(ref), (arch, shape)
+            for path, r in ref.items():
+                t = mine[path]
+                assert t.device.type == "meta"
+                assert tuple(t.shape) == r.shape, (arch, shape, path)
+                assert t.dtype == getattr(torch, str(r.dtype)), (
+                    arch, shape, path)
 
 
 def test_serve_steps_run_on_the_cpu():
@@ -237,17 +253,6 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
         serve.build_prefill_step(cfg, INPUT_SHAPES["prefill_32k"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_decode_step(cfg, INPUT_SHAPES["decode_32k"])
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-780m",
-                                  "zamba2-7b", "seamless-m4t-medium",
-                                  "llava-next-34b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_params(prng.PRNGKey(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_decode_cache(cfg, 1, 8)
 
 
 def test_unported_options_raise():
