@@ -91,7 +91,9 @@ Phases, in order; any failure exits non-zero:
      run on the card, and through the chunked driver below;
    - every SweepRunner run above and every sharded CLI run below again
      through the chunked driver (each eval window one CUDA graph,
-     captured and replayed once on throwaway copies before the drive):
+     captured and replayed once on throwaway copies before the drive;
+     fig3_cifar_fused sharded 2x5 on its first seed alone, against that
+     seed of its stepwise run):
      bit for bit its stepwise run (final state and every metric; the
      CLI runs, which keep no state, by their metrics), with the
      stepwise run's launch counts in a `torch.profiler` trace of the
@@ -213,8 +215,8 @@ Phases, in order; any failure exits non-zero:
    the chunked driver) and of ``scale_u256`` (2x4, u_sharded) on the
    sharded engine; one round of ``fig3_cifar`` (equivalent, and fused
    through both drivers) with cuDNN's share of the device time; rounds/s
-   of both drivers, each warmed, for fig2_iid fused, scale_u256, sharded
-   scale_u256 2x4 and fig3_cifar fused; one warm qwen2-0.5b prefill
+   of both drivers, each warmed, for fig2_iid fused, scale_u256 and
+   sharded scale_u256 2x4; one warm qwen2-0.5b prefill
    (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
    (B 8, cache 32,768), and phase 4's qwen2-1.5b float32 prefill and
    both reduced prefills: device ms, busy share, each flash record's
@@ -226,7 +228,10 @@ Phases, in order; any failure exits non-zero:
    gradients of all 20 users one at a time, in one vmapped pass and in
    vmapped chunks of 5, with each one's gap to the first, Adam over all
    users); kernel and plain times with CUDA events at the kernels' largest
-   main-path shapes (for `fused_mac` also at Fig. 3's cluster hop, for
+   main-path shapes, in turns (a plain version that takes a second or
+   more a call, at fig3's cluster hop, scale_u65536 and prefill_32k,
+   timed in one cold call before the kernel) (for `fused_mac` also at
+   Fig. 3's cluster hop, for
    `ota_combine` at the Fig. 2 driver's three
    shapes and scale_u256's, with its cluster size and its time with
    the calls queued behind a spin kernel, since at B = 1 the wrapper's
@@ -284,17 +289,40 @@ Phases, in order; any failure exits non-zero:
    within 1e-4 of max |logit| and at bf16 within 5e-2 (a bf16 MoE: at
    most 3% of a layer's tokens may route apart, and the rows whose
    routes agree are held), and a decode step at float32 within 1e-4;
-9. the run's seconds, one JSON line of kernel records, then the last
+9. federated LM training (`repro_torch.launch.train`, W-HFL over the
+   equivalent channel) of qwen2-0.5b as registered (24 layers, d 896,
+   14 heads over 2 at hd 64, vocab 151,936, remat on) at train_4k's
+   sequence of 4,096, bf16 compute and float32 parameters, its global
+   batch of 256 cut to C 2 x M 2 users of 2 rows, weights from seed 0:
+   the structural step (tau = I = 1, the equivalent channel under a
+   quiet radio, outer AdamW) for 2 steps on one batch and a third
+   under `torch.profiler` (device ms, busy share, device ops, flash ms
+   and launches, the threefry emulation's share), the loss falling;
+   local SGD (tau = I = 2, outer "add", batch 16), 1 step; the fused
+   step (grad_accum 2), 2 steps; one fused step at float32 compute, its
+   depth cut to 4 layers (the float32 tensor-core kernel under
+   autograd); each with finite loss and edge power, wall ms a step,
+   peak memory, and exactly layers x 2 (remat) flash launches per
+   micro-forward; the attention's gradient route
+   (`flash_attention_autograd`: the kernel forward, `attention_vjp`'s
+   float32 recompute) against autograd through `flash_attention_plain`
+   at (2, 4096, 14, 2, 64) in bf16 (2e-2 of max |g|) and float32
+   (1e-5), with the backward's time against the kernel forward's; card
+   vs CPU: reduced qwen2-0.5b, 2 structural and 2 fused steps from one
+   state, and one `lm_loss` and gradient per reduced family, float32;
+10. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
-non-zero before printing any result.
+non-zero before printing any result.  ``python3 chip_smoke.py
+--training`` builds the flash kernels and runs phase 9 alone.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -405,6 +433,25 @@ MOE_BF16_PARTED = 0.03
 # tests/test_flash_attn.py's shapes: (B, L, H, KV, hd)
 JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
                     (1, 32, 2, 1, 16), (1, 256, 2, 2, 128))
+# phase 9, federated LM training: qwen2-0.5b as registered at train_4k's
+# sequence, its global batch of 256 cut to C x M users of B_USER rows
+# (the local-SGD run's users hold 2 x B_USER: tau = I = 2 microbatches)
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_C, TRAIN_M, TRAIN_B_USER = 2, 2, 2
+# the quiet radio of examples/lm_federated.py (1,024 antennas at the IS
+# and the PS, a low noise floor), under which a few steps learn
+TRAIN_GEOM = dict(K=1024, K_ps=1024, sigma_z2=1e-4)
+# the float32 training run's depth (flash_attn_tf32 under autograd)
+TRAIN_F32_LAYERS = 4
+# the attention's gradient route (the kernel forward, `attention_vjp`'s
+# float32 recompute) against autograd through `flash_attention_plain`,
+# of max |g|: the same function in another order at float32; at bf16
+# each side rounds each gradient once from float32
+ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the training steps card vs CPU (reduced qwen2-0.5b, float32 compute,
+# TF32 off; outer "add", so every entry is held): the loss and edge
+# power to TOL, the parameters within THETA_RTOL of max |theta|; each
+# family's lm_loss to TOL and its gradient within TOL of max |g|
 
 
 # the kill-and-resume check's subprocess: fig2_iid fused at the paper's
@@ -472,6 +519,34 @@ def log(obj) -> None:
     if isinstance(obj, dict) and "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+def counted(run):
+    """`run()` with every kernel wrapper's launch count set to 0 just
+    before it; the counts just after."""
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    for fn, attr in LAUNCH_COUNTERS.values():
+        setattr(fn, attr, 0)
+    out = run()
+    return out, {name: getattr(fn, attr)
+                 for name, (fn, attr) in LAUNCH_COUNTERS.items()}
+
+
+def check_launches(label, launches, want, ok=True, totals=None):
+    """Exit unless the main path `label` launched each kernel exactly
+    `want` times (0 where unnamed) and its output is `ok`; add its
+    launches to `totals` (the kernels line's counts) where given."""
+    want = {name: want.get(name, 0) for name in KERNELS}
+    log({"phase": "main_path_launches", "run": label,
+         "kernel_launches": launches, "expected_launches": want,
+         "finite": ok})
+    if launches != want or not ok:
+        raise SystemExit(f"main path {label}: launches {launches} "
+                         f"(want {want}), finite {ok}")
+    if totals is not None:
+        for name, n in launches.items():
+            totals[name] += n
 
 
 def _draws_bound(draws: int, nbytes: int, cycles: dict):
@@ -1327,6 +1402,415 @@ def serve_family(arch, n_layers, pre, dec, dev, card, counted,
     torch.cuda.empty_cache()
 
 
+def attention_grad_check(dev, card) -> dict:
+    """Phase 9's attention gradient at the training path's shape (B 2,
+    L 4096, 14 heads over 2 at hd 64, causal), bf16 and float32:
+    `flash_attention_autograd` (the routed kernel forward, `attention_vjp`
+    backward) against autograd through `flash_attention_plain` on the
+    same inputs within ATTN_GRAD_TOL of max |g|, and the backward's time
+    against its kernel forward's (CUDA events).  Returns {dtype name:
+    record}."""
+    from repro_torch.kernels import (attention_vjp, flash_attention,
+                                     flash_attention_autograd,
+                                     flash_attention_plain)
+
+    B, L, H, KV, hd = TRAIN_B_USER, 4096, 14, 2, 64
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = [t.requires_grad_() for t in flash_inputs(
+            B, L, H, KV, hd, dtype, 31, dev)]
+        g = torch.Generator(device=dev).manual_seed(32)
+        do = torch.randn(B, L, H * hd, generator=g, device=dev).to(dtype)
+        got = torch.autograd.grad(flash_attention_autograd(
+            q, k, v, causal=True, q_block=512), (q, k, v), do)
+        want = torch.autograd.grad(flash_attention_plain(
+            q, k, v, causal=True, q_block=512, kv_block=1024), (q, k, v), do)
+        errs = [float((a.float() - b.float()).abs().max())
+                / float(b.float().abs().max()) for a, b in zip(got, want)]
+        del got, want
+        fwd = lambda: flash_attention(q.detach(), k.detach(), v.detach(),
+                                      causal=True)
+        bwd = lambda: attention_vjp(q.detach(), k.detach(), v.detach(), do,
+                                    causal=True, q_block=512)
+        times = {}
+        for name, fn, reps in (("forward_ms", fwd, 10), ("vjp_ms", bwd, 3)):
+            fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name] = start.elapsed_time(end) / reps
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        rec = {"shape_BLHKVhd": [B, L, H, KV, hd], "dtype": name,
+               "max_rel_err_dq_dk_dv": errs, "tol": ATTN_GRAD_TOL[dtype],
+               **times, "vjp_over_forward": times["vjp_ms"]
+               / times["forward_ms"], "card": card}
+        log({"phase": "training", "run": f"attention gradient {name}",
+             "what": "flash_attention_autograd vs autograd through "
+             "flash_attention_plain, on the card", **rec})
+        if not max(errs) <= ATTN_GRAD_TOL[dtype]:
+            raise SystemExit(f"attention gradient {name}: {errs}")
+        out[name] = rec
+        del q, k, v, do
+    return out
+
+
+def train_batch(cfg, B, L, seed, dev) -> dict:
+    """Random tokens and labels [B, L] in the vocabulary, from seeds."""
+    from repro_torch import prng
+
+    return {name: prng.randint(prng.PRNGKey(seed + i, dev), (B, L), 0,
+                               cfg.vocab).to(torch.int32)
+            for i, name in enumerate(("tokens", "labels"))}
+
+
+def train_runs(step, state, batch, steps, trace=False) -> tuple:
+    """`steps` train steps on one batch, each ended by a synchronize and
+    timed on the host clock; with `trace`, one more step under
+    `torch.profiler`.  Returns (state, losses, edge powers, wall ms per
+    step, the trace or None)."""
+    from repro_torch import prng
+
+    losses, powers, walls, prof = [], [], [], None
+    for i in range(steps + int(trace)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == steps:
+            with device_trace() as prof:
+                lead_in()
+                state, m = step(state, batch, prng.PRNGKey(100 + i))
+                torch.cuda.synchronize()
+        else:
+            state, m = step(state, batch, prng.PRNGKey(100 + i))
+            torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        powers.append(float(m["edge_power"]))
+    return state, losses, powers, walls, prof
+
+
+def emulation_ms_per_normal(dev) -> float:
+    """Device ms per normal drawn through the `jax.random` emulation, at
+    the slices the hops draw in (`nn.core.DRAW_SLICE` elements; CUDA
+    events over 3 slices after one warm one)."""
+    from repro_torch import prng
+    from repro_torch.core.dist import draw_normal
+    from repro_torch.nn.core import DRAW_SLICE
+
+    key = prng.PRNGKey(7, dev)
+    draw_normal(key, (DRAW_SLICE,))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(3):
+        draw_normal(prng.fold_in(key, i), (DRAW_SLICE,))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * DRAW_SLICE)
+
+
+def range_device_ms(prof, label) -> tuple:
+    """(device ms, device ops) of the kernels, copies and sets that the
+    host ops inside a trace's `label` ranges (`record_function`) launched,
+    each linked to its host op by kineto's correlation id (the host runs
+    ahead of the card, so the device ops' own times say nothing of the
+    range)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    events = raw_events(prof)
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.name() == label and e.device_type() == DeviceType.CPU)
+    starts = [lo for lo, _ in spans]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    ids = {e.correlation_id() for e in events
+           if e.device_type() == DeviceType.CPU and e.name() != label
+           and inside(e.start_ns())}
+    ops = [e.duration_ns() / 1e6 for e in events
+           if e.device_type() == DeviceType.CUDA
+           and not e.is_user_annotation()
+           and e.linked_correlation_id() in ids]
+    return sum(ops), len(ops)
+
+
+def step_profile(prof, wall_ms, n_normals, ms_per_normal) -> dict:
+    """A traced train step's device ms, busy share (device ms over the
+    step's untraced wall ms), device ops, each flash record's ms and
+    launches, and the threefry emulation's share: as the trace measures
+    it, the device ops launched inside ``dist.draw_normal``
+    (`range_device_ms`); as an estimate, its `n_normals` draws at
+    `emulation_ms_per_normal`; and the int64 kernels' device time in the
+    trace (the emulation's integer half)."""
+    ops = device_ops(prof)
+    device_ms = sum(ms for _, ms in ops)
+    int64_ms = sum(ms for name, ms in ops if "<long" in name)
+    draw_ms, draw_ops = range_device_ms(prof, "dist.draw_normal")
+    rec = {"device_ms": device_ms, "wall_ms": wall_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "device_ops": len(ops), "normals_drawn": n_normals,
+           "emulation_traced_ms": draw_ms,
+           "emulation_traced_ops": draw_ops,
+           "emulation_traced_share": draw_ms / device_ms,
+           "emulation_estimate_ms": n_normals * ms_per_normal,
+           "emulation_estimate_share": n_normals * ms_per_normal
+           / device_ms,
+           "int64_kernels_ms": int64_ms,
+           "int64_kernels_share": int64_ms / device_ms}
+    for name in FLASH_RECORDS.values():
+        hits = [ms for k, ms in ops if KERNELS[name][1] in k]
+        rec[f"{name}_ms"], rec[f"{name}_launches"] = sum(hits), len(hits)
+    by_name = defaultdict(float)
+    for name, ms in ops:
+        by_name[name] += ms
+    rec["top"] = [{"op": k[:72], "ms": ms} for k, ms in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:6]]
+    return rec
+
+
+def train_phase(dev, card, expect) -> None:
+    """Phase 9: federated LM training (`repro_torch.launch.train`) at
+    qwen2-0.5b's full width and train_4k's sequence, bf16 compute and
+    float32 parameters, remat on (the config's): the structural step
+    (tau = I = 1, equivalent channel, outer AdamW) for 2 steps on one
+    batch, then a third under `torch.profiler`; local SGD (tau = I = 2,
+    outer "add"), 1 step; the fused step (grad_accum 2, AdamW), 2 steps;
+    one fused step at float32 compute, depth cut to TRAIN_F32_LAYERS.
+    Each: finite loss and edge power, wall ms a step, peak memory, and
+    its flash launches against the code's count (layers x 2 with remat
+    per micro-forward: the forward, and its recompute in the backward);
+    the structural loss must fall.  Then the attention gradient on the
+    card (`attention_grad_check`) and card vs CPU (`train_vs_cpu`)."""
+    from repro_torch import prng
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.core.dist import OTADistConfig, uniform_geom
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(TRAIN_ARCH)
+    n_users = TRAIN_C * TRAIN_M
+    mesh = {"data": n_users}
+    geom = uniform_geom(C=TRAIN_C, M=TRAIN_M, **TRAIN_GEOM)
+    L = INPUT_SHAPES["train_4k"].seq_len
+    per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = lm_init(cfg, dev)
+    n_params = sum(t.numel() for _, t in tree_leaves(params0))
+    ms_per_normal = emulation_ms_per_normal(dev)
+    # (label, build, b_user, TrainConfig, steps, micro-forwards a step,
+    # trace one more step)
+    runs = (
+        ("structural", train.build_train_step, TRAIN_B_USER,
+         train.TrainConfig(tau=1, I=1, users_per_cluster=TRAIN_M,
+                           eta_local=1.0, outer="adamw", outer_lr=2e-3,
+                           geom=geom, ota=OTADistConfig()), 2, n_users,
+         True),
+        ("local SGD", train.build_train_step, 2 * TRAIN_B_USER,
+         train.TrainConfig(tau=2, I=2, users_per_cluster=TRAIN_M,
+                           eta_local=5e-3, outer="add", geom=geom,
+                           ota=OTADistConfig()), 1, 4 * n_users, False),
+        ("fused", train.build_fused_train_step, TRAIN_B_USER,
+         train.TrainConfig(tau=1, I=1, users_per_cluster=TRAIN_M,
+                           eta_local=1.0, outer="adamw", outer_lr=2e-3,
+                           grad_accum=2, geom=geom,
+                           ota=OTADistConfig(tx_power_proxy=1e-4)), 2, 2,
+         False))
+    for label, build, b_user, tcfg, steps, micro, trace in runs:
+        B = n_users * b_user
+        shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                    global_batch=B)
+        step, _ = build(cfg, shape, mesh, tcfg, device=dev.type)
+        state = {"params": tree_map(torch.clone, params0),
+                 "opt": (adamw(tcfg.outer_lr).init(params0)
+                         if tcfg.outer == "adamw" else {}),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        batch = train_batch(cfg, B, L, 40, dev)
+        torch.cuda.reset_peak_memory_stats()
+        (state, losses, powers, walls, prof), launches = counted(
+            lambda: train_runs(step, state, batch, steps, trace))
+        ok = bool(np.all(np.isfinite(losses + powers)))
+        if label == "structural":
+            ok = ok and losses[-1] < losses[0]
+        expect(f"{TRAIN_ARCH} train {label}", launches,
+               {"flash_mha_wgmma": (steps + int(trace)) * micro * per_fwd},
+               ok)
+        rec = {"phase": "training", "run": f"{TRAIN_ARCH} {label}",
+               "cut": f"train_4k: global batch 256 -> {B} (C {TRAIN_C} x "
+               f"M {TRAIN_M} x {b_user} rows)", "seq_len": L,
+               "tau": tcfg.tau, "I": tcfg.I, "outer": tcfg.outer,
+               "grad_accum": tcfg.grad_accum, "n_params": n_params,
+               "losses": losses, "edge_powers": powers, "wall_ms": walls,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "flash_launches": launches["flash_mha_wgmma"],
+               "flash_launches_per_micro_forward": per_fwd, "card": card}
+        if prof is not None:
+            # the structural step draws 9 normals an entry: 4 users' gain
+            # jitter, 2 clusters' noise and global jitter, the PS's noise
+            rec["profile"] = step_profile(prof, walls[-2], 9 * n_params,
+                                          ms_per_normal)
+        log(rec)
+        del step, state, batch, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 compute: flash_attn_tf32 under autograd, depth cut
+    f32 = cfg.with_(compute_dtype="float32", n_layers=TRAIN_F32_LAYERS)
+    tcfg = train.TrainConfig(tau=1, I=1, users_per_cluster=TRAIN_M,
+                             eta_local=1.0, outer="adamw", outer_lr=2e-3,
+                             grad_accum=2, geom=geom)
+    B = n_users * TRAIN_B_USER
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=B)
+    step, init_fn = train.build_fused_train_step(f32, shape, mesh, tcfg,
+                                                 device=dev.type)
+    state = init_fn(prng.PRNGKey(0))
+    batch = train_batch(f32, B, L, 40, dev)
+    torch.cuda.reset_peak_memory_stats()
+    (state, losses, powers, walls, _), launches = counted(
+        lambda: train_runs(step, state, batch, 1))
+    expect(f"{TRAIN_ARCH} train fused f32 ({TRAIN_F32_LAYERS} layers)",
+           launches, {"flash_mha_tf32": 2 * TRAIN_F32_LAYERS * 2},
+           bool(np.all(np.isfinite(losses + powers))))
+    log({"phase": "training", "run": f"{TRAIN_ARCH} fused f32",
+         "cut": f"train_4k: global batch 256 -> {B}; depth "
+         f"{cfg.n_layers} -> {TRAIN_F32_LAYERS} layers", "losses": losses,
+         "edge_powers": powers, "wall_ms": walls,
+         "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "flash_launches": launches["flash_mha_tf32"], "card": card})
+    del step, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    attention_grad_check(dev, card)
+    train_vs_cpu(dev)
+
+
+def lm_init(cfg, dev):
+    """`lm.init_params` at seed 0 on `dev`, its seconds logged."""
+    from repro_torch import prng
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+    torch.cuda.synchronize()
+    log({"phase": "training", "run": f"{cfg.name} init",
+         "init_seconds": time.perf_counter() - t0,
+         "device_allocated_bytes": torch.cuda.memory_allocated()})
+    return params
+
+
+def train_vs_cpu(dev) -> None:
+    """Phase 9's card-vs-CPU check: reduced qwen2-0.5b at float32
+    compute and parameters (TF32 off on both sides), 2 structural and 2
+    fused steps from one state (equivalent channel, outer "add"): losses
+    and edge powers within TOL, the parameters within THETA_RTOL of max
+    |theta|; then one `lm_loss` and its gradient per family (and
+    arctic-480b's dense residual) at its reduced config, float32 compute
+    and parameters (bf16 parameters would round each gradient to bf16 on
+    each side), the loss within TOL and every leaf within TOL of max
+    |g|."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.dist import OTADistConfig
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    f32 = dict(compute_dtype="float32", param_dtype="float32")
+    cfg = get_config(TRAIN_ARCH).reduced().with_(**f32)
+    shape = InputShape("tiny", 64, 8, "train")
+    params = lm.init_params(prng.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(41)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 64), generator=g,
+                              dtype=torch.int32) for k in ("tokens",
+                                                           "labels")}
+    for label, build, tcfg in (
+            ("structural", train.build_train_step, train.TrainConfig(
+                tau=1, I=1, users_per_cluster=2, eta_local=0.05,
+                outer="add", ota=OTADistConfig())),
+            ("fused", train.build_fused_train_step, train.TrainConfig(
+                tau=1, I=1, users_per_cluster=2, eta_local=0.05,
+                outer="add", grad_accum=2,
+                ota=OTADistConfig(tx_power_proxy=1e-4)))):
+        out = {}
+        for where in (dev.type, "cpu"):
+            step, _ = build(cfg, shape, {"data": 4}, tcfg, device=where)
+            state = {"params": tree_map(lambda t: t.clone().to(where),
+                                        params), "opt": {},
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=where)}
+            b = {k: v.to(where) for k, v in batch.items()}
+            ms = []
+            for i in range(2):
+                state, m = step(state, b, prng.PRNGKey(50 + i))
+                ms.append({k: float(v) for k, v in m.items()})
+            out[where] = (ms, dict(tree_leaves(state["params"])))
+        (card_m, card_p), (cpu_m, cpu_p) = out[dev.type], out["cpu"]
+        metric_gap = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                         zip(card_m, cpu_m) for k in b)
+        theta = max(float(t.abs().max()) for t in cpu_p.values())
+        theta_gap = max(float((card_p[k].cpu() - t).abs().max())
+                        for k, t in cpu_p.items()) / theta
+        ok = metric_gap <= TOL and theta_gap <= THETA_RTOL
+        log({"phase": "training", "run": f"reduced {TRAIN_ARCH} {label} "
+             "2 steps, card vs CPU", "metrics_card": card_m,
+             "metrics_cpu": cpu_m, "max_rel_metric_gap": metric_gap,
+             "theta_gap_rel_max": theta_gap, "ok": ok})
+        if not ok:
+            raise SystemExit(f"training {label}: card vs CPU apart by "
+                             f"{metric_gap} (metrics), {theta_gap} (theta)")
+    for arch in [run[0] for run in FAMILY_RUNS] + [TRAIN_ARCH,
+                                                    "arctic-480b"]:
+        cfg = get_config(arch).reduced().with_(**f32)
+        params = lm.init_params(prng.PRNGKey(0), cfg)
+        g = torch.Generator().manual_seed(42)
+        n_tok = 64
+        b = {k: torch.randint(0, cfg.vocab, (2, n_tok), generator=g,
+                              dtype=torch.int32) for k in ("tokens",
+                                                           "labels")}
+        if cfg.family == "vlm":
+            b["patch_embeds"] = torch.randn(2, cfg.n_patches, cfg.d_model,
+                                            generator=g)
+        if cfg.family == "encdec":
+            b["src_frames"] = torch.randn(2, cfg.enc_src_frames,
+                                          cfg.d_model, generator=g)
+        res = {}
+        for where in (dev.type, "cpu"):
+            p = tree_map(lambda t: t.to(where).requires_grad_(), params)
+            loss, _ = lm.lm_loss(p, {k: v.to(where) for k, v in b.items()},
+                                 cfg, loss_block=32)
+            grads = torch.autograd.grad(loss, [t for _, t in
+                                               tree_leaves(p)])
+            res[where] = (float(loss.detach()), [t.cpu() for t in grads])
+        (l_card, g_card), (l_cpu, g_cpu) = res[dev.type], res["cpu"]
+        g_max = max(float(t.abs().max()) for t in g_cpu)
+        g_gap = max(float((a - b).abs().max()) for a, b in
+                    zip(g_card, g_cpu)) / g_max
+        loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
+        ok = loss_gap <= TOL and g_gap <= TOL
+        log({"phase": "training", "run": f"{arch} reduced lm_loss and "
+             "gradient f32, card vs CPU", "loss_card": l_card,
+             "loss_cpu": l_cpu, "loss_rel_gap": loss_gap,
+             "grad_gap_rel_max": g_gap, "ok": ok})
+        if not ok:
+            raise SystemExit(f"{arch}: lm_loss card vs CPU {loss_gap}, "
+                             f"gradient {g_gap}")
+
+
 def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
                 flash_pair, check_flash, queued=False) -> tuple:
     """Phase 7 for flash attention at `shape` = (B, L, H, KV, hd),
@@ -1404,7 +1888,7 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
          "kernel_tflops": 4 * hd * B * H * L * (L + 1) / 2 / ms / 1e9,
          **queued, "bound_ms": bound, "bound_by": bound_by, **extra,
          "exp_floor_ms": exp_floor_ms(B, L, L, H, True), "card": card})
-    return name, dict(ms=ms, plain_ms=sum(ps) / 2, bound_ms=bound,
+    return name, dict(ms=ms, plain_ms=sum(ps) / len(ps), bound_ms=bound,
                       bound_by=bound_by, library_ms=sum(lib) / 2, **queued,
                       dtype=str(dtype).split(".")[-1], shape=list(shape))
 
@@ -1723,6 +2207,18 @@ def bitwise_runs(a, b) -> dict:
                   for k in ("acc", "loss", "edge_power", "is_power"))
     return {"state_bitwise_equal": state, "metrics_bitwise_equal": metrics,
             "state_max_abs_gap": gap}
+
+
+def first_seed(res):
+    """`res` cut to its first seed: each metric's first row and the
+    first slice of its seed-stacked final state (a run of that seed
+    alone gives the same bits: every seed runs on its own)."""
+    from repro_torch.tree import tree_map
+
+    return dataclasses.replace(
+        res, seeds=res.seeds[:1], acc=res.acc[:1], loss=res.loss[:1],
+        edge_power=res.edge_power[:1], is_power=res.is_power[:1],
+        final_state=tree_map(lambda t: t[:1], res.final_state))
 
 
 def theta_gaps(on_card, on_cpu, theta0=None, lr=None) -> dict:
@@ -2274,30 +2770,12 @@ def main() -> int:
                 **fig3_cut), 1, None)):
         cpu_run(label, sc, seeds, mesh)
 
-    def counted(run):
-        """`run()` with every launch count set to 0 just before it; the
-        counts just after."""
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        out = run()
-        return out, {name: getattr(fn, attr)
-                     for name, (fn, attr) in counters.items()}
-
     def finite(res) -> bool:
         metrics = [getattr(res, k) for k in ("acc", "loss", "edge_power",
                                              "is_power")]
         return bool(np.all(np.isfinite(np.asarray(metrics, np.float64))))
 
-    def expect(label, launches, want, ok=True):
-        want = {name: want.get(name, 0) for name in KERNELS}
-        log({"phase": "main_path_launches", "run": label,
-             "kernel_launches": launches, "expected_launches": want,
-             "finite": ok})
-        if launches != want or not ok:
-            raise SystemExit(f"main path {label}: launches {launches} "
-                             f"(want {want}), finite {ok}")
-        for name, n in launches.items():
-            main_launches[name] += n
+    expect = functools.partial(check_launches, totals=main_launches)
 
     def chunked_launches(label, run, want):
         """`run()`, whose drives are chunked and warmed up (so they hold
@@ -2379,30 +2857,34 @@ def main() -> int:
     # Fig. 3: the CIFAR CNN at the paper's sizes, as registered (the
     # equivalent channel, no kernel), faithful with the fused backend,
     # and on the sharded engine (1x1 and 2x5, u_sharded), each through
-    # both drivers
+    # both drivers; 2x5 through the chunked driver with its first seed
+    # alone, held to that seed of the stepwise run (capturing its tiles'
+    # graphs took 76 s for two seeds)
     fig3_on_card = {}
     for label, sc, mesh in (
             ("fig3_cifar", fig3, None), ("fig3_cifar_fused", fig3_fused, None),
             ("fig3_cifar_fused sharded 1x1 u_sharded", fig3_fused, "1x1"),
             ("fig3_cifar_fused sharded 2x5 u_sharded", fig3_fused, "2x5")):
-        def make(driver="stepwise", warmup=False, sc=sc, mesh=mesh):
-            kw = dict(seeds=2, device="cuda", keep_state=True, driver=driver,
-                      warmup=warmup)
+        def make(driver="stepwise", warmup=False, seeds=2, sc=sc, mesh=mesh):
+            kw = dict(seeds=seeds, device="cuda", keep_state=True,
+                      driver=driver, warmup=warmup)
             if mesh is None:
                 return SweepRunner([sc], batch="map", **kw)
             return ShardedSweepRunner([sc], mesh=mesh, combine="u_sharded",
                                       **kw)
 
-        res, launches = counted(lambda: make().run()[0])
-        hops = res.rounds[-1] * len(res.seeds) * sc.I      # cluster hops
-        if mesh is not None:
+        def fig3_want(res, sc=sc, mesh=mesh):
+            hops = res.rounds[-1] * len(res.seeds) * sc.I  # cluster hops
+            if mesh is None:
+                return {"fused_mac": 2 * hops if sc.ota_backend == "fused"
+                        else 0}
             mc, mu = parse_mesh(mesh)
-            want = {"fused_mac_partials": hops * mc * mu,
+            return {"fused_mac_partials": hops * mc * mu,
                     "fused_partials_reduce": hops * mu,
                     "fused_mac": res.rounds[-1] * len(res.seeds)}
-        else:
-            want = {"fused_mac": 2 * hops if sc.ota_backend == "fused"
-                    else 0}
+
+        res, launches = counted(lambda: make().run()[0])
+        want = fig3_want(res)
         log({"phase": "main_path", "run": label, "scenario": sc.name,
              "C": sc.C, "M": sc.M, "K": sc.K, "K_ps": sc.K_ps,
              "batch": sc.batch, "tau": sc.tau, "n_train": sc.n_train,
@@ -2415,7 +2897,12 @@ def main() -> int:
              "final_acc": [a[-1] for a in res.acc],
              "final_loss": [v[-1] for v in res.loss]})
         expect(label, launches, want, finite(res))
-        chunked_rerun(label, lambda: make("chunked", True), res, want)
+        if mesh == "2x5":
+            one = first_seed(res)
+            chunked_rerun(label, lambda: make("chunked", True, 1), one,
+                          fig3_want(one))
+        else:
+            chunked_rerun(label, lambda: make("chunked", True), res, want)
         fig3_on_card[label] = res
     for label in ("fig3_cifar_fused sharded 1x1 u_sharded",
                   "fig3_cifar_fused sharded 2x5 u_sharded"):
@@ -3205,7 +3692,9 @@ def main() -> int:
                                           driver=driver, batch="map",
                                           warmup=driver == "chunked"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
-    # rounds/s of both drivers, each warmed before its drive
+    # rounds/s of both drivers, each warmed before its drive (fig3's
+    # rates are phase 4's runs' and the profiles' above: its second pass
+    # here makes way for phase 9)
     for label, make in (
             ("fig2_iid_fused", lambda d: SweepRunner(
                 [fig2_fused], seeds=1, device="cuda", driver=d,
@@ -3215,10 +3704,8 @@ def main() -> int:
                 driver=d, warmup=True, batch="map")),
             ("sharded scale_u256 2x4 u_sharded", lambda d: ShardedSweepRunner(
                 [u256.replace(total_IT=10)], seeds=1, mesh="2x4",
-                combine="u_sharded", device="cuda", driver=d, warmup=True)),
-            ("fig3_cifar_fused", lambda d: SweepRunner(
-                [fig3_fused], seeds=1, device="cuda", driver=d,
-                warmup=True, batch="map"))):
+                combine="u_sharded", device="cuda", driver=d,
+                warmup=True))):
         rates = {}
         for d in ("stepwise", "chunked"):
             r = make(d).run()[0]
@@ -3243,27 +3730,32 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     def in_turns(kern, plain, k_reps, p_reps, warm_plain=True):
-        """plain, kernel, kernel, plain, within one process."""
+        """plain, kernel, kernel, plain, within one process; a plain
+        version timed in one cold call (p_reps 1, not warmed; 20-25 s at
+        the largest shapes) only before the kernel."""
         p1 = time_ms(plain, p_reps, warm_plain)
         k1 = time_ms(kern, k_reps)
         k2 = time_ms(kern, k_reps)
-        p2 = time_ms(plain, p_reps, warm_plain)
-        return [k1, k2], [p1, p2]
+        if p_reps == 1 and not warm_plain:
+            return [k1, k2], [p1]
+        return [k1, k2], [p1, time_ms(plain, p_reps, warm_plain)]
 
     timings = {}
-    for label, (B, U, K, N), bu in (("scale_u256", (4, 256, 16, 3925), 64),
-                                    ("scale_u1024", (8, 1024, 16, 3925),
-                                     128),
-                                    ("fig3_cifar cluster",
-                                     (4, 20, 100, 154197), 5)):
+    # (the plain version at fig3's cluster hop, 1.46 s a call, is timed
+    # in one cold call)
+    for label, (B, U, K, N), bu, p_reps in (
+            ("scale_u256", (4, 256, 16, 3925), 64, 3),
+            ("scale_u1024", (8, 1024, 16, 3925), 128, 3),
+            ("fig3_cifar cluster", (4, 20, 100, 154197), 5, 1)):
         args = kernel_inputs(B, U, K, N, 7, dev)["args"]
         kw = dict(K=K, sigma_h2=1.0, sigma_z2=1.0, block_u=bu)
         ks, ps = in_turns(lambda: fused_mac(seed, *args, **kw),
-                          lambda: fused_mac_plain(seed, *args, **kw), 20, 3)
+                          lambda: fused_mac_plain(seed, *args, **kw), 20,
+                          p_reps, warm_plain=p_reps > 1)
         bound, bound_by, issue = fused_mac_bound_ms(B, U, K, N,
                                                     cycles["fused_mac"])
         timings["fused_mac", label] = dict(
-            ms=sum(ks) / 2, plain_ms=sum(ps) / 2, bound_ms=bound,
+            ms=sum(ks) / 2, plain_ms=sum(ps) / len(ps), bound_ms=bound,
             bound_by=bound_by, shape_BUKN=[B, U, K, N])
         log({"phase": "times", "kernel": "fused_mac", "shape": label,
              "shape_BUKN": [B, U, K, N], "kernel_ms": ks, "plain_ms": ps,
@@ -3530,7 +4022,7 @@ def main() -> int:
              reduce_bound_ms(B, G, K, N, cycles["fused_partials_reduce"]),
              [B, G, K, N])):
         timings[name, "scale_u65536 1x1"] = dict(
-            ms=sum(kms) / 2, plain_ms=sum(pms) / 2, bound_ms=bound,
+            ms=sum(kms) / 2, plain_ms=sum(pms) / len(pms), bound_ms=bound,
             bound_by=bound_by, shape=shape)
         log({"phase": "times", "kernel": name, "shape": "scale_u65536 1x1",
              "shape_BUKN" if name == "fused_mac_partials" else "shape_BGKN":
@@ -3594,7 +4086,12 @@ def main() -> int:
     for arch in [run[0] for run in FAMILY_RUNS] + ["arctic-480b"]:
         family_vs_cpu(arch, dev)
 
-    # -- phase 9: the records ----------------------------------------------
+    # -- phase 9: federated LM training ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(dev, card, expect)
+
+    # -- phase 10: the records ---------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",
@@ -3634,5 +4131,29 @@ def main() -> int:
     return 0
 
 
+def training_only() -> int:
+    """``python3 chip_smoke.py --training``: phases 1 and 2 for the flash
+    kernels alone, then phase 9 (federated LM training), with launch
+    counts as `main` keeps them; no kernel records."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs a CUDA "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_all([src for src in SOURCES if src.startswith("flash")])
+
+    train_phase(torch.device("cuda"), card.splitlines()[0], check_launches)
+    log({"phase": "done", "seconds": time.perf_counter() - T_START})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(training_only() if sys.argv[1:] == ["--training"] else main())

@@ -1,0 +1,110 @@
+"""Federated LM pre-training with W-HFL on the PyTorch port: the
+counterpart of ``examples/lm_federated.py``.
+
+Trains a small GQA transformer (~5M parameters by default) on the
+synthetic Markov corpus with `repro_torch.launch.train.build_train_step`
+(the structural two-hop OTA aggregation) or, with ``--fused``,
+`build_fused_train_step`.  The JAX example gives its host 8 fake
+devices for 2 clusters x 2 users x 2-way model parallel; the port runs
+every user on one device, so the clusters and users are arguments.
+
+    PYTHONPATH=src python examples/lm_federated_torch.py --steps 50
+    PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
+        --steps 3 --seq 64 --layers 2 --d-model 64
+"""
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+from repro_torch import prng  # noqa: E402
+from repro_torch.checkpoint import save_step  # noqa: E402
+from repro_torch.configs.base import ArchConfig, InputShape  # noqa: E402
+from repro_torch.core.dist import OTADistConfig, uniform_geom  # noqa: E402
+from repro_torch.data import lm_corpus  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.train import (TrainConfig,  # noqa: E402
+                                      build_fused_train_step,
+                                      build_train_step)
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+
+def batches(tokens, B, L, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - L - 1
+    while True:
+        idx = rng.integers(0, n, B)
+        x = np.stack([tokens[i:i + L] for i in idx])
+        y = np.stack([tokens[i + 1:i + L + 1] for i in idx])
+        yield {"tokens": torch.as_tensor(x, device=dev),
+               "labels": torch.as_tensor(y, device=dev)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--clusters", type=int, default=2)
+    ap.add_argument("--users", type=int, default=2,
+                    help="users per cluster")
+    ap.add_argument("--tau", type=int, default=1)
+    ap.add_argument("--I", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--vocab", type=int, default=8192)
+    ap.add_argument("--ota", default="equivalent",
+                    choices=["equivalent", "ideal"])
+    ap.add_argument("--fused", action="store_true",
+                    help="build_fused_train_step (needs tau = I = 1)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    C, M = args.clusters, args.users
+    print(f"device={dev} clusters={C} users/cluster={M}")
+
+    cfg = ArchConfig(
+        name="lm-small", family="dense", source="example",
+        n_layers=args.layers, d_model=args.d_model, n_heads=4, n_kv_heads=2,
+        head_dim=args.d_model // 4, d_ff=4 * args.d_model,
+        vocab=args.vocab, q_block=128, remat=False)
+    shape = InputShape("example", args.seq, args.batch, "train")
+    # quiet radio for the demo: 1024 rx antennas, low noise floor (the
+    # channel-noise/gradient SNR trade is explored in tests/benchmarks)
+    geom = uniform_geom(C=C, M=M, K=1024, K_ps=1024, sigma_z2=1e-4)
+    local = args.tau * args.I == 1
+    tcfg = TrainConfig(tau=args.tau, I=args.I, users_per_cluster=M,
+                       eta_local=1.0 if local else 5e-3,
+                       outer="adamw" if local else "add",
+                       outer_lr=3e-4, geom=geom,
+                       ota=OTADistConfig(mode=args.ota))
+    build = build_fused_train_step if args.fused else build_train_step
+    step, init_fn = build(cfg, shape, {"data": C * M}, tcfg, device=dev)
+    state = init_fn(prng.PRNGKey(0))
+    n_params = sum(t.numel() for _, t in tree_leaves(state["params"]))
+    print(f"params: {n_params / 1e6:.1f}M")
+
+    toks = lm_corpus(0, n_tokens=500_000, vocab=args.vocab)
+    it = batches(toks, args.batch, args.seq, dev)
+    t0 = time.time()
+    for i in range(args.steps):
+        state, m = step(state, next(it), prng.PRNGKey(i))
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss={float(m['loss']):.4f} "
+                  f"edge_power={float(m['edge_power']):.2e} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+        if args.ckpt_dir and ((i + 1) % 100 == 0 or i == args.steps - 1):
+            save_step(args.ckpt_dir, i + 1, state["params"])
+    print(f"done: {args.steps} steps in {time.time() - t0:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -57,3 +57,24 @@ def synthetic_cifar(seed: int = 0, n_train: int = 20000, n_test: int = 4000):
                      noise=0.45)
     return (xtr, ytr), (xte, yte)
 
+
+
+def lm_corpus(seed: int = 0, n_tokens: int = 2_000_000, vocab: int = 8192):
+    """Synthetic token stream with Markov structure (learnable bigrams):
+    int32 [n_tokens], the JAX package's tokens bit for bit (the same
+    numpy draws in the same order; the loop is sequential because a
+    fresh token is drawn wherever the chain breaks)."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition: each token prefers a few successors
+    n_succ = 8
+    succ = rng.integers(0, vocab, (vocab, n_succ))
+    toks = np.empty(n_tokens, np.int32)
+    toks[0] = rng.integers(0, vocab)
+    u = rng.random(n_tokens)
+    choice = rng.integers(0, n_succ, n_tokens)
+    for i in range(1, n_tokens):
+        if u[i] < 0.8:
+            toks[i] = succ[toks[i - 1], choice[i]]
+        else:
+            toks[i] = rng.integers(0, vocab)
+    return toks

@@ -1,4 +1,5 @@
-from repro_torch.kernels.flash_attn import (flash_attention,
+from repro_torch.kernels.flash_attn import (attention_vjp, flash_attention,
+                                            flash_attention_autograd,
                                             flash_attention_plain, flash_mha,
                                             flash_mha_plain)
 from repro_torch.kernels.flash_attn import route as flash_route
@@ -29,4 +30,5 @@ __all__ = ["fused_combine", "mf_combine", "fused_mac", "fused_mac_plain",
            "fused_partials_reduce_plain", "ota_combine", "ota_combine_plain",
            "fused_channels", "assert_draw_invariance", "canonical_block_u",
            "flash_mha", "flash_mha_plain", "flash_attention",
-           "flash_attention_plain", "flash_route", "LAUNCH_COUNTERS"]
+           "flash_attention_plain", "flash_attention_autograd",
+           "attention_vjp", "flash_route", "LAUNCH_COUNTERS"]

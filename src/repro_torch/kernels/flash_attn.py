@@ -46,6 +46,15 @@ The kernels tile with their own compiled sizes, so on the card
 fails to build or launch raises: nothing falls back to another kernel
 or to the plain version.
 
+Under autograd, `flash_attention_autograd` is `flash_attention` with a
+gradient: a `torch.autograd.Function` whose forward launches the kernel
+`route` picks, unchanged, and whose backward (`attention_vjp`)
+recomputes the attention in float32 scores one ``q_block`` of queries
+at a time and differentiates that in torch ops, as the JAX package
+differentiates its `jax.checkpoint`ed `_sdpa` per query block.  The
+JAX package has no backward kernel, so neither has the port: the
+backward launches no kernel of ours and calls neither plain version.
+
 All three skip a key tile whose first key lies past every position of
 the q tile, by the exact test (the Pallas kernel's ``first_q_pos + QB -
 1`` is conservative when a q tile straddles two fold groups).  The bits
@@ -382,3 +391,85 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_block=kv_block, seq_len=L)
     return (of.reshape(B, KV, G, L, hd).permute(0, 3, 1, 2, 4)
             .reshape(B, L, H * hd))
+
+
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, *, causal: bool = True,
+                  q_block: int = 512) -> tuple:
+    """(dq, dk, dv) of `flash_attention`'s output at q [B, L, H, hd], k,
+    v [B, S, KV, hd] against the output's cotangent do [B, L, H*hd], each
+    in its input's dtype.
+
+    The attention is recomputed in float32, ``q_block`` queries at a
+    time (their G = H / KV heads of each KV head together): scores
+    (q . k) / sqrt(hd), masked to NEG_INF where a key lies past the
+    query's position (causal), softmax p, and then the softmax
+    attention's gradient, dv += p^T do, ds = p * (do v^T - rowsum(do v^T
+    * p)), dq = ds k / sqrt(hd), dk += ds^T q / sqrt(hd).  With
+    ``causal`` a block reads only the keys up to its last position (the
+    later ones are masked for all its rows, p exactly 0 there)."""
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = _scale(hd)
+    dev = q.device
+    kf = k.float().permute(0, 2, 1, 3)                       # [B, KV, S, hd]
+    vf = v.float().permute(0, 2, 1, 3)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq = torch.empty((B, L, H, hd), dtype=torch.float32, device=dev)
+    q5 = q.reshape(B, L, KV, G, hd)
+    do5 = do.reshape(B, L, KV, G, hd)
+
+    def rows(x, n):       # [B, n, KV, G, hd] -> [B, KV, G * n, hd]
+        return x.float().permute(0, 2, 3, 1, 4).reshape(B, KV, G * n, hd)
+
+    for q0 in range(0, L, q_block):
+        q1 = min(q0 + q_block, L)
+        n = q1 - q0
+        end = min(q1, S) if causal else S
+        qb, dob = rows(q5[:, q0:q1], n), rows(do5[:, q0:q1], n)
+        kt, vt = kf[:, :, :end], vf[:, :, :end]
+        s = (qb @ kt.transpose(-1, -2)) * scale          # [B, KV, G*n, end]
+        if causal:
+            q_pos = torch.arange(q0, q1, device=dev).repeat(G)
+            k_pos = torch.arange(end, device=dev)
+            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv[:, :, :end] += p.transpose(-1, -2) @ dob
+        dp = dob @ vt.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dk[:, :, :end] += (ds.transpose(-1, -2) @ qb) * scale
+        dq[:, q0:q1] = ((ds @ kt) * scale).reshape(B, KV, G, n, hd).permute(
+            0, 3, 1, 2, 4).reshape(B, n, H, hd)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`flash_attention` forward (the routed kernel, unchanged) with
+    `attention_vjp` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_block = causal, q_block
+        return flash_attention(q, k, v, causal=causal, q_block=q_block,
+                               kv_block=kv_block)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_vjp(q, k, v, do, causal=ctx.causal,
+                                   q_block=ctx.q_block)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             q_block: int = 256,
+                             kv_block: int = 256) -> torch.Tensor:
+    """`flash_attention` (same arguments, same launches, same output
+    bits) that autograd differentiates through `attention_vjp`, its
+    float32 recompute one ``q_block`` of queries at a time."""
+    return _FlashAttention.apply(q, k, v, causal, q_block, kv_block)

@@ -1,1 +1,2 @@
-"""Serving steps of the port (counterpart of `repro.launch`)."""
+"""Serving and training steps of the port (counterpart of
+`repro.launch`)."""

@@ -20,20 +20,33 @@ JAX package's weights.
 
 `decode_step` writes the caches in place: the KV caches at each row's
 slot (`attention.decode`), the SSM states and conv windows whole
-(`ssm.decode`).  `lm_loss` (training) raises `NotImplementedError`
-naming its ROADMAP item.
+(`ssm.decode`).
+
+Training: `lm_loss` is the next-token cross-entropy of the JAX
+package's `lm_loss`, in checkpointed blocks of positions, and autograd
+differentiates it.  Where autograd records (grad enabled and a
+parameter or input requires grad) and ``cfg.remat`` (the default), each
+layer body the JAX package remats (`_maybe_remat`) runs under
+`torch.utils.checkpoint` (non-reentrant), so its forward runs again in
+the backward: an attention layer launches its flash kernel twice per
+forward and backward.  Attention takes its gradient from
+`nn.attention.prefill`'s autograd route; the MoE, the SSD scan and the
+cross-attention are plain torch, which autograd differentiates as it
+stands.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention, core, mlp, ssm
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_from_paths, tree_leaves, tree_map
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -164,6 +177,16 @@ def init_params(key: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     return p
 
 
+def _unstack(tree, n: int) -> list:
+    """The n trees along a stacked tree's leading axis, as views by
+    `torch.unbind`: under autograd each leaf's n gradients then come back
+    as one stacked tensor (indexing a layer at a time would make each
+    layer's gradient a zero-filled tensor of the whole stack)."""
+    cols = [(path, torch.unbind(t)) for path, t in tree_leaves(tree)]
+    return [tree_from_paths([(path, ts[i]) for path, ts in cols])
+            for i in range(n)]
+
+
 def _at(tree, *idx):
     """The leaves of a stacked tree at `idx` on their leading axes
     (views)."""
@@ -230,8 +253,27 @@ def _sblock_decode(p, x, cache, cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
+
+def _records(params, batch) -> bool:
+    """Whether autograd records this forward: grad enabled, and a
+    parameter or a float input requires grad (training; serving runs
+    with neither)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in (params, batch)
+        for _, t in tree_leaves(tree))
+
+
+def _maybe_remat(fn, cfg: ArchConfig, train: bool):
+    """`fn` under `torch.utils.checkpoint` (``use_reentrant=False``: its
+    activations are dropped and recomputed in the backward) when
+    ``cfg.remat`` and autograd records (`train`), as the JAX package
+    wraps its layer bodies in `jax.checkpoint`; otherwise `fn` itself."""
+    if not (cfg.remat and train):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
     """Token embed, the vlm's patch embeddings [B, n_patches, D] put in
@@ -256,11 +298,18 @@ def _encode(params, batch, cfg: ArchConfig):
     pos = torch.arange(Ls, dtype=torch.int32,
                        device=x.device)[None].expand(B, Ls)
     acfg = dataclasses.replace(_attn_cfg(cfg), causal=False)
-    for i in range(cfg.n_enc_layers):
-        lp = _at(params["enc_layers"], i)
-        x = x + attention.prefill(lp["attn"], core.rmsnorm(lp["ln1"], x),
+
+    layers = _unstack(params["enc_layers"], cfg.n_enc_layers)
+
+    def body(h, i):
+        lp = layers[i]
+        h = h + attention.prefill(lp["attn"], core.rmsnorm(lp["ln1"], h),
                                   pos, acfg)
-        x = x + mlp.swiglu(lp["mlp"], core.rmsnorm(lp["ln2"], x))
+        return h + mlp.swiglu(lp["mlp"], core.rmsnorm(lp["ln2"], h))
+
+    body = _maybe_remat(body, cfg, _records(params, batch))
+    for i in range(cfg.n_enc_layers):
+        x = body(x, i)
     return core.rmsnorm(params["enc_norm"], x)
 
 
@@ -272,36 +321,87 @@ def backbone(params, batch, cfg: ArchConfig):
     x, positions = _embed_inputs(params, batch, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     acfg = _attn_cfg(cfg)
-    if fam in ("dense", "vlm", "moe"):
+    train = _records(params, batch)
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        enc_out = _encode(params, batch, cfg) if fam == "encdec" else None
+        layers = _unstack(params["layers"], cfg.n_layers)
+        body = _maybe_remat(
+            lambda h, i: _tblock_fwd(layers[i], h, positions, cfg, acfg,
+                                     enc_out=enc_out), cfg, train)
         for i in range(cfg.n_layers):
-            x, aux = _tblock_fwd(_at(params["layers"], i), x, positions, cfg,
-                                 acfg)
+            x, aux = body(x, i)
             aux_total = aux_total + aux
     elif fam == "ssm":
+        layers = _unstack(params["layers"], cfg.n_layers)
+        body = _maybe_remat(lambda h, i: _sblock_fwd(layers[i], h, cfg),
+                            cfg, train)
         for i in range(cfg.n_layers):
-            x = _sblock_fwd(_at(params["layers"], i), x, cfg)
-    elif fam == "hybrid":
+            x = body(x, i)
+    else:                                                     # hybrid
         every = cfg.shared_attn_every
         n_groups = cfg.n_layers // every
+        n_tail = cfg.n_layers - n_groups * every
+        groups = [_unstack(g, every)
+                  for g in _unstack(params["groups"], n_groups)]
+        tail = _unstack(params["tail"], n_tail) if n_tail else []
+
+        def group_body(h, g):
+            for lp in groups[g]:
+                h = _sblock_fwd(lp, h, cfg)
+            return _tblock_fwd(params["shared"], h, positions, cfg, acfg)[0]
+
+        group_body = _maybe_remat(group_body, cfg, train)
+        tail_body = _maybe_remat(lambda h, i: _sblock_fwd(tail[i], h, cfg),
+                                 cfg, train)
         for g in range(n_groups):
-            for j in range(every):
-                x = _sblock_fwd(_at(params["groups"], g, j), x, cfg)
-            x, _ = _tblock_fwd(params["shared"], x, positions, cfg, acfg)
-        for i in range(cfg.n_layers - n_groups * every):
-            x = _sblock_fwd(_at(params["tail"], i), x, cfg)
-    else:                                                     # encdec
-        enc_out = _encode(params, batch, cfg)
-        for i in range(cfg.n_layers):
-            x, aux = _tblock_fwd(_at(params["layers"], i), x, positions, cfg,
-                                 acfg, enc_out=enc_out)
-            aux_total = aux_total + aux
+            x = group_body(x, g)
+        for i in range(n_tail):
+            x = tail_body(x, i)
     x = core.rmsnorm(params["final_norm"], x)
     return x, aux_total
 
 
-def lm_loss(params, batch, cfg: ArchConfig, **kw):
-    raise NotImplementedError("training (lm_loss) is not ported yet "
-                              "(ROADMAP queue A item 13)")
+def lm_loss(params, batch, cfg: ArchConfig, *, loss_block: int = 256,
+            example_weights: Optional[torch.Tensor] = None):
+    """Next-token CE loss, computed in sequence blocks of `loss_block`
+    positions to bound the logits' working set (vocab up to 256k): each
+    block's logits are recomputed in the backward (`torch.utils.
+    checkpoint`, as the JAX package's `jax.checkpoint`), and the ragged
+    tail past ``(L // loss_block) * loss_block`` positions carries no
+    loss, as there.  The vlm's image positions carry none either.
+
+    batch: "tokens" and "labels" [B, L] (plus "patch_embeds" or
+    "src_frames", as `prefill_logits` takes them).  `example_weights`
+    ([B], summing to ~1) reweights the per-example losses (the fused
+    W-HFL step folds the users' OTA gains in so); by default their mean.
+    Returns (loss + 0.01 * aux, {"ce": the unweighted mean, "aux": the
+    MoE's load-balance loss}), the metrics detached."""
+    hidden, aux = backbone(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm":                 # image positions carry no loss
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:, :]
+    B, L, _ = hidden.shape
+    w = params["lm_head"]["w"].to(hidden.dtype)
+    LB = min(loss_block, L)
+    nb = L // LB
+
+    def block(h, y):
+        logits = (h @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        return (lse - gold).sum(-1)                      # per example [B]
+
+    if torch.is_grad_enabled() and hidden.requires_grad:
+        block = functools.partial(checkpoint, block, use_reentrant=False)
+    per_ex = torch.zeros((B,), dtype=torch.float32, device=hidden.device)
+    for b in range(nb):
+        s = slice(b * LB, (b + 1) * LB)
+        per_ex = per_ex + block(hidden[:, s], labels[:, s])
+    per_ex = per_ex / (nb * LB)                          # per-token mean
+    ce_mean = per_ex.mean()
+    loss = (ce_mean if example_weights is None
+            else torch.sum(per_ex * example_weights.float()))
+    return loss + 0.01 * aux, {"ce": ce_mean.detach(), "aux": aux.detach()}
 
 
 def prefill_logits(params, batch, cfg: ArchConfig) -> torch.Tensor:

@@ -10,7 +10,15 @@ the card, its plain version on the CPU), for the JAX package's
 softmax attention there, so the port's `AttnConfig` has no ``impl``
 (nor the sharding knob ``seq_shard``).  A sliding window in prefill,
 and ``scores_f32=False`` (an XLA memory knob no registered config
-sets), are not ported and raise.
+sets), are not ported and raise, naming ROADMAP queue A item 13.
+
+The gradient: prefill calls `flash_attention_autograd`, whose forward
+is `flash_attention` (the same kernel launch and bits, for serving and
+training alike) and whose backward recomputes the attention in float32
+scores one ``q_block`` of queries at a time and differentiates that
+(`kernels.flash_attn.attention_vjp`), the counterpart of the JAX
+package's gradient through its `jax.checkpoint`ed `_sdpa` per query
+block; causal and bidirectional alike.
 
 The JAX package tags activations with logical sharding axes
 (`repro.sharding.logical`); the port runs on one card with no sharding
@@ -25,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch import prng
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import flash_attention_autograd
 from repro_torch.nn import core
 from repro_torch.nn.rope import apply_rope
 
@@ -108,6 +116,8 @@ def prefill(p, x: torch.Tensor, positions: torch.Tensor,
     x: [B, L, D]; positions: [B, L], which must be arange(L) in every
     row, as the model's prefill gives them: RoPE reads `positions`, and
     the kernel masks by row index (key j kept for query i when j <= i).
+    The attention goes through `flash_attention_autograd` (the
+    kernel's launch, and a gradient where autograd records).
     Returns [B, L, D]."""
     if cfg.window is not None:
         raise NotImplementedError(
@@ -117,8 +127,9 @@ def prefill(p, x: torch.Tensor, positions: torch.Tensor,
             "scores_f32=False (bf16 scores) is not ported (ROADMAP queue A "
             "item 13)")
     q, k, v = _qkv(p, x, positions, cfg)
-    out = flash_attention(q, k, v, causal=cfg.causal, q_block=cfg.q_block,
-                          kv_block=cfg.kv_block)
+    out = flash_attention_autograd(q, k, v, causal=cfg.causal,
+                                   q_block=cfg.q_block,
+                                   kv_block=cfg.kv_block)
     return core.dense(p["wo"], out)
 
 

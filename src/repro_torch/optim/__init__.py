@@ -1,3 +1,6 @@
-from repro_torch.optim.optimizers import Optimizer, adam, apply_updates, sgd
+from repro_torch.optim.optimizers import (Optimizer, adam, adamw,
+                                         apply_updates, clip_by_global_norm,
+                                         global_norm, momentum, sgd)
 
-__all__ = ["Optimizer", "sgd", "adam", "apply_updates"]
+__all__ = ["Optimizer", "sgd", "momentum", "adam", "adamw", "apply_updates",
+           "global_norm", "clip_by_global_norm"]

@@ -7,7 +7,7 @@ Two consumers share the threefry2x32 block cipher here:
   threefry block keyed on ``(seed, rx, stream)`` with the counter
   ``(u * Kstride + k, n)``, so the draws depend on logical indices only;
 - a bit-exact emulation of `jax.random` under the threefry2x32 impl with
-  ``jax_threefry_partitionable=True`` (`PRNGKey`, `split`,
+  ``jax_threefry_partitionable=True`` (`PRNGKey`, `split`, `fold_in`,
   `random_bits`, `randint`, `uniform`, `normal`, `bernoulli`), so one
   integer seed reproduces a run of the JAX reference.
 
@@ -199,6 +199,14 @@ def _iota_bits(key: torch.Tensor, shape: Tuple[int, ...], start: int = 0):
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """`jax.random.split`: keys [..., 2] -> [..., *num, 2]."""
     b0, b1 = _iota_bits(key, _shape(num))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`: threefry2x32 of the keys [..., 2]
+    on the counter pair (0, data), `data` taken as a uint32 (jax's
+    `threefry_seed` of a 32-bit integer puts it in the low word)."""
+    b0, b1 = _threefry2x32(key[..., 0], key[..., 1], 0, int(data) & MASK32)
     return torch.stack([b0, b1], dim=-1)
 
 

@@ -765,3 +765,87 @@ def test_fig2_sharded_equals_single_bitwise_on_card(mesh):
                                  resume=True).run()[0]
     assert res.exec_info["resumed_from"] == 2
     _bitwise(single, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,L,H,KV,hd", [(2, 200, 14, 2, 64),
+                                         (1, 333, 4, 2, 32),
+                                         (1, 130, 32, 32, 112)])
+def test_attention_gradient_route_on_card(B, L, H, KV, hd, causal, dtype,
+                                          tol):
+    """`flash_attention_autograd` on the card: its forward is the routed
+    kernel (one launch, the bits of `flash_attention`), its gradient
+    (`attention_vjp`, no kernel of ours) within `tol` of max |g| of
+    autograd through `flash_attention_plain` (the same function in
+    another order; at bf16 each side rounds once from float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention_autograd
+
+    q, k, v = [t.requires_grad_() for t in _flash_inputs(
+        B, L, H, KV, hd, dtype, L + hd, L)]
+    do = torch.randn(B, L, H * hd, device="cuda").to(dtype)
+    before = _launch_counts()
+    out = flash_attention_autograd(q, k, v, causal=causal, q_block=128)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert _served_by(before, q, 1)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+    want = torch.autograd.grad(flash_attention_plain(q, k, v, causal=causal),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert float((g.float() - w.float()).abs().max()) <= tol * float(
+            w.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["build_train_step",
+                                     "build_fused_train_step"])
+def test_train_step_on_card_matches_cpu(build):
+    """Reduced qwen2-0.5b at float32 compute, TF32 off: 2 steps (outer
+    "add", equivalent channel) on the card against the CPU from one
+    state, losses and edge powers within 1e-4, the parameters within
+    1e-4 of max |theta| (the forward's attention on the float32
+    tensor-core kernel, its gradient through `attention_vjp`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-0.5b").reduced().with_(compute_dtype="float32")
+    shape = InputShape("tiny", 64, 8, "train")
+    tcfg = train.TrainConfig(users_per_cluster=2, eta_local=0.05,
+                             outer="add", grad_accum=2)
+    params = lm.init_params(prng.PRNGKey(0), cfg)
+    g = torch.Generator().manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 64), generator=g,
+                              dtype=torch.int32) for k in ("tokens",
+                                                           "labels")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step, _ = getattr(train, build)(cfg, shape, {"data": 4}, tcfg,
+                                          device=dev)
+        state = {"params": tree_map(lambda t: t.clone().to(dev), params),
+                 "opt": {}, "step": torch.zeros((), dtype=torch.int32,
+                                                device=dev)}
+        ms = []
+        for i in range(2):
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()},
+                            prng.PRNGKey(i))
+            ms.append([float(m["loss"]), float(m["edge_power"])])
+        out[dev] = (np.array(ms), dict(tree_leaves(state["params"])))
+    (m_card, p_card), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    assert np.all(np.abs(m_card - m_cpu) <= 1e-4 * np.abs(m_cpu))
+    theta = max(float(t.abs().max()) for t in p_cpu.values())
+    assert max(float((p_card[k].cpu() - t).abs().max())
+               for k, t in p_cpu.items()) <= 1e-4 * theta
