@@ -265,16 +265,16 @@ Phases, in order; any failure exits non-zero:
    at zamba2-7b's prefill shape (B 4, L 4096, 32 heads of hd 112);
 8. the LM families at full width through `repro_torch.launch.serve`,
    weights from `lm.init_params` at seed 0, one arch at a time
-   (``FAMILY_RUNS``): mamba2-780m (48 layers), zamba2-7b (81: 13 groups
-   of 6 Mamba2 layers, each followed by the shared attention block at
-   hd 112, and 3 more), qwen3-moe-235b-a22b (2 of its 94 layers, 128
-   experts, top 8), seamless-m4t-medium (12 encoder + 12 decoder
-   layers) and llava-next-34b (8 of 60 layers): a prefill of 4 x 4,096
+   (``FAMILY_RUNS``): mamba2-780m (48 layers), zamba2-7b (27 of its 81:
+   4 groups of 6 Mamba2 layers, each followed by the shared attention
+   block at hd 112, and 3 more), qwen3-moe-235b-a22b (2 of its 94
+   layers, 128 experts, top 8), seamless-m4t-medium (12 encoder + 12
+   decoder layers) and llava-next-34b (4 of 60 layers): a prefill of 4 x 4,096
    positions at bf16 (llava's 2,880 patch embeddings + 1,216 tokens;
    seamless' 4,096 tokens over 1,024 source frames; zamba2 also at
    float32), exactly one flash launch per attention layer of the bf16
    (float32) tensor-core kernel and none of the others, by the count
-   and in the profiler (none for mamba2; 13 for zamba2; 24 for
+   and in the profiler (none for mamba2; 4 for zamba2; 24 for
    seamless, 12 of them bidirectional), finite logits, and its time
    (wall, device ms, busy share, each flash record's share, device ops:
    warm, then under `torch.profiler`); one warm decode step at (batch,
@@ -310,12 +310,35 @@ Phases, in order; any failure exits non-zero:
    (1e-5), with the backward's time against the kernel forward's; card
    vs CPU: reduced qwen2-0.5b, 2 structural and 2 fused steps from one
    state, and one `lm_loss` and gradient per reduced family, float32;
-10. the run's seconds, one JSON line of kernel records, then the last
+10. sliding-window attention: (a) each flash kernel with a window
+   against its plain version in both dtypes (``WINDOW_CASES``:
+   qwen2-0.5b's (4, 4096, 14, 2, 64) at W 1,024 both ways, hd 32 and 16
+   at W 100, zamba2-7b's hd 112 and qwen2-1.5b's hd 128 at W 1,024,
+   W 1, straddling tiles and ragged lengths), counted as windowed
+   launches, with the same gates as phase 3; a window of L, L + 1 or
+   2^30 keys bit for bit the unwindowed launch; five shapes timed in
+   turns with the plain version beside the library's SDPA with the
+   boolean window mask and the bound of the pairs the window keeps;
+   (b) qwen2-0.5b as registered with its ``long_context_window`` of
+   8,192 as ``sliding_window``, prefilled at bf16 at prefill_32k's full
+   32 x 32,768: exactly 24 windowed launches of the bf16 kernel, by the
+   count and in the profiler, finite logits, warm wall ms, device ms,
+   busy share and peak memory; (c) long_500k decode (batch 1, 524,288
+   positions): qwen2-0.5b's ring caches of 8,192 slots from pos 524,287
+   (the slot wraps to 0) and mamba2-780m's O(1) state, 4 steps each, ms
+   a step and peak memory; (d) reduced dense, encdec and hybrid configs
+   with a window of 12, float32, card vs CPU: prefill logits, `lm_loss`
+   and its gradient within 1e-4; the windowed attention gradient at
+   (2, 4096, 14, 2, 64) W 1,024 against autograd through the plain
+   version within phase 9's bounds, timed against the kernel forward
+   and the unwindowed backward;
+11. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  ``python3 chip_smoke.py
---training`` builds the flash kernels and runs phase 9 alone.
+--training`` builds the flash kernels and runs phase 9 alone,
+``--window`` phase 10 alone.
 """
 from __future__ import annotations
 
@@ -416,13 +439,17 @@ GRAD_CHUNK = 5
 # the LM families served at full width: (arch, layers run (None: all),
 # prefill (B, positions), decode (batch, cache)), with their cuts; the
 # qwen3-moe and llava depths are cut to fit the run's time and the card
-# (94 layers of 128 experts are ~440 GB in bf16; llava's 60 ~68 GB)
+# (94 layers of 128 experts are ~440 GB in bf16; llava's 60 ~68 GB), and
+# zamba2-7b's 81 to 27 (4 groups of 6 Mamba2 layers, each followed by the
+# shared attention block, and the tail of 3) and llava's 8 to 4 for the
+# run's time since phase 10 was added (zamba2's bf16 and f32 prefills
+# with their profiles took ~58 s at 81 layers)
 FAMILY_RUNS = (
     ("mamba2-780m", None, (4, 4096), (128, 32768)),
-    ("zamba2-7b", None, (4, 4096), (2, 32768)),
+    ("zamba2-7b", 27, (4, 4096), (2, 32768)),
     ("qwen3-moe-235b-a22b", 2, (4, 4096), (8, 32768)),
     ("seamless-m4t-medium", None, (4, 4096), (8, 32768)),
-    ("llava-next-34b", 8, (4, 4096), (8, 32768)))
+    ("llava-next-34b", 4, (4, 4096), (8, 32768)))
 # the families' decode against their prefill on the card: (B, T) tokens
 # streamed into an empty cache, float32
 FAMILY_DECODE_CHECK = (2, 32)
@@ -448,6 +475,41 @@ TRAIN_F32_LAYERS = 4
 # of max |g|: the same function in another order at float32; at bf16
 # each side rounds each gradient once from float32
 ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# phase 10, sliding-window attention.  (label, (B, L, H, KV, hd), W,
+# causal): each kernel with a window against its plain version, in both
+# dtypes: qwen2-0.5b's prefill shape both ways, the reduced model's (hd
+# 32) and hd 16 at W 100 (below the 128-key tile, not a multiple of 16),
+# zamba2-7b's hd 112 and qwen2-1.5b's hd 128 at W 1,024; W 1 (each row
+# keeps its own key alone); 128-row tiles that straddle two heads, a
+# ragged L and every other instance at small windows
+WINDOW_CASES = (
+    (f"{LM_ARCH} B4 L4096", (4, 4096, 14, 2, 64), 1024, True),
+    (f"{LM_ARCH} B4 L4096 bidirectional", (4, 4096, 14, 2, 64), 1024, False),
+    (f"{LM_ARCH} reduced B4 L4096", (4, 4096, 4, 2, 32), 100, True),
+    ("hd 16 B4 L4096", (4, 4096, 4, 2, 16), 100, True),
+    ("zamba2-7b B4 L4096", (4, 4096, 32, 32, 112), 1024, True),
+    ("qwen2-1.5b B1 L4096", (1, 4096, 12, 2, 128), 1024, True),
+    (f"{LM_ARCH} B4 L4096 W1", (4, 4096, 14, 2, 64), 1, True),
+    ("L200 bidirectional W1 (fold straddles tiles)", (2, 200, 14, 2, 64), 1,
+     False),
+    ("L200 (fold straddles tiles)", (2, 200, 14, 2, 64), 100, True),
+    ("hd 128 L1000 bidirectional", (1, 1000, 12, 2, 128), 37, False),
+    ("hd 32 L1000 bidirectional", (1, 1000, 4, 2, 32), 100, False),
+    ("hd 112 L77", (1, 77, 8, 2, 112), 50, True),
+    ("hd 16 L1000 bidirectional W1", (1, 1000, 4, 2, 16), 1, False))
+# the cases timed, each in both dtypes
+WINDOW_TIMED = {(case[0], dtype) for case in WINDOW_CASES[:5]
+                for dtype in (torch.bfloat16, torch.float32)}
+# (shape, causal): a window of L, L + 1 and 2^30 keys against no window,
+# bit for bit, in both dtypes
+WINDOW_WIDE = (((4, 4096, 14, 2, 64), True), ((4, 4096, 14, 2, 64), False),
+               ((2, 200, 14, 2, 64), True), ((1, 1000, 12, 2, 128), False),
+               ((1, 77, 8, 2, 112), True), ((1, 1000, 4, 2, 16), False))
+# the reduced configs' window card vs CPU: below their 64 positions and
+# the encoder's 16 frames
+WINDOW_REDUCED = 12
+# long_500k decode steps a run (the first writes the ring's last slot)
+LONG_STEPS = 4
 # the training steps card vs CPU (reduced qwen2-0.5b, float32 compute,
 # TF32 off; outer "add", so every entry is held): the loss and edge
 # power to TOL, the parameters within THETA_RTOL of max |theta|; each
@@ -603,17 +665,18 @@ def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
 
 
 def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
-                   causal: bool, itemsize: int, rate: float | None = None):
+                   causal: bool, itemsize: int, rate: float | None = None,
+                   window: int | None = None):
     """Least time for one flash attention call on this card: the larger
     of its operations at `rate` FLOP/s and its bytes over HBM's rate.
     Operations: 4 * hd per kept (query, key) pair (q.k and p.v, a
     multiply-add counted as 2) for each of B * H query rows of a
-    position; kept pairs: min(l + 1, S) at position l when causal, else
-    S.  `rate` None takes the fastest rate that keeps the inputs' accuracy:
+    position; kept pairs: `kept_pairs`, with the sliding `window`.
+    `rate` None takes the fastest rate that keeps the inputs' accuracy:
     the dense bf16 tensor-core peak for bf16 (itemsize 2), the 3xTF32
     rate for float32 (TF32 alone breaks the float32 gate).  Bytes: q
     and o (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
-    pairs = kept_pairs(L, S, causal)
+    pairs = kept_pairs(L, S, causal, window)
     rate = rate or (BF16_FLOP_PER_S if itemsize == 2
                     else F32_SPLIT_FLOP_PER_S)
     t_ops = 4 * hd * B * H * pairs / rate
@@ -623,24 +686,31 @@ def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
                                         else "bytes")
 
 
-def kept_pairs(L: int, S: int, causal: bool) -> int:
-    """The (query, key) pairs one head of a flash call keeps: min(l + 1,
-    S) at position l when causal, else S."""
-    if not causal:
-        return L * S
-    if S >= L:
-        return L * (L + 1) // 2
-    return S * (S + 1) // 2 + (L - S) * S
+def kept_pairs(L: int, S: int, causal: bool,
+               window: int | None = None) -> int:
+    """The (query, key) pairs one head of a flash call keeps: at position
+    l the keys j < S with j <= l when causal and |l - j| < window with a
+    sliding window (causal at S = L: W (W + 1) / 2 + (L - W) W)."""
+    pos = np.arange(L, dtype=np.int64)
+    lo = np.zeros_like(pos) if window is None else np.maximum(
+        0, pos - window + 1)
+    hi = np.full_like(pos, S - 1)
+    if causal:
+        hi = np.minimum(hi, pos)
+    if window is not None:
+        hi = np.minimum(hi, pos + window - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def exp_floor_ms(B: int, L: int, S: int, H: int, causal: bool) -> float:
+def exp_floor_ms(B: int, L: int, S: int, H: int, causal: bool,
+                 window: int | None = None) -> float:
     """The exponentials' floor of one flash call on this card: one exp2
     per kept pair on the MUFU pipe, at its rate per clock per SM in
     `sass.RATES`.  For bf16 at hd 16 and 32 it lies above
     `flash_bound_ms`, which counts only the products and the bytes."""
     from repro_torch.kernels import sass
 
-    return 1e3 * B * H * kept_pairs(L, S, causal) / (
+    return 1e3 * B * H * kept_pairs(L, S, causal, window) / (
         sass.RATES["xu"] * SMS * CLOCK_HZ)
 
 
@@ -684,8 +754,11 @@ TRACE_PAUSE_S = 0.1
 # HBM3 at 700.00 W, once in about ten such traces).  Records are lost,
 # never made up, and a graph short of a kernel would read short on every
 # attempt (and break the bitwise match with the stepwise run), so such a
-# run is traced again, up to this many times in all.
-TRACE_ATTEMPTS = 3
+# run is traced again, up to this many times in all: three attempts all
+# read short once (fig2_iid_slab vmap S=4, 8-9 of 10 `ota_combine`), and
+# fig2_drop50's sharded 2x4 drive passed at its third, in two smoke runs
+# on that card.
+TRACE_ATTEMPTS = 5
 
 
 @contextlib.contextmanager
@@ -770,6 +843,34 @@ def lm_profile(fn, warmed=False) -> dict:
             "device_ops_per_call": len(ops),
             "top": [{"op": k[:72], "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
+
+
+def time_ms(fn, reps, warm=True):
+    """Mean CUDA-event time of `reps` back-to-back calls of `fn()`,
+    after one warm call unless `warm` is False."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(kern, plain, k_reps, p_reps, warm_plain=True):
+    """plain, kernel, kernel, plain, within one process; a plain version
+    timed in one cold call (p_reps 1, not warmed; 20-25 s at the largest
+    shapes) only before the kernel."""
+    p1 = time_ms(plain, p_reps, warm_plain)
+    k1 = time_ms(kern, k_reps)
+    k2 = time_ms(kern, k_reps)
+    if p_reps == 1 and not warm_plain:
+        return [k1, k2], [p1]
+    return [k1, k2], [p1, time_ms(plain, p_reps, warm_plain)]
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -1893,6 +1994,407 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
                       dtype=str(dtype).split(".")[-1], shape=list(shape))
 
 
+def window_sdpa(q, k, v, causal: bool, window: int):
+    """The library's yardstick for a windowed flash call: `sdpa()`,
+    `scaled_dot_product_attention` with an explicit boolean window mask
+    [L, S] on the [B, H, L, hd] layout, k and v expanded to H heads (no
+    GQA mode with a mask), and the backend it chose for these inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qs = q.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+              .contiguous() for x in (k, v))
+    d = (torch.arange(L, device=q.device)[:, None]
+         - torch.arange(S, device=q.device)[None, :])
+    keep = d.abs() < window
+    if causal:
+        keep &= d >= 0
+    backend = SDPBackend(torch._fused_sdp_choice(qs, kt, vt, keep, 0.0,
+                                                 False, scale=None,
+                                                 enable_gqa=False))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=keep)
+
+    return sdpa, backend
+
+
+def window_kernels(dev, card, record_err, timings) -> None:
+    """Phase 10a: each flash kernel with a sliding window against its
+    plain version (`flash_attention_plain(window=W)`) on the same
+    inputs, in both dtypes, at WINDOW_CASES: two launches give the same
+    bits, float32 within FLASH_F32_RTOL of max |o|, bf16 within that
+    plus one bf16 ULP (`bf16_close`), each counted on the kernel
+    `flash_route` names and on `flash_mha.window_launches`; a window of
+    at least L keys gives the unwindowed launch's bits (WINDOW_WIDE);
+    the WINDOW_TIMED cases timed by CUDA events in turns with the plain
+    version, beside the library's masked SDPA (`window_sdpa`) and
+    `flash_bound_ms` with the window.  `record_err(name, err, rel)`
+    takes each check's gap; `timings[name, label]` each timed case."""
+    from repro_torch.kernels import (LAUNCH_COUNTERS, flash_attention,
+                                     flash_attention_plain, flash_mha,
+                                     flash_route)
+
+    def counts():
+        return ({name: getattr(fn, attr) for name, (fn, attr)
+                 in LAUNCH_COUNTERS.items() if name in FLASH_RECORDS.values()},
+                flash_mha.window_launches)
+
+    def pair(q, k, v, causal, window):
+        name = FLASH_RECORDS[flash_route(q)]
+        before, wb = counts()
+        o1 = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        o2 = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        after, wa = counts()
+        want = {**before, name: before[name] + 2}
+        if after != want or wa - wb != (2 if window else 0):
+            raise SystemExit(f"flash_attention(window={window}) launched "
+                             f"{after} from {before}, windowed {wa - wb}")
+        return name, o1, o2
+
+    for i, (label, shape, window, causal) in enumerate(WINDOW_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, L, H, KV, hd = shape
+            q, k, v = flash_inputs(B, L, H, KV, hd, dtype, 140 + i, dev)
+            name, o1, o2 = pair(q, k, v, causal, window)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            torch.cuda.synchronize()
+            same = torch.equal(o1, o2)
+            err = float((o1.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            bf16 = dtype == torch.bfloat16
+            ok = (bf16_close(o1, want, FLASH_F32_RTOL) if bf16
+                  else rel <= FLASH_F32_RTOL)
+            record_err(name, err, rel)
+            log({"phase": "window", "kernel": name, "case": label,
+                 "shape_BLHKVhd": list(shape), "window": window,
+                 "causal": causal, "dtype": str(dtype).split(".")[-1],
+                 "max_abs_err": err, "max_rel_err": rel,
+                 "max_bf16_ulps": bf16_ulps(o1, want) if bf16 else None,
+                 "bitwise_repeat": same})
+            if not (same and ok and math.isfinite(rel)):
+                raise SystemExit(f"{name} with window {window} disagrees "
+                                 f"with its plain version at {label}: rel "
+                                 f"{rel}, repeat {same}")
+            if (label, dtype) in WINDOW_TIMED:
+                timings[name, f"{label} W{window}"] = window_times(
+                    name, label, q, k, v, causal, window, want, card)
+            del q, k, v, o1, o2, want
+    for shape, causal in WINDOW_WIDE:
+        for dtype in (torch.bfloat16, torch.float32):
+            B, L, H, KV, hd = shape
+            q, k, v = flash_inputs(B, L, H, KV, hd, dtype, 150, dev)
+            name, o1, _ = pair(q, k, v, causal, None)
+            same = {w: torch.equal(o1, pair(q, k, v, causal, w)[1])
+                    for w in (L, L + 1, 1 << 30)}
+            log({"phase": "window", "kernel": name, "case": "W >= L is "
+                 "the unwindowed launch, bit for bit",
+                 "shape_BLHKVhd": list(shape), "causal": causal,
+                 "dtype": str(dtype).split(".")[-1],
+                 "bitwise_equal_by_window": same})
+            if not all(same.values()):
+                raise SystemExit(f"{name}: a window >= L changed bits at "
+                                 f"{shape}: {same}")
+            del q, k, v, o1
+
+
+def window_times(name, label, q, k, v, causal, window, want, card) -> dict:
+    """One windowed flash case timed: the kernel (CUDA events, 2 x 10
+    calls) and its plain version (2 x 2) in turns, the library's masked
+    SDPA (`window_sdpa`, held to the kernel's output within 1e-2 of max
+    |o|: it rounds p to the inputs' dtype), `flash_bound_ms` and
+    `exp_floor_ms` with the window."""
+    from torch.nn.attention import sdpa_kernel
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    ks, ps = in_turns(
+        lambda: flash_attention(q, k, v, causal=causal, window=window),
+        lambda: flash_attention_plain(q, k, v, causal=causal,
+                                      window=window), 10, 2)
+    sdpa, backend = window_sdpa(q, k, v, causal, window)
+    with sdpa_kernel(backend):
+        lib = [time_ms(sdpa, 10), time_ms(sdpa, 10)]
+        o_lib = sdpa().transpose(1, 2).reshape(want.shape)
+    lib_gap = float((o_lib.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+    if not lib_gap <= 1e-2:
+        raise SystemExit(f"the masked SDPA yardstick is {lib_gap} from the "
+                         f"plain version at {label}")
+    bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, causal,
+                                     q.element_size(), window=window)
+    pairs = kept_pairs(L, L, causal, window)
+    ms = sum(ks) / 2
+    dtype = str(q.dtype).split(".")[-1]
+    log({"phase": "window_times", "kernel": name, "shape": label,
+         "shape_BLHKVhd": [B, L, H, KV, hd], "window": window,
+         "causal": causal, "dtype": dtype, "kernel_ms": ks, "plain_ms": ps,
+         "library_ms": lib, "library_call": "scaled_dot_product_attention("
+         "attn_mask=the boolean window mask) on [B, H, L, hd], k and v "
+         "expanded to H heads", "library_backend": backend.name,
+         "library_vs_plain_rel_gap": lib_gap,
+         "kept_pairs_per_head": pairs,
+         "kernel_tflops": 4 * hd * B * H * pairs / ms / 1e9,
+         "bound_ms": bound, "bound_by": bound_by,
+         "unwindowed_bound_ms": flash_bound_ms(B, L, L, H, KV, hd, causal,
+                                               q.element_size())[0],
+         "exp_floor_ms": exp_floor_ms(B, L, L, H, causal, window),
+         "card": card})
+    return dict(ms=ms, plain_ms=sum(ps) / len(ps), bound_ms=bound,
+                bound_by=bound_by, library_ms=sum(lib) / 2, dtype=dtype,
+                shape=[B, L, H, KV, hd], window=window, causal=causal)
+
+
+def window_prefill(dev, card, counted, expect) -> None:
+    """Phase 10b: qwen2-0.5b as registered with ``sliding_window`` set to
+    its ``long_context_window`` (8,192), prefilled at bf16 at
+    prefill_32k's full shape (32 x 32,768 positions) through
+    `serve.build_prefill_step`: exactly 24 launches of the bf16 kernel,
+    each with the window (`flash_mha.window_launches`), and none of the
+    others, by the count and in the profiler, finite logits (the cold
+    call, `prefill_path`); then a warm call timed and profiled
+    (`lm_profile`: wall ms, device ms, busy share), and the peak of
+    device memory over both."""
+    from repro_torch import prng
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import flash_mha
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(LM_ARCH)
+    cfg = cfg.with_(sliding_window=cfg.long_context_window)
+    shape = INPUT_SHAPES["prefill_32k"]
+    params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+    served = serve.compute_params(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"{cfg.name} prefill_32k W{cfg.sliding_window}"
+    flash_mha.window_launches = 0
+    step, batch = prefill_path(
+        label, cfg, served, "flash_mha_wgmma", shape, dev, counted, expect,
+        "none: qwen2-0.5b as registered, prefill_32k's 32 x 32,768")
+    windowed = flash_mha.window_launches
+    if windowed != cfg.n_layers:
+        raise SystemExit(f"{label}: {windowed} windowed flash launches, "
+                         f"not {cfg.n_layers}")
+
+    def call():
+        step(served, batch)
+        torch.cuda.synchronize()
+
+    rec = lm_profile(call, warmed=True)
+    B, L = batch["tokens"].shape
+    log({"phase": "window_prefill", "run": label, "shape_BL": [B, L],
+         "window": cfg.sliding_window, "windowed_launches": windowed,
+         **rec, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "flash_bound_ms_per_layer": flash_bound_ms(
+             B, L, L, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, 2,
+             window=cfg.sliding_window)[0],
+         "unwindowed_flash_bound_ms_per_layer": flash_bound_ms(
+             B, L, L, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True,
+             2)[0], "card": card})
+    del served, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def long_decode(dev, card, counted, expect) -> None:
+    """Phase 10c: long_500k (batch 1, a cache of 524,288 positions)
+    through `serve.build_decode_step`: qwen2-0.5b as registered, whose
+    attention caches are rings of ``long_context_window`` = 8,192 slots
+    (`serve.decode_window`) with pos at 524,287, so the first step
+    writes slot 8,191 and the next ones wrap to slots 0, 1, 2; and
+    mamba2-780m, whose O(1) state holds no positions.  LONG_STEPS steps
+    each from zero caches: no kernel of ours, finite logits, pos
+    advanced by one a step, the ring written exactly at those slots in
+    every layer; the warm step's ms, and the peak of device memory."""
+    from repro_torch import prng
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    shape = INPUT_SHAPES["long_500k"]
+    for arch in (LM_ARCH, "mamba2-780m"):
+        cfg = get_config(arch)
+        params = lm.init_params(prng.PRNGKey(0, dev), cfg)
+        served = serve.compute_params(params, cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, token_specs = serve.build_decode_step(cfg, shape,
+                                                    device=dev.type)
+        specs = serve.cache_specs(cfg, shape)
+        cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                               device=dev), specs)
+        if "attn" in cache:
+            cache["attn"]["pos"].fill_(shape.seq_len - 1)
+        tok = torch.zeros(tuple(token_specs().shape), dtype=torch.int32,
+                          device=dev)
+
+        def steps():
+            nonlocal cache
+            ms, outs = [], []
+            for t in range(LONG_STEPS):
+                t0 = time.perf_counter()
+                logits, cache = step(served, cache, tok + t)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                outs.append(logits)
+            return ms, outs
+
+        (ms, outs), launches = counted(steps)
+        ok = all(bool(torch.isfinite(o).all()) and tuple(o.shape) == (
+            shape.global_batch, cfg.vocab) for o in outs)
+        rec = {}
+        window = serve.decode_window(cfg, shape)
+        if "attn" in cache:
+            S = cache["attn"]["k"].shape[2]
+            slots = [(shape.seq_len - 1 + t) % S for t in range(LONG_STEPS)]
+            written = (cache["attn"]["k"].abs().sum(dim=(0, 1, 3, 4)) > 0
+                       ).nonzero().flatten().tolist()
+            pos = cache["attn"]["pos"]
+            ok = ok and S == window and sorted(written) == sorted(slots) \
+                and bool((pos == shape.seq_len - 1 + LONG_STEPS).all())
+            rec = {"ring_slots": S, "slots_written": slots,
+                   "slots_found_written": written,
+                   "pos_after": int(pos.max())}
+        log({"phase": "long_decode", "run": f"{arch} long_500k decode",
+             "batch": shape.global_batch, "seq_len": shape.seq_len,
+             "window": window, "steps": LONG_STEPS, "step_ms": ms,
+             "warm_step_ms": min(ms[1:]), **rec,
+             "cache_bytes": sum(t.numel() * t.element_size()
+                                for _, t in tree_leaves(cache)),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "card": card})
+        expect(f"{arch} long_500k decode", launches, {}, ok)
+        del served, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def window_vs_cpu(dev, card) -> None:
+    """Phase 10d: reduced dense, encdec and hybrid configs with
+    ``sliding_window`` = WINDOW_REDUCED (below the 64 positions and the
+    encoder's 16 frames), float32 compute and parameters, card (the
+    tf32 kernel with the window) vs CPU (its plain version) on the same
+    weights: `prefill_logits` within TOL of max |logit|; `lm_loss` within
+    TOL and its gradient within TOL of max |g| (phase 9's bounds); then
+    the windowed attention gradient at (2, 4096, 14, 2, 64), W 1024,
+    causal: `flash_attention_autograd` against autograd through
+    `flash_attention_plain` within ATTN_GRAD_TOL of max |g| in both
+    dtypes, and `attention_vjp`'s time (over 4,096 / 512 query blocks of
+    at most 512 + 1,023 keys) against the windowed kernel forward's and
+    the unwindowed backward's."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (attention_vjp, flash_attention,
+                                     flash_attention_autograd,
+                                     flash_attention_plain)
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    f32 = dict(compute_dtype="float32", param_dtype="float32",
+               sliding_window=WINDOW_REDUCED)
+    for arch in ("qwen2-0.5b", "seamless-m4t-medium", "zamba2-7b"):
+        cfg = get_config(arch).reduced().with_(**f32)
+        params = lm.init_params(prng.PRNGKey(0), cfg)
+        g = torch.Generator().manual_seed(43)
+        b = {k: torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                              dtype=torch.int32) for k in ("tokens",
+                                                           "labels")}
+        if cfg.family == "encdec":
+            b["src_frames"] = torch.randn(2, cfg.enc_src_frames,
+                                          cfg.d_model, generator=g)
+        res = {}
+        for where in (dev.type, "cpu"):
+            p = tree_map(lambda t: t.to(where).requires_grad_(), params)
+            bw = {k: v.to(where) for k, v in b.items()}
+            with torch.no_grad():
+                logits = lm.prefill_logits(p, bw, cfg).cpu()
+            loss, _ = lm.lm_loss(p, bw, cfg, loss_block=32)
+            grads = torch.autograd.grad(loss, [t for _, t in
+                                               tree_leaves(p)])
+            res[where] = (logits, float(loss.detach()),
+                          [t.cpu() for t in grads])
+        (lo_card, l_card, g_card), (lo_cpu, l_cpu, g_cpu) = (
+            res[dev.type], res["cpu"])
+        logit_gap = float((lo_card - lo_cpu).abs().max()
+                          / lo_cpu.abs().max())
+        g_max = max(float(t.abs().max()) for t in g_cpu)
+        g_gap = max(float((a - b).abs().max()) for a, b in
+                    zip(g_card, g_cpu)) / g_max
+        loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
+        ok = logit_gap <= TOL and loss_gap <= TOL and g_gap <= TOL
+        log({"phase": "window_vs_cpu", "run": f"{arch} reduced W"
+             f"{WINDOW_REDUCED} f32, card vs CPU", "logits_rel_gap":
+             logit_gap, "loss_card": l_card, "loss_cpu": l_cpu,
+             "loss_rel_gap": loss_gap, "grad_gap_rel_max": g_gap,
+             "tol": TOL, "ok": ok})
+        if not ok:
+            raise SystemExit(f"{arch} with a window: card vs CPU logits "
+                             f"{logit_gap}, loss {loss_gap}, gradient "
+                             f"{g_gap}")
+    B, L, H, KV, hd = 2, 4096, 14, 2, 64
+    W = 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = [t.requires_grad_() for t in flash_inputs(
+            B, L, H, KV, hd, dtype, 33, dev)]
+        g = torch.Generator(device=dev).manual_seed(34)
+        do = torch.randn(B, L, H * hd, generator=g, device=dev).to(dtype)
+        got = torch.autograd.grad(flash_attention_autograd(
+            q, k, v, causal=True, q_block=512, window=W), (q, k, v), do)
+        want = torch.autograd.grad(flash_attention_plain(
+            q, k, v, causal=True, q_block=512, kv_block=1024, window=W),
+            (q, k, v), do)
+        errs = [float((a.float() - b.float()).abs().max())
+                / float(b.float().abs().max()) for a, b in zip(got, want)]
+        del got, want
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        times = {
+            "forward_ms": time_ms(lambda: flash_attention(
+                qd, kd, vd, causal=True, window=W), 10),
+            "vjp_ms": time_ms(lambda: attention_vjp(
+                qd, kd, vd, do, causal=True, q_block=512, window=W), 3),
+            "unwindowed_vjp_ms": time_ms(lambda: attention_vjp(
+                qd, kd, vd, do, causal=True, q_block=512), 3)}
+        name = str(dtype).split(".")[-1]
+        log({"phase": "window_vs_cpu", "run": f"windowed attention "
+             f"gradient {name}", "what": "flash_attention_autograd(window) "
+             "vs autograd through flash_attention_plain(window), on the "
+             "card", "shape_BLHKVhd": [B, L, H, KV, hd], "window": W,
+             "max_rel_err_dq_dk_dv": errs, "tol": ATTN_GRAD_TOL[dtype],
+             **times, "vjp_over_forward": times["vjp_ms"]
+             / times["forward_ms"], "card": card})
+        if not max(errs) <= ATTN_GRAD_TOL[dtype]:
+            raise SystemExit(f"windowed attention gradient {name}: {errs}")
+        del q, k, v, do, qd, kd, vd
+
+
+def window_phase(dev, card, counted, expect, record_err, timings) -> None:
+    """Phase 10, sliding-window attention: 10a the kernels
+    (`window_kernels`), 10b the windowed prefill at full width
+    (`window_prefill`), 10c long_500k decode (`long_decode`), 10d card
+    vs CPU and the windowed gradient (`window_vs_cpu`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    window_kernels(dev, card, record_err, timings)
+    window_prefill(dev, card, counted, expect)
+    long_decode(dev, card, counted, expect)
+    window_vs_cpu(dev, card)
+
+
 def kernel_inputs(B, U, K, N, seed, dev):
     """Edge-shape inputs: transmit symbols, amplitudes and an
     own-cluster mask (all ones for B = 1)."""
@@ -2104,7 +2606,7 @@ def drive_ops(prof):
               and e.device_type() == DeviceType.CPU]
     ops = [e for e in events if e.device_type() == DeviceType.CUDA
            and e.name() != "SweepRunner.drive"
-           and not e.is_user_annotation()]
+           and not e.is_user_annotation() and SPIN_KERNEL not in e.name()]
     inside = [e for e in ops
               if any(lo <= e.start_ns() <= hi for lo, hi in drives)]
     return ops, inside, drives
@@ -2168,14 +2670,20 @@ def device_profile(runner, sc) -> dict:
 def traced_drives(runner_cls, traces):
     """Every drive of a `runner_cls` (either engine, also through the
     CLI) inside the block under a `device_trace` of its own (not the
-    runs' set-up, warm-up or the chunked driver's captures); the traces
-    appended to `traces` as the drives end."""
+    runs' set-up, warm-up or the chunked driver's captures), which
+    starts with the `lead_in` spins, as the LM traces do: traces of the
+    fig2_iid_slab vmap S=4 chunked drive lost one or two of its 10
+    ota_combine records in each of three attempts on the H100 80GB HBM3
+    at 700.00 W without them (and in two of three in an earlier run); the
+    traces appended to `traces` as the drives end."""
     drive_range = runner_cls._drive_range
 
     @contextlib.contextmanager
     def traced(self):
-        with device_trace() as prof, drive_range(self):
-            yield
+        with device_trace() as prof:
+            lead_in()
+            with drive_range(self):
+                yield
         traces.append(prof)
 
     runner_cls._drive_range = traced
@@ -3716,30 +4224,6 @@ def main() -> int:
              "chunked_over_stepwise": rates["chunked"] / rates["stepwise"]})
 
     # -- phase 7: kernel times ---------------------------------------------
-    def time_ms(fn, reps, warm=True):
-        if warm:
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def in_turns(kern, plain, k_reps, p_reps, warm_plain=True):
-        """plain, kernel, kernel, plain, within one process; a plain
-        version timed in one cold call (p_reps 1, not warmed; 20-25 s at
-        the largest shapes) only before the kernel."""
-        p1 = time_ms(plain, p_reps, warm_plain)
-        k1 = time_ms(kern, k_reps)
-        k2 = time_ms(kern, k_reps)
-        if p_reps == 1 and not warm_plain:
-            return [k1, k2], [p1]
-        return [k1, k2], [p1, time_ms(plain, p_reps, warm_plain)]
-
     timings = {}
     # (the plain version at fig3's cluster hop, 1.46 s a call, is timed
     # in one cold call)
@@ -4091,7 +4575,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phase(dev, card, expect)
 
-    # -- phase 10: the records ---------------------------------------------
+    # -- phase 10: sliding-window attention ---------------------------------
+    def record_err(name, err, rel):
+        errors[name] = max(errors[name], err)
+        rel_errors[name] = max(rel_errors[name], rel)
+
+    window_phase(dev, card, counted, expect, record_err, timings)
+
+    # -- phase 11: the records ---------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",
@@ -4155,5 +4646,38 @@ def training_only() -> int:
     return 0
 
 
+def window_only() -> int:
+    """``python3 chip_smoke.py --window``: phases 1 and 2 for the flash
+    kernels alone, then phase 10 (sliding-window attention), with launch
+    counts as `main` keeps them; no kernel records."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs a CUDA "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flash = [src for src in SOURCES if src.startswith("flash")]
+    build.load_all(flash)
+    for name in flash:
+        log({"phase": "build", "source": f"csrc/{name}.cu",
+             "ptxas": [ln.strip() for ln in build.build_info(name)[1]
+                       .splitlines() if "registers" in ln or "spill" in ln
+                       or "entry function" in ln]})
+
+    window_phase(torch.device("cuda"), card.splitlines()[0], counted,
+                 check_launches, lambda *_: None, {})
+    log({"phase": "done", "seconds": time.perf_counter() - T_START})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(training_only() if sys.argv[1:] == ["--training"] else main())
+    MODES = {"--training": training_only, "--window": window_only}
+    sys.exit(MODES[sys.argv[1]]() if len(sys.argv) == 2
+             and sys.argv[1] in MODES else main())

@@ -65,7 +65,7 @@ class ArchConfig:
     # attention implementation (the JAX package's perf knobs; in the port
     # both "blocked" and "online" prefill run the flash_mha kernel)
     attn_impl: str = "blocked"   # "blocked" | "online"
-    scores_f32: bool = True      # False: bf16 scores (not ported)
+    scores_f32: bool = True      # False: bf16 scores (f32 row-max/denominator)
     kv_block: int = 1024         # kv block for attn_impl="online"
     seq_shard_attn: bool = False # shard q-seq over 'model' when heads cannot
     moe_token_shard: bool = False  # token-sharded MoE dispatch/combine

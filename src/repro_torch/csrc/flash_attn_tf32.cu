@@ -12,7 +12,8 @@
 // over the L positions), with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
-//   s[j]  = NEG_INF (-1e30) where causal and j > l
+//   s[j]  = NEG_INF (-1e30) where causal and j > l, or where a sliding
+//           window of W > 0 keys is set and |l - j| >= W
 //   o[r]  = sum_j softmax(s)[j] v[j]
 //
 // through the online-softmax recurrence over key tiles in ascending
@@ -91,9 +92,19 @@
 //   swizzled column block, and a k8 step is 32 bytes, so the
 //   descriptors step as the bf16 kernel's k16 ones do;
 // - the mask and the online softmax run in the accumulator's registers;
-//   a row's max and sum take two xor shuffles each; tiles past S or
-//   wholly past the block's largest position are never loaded (the
-//   exact test, `key_tiles`);
+//   a row's max and sum take two xor shuffles each; the block walks the
+//   key tiles [first, end) of `key_tiles` (producer and consumers
+//   alike), so tiles past S, wholly past the block's largest position
+//   when causal, or outside every row's sliding window are never
+//   loaded; the per-element mask runs only on the tiles `tile_masked`
+//   names, behind a branch uniform over the warpgroup, as in
+//   csrc/flash_attn_wgmma.cu.  A window's first tile may be wholly
+//   masked for some rows:
+//   as in csrc/flash_attn_wgmma.cu, their running max stays NEG_INF
+//   (finite), each masked key adds p = 1, and corr = 2^(NEG_INF -
+//   m_new) = 0 at the row's first kept key wipes l and the folded acc
+//   exactly (acc corr + pv: a product by 0, then the fresh tile's pv);
+//   every row keeps its own key, so l > 0 at the end;
 // - P V is 3 x KB / 8 register-A wgmma m64n{PN}k8 per PN = min(hd, 64)
 //   output columns:
 //   p split into tf32 hi and lo in registers, V^T hi and lo from the
@@ -297,7 +308,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
                   const __grid_constant__ CUtensorMap tmap_v,
                   const float* __restrict__ q, float* __restrict__ o,
                   int NB, int KV, int G, int L, int S, Layout lq, Layout lout,
-                  float scale, int causal) {
+                  float scale, int causal, int window) {
   static_assert(COLS == HD || (HD == kMinHD && COLS == 16) ||
                     (HD == 128 && COLS == 112),
                 "columns");
@@ -345,12 +356,14 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // ---- producer: one thread keeps both rings full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      const int n_tiles = key_tiles<kQB, KB>(r0, rows, L, S, causal);
+      const TileRange tr = key_tiles<kQB, KB>(r0, rows, L, S, causal,
+                                              window);
       const int n = blockIdx.y;
-      // K tile t, then V^T tile t, each once its stage has been freed
-      for (int t = 0; t < n_tiles; ++t) {
-        const int ks = t % KS, vs = t % VS;
-        mbar_wait(smem_addr(&k_empty[ks]), ((t / KS) & 1) ^ 1);
+      // K tile t, then V^T tile t, each once its stage has been freed;
+      // visit i (tile first + i) uses stages i % KS and i % VS
+      for (int t = tr.first, i = 0; t < tr.end; ++t, ++i) {
+        const int ks = i % KS, vs = i % VS;
+        mbar_wait(smem_addr(&k_empty[ks]), ((i / KS) & 1) ^ 1);
         const uint32_t kf = smem_addr(&k_full[ks]);
         mbar_expect_tx(kf, C::STAGE_BYTES);
 #pragma unroll
@@ -359,7 +372,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
           for (int cb = 0; cb < HD / 32; ++cb)
             tma_load(k_stage(ks) + part * C::OP_BYTES + cb * C::K_BLOCK,
                      &tmap_k, kf, cb * 32, t * KB, part * NB + n);
-        mbar_wait(smem_addr(&v_empty[vs]), ((t / VS) & 1) ^ 1);
+        mbar_wait(smem_addr(&v_empty[vs]), ((i / VS) & 1) ^ 1);
         const uint32_t vf = smem_addr(&v_full[vs]);
         mbar_expect_tx(vf, C::STAGE_BYTES);
 #pragma unroll
@@ -376,7 +389,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_r0 = r0 + w * kWgRows;
     if (wg_r0 >= rows) return;           // the block's last rows are fewer
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int n_tiles = key_tiles<kQB, KB>(r0, rows, L, S, causal);
+    const TileRange tr = key_tiles<kQB, KB>(r0, rows, L, S, causal, window);
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
     const uint32_t q_hi = base + w * C::WG_Q_BYTES;
@@ -417,8 +430,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int r = min(wg_r0 + warp * 16 + lane / 4 + 8 * h, rows - 1);
       pos[h] = r % L;
     }
-    const int wg_last = min(wg_r0 + kWgRows, rows) - 1;
-    const int min_pos = wg_r0 / L == wg_last / L ? wg_r0 % L : 0;
+    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L);
 
     float acc[HD / 2];
 #pragma unroll
@@ -427,12 +439,12 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const float scale_log2 = scale * kLog2e;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int ks = t % KS, vs = t % VS;
+    for (int t = tr.first, i = 0; t < tr.end; ++t, ++i) {
+      const int ks = i % KS, vs = i % VS;
       const int j0 = t * KB;
       const uint32_t k_hi = k_stage(ks), k_lo = k_hi + C::OP_BYTES;
       const uint32_t v_hi = v_stage(vs), v_lo = v_hi + C::OP_BYTES;
-      mbar_wait(smem_addr(&k_full[ks]), (t / KS) & 1);
+      mbar_wait(smem_addr(&k_full[ks]), (i / KS) & 1);
 
       // S = Q K^T, split: hi hi + hi lo + lo hi
       float s[KB / 2];
@@ -451,16 +463,27 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       if (lane == 0) mbar_arrive(smem_addr(&k_empty[ks]));
 
       // scale, mask, and the online softmax in registers
-      const bool masked = j0 + KB > S || (causal && j0 + KB - 1 > min_pos);
+      const bool masked = tile_masked<KB>(j0, S, causal, window, wp.min_pos,
+                                          wp.max_pos);
       float mx[2] = {kNegInf, kNegInf};
+      if (masked) {
 #pragma unroll
-      for (int i = 0; i < KB / 2; ++i) {
-        const int h = (i / 2) % 2;
-        const int j = j0 + 8 * (i / 4) + 2 * quad + i % 2;
-        float x = s[i] * scale_log2;
-        if (masked && (j >= S || (causal && j > pos[h]))) x = kNegInf;
-        s[i] = x;
-        mx[h] = fmaxf(mx[h], x);
+        for (int e = 0; e < KB / 2; ++e) {
+          const int h = (e / 2) % 2;
+          const int j = j0 + 8 * (e / 4) + 2 * quad + e % 2;
+          float x = s[e] * scale_log2;
+          if (key_masked(j, pos[h], S, causal, window)) x = kNegInf;
+          s[e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < KB / 2; ++e) {
+          const int h = (e / 2) % 2;
+          const float x = s[e] * scale_log2;
+          s[e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
       }
       float corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -499,7 +522,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       }
       // per PN output columns nh: pv = p_hi V_hi + p_hi V_lo + p_lo V_hi,
       // then acc = acc corr + pv
-      mbar_wait(smem_addr(&v_full[vs]), (t / VS) & 1);
+      mbar_wait(smem_addr(&v_full[vs]), (i / VS) & 1);
 #pragma unroll
       for (int nh = 0; nh < HD / PN; ++nh) {
         const uint32_t rows_nh = nh * PN * kSW;                // V^T's
@@ -516,9 +539,9 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
         wgmma_wait_all();
         fence_regs(pv);
 #pragma unroll
-        for (int i = 0; i < PN / 2; ++i)
-          acc[PN / 2 * nh + i] = __fadd_rn(
-              __fmul_rn(acc[PN / 2 * nh + i], corr[(i / 2) % 2]), pv[i]);
+        for (int e = 0; e < PN / 2; ++e)
+          acc[PN / 2 * nh + e] = __fadd_rn(
+              __fmul_rn(acc[PN / 2 * nh + e], corr[(e / 2) % 2]), pv[e]);
       }
       if (lane == 0) mbar_arrive(smem_addr(&v_empty[vs]));
     }
@@ -582,7 +605,8 @@ int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
 // split at vts, both HD wide).
 template <int HD, int COLS>
 int launch(const float* ks, const float* vts, const void* q, void* o,
-           int causal, int NB, int KV, int G, int L, int S, long long S_pad,
+           int causal, int window, int NB, int KV, int G, int L, int S,
+           long long S_pad,
            long long tiles, const Layout& lq, const Layout& lout,
            float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
@@ -597,7 +621,7 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
   flash_tf32_kernel<HD, COLS><<<dim3(static_cast<unsigned>(tiles), NB),
                                 kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const float*>(q), static_cast<float*>(o),
-      NB, KV, G, L, S, lq, lout, scale, causal);
+      NB, KV, G, L, S, lq, lout, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -605,8 +629,10 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 
 // q, o: NB * G * L query rows; k, v: NB * S keys; float32 (dtype 0, the
 // wrapper's code; any other dtype is refused), head_dim `hd` 16, 32, 64,
-// 112 or 128 (any other is refused).  Pair n = b * KV + kv
-// reads query row r = g * L + l at
+// 112 or 128 (any other is refused); `window` > 0 a sliding window of
+// that many keys (key j kept for position l when |l - j| < window), 0
+// none; a window needs L < S + window, so that every row keeps a key.
+// Pair n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
 // and writes o + b * st[9] + l * st[10] + (kv * G + g) * st[11]; strides
@@ -620,15 +646,17 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 // 10000 + the CUresult where cuTensorMapEncodeTiled refuses a map.
 extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
-                                      int hd, int causal, int NB, int KV,
-                                      int G, int L, int S,
+                                      int hd, int causal, int window,
+                                      int NB, int KV, int G, int L, int S,
                                       const long long* strides, float scale,
                                       void* scratch, void* stream) {
   if (dtype != 0 ||
       (hd != 16 && hd != 32 && hd != 64 && hd != 112 && hd != 128))
     return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
-  if (S <= 0 || KV <= 0 || NB % KV || NB > 65535)
+  if (S <= 0 || KV <= 0 || NB % KV || NB > 65535 || window < 0 ||
+      (window > 0 && static_cast<long long>(L) >=
+                         static_cast<long long>(S) + window))
     return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(G) * L;
   const long long tiles = (rows + kQB - 1) / kQB;
@@ -663,20 +691,20 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (hd) {
     case 16:
-      return launch<32, 16>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
-                            tiles, lq, lout, scale, st);
+      return launch<32, 16>(ks, vts, q, o, causal, window, NB, KV, G, L,
+                            S, S_pad, tiles, lq, lout, scale, st);
     case 32:
-      return launch<32, 32>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
-                            tiles, lq, lout, scale, st);
+      return launch<32, 32>(ks, vts, q, o, causal, window, NB, KV, G, L,
+                            S, S_pad, tiles, lq, lout, scale, st);
     case 64:
-      return launch<64, 64>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
-                            tiles, lq, lout, scale, st);
+      return launch<64, 64>(ks, vts, q, o, causal, window, NB, KV, G, L,
+                            S, S_pad, tiles, lq, lout, scale, st);
     case 112:
-      return launch<128, 112>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
-                              tiles, lq, lout, scale, st);
+      return launch<128, 112>(ks, vts, q, o, causal, window, NB, KV, G, L,
+                              S, S_pad, tiles, lq, lout, scale, st);
     case 128:
-      return launch<128, 128>(ks, vts, q, o, causal, NB, KV, G, L, S, S_pad,
-                              tiles, lq, lout, scale, st);
+      return launch<128, 128>(ks, vts, q, o, causal, window, NB, KV, G, L,
+                              S, S_pad, tiles, lq, lout, scale, st);
   }
   return cudaErrorInvalidValue;
 }

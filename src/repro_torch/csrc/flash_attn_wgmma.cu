@@ -10,7 +10,8 @@
 // L positions), with position l = r mod L:
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
-//   s[j]  = NEG_INF (-1e30) where causal and j > l
+//   s[j]  = NEG_INF (-1e30) where causal and j > l, or where a sliding
+//           window of W > 0 keys is set and |l - j| >= W
 //   o[r]  = sum_j softmax(s)[j] v[j]
 //
 // through the online-softmax recurrence over key tiles in ascending
@@ -72,10 +73,30 @@
 //   the upcast inputs up to summation order;
 // - the softmax runs in the accumulator's registers: a row's scores sit
 //   on a quad of lanes, so its max and sum take two xor shuffles each,
-//   which give every lane the same bits; the mask is applied only to
-//   tiles that reach past the warpgroup's smallest position or past S,
-//   and a key tile past the block's largest position is never loaded
-//   (the exact test, `key_tiles`);
+//   which give every lane the same bits; the per-element mask runs
+//   only on tiles that reach past the warpgroup's smallest position or
+//   past S, or across an edge of one of its rows' windows
+//   (`tile_masked`): a branch, uniform over the warpgroup, so the other
+//   tiles run no test at all (predicated per element, as before the
+//   window, the test cost every tile; the branch took the unwindowed
+//   kernel from 0.73 to 0.50 ms at qwen2-0.5b's prefill shape, the same
+//   bits, PERF.md; ptxas now spills 52 and 160 bytes at hd 64 and 128);
+//   a key tile outside every row's range (past the block's largest
+//   position when causal; before the smallest position's window or,
+//   bidirectional, after the largest one's) is never loaded: the block
+//   walks the key tiles [first, end) of `key_tiles`, producer and
+//   consumers alike;
+// - a sliding window: the block's first tile may be wholly masked for
+//   some of its rows (rows of one 128-row block start their windows at
+//   different keys).  Such a row's running max stays NEG_INF, finite,
+//   so each masked key adds p = 2^0 = 1 to l and v to acc; at the row's
+//   first kept key m_new is a real score and corr = 2^(NEG_INF - m_new)
+//   is exactly 0 (`exp2_ftz` of -1e30), which wipes l and acc, and each
+//   later masked key gets p = 0.  Every row keeps its own key, so l > 0
+//   at the end.  A fully masked tile after the first kept key leaves
+//   (m, l, acc) unchanged (corr = 1, p = 0), so the skip gives the bits
+//   of visiting every tile; with W >= max(L, S) the range and the mask
+//   are those of W = 0, the same bits;
 // - P V keeps p at about 2^-17 relative: p is split into bf16 hi =
 //   bf16(p) and lo = bf16(p - hi), and two register-A wgmmas
 //   (m64n{hd}k16, V as an MN-major B operand with the SW-byte swizzle,
@@ -200,7 +221,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                    const __grid_constant__ CUtensorMap tmap_v,
                    const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ o, int KV, int G, int L,
-                   int S, Layout lq, Layout lo, float scale, int causal) {
+                   int S, Layout lq, Layout lo, float scale, int causal,
+                   int window) {
   static_assert(COLS == HD || (HD == 128 && COLS == 112), "columns");
   using C = Cfg<HD>;
   constexpr int STAGES = C::STAGES;
@@ -241,12 +263,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      const int n_tiles = key_tiles<kQB, kKB>(r0, rows, L, S, causal);
+      const TileRange tr = key_tiles<kQB, kKB>(r0, rows, L, S, causal,
+                                               window);
       const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % STAGES;
+      // visit i (tile first + i) uses stage i % STAGES
+      for (int t = tr.first, i = 0; t < tr.end; ++t, ++i) {
+        const int st = i % STAGES;
         const uint32_t full = smem_addr(&full_bar[st]);
-        mbar_wait(smem_addr(&empty_bar[st]), ((t / STAGES) & 1) ^ 1);
+        mbar_wait(smem_addr(&empty_bar[st]), ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, 2 * C::TILE_BYTES);
 #pragma unroll
         for (int cb = 0; cb < C::CB; ++cb) {
@@ -264,7 +288,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_r0 = r0 + w * kWgRows;
     if (wg_r0 >= rows) return;           // the block's last rows are fewer
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int n_tiles = key_tiles<kQB, kKB>(r0, rows, L, S, causal);
+    const TileRange tr = key_tiles<kQB, kKB>(r0, rows, L, S, causal, window);
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
     const uint32_t q_slot = base + w * C::WG_Q_BYTES;
@@ -296,8 +320,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int r = min(wg_r0 + warp * 16 + lane / 4 + 8 * h, rows - 1);
       pos[h] = r % L;
     }
-    const int wg_last = min(wg_r0 + kWgRows, rows) - 1;
-    const int min_pos = wg_r0 / L == wg_last / L ? wg_r0 % L : 0;
+    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L);
 
     float acc[HD / 2];
 #pragma unroll
@@ -306,10 +329,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const float scale_log2 = scale * kLog2e;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % STAGES;
+    for (int t = tr.first, i = 0; t < tr.end; ++t, ++i) {
+      const int st = i % STAGES;
       const int j0 = t * kKB;
-      mbar_wait(smem_addr(&full_bar[st]), (t / STAGES) & 1);
+      mbar_wait(smem_addr(&full_bar[st]), (i / STAGES) & 1);
 
       // S = Q K^T: k16 step kk is 32 bytes into column block kk / SPB
       constexpr int SPB = SW / 32;
@@ -327,16 +350,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       fence_regs(s);
 
       // scale, mask, and the online softmax in registers
-      const bool masked = j0 + kKB > S || (causal && j0 + kKB - 1 > min_pos);
+      const bool masked = tile_masked<kKB>(j0, S, causal, window,
+                                           wp.min_pos, wp.max_pos);
       float mx[2] = {kNegInf, kNegInf};
+      if (masked) {
 #pragma unroll
-      for (int i = 0; i < kKB / 2; ++i) {
-        const int h = (i / 2) % 2;
-        const int j = j0 + 8 * (i / 4) + 2 * quad + i % 2;
-        float x = s[i] * scale_log2;
-        if (masked && (j >= S || (causal && j > pos[h]))) x = kNegInf;
-        s[i] = x;
-        mx[h] = fmaxf(mx[h], x);
+        for (int e = 0; e < kKB / 2; ++e) {
+          const int h = (e / 2) % 2;
+          const int j = j0 + 8 * (e / 4) + 2 * quad + e % 2;
+          float x = s[e] * scale_log2;
+          if (key_masked(j, pos[h], S, causal, window)) x = kNegInf;
+          s[e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kKB / 2; ++e) {
+          const int h = (e / 2) % 2;
+          const float x = s[e] * scale_log2;
+          s[e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
       }
       float corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -354,9 +388,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int kk = 0; kk < kKB / 16; ++kk) {
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
-          const int i = 8 * kk + 2 * a, h = a % 2;
-          const float p0 = exp2_ftz(s[i] - m[h]);
-          const float p1 = exp2_ftz(s[i + 1] - m[h]);
+          const int e = 8 * kk + 2 * a, h = a % 2;
+          const float p0 = exp2_ftz(s[e] - m[h]);
+          const float p1 = exp2_ftz(s[e + 1] - m[h]);
           sum[h] += p0;
           sum[h] += p1;
           const uint32_t hi = pack_bf16(p0, p1);
@@ -371,7 +405,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
         l[h] = l[h] * corr[h] + sum[h];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      for (int e = 0; e < HD / 2; ++e) acc[e] *= corr[(e / 2) % 2];
 
       // acc += p_hi V + p_lo V: V's k16 step kk is its rows 16 kk ..
       // 16 kk + 15, column blocks kKB * SW bytes apart
@@ -455,8 +489,8 @@ int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
 
 template <int HD, int COLS = HD>
 int launch(const void* q, const void* k, const void* v, void* o, int causal,
-           int NB, int KV, int G, int L, int S, const long long* st,
-           float scale, cudaStream_t stream) {
+           int window, int NB, int KV, int G, int L, int S,
+           const long long* st, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   const long long rows = static_cast<long long>(G) * L;
   const long long tiles = (rows + kQB - 1) / kQB;
@@ -477,7 +511,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
   flash_wgmma_kernel<HD, COLS><<<dim3(static_cast<unsigned>(tiles), NB),
                                  kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), KV, G, L, S, lq, lo, scale, causal);
+      static_cast<__nv_bfloat16*>(o), KV, G, L, S, lq, lo, scale, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -486,7 +521,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 // q, o: NB * G * L query rows; k, v: NB * S keys; bfloat16 (dtype 1, the
 // wrapper's code; csrc/flash_attn_tf32.cu's entry point, which shares
 // this signature but for its scratch, takes float32, 0), head_dim `hd`
-// of 16, 32, 64, 112 or 128.  Pair
+// of 16, 32, 64, 112 or 128; `window` > 0 a sliding window of that many
+// keys (key j kept for position l when |l - j| < window), 0 none; a
+// window needs L < S + window, so that every row keeps a key.  Pair
 // n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
@@ -497,28 +534,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 // the CUresult where cuTensorMapEncodeTiled refuses a map.
 extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
                                        const void* v, void* o, int dtype,
-                                       int hd, int causal, int NB, int KV,
-                                       int G, int L, int S,
+                                       int hd, int causal, int window,
+                                       int NB, int KV, int G, int L, int S,
                                        const long long* strides, float scale,
                                        void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
-  if (S <= 0 || KV <= 0) return cudaErrorInvalidValue;
+  if (S <= 0 || KV <= 0 || window < 0 ||
+      (window > 0 && static_cast<long long>(L) >=
+                         static_cast<long long>(S) + window))
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 16)
-    return launch<16>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
-                      st);
+    return launch<16>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
+                      scale, st);
   if (hd == 32)
-    return launch<32>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
-                      st);
+    return launch<32>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
+                      scale, st);
   if (hd == 64)
-    return launch<64>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
-                      st);
+    return launch<64>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
+                      scale, st);
   if (hd == 112)
-    return launch<128, 112>(q, k, v, o, causal, NB, KV, G, L, S, strides,
-                            scale, st);
+    return launch<128, 112>(q, k, v, o, causal, window, NB, KV, G, L, S,
+                            strides, scale, st);
   if (hd == 128)
-    return launch<128>(q, k, v, o, causal, NB, KV, G, L, S, strides, scale,
-                       st);
+    return launch<128>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
+                       scale, st);
   return cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 // csrc/flash_attn_tf32.cu) share: the model's constants, shared-memory
 // addressing with the 128-, 64- or 32-byte swizzle, the exponential, the
 // mbarrier ring's waits and arrivals, TMA loads, wgmma's descriptors and
-// fences, the exact skip of key tiles past a block's last position, and
-// the run-time lookup of cuTensorMapEncodeTiled.  Included by both;
+// fences, the exact skip of key tiles outside a block's positions (its
+// causal end and its sliding window) and the per-element mask, and the
+// run-time lookup of cuTensorMapEncodeTiled.  Included by both;
 // kernels/build.py hashes it with each source that includes it.
 #pragma once
 
@@ -186,19 +187,73 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // -- the exact tile skip -------------------------------------------------
 
-// Key tiles of KB keys that the block of folded rows [r0, r0 + QB)
-// needs: all of them, or when causal those up to the block's largest
-// query position (its last row's, unless the block straddles two fold
-// groups).  The exact test: the Pallas kernel's first_q_pos + QB - 1 is
-// conservative when a block straddles two fold groups.
-template <int QB, int KB>
-__device__ __forceinline__ int key_tiles(int r0, int rows, int L, int S,
-                                         int causal) {
-  const int all_tiles = (S + KB - 1) / KB;
-  if (!causal) return all_tiles;
+// The positions of the block of folded rows [r0, r0 + QB): the smallest
+// and the largest, or 0 and L - 1 when the block straddles two fold
+// groups (its positions wrap to 0 there).
+struct PosRange {
+  int min_pos, max_pos;
+};
+
+template <int QB>
+__device__ __forceinline__ PosRange block_positions(int r0, int rows,
+                                                    int L) {
   const int r_last = min(r0 + QB, rows) - 1;
-  const int max_pos = (r0 / L == r_last / L) ? r_last % L : L - 1;
-  return min(all_tiles, max_pos / KB + 1);
+  if (r0 / L != r_last / L) return {0, L - 1};
+  return {r0 % L, r_last % L};
+}
+
+// Key tiles [first, end) of KB keys that the block of folded rows
+// [r0, r0 + QB) needs: all of them; when causal none past the block's
+// largest position; with a sliding window of `window` > 0 keys (key j
+// kept for position l when |l - j| < window) none that ends before the
+// smallest position's window starts and, when bidirectional, none that
+// starts after the largest position's window ends.  The exact test on
+// the block's own positions (the Pallas kernel's first_q_pos + QB - 1
+// is conservative when a block straddles two fold groups).  The
+// producer and the consumers call it alike, so both walk one range.
+struct TileRange {
+  int first, end;
+};
+
+template <int QB, int KB>
+__device__ __forceinline__ TileRange key_tiles(int r0, int rows, int L,
+                                               int S, int causal,
+                                               int window) {
+  const int all_tiles = (S + KB - 1) / KB;
+  const PosRange p = block_positions<QB>(r0, rows, L);
+  TileRange t{0, all_tiles};
+  if (causal) t.end = min(all_tiles, p.max_pos / KB + 1);
+  if (window > 0) {
+    t.first = max(0, p.min_pos - window + 1) / KB;
+    if (!causal) {
+      const long long last = min(static_cast<long long>(S),
+                                 static_cast<long long>(p.max_pos) + window);
+      t.end = min(all_tiles, static_cast<int>((last + KB - 1) / KB));
+    }
+  }
+  return t;
+}
+
+// Whether the tile of keys [j0, j0 + KB) needs the per-element mask for
+// a warpgroup whose rows hold positions min_pos .. max_pos (0 and L - 1
+// when they straddle two fold groups): it reaches past S, past the
+// smallest position when causal, or across an edge of some row's window.
+template <int KB>
+__device__ __forceinline__ bool tile_masked(int j0, int S, int causal,
+                                            int window, int min_pos,
+                                            int max_pos) {
+  if (j0 + KB > S || (causal && j0 + KB - 1 > min_pos)) return true;
+  return window > 0 &&
+         (max_pos - j0 >= window ||
+          (!causal && j0 + KB - 1 - min_pos >= window));
+}
+
+// Whether key j is masked for position pos: past S, after pos when
+// causal, or |pos - j| >= window (window > 0).
+__device__ __forceinline__ bool key_masked(int j, int pos, int S,
+                                           int causal, int window) {
+  return j >= S || (causal && j > pos) ||
+         (window > 0 && (pos - j >= window || j - pos >= window));
 }
 
 // -- host side ----------------------------------------------------------

@@ -6,20 +6,24 @@ one card, in turns.
 
 (an older version comes from ``git show <rev>:src/repro_torch/csrc/
 fused_mac.cu > OLD.cu``, in a directory the chip copy carries).  Each
-source is built with the package's nvcc flags, and each entry point
-that every source has is timed with CUDA events at the main path's
-shapes, in the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
+source is built with the package's nvcc flags, and each entry point that
+every source has is timed with CUDA events at the main path's shapes, in
+the order A, B, ..., B, A: `fused_mac` at its hops' shapes,
 `fused_mac_partials` at the scale_u65536 1x1 shape, `ota_combine` at its
 four main-path shapes, and flash attention (causal) at the prefill
 shapes of the main paths in bf16 and float32: qwen2-0.5b's (hd 64; in
-bf16 also at prefill_32k's length), qwen2-1.5b's float32 one (hd 128)
-and the serving example's reduced model (hd 32), and hd 16 at the same
-batch and length.  A flash source is timed at a dtype through the first
-of FLASH_ENTRIES[dtype] it has: the bf16 tensor-core kernel's
-(`flash_attn.ARGTYPES`), the tf32 kernel's (`flash_attn.TF32_ARGTYPES`,
-with its scratch) or an older source's CUDA-core ``flash_attn_launch``
-(`flash_attn.ARGTYPES`, dtype code 0 or 1), so an older
-``flash_attn.cu`` can be timed against the tensor-core sources; a source
+bf16 also at prefill_32k's length), qwen2-1.5b's float32 one (hd 128),
+the serving example's reduced model (hd 32), hd 16 at the same batch and
+length, and zamba2-7b's (hd 112).  A flash source is timed at a dtype
+through the first of FLASH_ENTRIES[dtype] it has: the bf16 tensor-core
+kernel's (`flash_attn.ARGTYPES`), the tf32 kernel's
+(`flash_attn.TF32_ARGTYPES`, with its scratch) or an older source's
+CUDA-core ``flash_attn_launch`` (`flash_attn.ARGTYPES`, dtype code 0 or
+1), so an older ``flash_attn.cu`` can be timed against the tensor-core
+sources; an entry point that takes a sliding window (``int window``)
+runs at window 0, none, and one from before the window through its own
+signature (`flash_attn.NO_WINDOW_ARGTYPES`), so a source's window
+argument is timed against the unwindowed kernel it replaced; a source
 with none of them, or whose entry point refuses a shape, is left out
 there (and listed as refusing it).  Prints one JSON line per shape
 (times, and whether each version's output equals the first's bit for
@@ -57,15 +61,18 @@ MAC_SHAPES = [(4, 256, 16, 3925, 64), (8, 1024, 16, 3925, 128),
 PARTIALS_SHAPE = (16, 65536, 4, 3925, 1024)     # scale_u65536 1x1
 # ((B, L, H, KV, hd), dtype): qwen2-0.5b's prefill (bf16 also at
 # prefill_32k's length), qwen2-1.5b's float32 one, the serving example's
-# reduced model, and hd 16 at its batch and length
+# reduced model, hd 16 at its batch and length, and zamba2-7b's (hd 112
+# on the hd-128 instances) in both dtypes
 FLASH_CASES = [((4, 4096, 14, 2, 64), torch.bfloat16),
                ((1, 32768, 14, 2, 64), torch.bfloat16),
                ((4, 4096, 4, 2, 32), torch.bfloat16),
                ((4, 4096, 4, 2, 16), torch.bfloat16),
+               ((4, 4096, 32, 32, 112), torch.bfloat16),
                ((4, 4096, 14, 2, 64), torch.float32),
                ((1, 4096, 12, 2, 128), torch.float32),
                ((4, 4096, 4, 2, 32), torch.float32),
-               ((4, 4096, 4, 2, 16), torch.float32)]
+               ((4, 4096, 4, 2, 16), torch.float32),
+               ((4, 4096, 32, 32, 112), torch.float32)]
 # ((B, L, H, KV, hd), dtype, causal) for --edge: the smoke's phase-3
 # shapes at hd 64 and 128, every one in both dtypes and both masks
 FLASH_EDGE_CASES = [(shape, dtype, causal)
@@ -89,9 +96,10 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 
 
 def build_source(src: Path, out_dir: Path):
-    """(library, nvcc log, whether `fused_mac_launch`, where the source
-    has it, takes block_u, and which launch entry points take a leading
-    seed count S and seed strides)."""
+    """(library, nvcc log, (whether `fused_mac_launch`, where the source
+    has it, takes block_u, which launch entry points take a leading seed
+    count S and seed strides, and which flash entry points take a
+    sliding window))."""
     lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
     # -I: an older source from elsewhere finds the package's csrc/ headers
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
@@ -108,7 +116,9 @@ def build_source(src: Path, out_dir: Path):
     takes_block_u = "block_u" in params("fused_mac_launch")
     seeded = {e for e in ("fused_mac_launch", "ota_combine_launch")
               if "int S," in params(e)}
-    return lib, proc.stdout + proc.stderr, (takes_block_u, seeded)
+    windowed = {e for entries in FLASH_ENTRIES.values() for e in entries
+                if "int window" in params(e)}
+    return lib, proc.stdout + proc.stderr, (takes_block_u, seeded, windowed)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -168,7 +178,7 @@ def main(argv=None) -> int:
         t_re, t_im, amp, w = inputs(B, U, N, 0, dev)
 
         def call(name):
-            lib, (takes_bu, seeded) = built[name]
+            lib, (takes_bu, seeded, _) = built[name]
             fn = lib.fused_mac_launch
             fn.restype = _I
             y = torch.empty(2, B, N, device=dev)
@@ -289,15 +299,19 @@ def flash_case(built, shape, dtype, causal, compare, dev, reps=0,
 
     def flaunch(name):
         tf32 = entry[name] == "flash_attn_tf32_launch"
+        windowed = entry[name] in built[name][1][2]
+        argtypes = {(True, True): flash_attn.TF32_ARGTYPES,
+                    (True, False): flash_attn.NO_WINDOW_TF32_ARGTYPES,
+                    (False, True): flash_attn.ARGTYPES,
+                    (False, False): flash_attn.NO_WINDOW_ARGTYPES}
         o = torch.empty_like(q)
         err = flash_attn.call(
             flash_attn.typed(getattr(built[name][0], entry[name]),
-                             flash_attn.TF32_ARGTYPES if tf32
-                             else flash_attn.ARGTYPES),
+                             argtypes[tf32, windowed]),
             q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L,
             S=L, strides=flash_attn.model_strides(q, k),
             scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
-            if tf32 else None)
+            if tf32 else None, window=0 if windowed else None)
         return err, o
 
     def fcall(name):

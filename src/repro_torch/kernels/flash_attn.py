@@ -4,8 +4,11 @@ with the G = H / KV query heads of each KV head folded into the row axis.
     flash_mha:       q [N, Lq, hd]; k, v [N, S, hd] -> [N, Lq, hd]
     flash_attention: q [B, L, H, hd]; k, v [B, S, KV, hd] -> [B, L, H*hd]
 
-Row r of the folded axis sits at position r % seq_len; with ``causal``
-a key j is kept for it when j <= r % seq_len.  Scores are
+Row r of the folded axis sits at position l = r % seq_len; with
+``causal`` a key j is kept for it when j <= l, and with a sliding
+``window`` of W keys when |l - j| < W (the JAX package's `_causal_mask`;
+None is no window).  Every row must keep a key: a window needs
+seq_len < S + W.  Scores are
 (q . k) * (1 / sqrt(hd)), float32; masked scores are NEG_INF = -1e30
 (not -inf) and the final divide floors the denominator at 1e-30, the
 JAX package's constants.  Inputs are float32 or bfloat16, upcast to
@@ -55,11 +58,22 @@ differentiates its `jax.checkpoint`ed `_sdpa` per query block.  The
 JAX package has no backward kernel, so neither has the port: the
 backward launches no kernel of ours and calls neither plain version.
 
-All three skip a key tile whose first key lies past every position of
-the q tile, by the exact test (the Pallas kernel's ``first_q_pos + QB -
-1`` is conservative when a q tile straddles two fold groups).  The bits
-are the same: the causal row has seen key 0 in tile 0 by then, so a
-fully masked tile leaves (m, l, acc) unchanged.
+All three skip a key tile that is masked for every row of the q tile,
+by the exact test on the tile's own positions (the Pallas kernel's
+``first_q_pos + QB - 1`` is conservative when a q tile straddles two
+fold groups): when causal a tile past the largest position, with a
+window a tile that ends before the smallest position's window starts
+and, bidirectional, one that starts after the largest position's
+window ends.  The skip gives the bits of visiting every tile.  A fully
+masked tile visited after a row's first kept key leaves (m, l, acc)
+unchanged (corr = 1, p = 0).  One visited before it (with a window,
+rows of one q tile start their windows at different keys) leaves the
+running max at NEG_INF, which is finite, so each masked key adds 1 to
+the denominator and v to acc; at the row's first kept key corr =
+exp(NEG_INF - m_new) is exactly 0 and wipes both, just as a skipped
+tile leaves them 0.  Every row keeps a key, so the denominator is
+never 0.  With W >= max(seq_len, S) the window masks nothing and the
+tile range is that of no window: the same bits.
 """
 from __future__ import annotations
 
@@ -91,6 +105,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _scale(hd: int) -> float:
     return 1.0 / math.sqrt(hd)
+
+
+def _check_window(window, L: int, S: int) -> int:
+    """The kernels' window code for `window` (None: 0, no window), after
+    checking that it is a positive count and that every one of the L
+    positions keeps a key of the S."""
+    if window is None:
+        return 0
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be None or a positive int, got "
+                         f"{window!r}")
+    if L >= S + window:
+        raise ValueError(f"window={window}: position {L - 1} keeps none of "
+                         f"the S={S} keys (want L < S + window)")
+    return window
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,12 +172,16 @@ def route(q: torch.Tensor) -> str:
 
 
 # the flash kernels' C entry point: q, k, v, o, dtype code, hd, causal,
-# NB, KV, G, L, S, the 12 strides, scale, stream; the tf32 kernel's takes
-# its scratch before the stream
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+# window (0: none), NB, KV, G, L, S, the 12 strides, scale, stream; the
+# tf32 kernel's takes its scratch before the stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                ctypes.c_void_p])
 TF32_ARGTYPES = ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+# an entry point from before the window (an older source `kernels/ab.py`
+# times): the same but for the window argument
+NO_WINDOW_ARGTYPES = ARGTYPES[:7] + ARGTYPES[8:]
+NO_WINDOW_TF32_ARGTYPES = TF32_ARGTYPES[:7] + TF32_ARGTYPES[8:]
 
 
 def typed(fn, argtypes=ARGTYPES):
@@ -186,18 +219,22 @@ def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
 
 
 def call(fn, q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
-         S: int, strides, scratch: torch.Tensor | None = None) -> int:
+         S: int, strides, scratch: torch.Tensor | None = None,
+         window: int | None = 0) -> int:
     """`fn` (a `typed` entry point) on q, k, v and o on the current
     stream; `strides` are the element strides (batch, row, head) of q,
-    k, v and o; `scratch` (`tf32_scratch`) only for the tf32 kernel.
-    Returns the entry point's error code."""
+    k, v and o; `scratch` (`tf32_scratch`) only for the tf32 kernel;
+    `window` the window code (0: none), or None for an entry point from
+    before the window, which takes no such argument.  Returns the entry
+    point's error code."""
     arr = (ctypes.c_longlong * 12)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     extra = () if scratch is None else (scratch.data_ptr(),)
+    win = () if window is None else (window,)
     with torch.cuda.device(q.device):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _DTYPES[q.dtype], q.shape[-1], int(causal), NB, KV, G, L,
-                  S, arr, _scale(q.shape[-1]), *extra, stream)
+                  _DTYPES[q.dtype], q.shape[-1], int(causal), *win, NB, KV,
+                  G, L, S, arr, _scale(q.shape[-1]), *extra, stream)
 
 
 # each kernel's launch count on `flash_mha`
@@ -224,17 +261,20 @@ def _launch(q, k, v, o, **shape) -> None:
                            f"(the codes of csrc/{name}.cu's entry point)")
     attr = _COUNTERS[name]
     setattr(flash_mha, attr, getattr(flash_mha, attr) + 1)
+    if shape["window"]:
+        flash_mha.window_launches += 1
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_block: int = 256, kv_block: int = 256,
-              seq_len: int = 0) -> torch.Tensor:
+              seq_len: int = 0, window: int | None = None) -> torch.Tensor:
     """q: [N, Lq, hd]; k, v: [N, S, hd] (heads folded into N) ->
     [N, Lq, hd] in q's dtype.
 
     `seq_len` is the true sequence length when the row axis folds
     several query heads (row r sits at position r % seq_len, and Lq must
-    be a multiple of it); 0 means rows == positions.  The kernel `route`
+    be a multiple of it); 0 means rows == positions.  `window`: a
+    sliding window of that many keys, None for none.  The kernel `route`
     picks for CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, "folded")
     N, Lq, hd = q.shape
@@ -242,20 +282,23 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     L = seq_len or Lq
     if Lq % L:
         raise ValueError(f"Lq={Lq} is not a multiple of seq_len={L}")
+    code = _check_window(window, L, S)
     if route(q) == "plain":
         return flash_mha_plain(q, k, v, causal=causal, q_block=q_block,
-                               kv_block=kv_block, seq_len=seq_len)
+                               kv_block=kv_block, seq_len=seq_len,
+                               window=window)
     o = torch.empty_like(q)
     # folded row r = g * L + l of pair n lies at n*Lq*hd + g*L*hd + l*hd
     rows = (Lq * hd, hd, L * hd)
     keys = (S * hd, hd, 0)
-    _launch(q, k, v, o, causal=causal, NB=N, KV=1, G=Lq // L, L=L, S=S,
-            strides=rows + keys + keys + rows)
+    _launch(q, k, v, o, causal=causal, window=code, NB=N, KV=1, G=Lq // L,
+            L=L, S=S, strides=rows + keys + keys + rows)
     return o
 
 
 flash_mha.wgmma_launches = 0    # csrc/flash_attn_wgmma.cu (tensor cores)
 flash_mha.tf32_launches = 0     # csrc/flash_attn_tf32.cu (tensor cores)
+flash_mha.window_launches = 0   # either kernel's launches with a window
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -296,17 +339,32 @@ def tf32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> tuple:
             torch.stack(tf32_split(vt.contiguous())))
 
 
+def _tile_skipped(k0: int, k1: int, min_pos: int, max_pos: int,
+                  causal: bool, window: int | None) -> bool:
+    """Whether the key tile [k0, k1) is masked for every position
+    min_pos .. max_pos of a q tile: the kernels' `key_tiles` test."""
+    if causal and k0 > max_pos:
+        return True
+    if window is None:
+        return False
+    return k1 - 1 <= min_pos - window or (not causal
+                                          and k0 >= max_pos + window)
+
+
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 256,
-                    kv_block: int = 256, seq_len: int = 0) -> torch.Tensor:
+                    kv_block: int = 256, seq_len: int = 0,
+                    window: int | None = None) -> torch.Tensor:
     """The kernel's function in torch ops on any device: the Pallas
     kernel's loop nest (q tiles of ``q_block`` rows, key tiles of
     ``kv_block`` keys in ascending order, the online-softmax recurrence
-    in float32), vectorized over N.  Ragged Lq and S end in short
-    tiles."""
+    in float32), vectorized over N, skipping the key tiles that are
+    masked for every row of a q tile at both ends (`_tile_skipped`).
+    Ragged Lq and S end in short tiles."""
     N, Lq, hd = q.shape
     S = k.shape[1]
     L = seq_len or Lq
+    _check_window(window, L, S)
     QB, KB = min(q_block, Lq), min(kv_block, S)
     scale = _scale(hd)
     dev = q.device
@@ -316,19 +374,22 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q1 = min(q0 + QB, Lq)
         qt = qf[:, q0:q1]
         q_pos = torch.arange(q0, q1, device=dev) % L
-        max_pos = (q1 - 1) % L if q0 // L == (q1 - 1) // L else L - 1
+        one_group = q0 // L == (q1 - 1) // L
+        min_pos = q0 % L if one_group else 0
+        max_pos = (q1 - 1) % L if one_group else L - 1
         acc = torch.zeros((N, q1 - q0, hd), dtype=torch.float32, device=dev)
         m = torch.full((N, q1 - q0, 1), NEG_INF, dtype=torch.float32,
                        device=dev)
         den = torch.zeros((N, q1 - q0, 1), dtype=torch.float32, device=dev)
         for k0 in range(0, S, KB):
-            if causal and k0 > max_pos:
-                break
             k1 = min(k0 + KB, S)
+            if _tile_skipped(k0, k1, min_pos, max_pos, causal, window):
+                continue
             s = (qt @ kf[:, k0:k1].transpose(1, 2)) * scale
-            if causal:
+            if causal or window is not None:
                 k_pos = torch.arange(k0, k1, device=dev)
-                s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+                s = s.masked_fill(_masked(q_pos, k_pos, causal, window),
+                                  NEG_INF)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             corr = torch.exp(m - m_new)
             e = torch.exp(s - m_new)
@@ -336,6 +397,17 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
             acc = acc * corr + e @ vf[:, k0:k1]
         out[:, q0:q1] = (acc / den.clamp_min(MIN_DENOMINATOR)).to(q.dtype)
+    return out
+
+
+def _masked(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+            window: int | None) -> torch.Tensor:
+    """[len(q_pos), len(k_pos)] bool, True where the key is masked for
+    the query: past it when causal, |q - k| >= window with a window."""
+    d = q_pos[:, None] - k_pos[None, :]
+    out = (d < 0) if causal else torch.zeros_like(d, dtype=torch.bool)
+    if window is not None:
+        out = out | (d.abs() >= window)
     return out
 
 
@@ -360,27 +432,31 @@ def _check_gqa(q, k) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 256,
-                    kv_block: int = 256) -> torch.Tensor:
+                    kv_block: int = 256,
+                    window: int | None = None) -> torch.Tensor:
     """GQA wrapper. q: [B, L, H, hd]; k, v: [B, S, KV, hd] ->
     [B, L, H*hd] in q's dtype.  Query head h = kv * G + g attends to KV
-    head kv, G = H / KV.  The kernel `route` picks (reading this layout
-    in place) for CUDA tensors, the plain version for CPU tensors."""
+    head kv, G = H / KV; `window` a sliding window of that many keys
+    (None: none).  The kernel `route` picks (reading this layout in
+    place) for CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, "model")
     _check_gqa(q, k)
-    if route(q) == "plain":
-        return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
-                                     kv_block=kv_block)
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
+    code = _check_window(window, L, S)
+    if route(q) == "plain":
+        return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
+                                     kv_block=kv_block, window=window)
     o = torch.empty_like(q)
-    _launch(q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L, S=S,
-            strides=model_strides(q, k))
+    _launch(q, k, v, o, causal=causal, window=code, NB=B * KV, KV=KV,
+            G=H // KV, L=L, S=S, strides=model_strides(q, k))
     return o.reshape(B, L, H * hd)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_block: int = 256,
-                          kv_block: int = 256) -> torch.Tensor:
+                          kv_block: int = 256,
+                          window: int | None = None) -> torch.Tensor:
     """`flash_attention` through the fold, `flash_mha_plain` and the
     unfold, as the JAX wrapper composes them."""
     _check_gqa(q, k)
@@ -388,14 +464,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     G = H // KV
     of = flash_mha_plain(*_fold(q, k, v), causal=causal, q_block=q_block,
-                         kv_block=kv_block, seq_len=L)
+                         kv_block=kv_block, seq_len=L, window=window)
     return (of.reshape(B, KV, G, L, hd).permute(0, 3, 1, 2, 4)
             .reshape(B, L, H * hd))
 
 
 def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, *, causal: bool = True,
-                  q_block: int = 512) -> tuple:
+                  q_block: int = 512, window: int | None = None) -> tuple:
     """(dq, dk, dv) of `flash_attention`'s output at q [B, L, H, hd], k,
     v [B, S, KV, hd] against the output's cotangent do [B, L, H*hd], each
     in its input's dtype.
@@ -403,11 +479,15 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The attention is recomputed in float32, ``q_block`` queries at a
     time (their G = H / KV heads of each KV head together): scores
     (q . k) / sqrt(hd), masked to NEG_INF where a key lies past the
-    query's position (causal), softmax p, and then the softmax
-    attention's gradient, dv += p^T do, ds = p * (do v^T - rowsum(do v^T
-    * p)), dq = ds k / sqrt(hd), dk += ds^T q / sqrt(hd).  With
-    ``causal`` a block reads only the keys up to its last position (the
-    later ones are masked for all its rows, p exactly 0 there)."""
+    query's position (causal) or |q - k| >= window (a sliding window),
+    softmax p, and then the softmax attention's gradient, dv += p^T do,
+    ds = p * (do v^T - rowsum(do v^T * p)), dq = ds k / sqrt(hd), dk +=
+    ds^T q / sqrt(hd).  A block of queries [q0, q1) reads only the keys
+    that some of its rows keep: up to its last position when causal, and
+    with a window from q0 - window + 1 and, bidirectional, up to q1 +
+    window - 2 (the others are masked for all its rows, p exactly 0
+    there), so a windowed backward's work scales with the window, not
+    with L."""
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -424,22 +504,26 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def rows(x, n):       # [B, n, KV, G, hd] -> [B, KV, G * n, hd]
         return x.float().permute(0, 2, 3, 1, 4).reshape(B, KV, G * n, hd)
 
+    _check_window(window, L, S)
     for q0 in range(0, L, q_block):
         q1 = min(q0 + q_block, L)
         n = q1 - q0
-        end = min(q1, S) if causal else S
+        start = 0 if window is None else max(0, q0 - window + 1)
+        end = (min(q1, S) if causal else S if window is None
+               else min(S, q1 + window - 1))
         qb, dob = rows(q5[:, q0:q1], n), rows(do5[:, q0:q1], n)
-        kt, vt = kf[:, :, :end], vf[:, :, :end]
-        s = (qb @ kt.transpose(-1, -2)) * scale          # [B, KV, G*n, end]
-        if causal:
+        kt, vt = kf[:, :, start:end], vf[:, :, start:end]
+        s = (qb @ kt.transpose(-1, -2)) * scale    # [B, KV, G*n, end-start]
+        if causal or window is not None:
             q_pos = torch.arange(q0, q1, device=dev).repeat(G)
-            k_pos = torch.arange(end, device=dev)
-            s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+            k_pos = torch.arange(start, end, device=dev)
+            s = s.masked_fill(_masked(q_pos, k_pos, causal, window),
+                              NEG_INF)
         p = torch.softmax(s, dim=-1)
-        dv[:, :, :end] += p.transpose(-1, -2) @ dob
+        dv[:, :, start:end] += p.transpose(-1, -2) @ dob
         dp = dob @ vt.transpose(-1, -2)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-        dk[:, :, :end] += (ds.transpose(-1, -2) @ qb) * scale
+        dk[:, :, start:end] += (ds.transpose(-1, -2) @ qb) * scale
         dq[:, q0:q1] = ((ds @ kt) * scale).reshape(B, KV, G, n, hd).permute(
             0, 3, 1, 2, 4).reshape(B, n, H, hd)
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
@@ -451,25 +535,25 @@ class _FlashAttention(torch.autograd.Function):
     `attention_vjp` as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_block, kv_block):
+    def forward(ctx, q, k, v, causal, q_block, kv_block, window):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.q_block = causal, q_block
+        ctx.causal, ctx.q_block, ctx.window = causal, q_block, window
         return flash_attention(q, k, v, causal=causal, q_block=q_block,
-                               kv_block=kv_block)
+                               kv_block=kv_block, window=window)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = attention_vjp(q, k, v, do, causal=ctx.causal,
-                                   q_block=ctx.q_block)
-        return dq, dk, dv, None, None, None
+                                   q_block=ctx.q_block, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             q_block: int = 256,
-                             kv_block: int = 256) -> torch.Tensor:
+                             q_block: int = 256, kv_block: int = 256,
+                             window: int | None = None) -> torch.Tensor:
     """`flash_attention` (same arguments, same launches, same output
     bits) that autograd differentiates through `attention_vjp`, its
     float32 recompute one ``q_block`` of queries at a time."""
-    return _FlashAttention.apply(q, k, v, causal, q_block, kv_block)
+    return _FlashAttention.apply(q, k, v, causal, q_block, kv_block, window)

@@ -22,6 +22,16 @@ JAX package's weights.
 slot (`attention.decode`), the SSM states and conv windows whole
 (`ssm.decode`).
 
+A sliding window (``cfg.sliding_window``, e.g. ``cfg.with_(
+sliding_window=W)``) reaches every attention as in the JAX package:
+prefill's flash kernels (causal, the encoder's bidirectional stack, the
+hybrid's shared block, the vlm's patches and tokens alike), so
+`prefill_logits` and `lm_loss`, and decode's ring cache of W slots
+(`decode_step`'s ``window``, which `launch.serve` sets to
+``long_context_window`` at long_500k).  ``cfg.scores_f32=False`` is
+the bf16-score branch of `attention._sdpa`: decode and the encdec's
+cross-attention; prefill keeps the flash kernels' float32 scores.
+
 Training: `lm_loss` is the next-token cross-entropy of the JAX
 package's `lm_loss`, in checkpointed blocks of positions, and autograd
 differentiates it.  Where autograd records (grad enabled and a

@@ -3,22 +3,34 @@ decode against a KV cache (the port of `repro.nn.attention`).
 
 Features per the assigned architecture pool: grouped KV heads, optional
 QKV bias (Qwen2), optional qk RMSNorm (Qwen3), NeoX / partial ("2-D",
-ChatGLM) RoPE.  Prefill computes the attention with
+ChatGLM) RoPE, optional sliding window (long-context variants).
+Prefill computes the attention with
 `repro_torch.kernels.flash_attention` (the hand-written CUDA kernel on
 the card, its plain version on the CPU), for the JAX package's
 ``attn_impl`` "blocked" and "online" alike: both compute the same
 softmax attention there, so the port's `AttnConfig` has no ``impl``
-(nor the sharding knob ``seq_shard``).  A sliding window in prefill,
-and ``scores_f32=False`` (an XLA memory knob no registered config
-sets), are not ported and raise, naming ROADMAP queue A item 13.
+(nor the sharding knob ``seq_shard``).  A sliding window
+(``cfg.window``: key j kept for position l when |l - j| < window, in a
+causal and a bidirectional prefill alike) goes into the kernels, which
+skip the key tiles outside it.
+
+``scores_f32=False`` is the JAX package's bf16-score branch of `_sdpa`
+(scores and exponentials in q's dtype, the row max and the denominator
+summed in float32): decode and the encdec's cross-attention take it.
+Prefill keeps the flash route whatever ``scores_f32`` says: the kernel
+materializes no scores, so the knob, which halves the scores' memory
+traffic in XLA, has nothing to halve there (as ``impl`` has no
+counterpart); its float32 scores agree with the JAX package's bf16-score
+prefill within the bf16 bound.
 
 The gradient: prefill calls `flash_attention_autograd`, whose forward
 is `flash_attention` (the same kernel launch and bits, for serving and
 training alike) and whose backward recomputes the attention in float32
-scores one ``q_block`` of queries at a time and differentiates that
-(`kernels.flash_attn.attention_vjp`), the counterpart of the JAX
-package's gradient through its `jax.checkpoint`ed `_sdpa` per query
-block; causal and bidirectional alike.
+scores one ``q_block`` of queries at a time, over the keys its rows
+keep, and differentiates that (`kernels.flash_attn.attention_vjp`), the
+counterpart of the JAX package's gradient through its
+`jax.checkpoint`ed, window-masked `_sdpa` per query block; causal and
+bidirectional, with a window or without.
 
 The JAX package tags activations with logical sharding axes
 (`repro.sharding.logical`); the port runs on one card with no sharding
@@ -91,20 +103,27 @@ def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: torch.Tensor, cfg: AttnConfig) -> torch.Tensor:
     """Plain attention. q: [B,Lq,H,hd]; k,v: [B,S,KV,hd]; mask:
-    [B,Lq,S] bool (True = keep).  Scores in q's dtype, then float32 for
-    the mask and the softmax, whose weights go back to q's dtype."""
-    if not cfg.scores_f32:
-        raise NotImplementedError(
-            "scores_f32=False (bf16 scores) is not ported (ROADMAP queue A "
-            "item 13)")
+    [B,Lq,S] bool (True = keep).  Scores in q's dtype; with
+    ``cfg.scores_f32`` float32 for the mask and the softmax, whose
+    weights go back to q's dtype; without, the JAX package's bf16-score
+    branch: masked to NEG_INF in the scores' dtype, the row max taken in
+    float32 and cast back, exp in the scores' dtype, the denominator
+    summed in float32 and cast back."""
     B, Lq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, Lq, KV, G, hd)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("blkgd,bskd->bklgs", qg, k) * scale
-    scores = scores.float().masked_fill(~mask[:, None, :, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    keep = mask[:, None, :, None, :]
+    if cfg.scores_f32:
+        scores = scores.float().masked_fill(~keep, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+    else:
+        scores = scores.masked_fill(~keep, NEG_INF)
+        mx = scores.float().amax(-1, keepdim=True)
+        e = torch.exp(scores - mx.to(scores.dtype))
+        w = (e / e.float().sum(-1, keepdim=True).to(e.dtype)).to(q.dtype)
     out = torch.einsum("bklgs,bskd->blkgd", w, v)
     return out.reshape(B, Lq, H * hd)
 
@@ -115,21 +134,15 @@ def prefill(p, x: torch.Tensor, positions: torch.Tensor,
 
     x: [B, L, D]; positions: [B, L], which must be arange(L) in every
     row, as the model's prefill gives them: RoPE reads `positions`, and
-    the kernel masks by row index (key j kept for query i when j <= i).
-    The attention goes through `flash_attention_autograd` (the
-    kernel's launch, and a gradient where autograd records).
+    the kernel masks by row index (key j kept for query i when j <= i
+    if causal, and |i - j| < cfg.window with a window).  The attention
+    goes through `flash_attention_autograd` (the kernel's launch, and a
+    gradient where autograd records), whatever ``cfg.scores_f32`` says.
     Returns [B, L, D]."""
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window prefill is not ported (ROADMAP queue A item 13)")
-    if not cfg.scores_f32:
-        raise NotImplementedError(
-            "scores_f32=False (bf16 scores) is not ported (ROADMAP queue A "
-            "item 13)")
     q, k, v = _qkv(p, x, positions, cfg)
     out = flash_attention_autograd(q, k, v, causal=cfg.causal,
                                    q_block=cfg.q_block,
-                                   kv_block=cfg.kv_block)
+                                   kv_block=cfg.kv_block, window=cfg.window)
     return core.dense(p["wo"], out)
 
 

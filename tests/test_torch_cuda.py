@@ -25,6 +25,9 @@ kernel served it by the wrapper's two launch counts.
 `ota_combine` splits its antennas over a thread-block cluster where B
 alone would not fill the card; its cluster size comes from the built
 library (``ota_combine_cluster_size``).
+With a sliding window both kernels are held to their plain versions by
+the same gates, and a window of at least L keys to the unwindowed
+launch bit for bit.
 Two launches must give identical bits: the kernels sum in a fixed order
 and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
@@ -662,6 +665,102 @@ def test_flash_mha_folded_layout_on_card(dtype, hd):
     assert _served_by(before, q, 1)
     assert _flash_close(o, flash_mha_plain(q, k, v, seq_len=50))
     assert torch.equal(o, flash_mha(q, k, v, seq_len=50))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,S,H,KV,hd", [
+    (1, 200, 200, 14, 2, 64),     # 128-row tiles straddle fold groups
+    (1, 1000, 1000, 14, 2, 64),
+    (2, 300, 130, 14, 2, 64),     # fewer keys than queries (L < S + W)
+    (1, 200, 333, 12, 2, 128),    # more keys than queries, ragged
+    (1, 640, 640, 32, 8, 128),
+    (2, 333, 333, 4, 2, 32),
+    (1, 300, 300, 4, 2, 16),
+    (1, 130, 130, 32, 32, 112),
+    (3, 77, 77, 4, 1, 112),
+])
+@pytest.mark.parametrize("window", [1, 5, 100, 128, 129, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_matches_plain_on_card(B, L, S, H, KV, hd, window,
+                                            dtype, causal):
+    """Both kernels with a sliding window: W 1 (each row keeps its own
+    key alone), below, at and past the 128-key tile, blocks whose first
+    tile is wholly masked for some rows, straddling tiles, S != L;
+    within the flash gates of their plain version, repeats identical,
+    each launch counted as windowed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if L >= S + window:
+        pytest.skip("a row would keep no key (the wrappers refuse it)")
+    q, k, v = _flash_inputs(B, L, H, KV, hd, dtype, L + S + window, S)
+    before, wb = _launch_counts(), flash_mha.window_launches
+    o1 = flash_attention(q, k, v, causal=causal, window=window)
+    o2 = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _served_by(before, q, 2)
+    assert flash_mha.window_launches == wb + 2
+    assert torch.equal(o1, o2)
+    assert torch.isfinite(o1).all()
+    assert _flash_close(o1, flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,hd", [(1, 200, 14, 2, 64),
+                                         (2, 333, 12, 2, 128),
+                                         (1, 300, 4, 2, 32),
+                                         (1, 77, 4, 2, 16),
+                                         (1, 130, 32, 32, 112)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_of_at_least_L_is_the_unwindowed_launch_on_card(
+        B, L, H, KV, hd, dtype, causal):
+    """A window of L keys or more masks nothing and skips no tile: the
+    unwindowed launch's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = _flash_inputs(B, L, H, KV, hd, dtype, L + hd)
+    want = flash_attention(q, k, v, causal=causal)
+    for window in (L, L + 1, 1 << 30):
+        assert torch.equal(want, flash_attention(q, k, v, causal=causal,
+                                                 window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,L,H,KV,hd,window", [(2, 700, 14, 2, 64, 100),
+                                                (1, 333, 4, 2, 32, 1),
+                                                (1, 300, 32, 32, 112, 129)])
+def test_windowed_attention_gradient_route_on_card(B, L, H, KV, hd, window,
+                                                   causal, dtype, tol):
+    """`flash_attention_autograd(window=W)` on the card: one windowed
+    launch, the bits of `flash_attention`, and its gradient within `tol`
+    of max |g| of autograd through `flash_attention_plain(window=W)`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention_autograd
+
+    q, k, v = [t.requires_grad_() for t in _flash_inputs(
+        B, L, H, KV, hd, dtype, L + window, L)]
+    do = torch.randn(B, L, H * hd, device="cuda").to(dtype)
+    before = _launch_counts()
+    out = flash_attention_autograd(q, k, v, causal=causal, q_block=128,
+                                   window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert _served_by(before, q, 1)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                                window=window))
+    want = torch.autograd.grad(flash_attention_plain(
+        q, k, v, causal=causal, window=window), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert float((g.float() - w.float()).abs().max()) <= tol * max(
+            float(w.float().abs().max()), 1e-30)
 
 
 @pytest.mark.cuda

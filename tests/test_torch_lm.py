@@ -253,18 +253,3 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
         serve.build_prefill_step(cfg, INPUT_SHAPES["prefill_32k"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.build_decode_step(cfg, INPUT_SHAPES["decode_32k"])
-
-
-def test_unported_options_raise():
-    cfg, _ = _configs()
-    params = lm.init_params(prng.PRNGKey(0), cfg)
-    toks = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    for bad in (cfg.with_(sliding_window=4), cfg.with_(scores_f32=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.prefill_logits(params, toks, bad)
-    # training reaches the same attention: lm_loss is ported, and the
-    # unported options raise there too
-    batch = {**toks, "labels": toks["tokens"]}
-    for bad in (cfg.with_(sliding_window=4), cfg.with_(scores_f32=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.lm_loss(params, batch, bad)
