@@ -72,7 +72,8 @@ Phases, in order; any failure exits non-zero:
      Adam at 1e-3), its 400 rounds cut to 1: as registered (equivalent
      channel, no kernel), faithful with the fused backend (2
      `fused_mac` launches per round per seed), and on the sharded
-     engine, 1x1 and 2x5, u_sharded, 2 seeds each; the sharded runs'
+     engine, 1x1 and 2x5, u_sharded, 2 seeds each (1x1 not through the
+     chunked driver since phase 11 was added); the sharded runs'
      final state and metrics against the single engine's (logged); the fused
      run again with its 2 seeds as one vmapped program through the
      chunked driver (2 `fused_mac` launches a round for both seeds, in
@@ -125,8 +126,8 @@ Phases, in order; any failure exits non-zero:
      trip a seed) and ``halt`` (stops after round 3), both drivers bit
      for bit alike; a subprocess killed after round 3 (exit 173) and a
      second one resuming from its checkpoint, per driver and seed mode
-     (four side by side), bit for bit the uninterrupted run (final
-     carry and metrics);
+     (four side by side), bit for bit the uninterrupted run
+     (final carry and metrics);
      ``scale_u256`` sharded 2x4 u_sharded with telemetry bit for bit the
      single engine's; ``fig2_iid`` slab (3 rounds) with telemetry bit
      for bit the plain slab run; the CLI's ``--profile`` Chrome trace
@@ -204,7 +205,7 @@ Phases, in order; any failure exits non-zero:
    ``fig2_byzantine1_median`` for 2 rounds, card vs CPU, within the
    W-HFL bounds;
 6. where the time goes: one seed of each SweepRunner run of phase 4
-   (the reference run cut to 2 rounds), of ``fig2_iid`` with the
+   (the reference run cut to 1 round), of ``fig2_iid`` with the
    slab backend, of ``fig2_drop50`` fused and
    ``fig2_byzantine1_median`` through both drivers, through
    `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
@@ -213,8 +214,7 @@ Phases, in order; any failure exits non-zero:
    ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
    (1x1, u_sharded, with its peak device memory, and its peak through
    the chunked driver) and of ``scale_u256`` (2x4, u_sharded) on the
-   sharded engine; one round of ``fig3_cifar`` (equivalent, and fused
-   through both drivers) with cuDNN's share of the device time; rounds/s
+   sharded engine (Fig. 3's profiles went with phase 11's arrival); rounds/s
    of both drivers, each warmed, for fig2_iid fused, scale_u256 and
    sharded scale_u256 2x4; one warm qwen2-0.5b prefill
    (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
@@ -265,16 +265,16 @@ Phases, in order; any failure exits non-zero:
    at zamba2-7b's prefill shape (B 4, L 4096, 32 heads of hd 112);
 8. the LM families at full width through `repro_torch.launch.serve`,
    weights from `lm.init_params` at seed 0, one arch at a time
-   (``FAMILY_RUNS``): mamba2-780m (48 layers), zamba2-7b (27 of its 81:
-   4 groups of 6 Mamba2 layers, each followed by the shared attention
-   block at hd 112, and 3 more), qwen3-moe-235b-a22b (2 of its 94
-   layers, 128 experts, top 8), seamless-m4t-medium (12 encoder + 12
+   (``FAMILY_RUNS``): mamba2-780m (24 of its 48 layers), zamba2-7b (15
+   of its 81: 2 groups of 6 Mamba2 layers, each followed by the shared
+   attention block at hd 112, and 3 more), qwen3-moe-235b-a22b (1 of its
+   94 layers, 128 experts, top 8), seamless-m4t-medium (12 encoder + 12
    decoder layers) and llava-next-34b (4 of 60 layers): a prefill of 4 x 4,096
    positions at bf16 (llava's 2,880 patch embeddings + 1,216 tokens;
    seamless' 4,096 tokens over 1,024 source frames; zamba2 also at
    float32), exactly one flash launch per attention layer of the bf16
    (float32) tensor-core kernel and none of the others, by the count
-   and in the profiler (none for mamba2; 4 for zamba2; 24 for
+   and in the profiler (none for mamba2; 2 for zamba2; 24 for
    seamless, 12 of them bidirectional), finite logits, and its time
    (wall, device ms, busy share, each flash record's share, device ops:
    warm, then under `torch.profiler`); one warm decode step at (batch,
@@ -295,11 +295,13 @@ Phases, in order; any failure exits non-zero:
    sequence of 4,096, bf16 compute and float32 parameters, its global
    batch of 256 cut to C 2 x M 2 users of 2 rows, weights from seed 0:
    the structural step (tau = I = 1, the equivalent channel under a
-   quiet radio, outer AdamW) for 2 steps on one batch and a third
-   under `torch.profiler` (device ms, busy share, device ops, flash ms
-   and launches, the threefry emulation's share), the loss falling;
-   local SGD (tau = I = 2, outer "add", batch 16), 1 step; the fused
-   step (grad_accum 2), 2 steps; one fused step at float32 compute, its
+   quiet radio; one row a user and the outer "add", so that
+   its state is phase 11's reference) for 2 steps on one batch (with
+   ``--training`` the second under `torch.profiler`: device ms, busy
+   share, device ops, flash ms and launches, the threefry emulation's
+   share), the loss falling; local SGD (tau = I = 2, outer "add", batch
+   16, depth cut to 2 layers), 1 step; the fused
+   step (grad_accum 2), 1 step; one fused step at float32 compute, its
    depth cut to 4 layers (the float32 tensor-core kernel under
    autograd); each with finite loss and edge power, wall ms a step,
    peak memory, and exactly layers x 2 (remat) flash launches per
@@ -332,13 +334,25 @@ Phases, in order; any failure exits non-zero:
    (2, 4096, 14, 2, 64) W 1,024 against autograd through the plain
    version within phase 9's bounds, timed against the kernel forward
    and the unwindowed backward;
-11. the run's seconds, one JSON line of kernel records, then the last
+11. W-HFL training with one process per mobile user (`launch.ranks`:
+   processes spawned by `torch.multiprocessing`, joined through a
+   `FileStore`; the mesh (pod, data, model) built on their world and
+   refined to (pod, cluster, user, model); the hops as collectives over
+   each rank's `user` and `(pod, cluster)` groups): NCCL at world size 1
+   (qwen2-0.5b at full width, 4,096 positions, one row, AdamW, one step)
+   against the one-card step at {"data": 1}, and four gloo ranks sharing
+   the card at (1, 2, 2, 1) against phase 9's structural run (two steps,
+   one row a user, outer "add"), each rank's parameters, moments, losses
+   and edge power bit for bit; each rank's peak memory, step seconds,
+   seconds inside collectives, collective groups and flash launches;
+12. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  ``python3 chip_smoke.py
 --training`` builds the flash kernels and runs phase 9 alone,
-``--window`` phase 10 alone.
+``--window`` phase 10 alone, ``--ranks`` phase 11 alone (with its own
+one-card reference for the gloo ranks).
 """
 from __future__ import annotations
 
@@ -350,6 +364,7 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -443,11 +458,14 @@ GRAD_CHUNK = 5
 # zamba2-7b's 81 to 27 (4 groups of 6 Mamba2 layers, each followed by the
 # shared attention block, and the tail of 3) and llava's 8 to 4 for the
 # run's time since phase 10 was added (zamba2's bf16 and f32 prefills
-# with their profiles took ~58 s at 81 layers)
+# with their profiles took ~58 s at 81 layers); since phase 11 was added,
+# for the run's time too, mamba2-780m's 48 to 24, zamba2-7b's 27 to 15 (2
+# groups and the tail of 3) and qwen3-moe's 2 to 1 (its init alone took
+# 9.3 s at 2 layers on the H100 80GB HBM3 at 700 W)
 FAMILY_RUNS = (
-    ("mamba2-780m", None, (4, 4096), (128, 32768)),
-    ("zamba2-7b", 27, (4, 4096), (2, 32768)),
-    ("qwen3-moe-235b-a22b", 2, (4, 4096), (8, 32768)),
+    ("mamba2-780m", 24, (4, 4096), (128, 32768)),
+    ("zamba2-7b", 15, (4, 4096), (2, 32768)),
+    ("qwen3-moe-235b-a22b", 1, (4, 4096), (8, 32768)),
     ("seamless-m4t-medium", None, (4, 4096), (8, 32768)),
     ("llava-next-34b", 4, (4, 4096), (8, 32768)))
 # the families' decode against their prefill on the card: (B, T) tokens
@@ -465,16 +483,44 @@ JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
 # (the local-SGD run's users hold 2 x B_USER: tau = I = 2 microbatches)
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_C, TRAIN_M, TRAIN_B_USER = 2, 2, 2
+# the structural run's rows a user, outer update and eta_local: one row
+# and the outer "add" since phase 11, whose four gloo ranks hold this
+# run's final state as their one-card reference (AdamW's state and update
+# take ~25 GB a rank at this width, the params, m, v, the estimate, its
+# negation, the new moments, the update, its decayed copy and the new
+# params at 2.5 GB each, and 4 x 25 GB is past 80 GB: one row a user,
+# then "add", the cuts in that order)
+STRUCT_B_USER, STRUCT_OUTER, STRUCT_ETA = 1, "add", 5e-3
+# the structural run's second step under `torch.profiler`: off since PR
+# 25 for the run's time (the traced step and its reading took ~30 s in
+# the run that measured the breakdown PERF.md keeps); on
+# with ``--training``
+STRUCT_TRACE = False
 # the quiet radio of examples/lm_federated.py (1,024 antennas at the IS
 # and the PS, a low noise floor), under which a few steps learn
 TRAIN_GEOM = dict(K=1024, K_ps=1024, sigma_z2=1e-4)
-# the float32 training run's depth (flash_attn_tf32 under autograd)
+# the float32 training run's depth (flash_attn_tf32 under autograd), and
+# the local-SGD run's (tau = I = 2: 16 gradient passes a step, 20.2 s at
+# 24 layers on the H100 80GB HBM3 at 700 W), cut for the run's time since phase 11
 TRAIN_F32_LAYERS = 4
+TRAIN_LOCAL_LAYERS = 2
 # the attention's gradient route (the kernel forward, `attention_vjp`'s
 # float32 recompute) against autograd through `flash_attention_plain`,
 # of max |g|: the same function in another order at float32; at bf16
 # each side rounds each gradient once from float32
 ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# phase 11, W-HFL training with one process per mobile user
+# (`launch.ranks`): qwen2-0.5b as registered at train_4k's sequence, each
+# case (backend, world, (pod, cluster, user, model), rows a user, outer,
+# eta_local, steps) against the one-card step on the same batch and keys,
+# bit for bit.  NCCL at world size 1: one user, one row, AdamW, one step.
+# Four gloo ranks sharing the card: phase 9's structural run (C 2 x M 2,
+# STRUCT_*), whose two steps are their reference
+RANKS_CASES = (
+    ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1),
+    ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), STRUCT_B_USER, STRUCT_OUTER,
+     STRUCT_ETA, 2),
+)
 # phase 10, sliding-window attention.  (label, (B, L, H, KV, hd), W,
 # causal): each kernel with a window against its plain version, in both
 # dtypes: qwen2-0.5b's prefill shape both ways, the reduced model's (hd
@@ -1678,14 +1724,18 @@ def step_profile(prof, wall_ms, n_normals, ms_per_normal) -> dict:
     return rec
 
 
-def train_phase(dev, card, expect) -> None:
+def train_phase(dev, card, expect, reference=None,
+                trace=STRUCT_TRACE) -> None:
     """Phase 9: federated LM training (`repro_torch.launch.train`) at
     qwen2-0.5b's full width and train_4k's sequence, bf16 compute and
     float32 parameters, remat on (the config's): the structural step
-    (tau = I = 1, equivalent channel, outer AdamW) for 2 steps on one
-    batch, then a third under `torch.profiler`; local SGD (tau = I = 2,
-    outer "add"), 1 step; the fused step (grad_accum 2, AdamW), 2 steps;
-    one fused step at float32 compute, depth cut to TRAIN_F32_LAYERS.
+    (tau = I = 1, equivalent channel, STRUCT_* rows and outer update)
+    for 2 steps on one batch (with `trace`, the second under
+    `torch.profiler`), its final state and metrics written to
+    `reference` where given (phase 11's); local SGD (tau = I = 2, outer "add", depth cut to
+    TRAIN_LOCAL_LAYERS), 1 step; the fused step (grad_accum 2, AdamW),
+    1 step; one fused step at float32 compute, depth cut to
+    TRAIN_F32_LAYERS.
     Each: finite loss and edge power, wall ms a step, peak memory, and
     its flash launches against the code's count (layers x 2 with remat
     per micro-forward: the forward, and its recompute in the backward);
@@ -1703,37 +1753,43 @@ def train_phase(dev, card, expect) -> None:
     mesh = {"data": n_users}
     geom = uniform_geom(C=TRAIN_C, M=TRAIN_M, **TRAIN_GEOM)
     L = INPUT_SHAPES["train_4k"].seq_len
-    per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params0 = lm_init(cfg, dev)
     n_params = sum(t.numel() for _, t in tree_leaves(params0))
     ms_per_normal = emulation_ms_per_normal(dev)
     # (label, build, b_user, TrainConfig, steps, micro-forwards a step,
-    # trace one more step)
+    # trace one more step, layers run (None: all))
     runs = (
-        ("structural", train.build_train_step, TRAIN_B_USER,
+        ("structural", train.build_train_step, STRUCT_B_USER,
          train.TrainConfig(tau=1, I=1, users_per_cluster=TRAIN_M,
-                           eta_local=1.0, outer="adamw", outer_lr=2e-3,
-                           geom=geom, ota=OTADistConfig()), 2, n_users,
-         True),
+                           eta_local=STRUCT_ETA, outer=STRUCT_OUTER,
+                           outer_lr=2e-3, geom=geom, ota=OTADistConfig()),
+         2 - int(trace), n_users, trace, None),
         ("local SGD", train.build_train_step, 2 * TRAIN_B_USER,
          train.TrainConfig(tau=2, I=2, users_per_cluster=TRAIN_M,
                            eta_local=5e-3, outer="add", geom=geom,
-                           ota=OTADistConfig()), 1, 4 * n_users, False),
+                           ota=OTADistConfig()), 1, 4 * n_users, False,
+         TRAIN_LOCAL_LAYERS),
         ("fused", train.build_fused_train_step, TRAIN_B_USER,
          train.TrainConfig(tau=1, I=1, users_per_cluster=TRAIN_M,
                            eta_local=1.0, outer="adamw", outer_lr=2e-3,
                            grad_accum=2, geom=geom,
-                           ota=OTADistConfig(tx_power_proxy=1e-4)), 2, 2,
-         False))
-    for label, build, b_user, tcfg, steps, micro, trace in runs:
+                           ota=OTADistConfig(tx_power_proxy=1e-4)), 1, 2,
+         False, None))
+    for label, build, b_user, tcfg, steps, micro, trace, layers in runs:
         B = n_users * b_user
         shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
                                     global_batch=B)
-        step, _ = build(cfg, shape, mesh, tcfg, device=dev.type)
-        state = {"params": tree_map(torch.clone, params0),
-                 "opt": (adamw(tcfg.outer_lr).init(params0)
+        run_cfg = cfg if layers is None else cfg.with_(n_layers=layers)
+        per_fwd = run_cfg.n_layers * (2 if cfg.remat else 1)
+        # a depth cut runs the first `layers` layers of params0's stacks
+        p0 = (params0 if layers is None else
+              {**params0, "layers": tree_map(lambda t: t[:layers],
+                                             params0["layers"])})
+        step, _ = build(run_cfg, shape, mesh, tcfg, device=dev.type)
+        state = {"params": tree_map(torch.clone, p0),
+                 "opt": (adamw(tcfg.outer_lr).init(p0)
                          if tcfg.outer == "adamw" else {}),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
         batch = train_batch(cfg, B, L, 40, dev)
@@ -1748,9 +1804,13 @@ def train_phase(dev, card, expect) -> None:
                ok)
         rec = {"phase": "training", "run": f"{TRAIN_ARCH} {label}",
                "cut": f"train_4k: global batch 256 -> {B} (C {TRAIN_C} x "
-               f"M {TRAIN_M} x {b_user} rows)", "seq_len": L,
+               f"M {TRAIN_M} x {b_user} rows)" + (
+                   "" if layers is None else
+                   f"; depth {cfg.n_layers} -> {layers} layers"),
+               "seq_len": L,
                "tau": tcfg.tau, "I": tcfg.I, "outer": tcfg.outer,
-               "grad_accum": tcfg.grad_accum, "n_params": n_params,
+               "grad_accum": tcfg.grad_accum,
+               "n_params": sum(t.numel() for _, t in tree_leaves(p0)),
                "losses": losses, "edge_powers": powers, "wall_ms": walls,
                "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
                "flash_launches": launches["flash_mha_wgmma"],
@@ -1760,6 +1820,17 @@ def train_phase(dev, card, expect) -> None:
             # jitter, 2 clusters' noise and global jitter, the PS's noise
             rec["profile"] = step_profile(prof, walls[-2], 9 * n_params,
                                           ms_per_normal)
+        if label == "structural" and reference:
+            # its state after both steps (the second traced) and their
+            # metrics: phase 11's reference for the four gloo ranks
+            from repro_torch.launch import ranks
+
+            t0 = time.perf_counter()
+            ranks.save_reference(reference, state, [
+                {"loss": torch.tensor(l, dtype=torch.float32),
+                 "edge_power": torch.tensor(p, dtype=torch.float32)}
+                for l, p in zip(losses, powers)])
+            rec["reference_save_seconds"] = time.perf_counter() - t0
         log(rec)
         del step, state, batch, prof
         gc.collect()
@@ -1777,7 +1848,7 @@ def train_phase(dev, card, expect) -> None:
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=B)
     step, init_fn = train.build_fused_train_step(f32, shape, mesh, tcfg,
                                                  device=dev.type)
-    state = init_fn(prng.PRNGKey(0))
+    state, _ = init_fn(prng.PRNGKey(0))
     batch = train_batch(f32, B, L, 40, dev)
     torch.cuda.reset_peak_memory_stats()
     (state, losses, powers, walls, _), launches = counted(
@@ -1910,6 +1981,131 @@ def train_vs_cpu(dev) -> None:
         if not ok:
             raise SystemExit(f"{arch}: lm_loss card vs CPU {loss_gap}, "
                              f"gradient {g_gap}")
+
+
+def ranks_phase(card, expect, gloo_reference=None) -> None:
+    """Phase 11: the structural W-HFL step with one process per mobile
+    user (`launch.ranks.launch`, `train_worker`) at qwen2-0.5b's full
+    width, for each of RANKS_CASES: the one-card step (`{"data": C x
+    M}`) first, its final state and metrics written to a file
+    (`ranks.save_reference`) and its memory freed; then the ranks, each
+    building the mesh on its world, refining it, cutting its own rows of
+    the same global batch and running the same keys.  Each rank reports
+    its peak device memory, step seconds, seconds inside collectives,
+    collective groups and flash launches (layers x 2 per step: one user,
+    one micro-forward), and whether its final state and metrics equal
+    the one-card run's bit for bit; the phase fails unless every rank's
+    do.  `gloo_reference`: phase 9's structural run, written by
+    `train_phase` (the gloo case's one-card run, not run again here)."""
+    from repro_torch import prng
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.core.dist import OTADistConfig, uniform_geom
+    from repro_torch.launch import ranks, train
+
+    cfg = get_config(TRAIN_ARCH)
+    L = INPUT_SHAPES["train_4k"].seq_len
+    per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    tmp = tempfile.mkdtemp(prefix="smoke-ranks-")
+    try:
+        for backend, world, mesh, b_user, outer, eta, steps in RANKS_CASES:
+            C, M = mesh[0] * mesh[1], mesh[2]
+            tcfg = train.TrainConfig(
+                tau=1, I=1, users_per_cluster=M, eta_local=eta, outer=outer,
+                outer_lr=2e-3, ota=OTADistConfig(),
+                geom=uniform_geom(C=C, M=M, **TRAIN_GEOM))
+            B = C * M * b_user
+            shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                        global_batch=B)
+            keys = [100 + i for i in range(steps)]
+            label = f"{TRAIN_ARCH} ranks {backend} world {world}"
+            cut = (f"train_4k: global batch 256 -> {B} (C {C} x M {M} x "
+                   f"{b_user} rows)" + ("" if outer == "adamw" else
+                                        "; outer add (no moments)"))
+
+            def one_card():
+                step, init_fn = train.build_train_step(
+                    cfg, shape, {"data": C * M}, tcfg, device="cuda")
+                state, _ = init_fn(prng.PRNGKey(0))
+                ms, walls = [], []
+                for k in keys:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch, prng.PRNGKey(k))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    ms.append(m)
+                return state, ms, walls
+
+            batch = train_batch(cfg, B, L, 40, torch.device("cuda"))
+            ref = os.path.join(tmp, "reference.pt")
+            if backend == "gloo" and gloo_reference:
+                ref = gloo_reference
+                log({"phase": "ranks", "run": f"{label} one-card reference",
+                     "from": "phase 9's structural run", "cut": cut})
+            else:
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                (state, ms, walls), launches = counted(one_card)
+                expect(f"{label} one-card", launches,
+                       {"flash_mha_wgmma": steps * C * M * per_fwd},
+                       all(bool(torch.isfinite(v)) for m in ms
+                           for v in m.values()))
+                t0 = time.perf_counter()
+                if world == 1:
+                    # the launcher runs a world of one in this process
+                    ref = ranks.reference(state, ms)
+                else:
+                    ranks.save_reference(ref, state, ms)
+                save_s = time.perf_counter() - t0
+                log({"phase": "ranks", "run": f"{label} one-card reference",
+                     "cut": cut, "mesh": {"data": C * M}, "steps": steps,
+                     "metrics": [{k: float(v) for k, v in m.items()}
+                                 for m in ms], "step_seconds": walls,
+                     "peak_allocated_bytes":
+                         torch.cuda.max_memory_allocated(),
+                     "reference_save_seconds": save_s, "card": card})
+                del state, ms
+                gc.collect()
+                torch.cuda.empty_cache()
+            spec = dict(cfg=cfg, shape=shape, tcfg=tcfg, mesh=mesh,
+                        batches=[{k: v.cpu() for k, v in batch.items()}],
+                        keys=keys, reference=ref)
+            t0 = time.perf_counter()
+            res = ranks.launch(ranks.train_worker, world, backend, spec)
+            wall = time.perf_counter() - t0
+            if isinstance(ref, str):
+                os.remove(ref)
+            del ref, spec
+            gc.collect()
+            torch.cuda.empty_cache()
+            ok = True
+            for r in res:
+                same = not r["vs_reference"]["unequal"]
+                finite = all(np.isfinite(v) for m in r["metrics"]
+                             for v in m.values())
+                ok = ok and same and finite
+                log({"phase": "ranks", "run": f"{label} rank {r['rank']}",
+                     "backend": r["backend"], "coordinate": r["coordinate"],
+                     "device": r["device"], "metrics": r["metrics"],
+                     "step_seconds": r["step_seconds"],
+                     "collective_seconds": r["collective_seconds"],
+                     "collectives": r["collectives"],
+                     "peak_allocated_bytes": r["peak_allocated_bytes"],
+                     "flash_launches": r["launches"]["flash_mha_wgmma"],
+                     "bitwise_equal_to_one_card": same,
+                     "vs_one_card": r["vs_reference"], "card": card})
+                expect(f"{label} rank {r['rank']}", r["launches"],
+                       {"flash_mha_wgmma": steps * per_fwd}, same and finite)
+            log({"phase": "ranks", "run": label, "cut": cut,
+                 "mesh_pod_cluster_user_model": list(mesh),
+                 "launch_seconds": wall, "ok": ok, "card": card})
+            if not ok:
+                raise SystemExit(f"{label}: a rank differs from the one-card "
+                                 "step or is not finite")
+            del batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
@@ -3365,9 +3561,9 @@ def main() -> int:
     # Fig. 3: the CIFAR CNN at the paper's sizes, as registered (the
     # equivalent channel, no kernel), faithful with the fused backend,
     # and on the sharded engine (1x1 and 2x5, u_sharded), each through
-    # both drivers; 2x5 through the chunked driver with its first seed
-    # alone, held to that seed of the stepwise run (capturing its tiles'
-    # graphs took 76 s for two seeds)
+    # both drivers but 1x1 (stepwise only, for the run's time); 2x5 through the
+    # chunked driver with its first seed alone, held to that seed of the
+    # stepwise run (capturing its tiles' graphs took 76 s for two seeds)
     fig3_on_card = {}
     for label, sc, mesh in (
             ("fig3_cifar", fig3, None), ("fig3_cifar_fused", fig3_fused, None),
@@ -3409,7 +3605,10 @@ def main() -> int:
             one = first_seed(res)
             chunked_rerun(label, lambda: make("chunked", True, 1), one,
                           fig3_want(one))
-        else:
+        elif mesh is None:
+            # (sharded 1x1's chunked rerun, ~33 s, went for phase 11: the
+            # sharded engine's chunked driver is held by 2x5 here and by
+            # scale_u256 3x5, fig2_drop50 2x4 and scale_u65536 1x1)
             chunked_rerun(label, lambda: make("chunked", True), res, want)
         fig3_on_card[label] = res
     for label in ("fig3_cifar_fused sharded 1x1 u_sharded",
@@ -3937,7 +4136,7 @@ def main() -> int:
                 and same["metrics_bitwise_equal"]):
             raise SystemExit(f"{label}: differs from the single engine: "
                              f"{same}")
-    del u_tele, slab_plain, res, ref
+    del u_tele, slab_plain, res
 
     # dense-LM serving: qwen2-0.5b at full width, weights from a seed
     from repro_torch.configs import INPUT_SHAPES, get_config
@@ -4150,17 +4349,20 @@ def main() -> int:
     del served15, small_runs
     del lm_run
     # the reference backend issues ~60k ops a round (a 20-step fold per
-    # hop), so it is profiled over 2 rounds to keep the trace small
-    for label, sc in [(label, sc.replace(total_IT=2) if sc is fig2_ref
+    # hop), so it is profiled over 1 round (2 before phase 11, which cut it
+    # for the run's time) to keep the trace small
+    for label, sc in [(label, sc.replace(total_IT=1) if sc is fig2_ref
                        else sc) for label, sc, _ in runs] + [
             ("fig2_iid_slab", fig2_slab)]:
         prof = device_profile(SweepRunner([sc], seeds=1, device="cuda",
                                           batch="map"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
     # participation: the mask, precode and rescale on the fused round,
-    # and the median fold's per-user hops, through both drivers
-    for label, sc in (("fig2_drop50 fused", drop50_fused),
-                      ("fig2_byzantine1_median", byz1_median)):
+    # and the median fold's per-user hops, through both drivers, over 2
+    # rounds (for the run's time; the rates are per round)
+    for label, sc in (("fig2_drop50 fused", drop50_fused.replace(
+            total_IT=2)), ("fig2_byzantine1_median", byz1_median.replace(
+                total_IT=2))):
         for d in ("stepwise", "chunked"):
             prof = device_profile(SweepRunner(
                 [sc], seeds=1, device="cuda", driver=d,
@@ -4189,17 +4391,9 @@ def main() -> int:
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "drive_seconds": res.exec_info["drive_seconds"]})
     del res
-    # Fig. 3, one round: as registered (equivalent) and faithful/fused,
-    # stepwise, and fused through the chunked driver's graph
-    for label, sc, driver in (
-            ("fig3_cifar", fig3, "stepwise"),
-            ("fig3_cifar_fused", fig3_fused, "stepwise"),
-            ("fig3_cifar_fused chunked", fig3_fused, "chunked")):
-        sc = sc.replace(total_IT=1)
-        prof = device_profile(SweepRunner([sc], seeds=1, device="cuda",
-                                          driver=driver, batch="map",
-                                          warmup=driver == "chunked"), sc)
-        log({"phase": "profile", "run": label, "card": card, **prof})
+    # Fig. 3's profiles (one round as registered and fused, stepwise, and
+    # fused through the chunked driver's graph, 20 to 48 s each) went to
+    # make way for phase 11; PERF.md keeps the earlier ones
     # rounds/s of both drivers, each warmed before its drive (fig3's
     # rates are phase 4's runs' and the profiles' above: its second pass
     # here makes way for phase 9)
@@ -4573,7 +4767,9 @@ def main() -> int:
     # -- phase 9: federated LM training ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(dev, card, expect)
+    ranks_dir = tempfile.mkdtemp(prefix="smoke-ranks-")
+    gloo_reference = os.path.join(ranks_dir, "structural.pt")
+    train_phase(dev, card, expect, reference=gloo_reference)
 
     # -- phase 10: sliding-window attention ---------------------------------
     def record_err(name, err, rel):
@@ -4582,7 +4778,15 @@ def main() -> int:
 
     window_phase(dev, card, counted, expect, record_err, timings)
 
-    # -- phase 11: the records ---------------------------------------------
+    # -- phase 11: W-HFL training with one process per mobile user --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ranks_phase(card, expect, gloo_reference)
+    finally:
+        shutil.rmtree(ranks_dir, ignore_errors=True)
+
+    # -- phase 12: the records ---------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",
@@ -4641,7 +4845,8 @@ def training_only() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build.load_all([src for src in SOURCES if src.startswith("flash")])
 
-    train_phase(torch.device("cuda"), card.splitlines()[0], check_launches)
+    train_phase(torch.device("cuda"), card.splitlines()[0], check_launches,
+                trace=True)
     log({"phase": "done", "seconds": time.perf_counter() - T_START})
     return 0
 
@@ -4677,7 +4882,31 @@ def window_only() -> int:
     return 0
 
 
+def ranks_only() -> int:
+    """``python3 chip_smoke.py --ranks``: phases 1 and 2 for the flash
+    kernels alone, then phase 11 (training on ranks), with launch counts
+    as `main` keeps them; no kernel records."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs a CUDA "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_all([src for src in SOURCES if src.startswith("flash")])
+    ranks_phase(card.splitlines()[0], check_launches)
+    log({"phase": "done", "seconds": time.perf_counter() - T_START})
+    return 0
+
+
 if __name__ == "__main__":
-    MODES = {"--training": training_only, "--window": window_only}
+    MODES = {"--training": training_only, "--window": window_only,
+             "--ranks": ranks_only}
     sys.exit(MODES[sys.argv[1]]() if len(sys.argv) == 2
              and sys.argv[1] in MODES else main())

@@ -6,11 +6,16 @@ synthetic Markov corpus with `repro_torch.launch.train.build_train_step`
 (the structural two-hop OTA aggregation) or, with ``--fused``,
 `build_fused_train_step`.  The JAX example gives its host 8 fake
 devices for 2 clusters x 2 users x 2-way model parallel; the port runs
-every user on one device, so the clusters and users are arguments.
+every user on one device, or, with ``--ranks N`` (N = clusters x
+users), one process per user (`repro_torch.launch.ranks`): the hops as
+collectives over each rank's user and cluster groups, through NCCL
+(one rank a card) or gloo (ranks on the CPU, or sharing one card).
 
     PYTHONPATH=src python examples/lm_federated_torch.py --steps 50
     PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
         --steps 3 --seq 64 --layers 2 --d-model 64
+    PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
+        --steps 3 --seq 64 --layers 2 --d-model 64 --ranks 4 --backend gloo
 """
 import argparse
 import os
@@ -29,6 +34,7 @@ from repro_torch.configs.base import ArchConfig, InputShape  # noqa: E402
 from repro_torch.core.dist import OTADistConfig, uniform_geom  # noqa: E402
 from repro_torch.data import lm_corpus  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch import ranks  # noqa: E402
 from repro_torch.launch.train import (TrainConfig,  # noqa: E402
                                       build_fused_train_step,
                                       build_train_step)
@@ -63,6 +69,12 @@ def main(argv=None):
                     choices=["equivalent", "ideal"])
     ap.add_argument("--fused", action="store_true",
                     help="build_fused_train_step (needs tau = I = 1)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="one process per user (clusters x users of "
+                    "them); 0: every user on one device")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the ranks' process group: nccl, one rank a "
+                    "card; gloo, ranks on the CPU or sharing one card")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
@@ -86,9 +98,11 @@ def main(argv=None):
                        outer="adamw" if local else "add",
                        outer_lr=3e-4, geom=geom,
                        ota=OTADistConfig(mode=args.ota))
+    if args.ranks:
+        return on_ranks(args, cfg, shape, tcfg)
     build = build_fused_train_step if args.fused else build_train_step
     step, init_fn = build(cfg, shape, {"data": C * M}, tcfg, device=dev)
-    state = init_fn(prng.PRNGKey(0))
+    state, _ = init_fn(prng.PRNGKey(0))
     n_params = sum(t.numel() for _, t in tree_leaves(state["params"]))
     print(f"params: {n_params / 1e6:.1f}M")
 
@@ -104,6 +118,33 @@ def main(argv=None):
         if args.ckpt_dir and ((i + 1) % 100 == 0 or i == args.steps - 1):
             save_step(args.ckpt_dir, i + 1, state["params"])
     print(f"done: {args.steps} steps in {time.time() - t0:.0f}s")
+
+
+def on_ranks(args, cfg, shape, tcfg):
+    """The run with one process per user: `ranks.train_worker` on
+    (pod, cluster, user, model) = (1, clusters, users, 1), each rank
+    cutting its own rows of every step's global batch."""
+    if args.ranks != args.clusters * args.users:
+        raise SystemExit(f"--ranks {args.ranks}: need clusters x users = "
+                         f"{args.clusters * args.users}")
+    if args.ckpt_dir:
+        raise SystemExit("--ckpt-dir saves from one device; drop --ranks")
+    toks = lm_corpus(0, n_tokens=500_000, vocab=args.vocab)
+    it = batches(toks, args.batch, args.seq, "cpu")
+    spec = dict(cfg=cfg, shape=shape, tcfg=tcfg, fused=args.fused,
+                mesh=(1, args.clusters, args.users, 1),
+                batches=[next(it) for _ in range(args.steps)],
+                keys=list(range(args.steps)), log_every=10,
+                device="cpu" if args.device == "cpu" else None)
+    t0 = time.time()
+    res = ranks.launch(ranks.train_worker, args.ranks, args.backend, spec)
+    for r in res:
+        print(f"rank {r['rank']} {r['coordinate']} on {r['device']}: "
+              f"{sum(r['step_seconds']) / args.steps:.2f} s/step, "
+              f"{sum(r['collective_seconds']) / args.steps:.2f} s/step in "
+              f"collectives ({r['backend']})")
+    print(f"done: {args.steps} steps on {args.ranks} ranks in "
+          f"{time.time() - t0:.0f}s")
 
 
 if __name__ == "__main__":

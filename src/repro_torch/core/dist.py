@@ -5,15 +5,28 @@ the error-free "ideal" one), for the LM training step (the port of
 The JAX package runs these functions inside `shard_map`, one program
 per (pod, cluster, user) mesh coordinate: each program holds one user's
 delta, the cluster hop is a ``psum('user')`` and the global hop a
-``psum(('pod', 'cluster'))``.  The port runs every user on one card, so
-it takes all users' deltas at once, as a tree whose leaves carry a
-leading [C, M] axis (cluster, user; C counts every pod's clusters, in
-(pod, cluster) order):
+``psum(('pod', 'cluster'))``.  The port has both forms, told apart by
+one rule: **inside `repro_torch.sharding.shard_map`** (an axis context
+is bound: one process per mesh coordinate), `cluster_hop`,
+`global_hop`, `fused_whfl_aggregate` and `whfl_aggregate` take this
+coordinate's tree and their sums are collectives over the rank's
+groups, as in the reference (`sharding.psum`: the cluster hop over the
+`user` group of M ranks, the global hop over the `(pod, cluster)` group
+of C, the fused hop over all of `(pod, cluster, user)`); **outside
+it**, they take every user's delta at once on one device, as a tree
+whose leaves carry a leading [C, M] axis (cluster, user; C counts
+every pod's clusters, in (pod, cluster) order):
 
 - ``psum('user')`` is a sum over a cluster's M users, and the cluster
   hop returns each cluster's estimate, leaves [C, ...];
 - ``psum(('pod', 'cluster'))`` is a sum over the C clusters, and the
   global hop returns the PS's estimate, leaves [...].
+
+Both forms weight, divide and add in one order: a sum over a group of
+two is a + b either way, and a scalar's sum is gathered and added in
+rank order, as the one-card form adds its list.  So the two forms agree
+bit for bit wherever every group has at most two members; the fused
+hop's sum over four ranks adds in the backend's order.
 
 Every draw uses the key JAX uses at that coordinate: a user's gain
 jitter `fold_in(key, user_id)`, a cluster's noise `fold_in(key,
@@ -22,8 +35,9 @@ c)`, the PS's noise `fold_in(key, 3_000_017)`, each split over the tree's
 leaves in `jax.tree` order (`repro_torch.tree`, sorted keys) and drawn
 through the `jax.random` emulation (`nn.core._normal`, a slice of
 `nn.core.DRAW_SLICE` elements at a time past that size; `draw_normal`).
-Noise that JAX draws identically on every member
-of a receiver group (a cluster's, the PS's) is drawn once here.
+Noise that JAX draws identically on every member of a receiver group
+(a cluster's, the PS's) is drawn by every member's rank too, and once
+by the one-card form.
 
 Real/complex bookkeeping as in the reference: a CN(0, V) perturbation
 per complex entry is V/2 per real component of the (real) delta trees.
@@ -42,6 +56,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.topology import Topology
 from repro_torch.nn.core import _normal
+from repro_torch.sharding import api as sh
 from repro_torch.tree import tree_from_paths, tree_leaves
 
 
@@ -138,14 +153,50 @@ def _size(leaves: List[Tuple[tuple, torch.Tensor]], lead: int) -> int:
     return sum(math.prod(t.shape[lead:]) for _, t in leaves)
 
 
+def _add_all(xs):
+    """x0 + x1 + ... from the first term (a sum from 0 would turn an
+    all -0.0 entry into +0.0, which a collective over the ranks does
+    not)."""
+    xs = iter(xs)
+    out = next(xs)
+    for x in xs:
+        out = out + x
+    return out
+
+
 def _rebuild(paths, tensors):
     return tree_from_paths(zip(paths, tensors))
 
 
-def user_id(c: int, m: int, M: int) -> int:
+def user_id(c: Optional[int] = None, m: Optional[int] = None,
+            M: Optional[int] = None) -> int:
     """The reference's global user index of user m of cluster c (c the
-    global, pod-major cluster index)."""
+    global, pod-major cluster index); with no arguments, inside
+    `shard_map`, this rank's."""
+    if c is None:
+        return cluster_id() * _axis_size("user") + sh.axis_index("user")
     return c * M + m
+
+
+def _axis_size(name: str) -> int:
+    return sh.axis_size(name)
+
+
+def cluster_id() -> int:
+    """Inside `shard_map`: the global cluster index, pod * clusters per
+    pod + cluster."""
+    return (sh.axis_index("pod") * _axis_size("cluster")
+            + sh.axis_index("cluster"))
+
+
+def _ranked() -> bool:
+    """True inside `shard_map`: the hops take this coordinate's tree."""
+    return sh.current_axes() is not None
+
+
+_USER = "user"
+_CLUSTERS = ("pod", "cluster")
+_ALL = ("pod", "cluster", "user")
 
 
 # ---------------------------------------------------------------------------
@@ -158,13 +209,16 @@ def cluster_hop(deltas, geom: DistGeom, key: torch.Tensor, P_t,
 
     `deltas`: every user's model delta, leaves [C, M, ...] (float32).
     Returns each cluster's estimate, leaves [C, ...]: the reference's
-    `cluster_hop` output on cluster c's members."""
+    `cluster_hop` output on cluster c's members.  Inside `shard_map`:
+    this user's delta to its cluster's estimate (`_rank_cluster_hop`)."""
+    if _ranked():
+        return _rank_cluster_hop(deltas, geom, key, P_t, cfg)
     leaves = list(tree_leaves(deltas))
     paths = [p for p, _ in leaves]
     C, M = geom.C, geom.M
     dev = leaves[0][1].device
     if cfg.mode == "ideal":
-        return _rebuild(paths, [sum(t[:, m] / M for m in range(M))
+        return _rebuild(paths, [_add_all(t[:, m] / M for m in range(M))
                                 for _, t in leaves])
 
     beta_own = _f32(geom.beta_own, dev)                      # [C, M]
@@ -222,13 +276,16 @@ def global_hop(is_deltas, geom: DistGeom, key: torch.Tensor, P_is_t,
     """IS -> PS OTA aggregation (eq. 15-18, equivalent channel).
 
     `is_deltas`: each cluster's accumulated delta, leaves [C, ...].
-    Returns the PS's estimate, leaves [...]."""
+    Returns the PS's estimate, leaves [...].  Inside `shard_map`: this
+    rank's cluster's delta to the PS's estimate (`_rank_global_hop`)."""
+    if _ranked():
+        return _rank_global_hop(is_deltas, geom, key, P_is_t, cfg)
     leaves = list(tree_leaves(is_deltas))
     paths = [p for p, _ in leaves]
     C = geom.C
     dev = leaves[0][1].device
     if cfg.mode == "ideal":
-        return _rebuild(paths, [sum(t[c] / C for c in range(C))
+        return _rebuild(paths, [_add_all(t[c] / C for c in range(C))
                                 for _, t in leaves])
 
     b_is = _f32(geom.beta_is, dev)
@@ -278,14 +335,20 @@ def fused_whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t,
 
     with per-user scalar jitter folded into one weight per user and the
     clusters' and the PS's noise in one draw of the summed variance.
-    `deltas` leaves [C, M, ...]; returns leaves [...]."""
+    `deltas` leaves [C, M, ...]; returns leaves [...].  Inside
+    `shard_map`: this user's delta, one flat sum over all ranks
+    (`_rank_fused`)."""
+    if _ranked():
+        return _rank_fused(deltas, geom, key, P_t, P_is_t, cfg)
     leaves = list(tree_leaves(deltas))
     paths = [p for p, _ in leaves]
     C, M = geom.C, geom.M
     dev = leaves[0][1].device
     if cfg.mode == "ideal":
-        return _rebuild(paths, [sum(t[c, m] / (C * M) for c in range(C)
-                                    for m in range(M)) for _, t in leaves])
+        return _rebuild(paths, [_add_all(t[c, m] / (C * M)
+                                         for c in range(C)
+                                         for m in range(M))
+                                for _, t in leaves])
 
     bo = _f32(geom.beta_own, dev)
     bbc = _f32(geom.beta_bar_c, dev)
@@ -332,10 +395,164 @@ def fused_whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t,
 def whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
                    cfg: OTADistConfig):
     """One W-HFL aggregation round (tau = I = 1) of every user's delta
-    (leaves [C, M, ...]) to the PS's estimate (leaves [...]): the two
-    hops, or the fused one with ``cfg.fused``."""
+    (leaves [C, M, ...]; inside `shard_map` this user's) to the PS's
+    estimate (leaves [...]): the two hops, or the fused one with
+    ``cfg.fused``."""
     if cfg.fused:
         return fused_whfl_aggregate(deltas, geom, key, P_t, P_is_t, cfg)
     k1, k2 = prng.split(key)
     est_c = cluster_hop(deltas, geom, k1, P_t, cfg)
     return global_hop(est_c, geom, k2, P_is_t, cfg)
+
+
+# ---------------------------------------------------------------------------
+# one coordinate's hops (inside `sharding.shard_map`)
+# ---------------------------------------------------------------------------
+
+def _tree_sqsum(leaves) -> torch.Tensor:
+    return sum(_sqsum(t) for _, t in leaves)
+
+
+def _rank_hop(leaves, eps_keys, no_keys, inv_root_k, w, wi, v_base,
+              std_scalar, names, per_element: bool) -> list:
+    """A hop's leaves on this rank: each leaf weighted and jittered and,
+    per element, its interference power, both summed over `names`, then
+    the sum plus noise of the resulting std."""
+    out = []
+    for li, (_, x) in enumerate(leaves):
+        e = draw_normal(eps_keys[li], x.shape) * inv_root_k
+        y = (x.float() * (1.0 + e) * w).to(x.dtype)
+        del e
+        est = sh.psum(y, names)
+        del y
+        if per_element:
+            p2 = sh.psum(wi * torch.square(x.float()), names)
+            std = torch.sqrt(p2 / 2.0 + v_base)
+            del p2
+        else:
+            std = std_scalar
+        noise = draw_normal(no_keys[li], est.shape).to(est.dtype) * std.to(
+            est.dtype)
+        out.append(est + noise)
+    return out
+
+
+def _rank_cluster_hop(delta, geom: DistGeom, key: torch.Tensor, P_t,
+                      cfg: OTADistConfig):
+    """This user's delta -> its cluster's estimate, identical on every
+    member of the cluster.  Collectives over the `user` group: one
+    delta-sized all-reduce (+ one more with per-element interference)
+    and one scalar sum (+ one more with scalar interference)."""
+    leaves = list(tree_leaves(delta))
+    paths = [p for p, _ in leaves]
+    M = geom.M
+    dev = leaves[0][1].device
+    if cfg.mode == "ideal":
+        return _rebuild(paths, [sh.psum(t / M, _USER) for _, t in leaves])
+
+    ci, ui = cluster_id(), sh.axis_index(_USER)
+    b_m = _f32(geom.beta_own, dev)[ci, ui]
+    bb_c = _f32(geom.beta_bar_c, dev)[ci]
+    w = b_m / bb_c
+    n_el = float(max(_size(leaves, 0), 1))
+    v_base = (geom.sigma_z2 / (geom.K * (P_t ** 2) * geom.sigma_h2 * bb_c)
+              / 2.0)
+    wi = std_scalar = None
+    if cfg.interference:
+        pw_own = sh.psum(_tree_sqsum(leaves) / M, _USER)
+        v_base = v_base + (_f32(geom.beta_cross, dev)[ci] * pw_own / n_el
+                           / (geom.K * bb_c ** 2)) / 2.0
+        wi = b_m * (bb_c - b_m) / (geom.K * bb_c ** 2)
+        if not cfg.per_element_interference:
+            pw = sh.psum(wi * _tree_sqsum(leaves), _USER)
+            std_scalar = torch.sqrt(pw / n_el / 2.0 + v_base)
+    else:
+        std_scalar = torch.sqrt(v_base)
+    out = _rank_hop(
+        leaves, prng.split(prng.fold_in(key, user_id()), len(leaves)),
+        prng.split(prng.fold_in(key, 1_000_003 + ci), len(leaves)),
+        _f32(1.0 / np.sqrt(geom.K), dev), w, wi, v_base, std_scalar, _USER,
+        cfg.interference and cfg.per_element_interference)
+    return _rebuild(paths, out)
+
+
+def _rank_global_hop(is_delta, geom: DistGeom, key: torch.Tensor, P_is_t,
+                     cfg: OTADistConfig):
+    """This rank's cluster's delta -> the PS's estimate.  The sum over
+    the `(pod, cluster)` group at a fixed user coordinate adds each
+    cluster once."""
+    leaves = list(tree_leaves(is_delta))
+    paths = [p for p, _ in leaves]
+    C = geom.C
+    dev = leaves[0][1].device
+    if cfg.mode == "ideal":
+        return _rebuild(paths, [sh.psum(t / C, _CLUSTERS)
+                                for _, t in leaves])
+
+    ci = cluster_id()
+    b_is = _f32(geom.beta_is, dev)[ci]
+    bb = _f32(geom.beta_bar, dev)
+    n_el = float(max(_size(leaves, 0), 1))
+    w = b_is / bb
+    v_th = geom.sigma_z2 / (geom.K_ps * (P_is_t ** 2) * geom.sigma_h2
+                            * bb) / 2.0
+    interf = cfg.interference and C > 1
+    wi = b_is * (bb - b_is) / (geom.K_ps * bb ** 2)
+    std_scalar = None
+    if interf and not cfg.per_element_interference:
+        pw = sh.psum(wi * _tree_sqsum(leaves), _CLUSTERS)
+        std_scalar = torch.sqrt(pw / n_el / 2.0 + v_th)
+    elif not interf:
+        std_scalar = torch.sqrt(v_th)
+    out = _rank_hop(
+        leaves, prng.split(prng.fold_in(key, 2_000_003 + ci), len(leaves)),
+        prng.split(prng.fold_in(key, 3_000_017), len(leaves)),
+        _f32(1.0 / np.sqrt(geom.K_ps), dev), w, wi, v_th, std_scalar,
+        _CLUSTERS, interf and cfg.per_element_interference)
+    return _rebuild(paths, out)
+
+
+def _rank_fused(delta, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
+                cfg: OTADistConfig):
+    """This user's delta -> the PS's estimate in one flat sum over all
+    of (pod, cluster, user), its scalar weight both hops' gains."""
+    leaves = list(tree_leaves(delta))
+    paths = [p for p, _ in leaves]
+    C, M = geom.C, geom.M
+    dev = leaves[0][1].device
+    if cfg.mode == "ideal":
+        return _rebuild(paths, [sh.psum(t / (C * M), _ALL)
+                                for _, t in leaves])
+
+    ci, ui = cluster_id(), sh.axis_index(_USER)
+    bo = _f32(geom.beta_own, dev)
+    bbc = _f32(geom.beta_bar_c, dev)
+    b_is = _f32(geom.beta_is, dev)
+    bb = _f32(geom.beta_bar, dev)
+    eps_c = prng.normal(prng.fold_in(key, 2_000_003 + ci), ()) / np.sqrt(
+        geom.K_ps)
+    eps_m = prng.normal(prng.fold_in(key, user_id()), ()) / np.sqrt(geom.K)
+    w = ((bo[ci, ui] / bbc[ci]) * (1.0 + eps_m) * (b_is[ci] / bb)
+         * (1.0 + eps_c))
+    pw = sh.psum(_tree_sqsum(leaves) / (C * M), _ALL)
+    n_el = float(max(_size(leaves, 0), 1))
+    v_c = (torch.sum(bo * (bbc[:, None] - bo), dim=1) * (pw / n_el)
+           / (geom.K * bbc ** 2)
+           + _f32(geom.beta_cross, dev) * geom.M * (pw / n_el)
+           / (geom.K * bbc ** 2)
+           + geom.sigma_z2 / (geom.K * (P_t ** 2) * geom.sigma_h2 * bbc))
+    wg2 = (b_is / bb) ** 2
+    v_cluster_tot = torch.sum(wg2 * v_c)
+    v_glob = (torch.sum(b_is * (bb - b_is)) * (pw / n_el)
+              / (geom.K_ps * bb ** 2)
+              + geom.sigma_z2 / (geom.K_ps * (P_is_t ** 2) * geom.sigma_h2
+                                 * bb))
+    std = torch.sqrt((v_cluster_tot + v_glob) / 2.0)
+    no_keys = prng.split(prng.fold_in(key, 3_000_017), len(leaves))
+    out = []
+    for li, (_, t) in enumerate(leaves):
+        est = sh.psum((t.float() * w).to(t.dtype), _ALL)
+        noise = draw_normal(no_keys[li], est.shape).to(est.dtype) * std.to(
+            est.dtype)
+        out.append(est + noise)
+    return _rebuild(paths, out)

@@ -1,12 +1,17 @@
-"""Serving steps on one card: prefill and single-token decode (the port
-of `repro.launch.serve`).
+"""Serving steps: prefill and single-token decode (the port of
+`repro.launch.serve`).
 
 Serving needs no W-HFL: OTA aggregation is a training-time feature.
 The JAX package jits each step on a production mesh with sharding
-rules; the port runs eagerly on one device, so a `device` takes the
-place of the mesh, and `cache_shardings` and `_data_axes` have no
-counterpart (there is nothing to shard on one card).  Decode shapes run
-`serve_step`, ONE new token against a KV cache of `seq_len`;
+rules: the batch over the data axes, heads/experts/vocab over 'model'.
+The port runs each step eagerly on one device.  Given a `mesh` (a
+`DeviceMesh` or a shape mapping such as ``{"data": 16, "model": 16}``)
+`build_prefill_step` and `build_decode_step` also return the
+reference's placements, as specs over it
+(`repro_torch.sharding`): ``(step, specs, shardings, rules)``, with
+`cache_shardings` for the decode cache; running a step on several ranks
+waits for tensor parallelism (ROADMAP queue A item 11).  Decode shapes
+run `serve_step`, ONE new token against a KV cache of `seq_len`;
 `long_500k` uses the sliding-window variant for attention archs (cache
 size = window) and the O(1) state for SSM/hybrid.
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.sharding import P, make_rules, mesh_axes
 from repro_torch.tree import tree_leaves
 
 
@@ -32,6 +38,19 @@ def _on(dev: torch.device, **tensors) -> None:
         if t.device.type != dev.type:
             raise ValueError(f"{name} is on {t.device}; this step runs on "
                              f"{dev}")
+
+
+def _data_axes(mesh):
+    return tuple(a for a in ("pod", "cluster", "user", "data")
+                 if a in mesh_axes(mesh))
+
+
+def _n_data(mesh) -> int:
+    sizes = mesh_axes(mesh)
+    n = 1
+    for a in _data_axes(mesh):
+        n *= sizes[a]
+    return n
 
 
 def decode_window(cfg: ArchConfig, shape: InputShape) -> Optional[int]:
@@ -56,13 +75,15 @@ def compute_params(params, cfg: ArchConfig):
     return cast(params)
 
 
-def build_prefill_step(cfg: ArchConfig, shape: InputShape, device=None):
+def build_prefill_step(cfg: ArchConfig, shape: InputShape, device=None,
+                       *, mesh=None):
     """(prefill_step, batch_specs): prefill_step(params, batch) returns
     the last-position logits [B, vocab] float32; batch_specs() the batch
     it takes, as tensors on the "meta" device (shapes and dtypes): the
     tokens [B, L] int32, with the vlm's "patch_embeds" [B, n_patches, D]
     and the encdec's "src_frames" [B, enc_src_frames, D] in the compute
-    dtype."""
+    dtype.  With a `mesh`, also `shardings()` -> (the batch's specs,
+    the logits' spec) and the rules: four values, as the reference."""
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
@@ -83,7 +104,16 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, device=None):
                 device="meta")
         return b
 
-    return prefill_step, batch_specs
+    if mesh is None:
+        return prefill_step, batch_specs
+    rules = make_rules(mesh, fsdp=False, cfg=cfg)
+    da = _data_axes(mesh)
+
+    def shardings():
+        return ({k: P(da) for k in batch_specs()},
+                P(da, rules.physical("vocab")))      # logits [B, vocab]
+
+    return prefill_step, batch_specs, shardings, rules
 
 
 def cache_specs(cfg: ArchConfig, shape: InputShape):
@@ -93,11 +123,53 @@ def cache_specs(cfg: ArchConfig, shape: InputShape):
                                 window=w, device="meta")
 
 
-def build_decode_step(cfg: ArchConfig, shape: InputShape, device=None):
+def cache_shardings(cfg: ArchConfig, shape: InputShape, mesh):
+    """The decode cache's specs: the batch dim of every leaf over the
+    data axes (where B divides over them); KV heads (and SSM heads) over
+    'model' when they divide it, else replicated."""
+    da = _data_axes(mesh)
+    n_model = mesh_axes(mesh).get("model", 1)
+    n_data = _n_data(mesh)
+    B = shape.global_batch
+    batch_ax = da if (B % max(n_data, 1) == 0 and B >= n_data) else None
+
+    def leaf_spec(names, leaf):
+        shp = leaf.shape
+        # cache layouts: attn k/v [n_layers(, groups), B, S, KV, hd];
+        # pos [..., B]; ssm h [..., B, H, P, N]; conv [..., B, K-1, C];
+        # enc_out [B, L, D]
+        spec = [None] * len(shp)
+        # the batch dim: the first dim equal to B, from the left
+        for i, n in enumerate(shp):
+            if n == B:
+                spec[i] = batch_ax
+                break
+        if names and names[-1] in ("k", "v") and len(shp) >= 2:
+            if shp[-2] % n_model == 0 and shp[-2] >= n_model:
+                spec[-2] = "model"
+        if names and names[-1] == "h" and len(shp) >= 3:
+            if shp[-3] % n_model == 0 and shp[-3] >= n_model:
+                spec[-3] = "model"   # SSM heads
+        return P(*spec)
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            return {k: walk(v, names + [k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, names + [""]) for v in tree]
+        return leaf_spec(names, tree)
+
+    return walk(cache_specs(cfg, shape), [])
+
+
+def build_decode_step(cfg: ArchConfig, shape: InputShape, device=None, *,
+                      mesh=None):
     """(serve_step, token_specs): serve_step(params, cache, tokens)
     returns (logits [B, vocab] float32, cache), the cache written in
     place (`lm.decode_step`); token_specs() the tokens it takes, [B, 1]
-    int32 on the "meta" device."""
+    int32 on the "meta" device.  With a `mesh`, also `shardings()` ->
+    (the tokens' spec, `cache_shardings`, the logits' spec) and the
+    rules: four values, as the reference."""
     dev = resolve_device(device)
     w = decode_window(cfg, shape)
 
@@ -111,4 +183,17 @@ def build_decode_step(cfg: ArchConfig, shape: InputShape, device=None):
         return torch.empty((shape.global_batch, 1), dtype=torch.int32,
                            device="meta")
 
-    return serve_step, token_specs
+    if mesh is None:
+        return serve_step, token_specs
+    rules = make_rules(mesh, fsdp=False, cfg=cfg)
+    da = _data_axes(mesh)
+
+    def shardings():
+        n_data = _n_data(mesh)
+        tok_spec = (P(da) if shape.global_batch % max(n_data, 1) == 0
+                    and shape.global_batch >= n_data else P())
+        return (tok_spec, cache_shardings(cfg, shape, mesh),
+                P(tok_spec[0] if tok_spec else None,
+                  rules.physical("vocab")))
+
+    return serve_step, token_specs, shardings, rules

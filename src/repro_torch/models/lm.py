@@ -72,22 +72,32 @@ def _check_family(cfg: ArchConfig) -> str:
 # ---------------------------------------------------------------------------
 
 def _stack_layers(key: torch.Tensor, n: int, init_fn):
-    """n layers from `init_fn` on the n keys of ``split(key, n)``, each
-    leaf stacked on a new leading axis.  The stack is allocated once and
-    filled a layer at a time, so building it takes the stack and one
-    layer of memory."""
+    """n layers from `init_fn` (a Px tree) on the n keys of ``split(key,
+    n)``, each leaf stacked on a new leading axis, its logical axes led
+    by "layers".  The stack is allocated once and filled a layer at a
+    time, so building it takes the stack and one layer of memory; on the
+    "meta" device one layer gives the shapes."""
     keys = prng.split(key, n)
-    first = init_fn(keys[0])
+    first, axes = core.split_params(init_fn(keys[0]))
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
 
     def put(i, tree):
         tree_map(lambda o, t: o[i].copy_(t), out, tree)
 
-    put(0, first)
-    del first
-    for i in range(1, n):
-        put(i, init_fn(keys[i]))
-    return out
+    if key.device.type != "meta":
+        put(0, first)
+        del first
+        for i in range(1, n):
+            put(i, core.split_params(init_fn(keys[i]))[0])
+    return _join(out, axes, ("layers",))
+
+
+def _join(values, axes, lead=()):
+    """The Px tree of a values tree and its axes tree (each axes tuple
+    led by `lead`)."""
+    if isinstance(values, dict):
+        return {k: _join(values[k], axes[k], lead) for k in values}
+    return core.Px(values, lead + tuple(axes))
 
 
 def _attn_cfg(cfg: ArchConfig,
@@ -150,6 +160,18 @@ def init_params(key: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree on `key`'s device (make the key with
     ``prng.PRNGKey(seed, device)``): the values of the JAX package's
     `split_params(init_params(PRNGKey(seed), cfg))[0]`."""
+    return core.split_params(init_px(key, cfg))[0]
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """The parameters' logical axes tree (`init_px` on the "meta"
+    device, nothing allocated)."""
+    return core.split_params(init_px(prng.PRNGKey(0, "meta"), cfg))[1]
+
+
+def init_px(key: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
+    """The JAX package's `init_params`: a Px tree (values and logical
+    axes; `nn.core.split_params` separates them)."""
     fam = _check_family(cfg)
     k_emb, k_layers, k_head, _ = prng.split(key, 4)
     dt = cfg.pdt()
@@ -157,7 +179,8 @@ def init_params(key: torch.Tensor, cfg: ArchConfig) -> Dict[str, Any]:
         "embed": core.embedding_init(k_emb, cfg.vocab, cfg.d_model, dtype=dt),
         "final_norm": core.rmsnorm_init(cfg.d_model, dtype=dt,
                                         device=key.device),
-        "lm_head": core.dense_init(k_head, cfg.d_model, cfg.vocab, dtype=dt),
+        "lm_head": core.dense_init(k_head, cfg.d_model, cfg.vocab,
+                                   axes=("p_embed", "p_vocab"), dtype=dt),
     }
     if fam in ("dense", "vlm", "moe"):
         p["layers"] = _stack_layers(k_layers, cfg.n_layers,

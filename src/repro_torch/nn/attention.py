@@ -73,15 +73,20 @@ def init(key: torch.Tensor, cfg: AttnConfig, dtype=torch.float32):
     kq, kk, kv, ko = prng.split(key, 4)
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": core.dense_init(kq, D, H * hd, bias=cfg.qkv_bias, dtype=dtype),
-        "wk": core.dense_init(kk, D, KV * hd, bias=cfg.qkv_bias, dtype=dtype),
-        "wv": core.dense_init(kv, D, KV * hd, bias=cfg.qkv_bias, dtype=dtype),
-        "wo": core.dense_init(ko, H * hd, D, dtype=dtype,
-                              scale=1.0 / math.sqrt(H * hd)),
+        "wq": core.dense_init(kq, D, H * hd, bias=cfg.qkv_bias,
+                              axes=("p_embed", "p_heads"), dtype=dtype),
+        "wk": core.dense_init(kk, D, KV * hd, bias=cfg.qkv_bias,
+                              axes=("p_embed", "p_kv_heads"), dtype=dtype),
+        "wv": core.dense_init(kv, D, KV * hd, bias=cfg.qkv_bias,
+                              axes=("p_embed", "p_kv_heads"), dtype=dtype),
+        "wo": core.dense_init(ko, H * hd, D, axes=("p_heads", "p_embed"),
+                              dtype=dtype, scale=1.0 / math.sqrt(H * hd)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = core.rmsnorm_init(hd, dtype=dtype, device=key.device)
-        p["k_norm"] = core.rmsnorm_init(hd, dtype=dtype, device=key.device)
+        p["q_norm"] = core.rmsnorm_init(hd, axes=("head_dim",), dtype=dtype,
+                                        device=key.device)
+        p["k_norm"] = core.rmsnorm_init(hd, axes=("head_dim",), dtype=dtype,
+                                        device=key.device)
     return p
 
 

@@ -33,9 +33,12 @@ def swiglu_init(key: torch.Tensor, d_model: int, d_ff: int,
                 dtype: torch.dtype = torch.float32):
     k1, k2, k3 = prng.split(key, 3)
     return {
-        "w_gate": core.dense_init(k1, d_model, d_ff, dtype=dtype),
-        "w_up": core.dense_init(k2, d_model, d_ff, dtype=dtype),
-        "w_down": core.dense_init(k3, d_ff, d_model, dtype=dtype),
+        "w_gate": core.dense_init(k1, d_model, d_ff,
+                                  axes=("p_embed", "p_ffn"), dtype=dtype),
+        "w_up": core.dense_init(k2, d_model, d_ff, axes=("p_embed", "p_ffn"),
+                                dtype=dtype),
+        "w_down": core.dense_init(k3, d_ff, d_model,
+                                  axes=("p_ffn", "p_embed"), dtype=dtype),
     }
 
 
@@ -70,11 +73,16 @@ def moe_init(key: torch.Tensor, cfg: MoEConfig,
     kr, k1, k2, k3, kd = prng.split(key, 5)
     E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     scale = 1.0 / math.sqrt(D)
+    ein = ("p_experts", "p_embed", "p_expert_ffn")
     p = {
-        "router": core.dense_init(kr, D, E, dtype=torch.float32),
-        "w_gate": core._normal(k1, (E, D, Fe), scale, dtype),
-        "w_up": core._normal(k2, (E, D, Fe), scale, dtype),
-        "w_down": core._normal(k3, (E, Fe, D), scale, dtype),
+        "router": core.dense_init(kr, D, E, axes=("p_embed", None),
+                                  dtype=torch.float32),
+        # the expert-internal ffn dim stays unsharded: the experts are the
+        # unit of model ('expert') parallelism
+        "w_gate": core.Px(core._normal(k1, (E, D, Fe), scale, dtype), ein),
+        "w_up": core.Px(core._normal(k2, (E, D, Fe), scale, dtype), ein),
+        "w_down": core.Px(core._normal(k3, (E, Fe, D), scale, dtype),
+                          ("p_experts", "p_expert_ffn", "p_embed")),
     }
     if cfg.dense_residual_ff is not None:
         p["dense"] = swiglu_init(kd, D, cfg.dense_residual_ff, dtype=dtype)

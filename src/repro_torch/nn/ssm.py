@@ -62,28 +62,39 @@ def init(key: torch.Tensor, cfg: SSMConfig, dtype=torch.float32):
     dev = key.device
     root = float(np.sqrt(np.float32(Kc)))
 
-    def conv_init(k, ch):
-        return (prng.normal(k, (Kc, ch)) / root).to(dtype)
+    def conv_init(k, ch, axes):
+        return core.Px((core._normal(k, (Kc, ch), 1.0, torch.float32)
+                        / root).to(dtype), (None, axes))
 
     kcx, kcB, kcC = prng.split(k_conv, 3)
+    Px = core.Px
     zeros = lambda n, dt=dtype: torch.zeros((n,), dtype=dt, device=dev)
     return {
-        "w_z": core.dense_init(k_z, D, Din, dtype=dtype),
-        "w_x": core.dense_init(k_x, D, Din, dtype=dtype),
-        "w_B": core.dense_init(k_B, D, N, dtype=dtype),
-        "w_C": core.dense_init(k_C, D, N, dtype=dtype),
-        "w_dt": core.dense_init(k_dt, D, H, dtype=dtype),
-        "conv_x": conv_init(kcx, Din),
-        "conv_x_b": zeros(Din),
-        "conv_B": conv_init(kcB, N),
-        "conv_B_b": zeros(N),
-        "conv_C": conv_init(kcC, N),
-        "conv_C_b": zeros(N),
-        "A_log": torch.log(_linspace_f32(1.0, 16.0, H, dev)),
-        "D": torch.ones((H,), dtype=torch.float32, device=dev),
-        "dt_bias": zeros(H, torch.float32),
-        "norm": core.rmsnorm_init(Din, dtype=dtype, device=dev),
-        "w_out": core.dense_init(k_out, Din, D, dtype=dtype),
+        "w_z": core.dense_init(k_z, D, Din, axes=("p_embed", "p_heads"),
+                               dtype=dtype),
+        "w_x": core.dense_init(k_x, D, Din, axes=("p_embed", "p_heads"),
+                               dtype=dtype),
+        "w_B": core.dense_init(k_B, D, N, axes=("p_embed", None),
+                               dtype=dtype),
+        "w_C": core.dense_init(k_C, D, N, axes=("p_embed", None),
+                               dtype=dtype),
+        "w_dt": core.dense_init(k_dt, D, H, axes=("p_embed", "p_heads"),
+                                dtype=dtype),
+        "conv_x": conv_init(kcx, Din, "p_heads"),
+        "conv_x_b": Px(zeros(Din), ("p_heads",)),
+        "conv_B": conv_init(kcB, N, None),
+        "conv_B_b": Px(zeros(N), (None,)),
+        "conv_C": conv_init(kcC, N, None),
+        "conv_C_b": Px(zeros(N), (None,)),
+        "A_log": Px(torch.log(_linspace_f32(1.0, 16.0, H, dev)),
+                    ("p_heads",)),
+        "D": Px(torch.ones((H,), dtype=torch.float32, device=dev),
+                ("p_heads",)),
+        "dt_bias": Px(zeros(H, torch.float32), ("p_heads",)),
+        "norm": core.rmsnorm_init(Din, axes=("heads",), dtype=dtype,
+                                  device=dev),
+        "w_out": core.dense_init(k_out, Din, D, axes=("p_heads", "p_embed"),
+                                 dtype=dtype),
     }
 
 

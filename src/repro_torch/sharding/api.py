@@ -1,0 +1,472 @@
+"""Logical-axis sharding rules and the per-rank runner (the port of
+`repro.sharding.api`).
+
+Models name the dimensions of their parameters and activations by
+*logical* axes (e.g. ("batch", "seq", "embed")); a `Rules` table maps
+each logical name onto mesh axes.  A spec is a tuple with one entry per
+tensor dimension, as JAX's `PartitionSpec`: None (replicated), a mesh
+axis name, or a tuple of them (the dimension split over their product,
+major to minor).  `placements` turns a spec into the DTensor placements
+(`Shard(d)` / `Replicate()` per mesh dimension) of a
+`torch.distributed.device_mesh.DeviceMesh`.
+
+A mesh here is a `DeviceMesh` (ranks) or a mapping of axis names to
+sizes in mesh order (a shape alone, e.g. ``{"data": 16, "model": 16}``,
+for the tables of a mesh no process holds); `mesh_axes` reads either.
+
+`shard_map` is the per-rank runner of the W-HFL training step: every
+process runs `f` on its own slice of the inputs (cut by the in-specs
+over the manual axes) with the mesh's axis names bound, so that
+`axis_index(name)` is the rank's coordinate on that axis and
+`psum(x, names)` an all-reduce over the ranks that share every other
+manual coordinate (`core.dist`'s hops).  Collectives over a group of
+one rank return their input.  A 0-dim tensor is summed as the one-card
+code sums a list of scalars: gathered, then added left to right in the
+group's rank order; a larger tensor is all-reduced by the backend (for
+two members a + b in either order, so bit for bit the one-card sum).
+`record_collectives()` lists every collective with its group size and
+seconds.
+
+Tensor parallelism over "model" is not executed yet (ROADMAP queue A
+item 11): `logical` checks ranks and is a no-op while the active mesh's
+"model" axis has size 1, and raises past it.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+TP_TODO = ("tensor parallelism over 'model' is ROADMAP queue A item 11 "
+           "(tensor parallelism)")
+
+
+class PartitionSpec(tuple):
+    """A spec: one entry per tensor dimension.  A tuple (it equals the
+    plain tuple of its entries), marked so that a spec and a tuple of
+    specs stay apart.  A one-name tuple entry is that name, as JAX's
+    `PartitionSpec` canonicalizes it (``P(("data",)) == P("data")``)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+P = PartitionSpec
+
+
+def is_device_mesh(mesh) -> bool:
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis name: size} in mesh order, of a `DeviceMesh` or a mapping."""
+    if is_device_mesh(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh)
+
+
+@dataclass(frozen=True)
+class Rules:
+    """Mapping from logical axis name -> mesh axis (or tuple of them).
+
+    `bare` marks the rules of the manual (pod, cluster, user) context,
+    where the data axes are mapped by the runner and only "model"
+    remains."""
+
+    mesh: object
+    table: Mapping[str, Optional[object]] = field(default_factory=dict)
+    bare: bool = False
+
+    def physical(self, name: Optional[str]):
+        if name is None:
+            return None
+        return self.table.get(name, None)
+
+
+_state = threading.local()
+
+
+def current_rules() -> Optional[Rules]:
+    return getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def set_rules(rules: Optional[Rules]):
+    prev = current_rules()
+    _state.rules = rules
+    try:
+        yield rules
+    finally:
+        _state.rules = prev
+
+
+def spec_for(logical_axes: Sequence[Optional[str]],
+             rules: Optional[Rules] = None) -> tuple:
+    rules = rules or current_rules()
+    if rules is None:
+        return P()
+    return P(*[rules.physical(a) for a in logical_axes])
+
+
+def logical(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """Annotate `x` with logical axes: no-op when no rules are active or
+    the rules' "model" axis has size 1; raises `NotImplementedError`
+    past it (tensor parallelism waits for ROADMAP queue A item 11)."""
+    rules = current_rules()
+    if rules is None:
+        return x
+    if x.ndim != len(logical_axes):
+        raise ValueError(
+            f"logical(): rank mismatch, array rank {x.ndim} vs axes "
+            f"{logical_axes}")
+    if mesh_axes(rules.mesh).get("model", 1) > 1:
+        raise NotImplementedError(TP_TODO)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Default rule tables
+# ---------------------------------------------------------------------------
+
+def make_rules(mesh, *, fsdp: bool = True, cfg=None,
+               inside_shardmap: bool = False) -> Rules:
+    """Standard 2D/3D parallelism rules, optionally architecture-aware.
+
+    data-ish logical axes map onto the data axes (pod/data or
+    pod/cluster/user for the W-HFL-refined mesh); model-ish onto "model".
+    With `fsdp`, the `embed` dim of weights is sharded over the data axes
+    too (ZeRO-3 style).  With `cfg` (an ArchConfig), head/KV-head/expert
+    /ffn/vocab sharding is enabled only where the dimension divides by
+    the model-axis size.  `inside_shardmap=True`: the rules of the manual
+    (pod, cluster, user) context, where batch-like names stay None and
+    only "model" is emitted.  Reads only the mesh's axis names and
+    sizes."""
+    sizes = mesh_axes(mesh)
+    axes = tuple(sizes)
+    data_axes = (None if inside_shardmap else
+                 tuple(a for a in ("pod", "cluster", "user", "data")
+                       if a in axes) or None)
+    model_ax = "model" if "model" in axes else None
+    n_model = sizes.get("model", 1)
+    fsdp_ax = None if (inside_shardmap or not fsdp) else data_axes
+
+    def fits(dim: Optional[int]) -> Optional[str]:
+        if dim is None:       # unknown -> assume shardable
+            return model_ax
+        return model_ax if (dim and dim % n_model == 0) else None
+
+    heads_ax = kv_ax = experts_ax = model_ax
+    vocab_ax = ffn_ax = model_ax
+    if cfg is not None:
+        heads_ax = fits(getattr(cfg, "n_heads", None) or None)
+        kv_ax = fits(getattr(cfg, "n_kv_heads", None) or None)
+        experts_ax = fits(getattr(cfg, "n_experts", None) or None)
+        ffn_ax = fits(getattr(cfg, "d_ff", None) or None)
+        vocab_ax = fits(getattr(cfg, "vocab", None) or None)
+        if getattr(cfg, "family", "") in ("ssm", "hybrid"):
+            # mamba head-packed dims shard iff the SSM head count divides;
+            # hybrids share the logical name with attention heads, so both
+            # must divide
+            d_inner = cfg.ssm_expand * cfg.d_model
+            ssm_heads = d_inner // max(cfg.ssm_head_dim, 1)
+            if cfg.family == "ssm":
+                heads_ax = fits(ssm_heads)
+            elif not (fits(ssm_heads) and heads_ax):
+                heads_ax = None
+
+    table = {
+        # activations
+        "batch": data_axes,
+        "users": data_axes,          # stacked per-user leading dim
+        "seq": None,
+        # sequence-parallel attention: the q rows over 'model' when the
+        # head count cannot shard
+        "q_seq": model_ax if heads_ax is None else None,
+        "embed": None,
+        "heads": heads_ax,
+        "kv_heads": kv_ax,
+        "head_dim": None,
+        "ffn": ffn_ax,
+        "expert_ffn": None,
+        "moe_tokens": model_ax,
+        "experts": experts_ax,
+        "vocab": vocab_ax,
+        "state": None,
+        "clusters": "pod" if "pod" in axes else None,
+        # params
+        "p_embed": fsdp_ax,          # fsdp'd embed dim of weight matrices
+        "p_heads": heads_ax,
+        "p_kv_heads": kv_ax,
+        "p_ffn": ffn_ax,
+        "p_expert_ffn": None,
+        "p_experts": experts_ax,
+        "p_vocab": vocab_ax,
+        "layers": None,
+    }
+    return Rules(mesh=mesh, table=table, bare=inside_shardmap)
+
+
+def map_axes_tree(fn, tree):
+    """`fn` on every leaf of a logical-axes tree (dicts and lists of
+    tuples; a tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: map_axes_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_axes_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def param_sharding_tree(param_axes_tree, rules: Rules):
+    """Map a tree of logical-axes tuples to specs over `rules.mesh`."""
+    return map_axes_tree(lambda axes: spec_for(axes, rules),
+                         param_axes_tree)
+
+
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Sequence, mesh) -> list:
+    """The DTensor placements of `spec` on a `DeviceMesh`: ``Shard(d)``
+    on each mesh dimension that a spec entry d names, ``Replicate()`` on
+    the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    where = {a: d for d, entry in enumerate(spec) for a in _names(entry)}
+    return [Shard(where[a]) if a in where else Replicate()
+            for a in mesh.mesh_dim_names]
+
+
+# ---------------------------------------------------------------------------
+# The per-rank runner and its collectives
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _AxisContext:
+    mesh: object                       # DeviceMesh
+    manual: Tuple[str, ...]
+
+
+_groups: Dict[tuple, object] = {}
+_log = threading.local()
+
+
+def forget_groups() -> None:
+    """Drop the process groups `psum` and `pmean` made (call it with the
+    process group that holds them destroyed)."""
+    _groups.clear()
+
+
+def current_axes() -> Optional[_AxisContext]:
+    """The axis context `shard_map` binds while it runs `f`, or None."""
+    return getattr(_state, "axes", None)
+
+
+def _ctx() -> _AxisContext:
+    ctx = current_axes()
+    if ctx is None:
+        raise RuntimeError("axis names are bound only inside shard_map")
+    return ctx
+
+
+def _as_names(names) -> Tuple[str, ...]:
+    return (names,) if isinstance(names, str) else tuple(names)
+
+
+def axis_index(name: str) -> int:
+    """This rank's coordinate on mesh axis `name`."""
+    return _ctx().mesh.get_local_rank(name)
+
+
+def axis_size(name: str) -> int:
+    return mesh_axes(_ctx().mesh)[name]
+
+
+def _group(names: Tuple[str, ...]):
+    """(process group, member ranks) of the ranks that share this rank's
+    coordinates on every mesh axis but `names`, in the mesh order of
+    `names` (major to minor).  Every rank builds every group of the
+    partition, in one order, so the collective `new_group` calls agree."""
+    mesh = _ctx().mesh
+    order = list(mesh.mesh_dim_names)
+    dims = [order.index(n) for n in names]
+    rest = [d for d in range(len(order)) if d not in dims]
+    ranks = mesh.mesh.permute(*rest, *dims).reshape(
+        -1, math.prod(mesh.shape[d] for d in dims))
+    key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.shape),
+           tuple(order), names)
+    if key not in _groups:
+        import torch.distributed as dist
+
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [row.tolist() for row in ranks])
+        me = dist.get_rank()
+        row = next(r.tolist() for r in ranks if me in r.tolist())
+        _groups[key] = (mine, row)
+    return _groups[key]
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[dict]]:
+    """Record every collective the runner makes while the block runs:
+    {"op", "axes", "group_size", "numel", "seconds"}, the seconds from
+    a device synchronize before it to its end."""
+    prev = getattr(_log, "records", None)
+    _log.records = []
+    try:
+        yield _log.records
+    finally:
+        _log.records = prev
+
+
+def _timed(op: str, names, size: int, x: torch.Tensor, run):
+    records = getattr(_log, "records", None)
+    if records is None:
+        return run()
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = run()
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    records.append({"op": op, "axes": list(names), "group_size": size,
+                    "numel": x.numel(), "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _gather(x: torch.Tensor, group, size: int) -> List[torch.Tensor]:
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def psum(x: torch.Tensor, names) -> torch.Tensor:
+    """Sum of `x` over the ranks of the manual axes `names`: a 0-dim
+    tensor gathered and added left to right in the group's rank order
+    (as the one-card code's ``sum`` of a list), anything else
+    all-reduced by the backend."""
+    names = _as_names(names)
+    group, members = _group(names)
+    if len(members) == 1:
+        return x
+    if x.ndim == 0:
+        def run():
+            out = 0
+            for part in _gather(x, group, len(members)):
+                out = out + part
+            return out
+        return _timed("psum_scalar", names, len(members), x, run)
+
+    def run():
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+    return _timed("all_reduce", names, len(members), x, run)
+
+
+def pmean(x: torch.Tensor, names) -> torch.Tensor:
+    """Mean of a 0-dim `x` over the ranks of `names`: the gathered values
+    stacked and averaged (``torch.stack(...).mean()``, as the one-card
+    step averages its users')."""
+    names = _as_names(names)
+    group, members = _group(names)
+    if len(members) == 1:
+        return torch.stack([x]).mean()
+    return _timed("pmean", names, len(members), x, lambda: torch.stack(
+        _gather(x, group, len(members))).mean())
+
+
+def _coordinate(names: Tuple[str, ...]) -> Tuple[int, int]:
+    """(this rank's linear coordinate over `names`, their product)."""
+    mesh = _ctx().mesh
+    sizes = mesh_axes(mesh)
+    idx, n = 0, 1
+    for name in names:
+        idx = idx * sizes[name] + mesh.get_local_rank(name)
+        n *= sizes[name]
+    return idx, n
+
+
+def local_shard(tree, spec: Sequence, mesh, manual: Sequence[str]):
+    """This rank's slice of every tensor leaf of `tree` under `spec`:
+    each dimension whose entry names manual axes cut into their product
+    of equal blocks, the rank's block by its coordinate over them."""
+    manual = set(manual)
+    tok = _AxisContext(mesh, tuple(manual))
+
+    def cut(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        prev = current_axes()
+        _state.axes = tok
+        try:
+            for d, entry in enumerate(spec):
+                names = tuple(a for a in _names(entry) if a in manual)
+                if not names:
+                    continue
+                i, n = _coordinate(names)
+                if x.shape[d] % n:
+                    raise ValueError(f"dimension {d} of size {x.shape[d]} "
+                                     f"does not divide over {names} ({n})")
+                b = x.shape[d] // n
+                x = x.narrow(d, i * b, b)
+        finally:
+            _state.axes = prev
+        return x
+    return _map_tensors(cut, tree)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree)
+
+
+def shard_map(f, mesh, in_specs, out_specs, axis_names=None):
+    """The per-rank runner: ``shard_map(f, mesh, in_specs, out_specs)
+    (*args)`` runs `f` on this rank's slice of each argument (its
+    in-spec applies to every tensor leaf of it) with the mesh's axis
+    names bound for `axis_index`, `psum` and `pmean`; `axis_names` are
+    the manual axes (default: all of the mesh's).  The outputs are this
+    rank's, replicated by construction: an out-spec may name no manual
+    axis."""
+    manual = tuple(axis_names) if axis_names is not None else tuple(
+        mesh.mesh_dim_names)
+    outs = [out_specs] if isinstance(out_specs, P) else list(out_specs)
+    if any(a in manual for spec in outs for e in spec for a in _names(e)):
+        raise NotImplementedError(
+            f"out_specs {out_specs}: outputs split over the manual axes")
+
+    def run(*args):
+        specs = ([in_specs] * len(args) if isinstance(in_specs, P)
+                 else list(in_specs))
+        local = [local_shard(a, s, mesh, manual)
+                 for a, s in zip(args, specs)]
+        prev = current_axes()
+        _state.axes = _AxisContext(mesh, manual)
+        try:
+            return f(*local)
+        finally:
+            _state.axes = prev
+    return run

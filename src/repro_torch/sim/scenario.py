@@ -305,7 +305,8 @@ register_scenario(Scenario(
 
 # Sharded-engine tiers of the reference (the port's sharded engine runs
 # them on one card, its shards one after the other; spreading the shards
-# over several cards is ROADMAP queue A, item 11).
+# over ranks, with `launch.ranks`' process groups, is the next part of
+# ROADMAP queue A, item 11: the LM train step already runs on ranks).
 register_scenario(Scenario(
     name="scale_u16384", dataset="mnist", partition="iid",
     tau=1, I=1, batch=8, mode="whfl", ota_mode="faithful",

@@ -226,7 +226,7 @@ def test_init_fn_matches_reference(ref):
     step, init_fn = train.build_train_step(
         _cfg(), SHAPES["b8"], MESH, _tcfg(RUNS["struct_equivalent"][2]),
         device="cpu")
-    state = init_fn(prng.PRNGKey(0))
+    state, axes = init_fn(prng.PRNGKey(0))
     assert set(state) == {"params", "opt", "step"}
     assert state["step"].dtype == torch.int32 and int(state["step"]) == 0
     want = dict(tree_leaves(_tree(ref, "init/")))
@@ -248,7 +248,7 @@ def test_train_step_matches_reference(ref, tag):
     step, init_fn = getattr(train, build)(_cfg(), SHAPES[b], MESH, tcfg,
                                             device="cpu")
     theta0 = _tree(ref, "init/")
-    state = dict(init_fn(prng.PRNGKey(0)),
+    state = dict(init_fn(prng.PRNGKey(0))[0],
                  params=tree_map(torch.clone, theta0))
     batch = {k: torch.tensor(ref[f"{b}/{k}"]) for k in ("tokens", "labels")}
     for i in range(steps):
@@ -283,7 +283,7 @@ def test_structural_step_learns_a_fixed_batch():
                           outer="adamw", outer_lr=2e-3,
                           ota=dist.OTADistConfig(mode="ideal")),
         device="cpu")
-    state = init_fn(prng.PRNGKey(0))
+    state, _ = init_fn(prng.PRNGKey(0))
     g = torch.Generator().manual_seed(1)
     batch = {k: torch.randint(0, cfg.vocab, (8, 64), generator=g)
              for k in ("tokens", "labels")}
