@@ -72,8 +72,7 @@ Phases, in order; any failure exits non-zero:
      Adam at 1e-3), its 400 rounds cut to 1: as registered (equivalent
      channel, no kernel), faithful with the fused backend (2
      `fused_mac` launches per round per seed), and on the sharded
-     engine, 1x1 and 2x5, u_sharded, 2 seeds each (1x1 not through the
-     chunked driver since phase 11 was added); the sharded runs'
+     engine, 1x1 and 2x5, u_sharded, 2 seeds each; the sharded runs'
      final state and metrics against the single engine's (logged); the fused
      run again with its 2 seeds as one vmapped program through the
      chunked driver (2 `fused_mac` launches a round for both seeds, in
@@ -93,8 +92,9 @@ Phases, in order; any failure exits non-zero:
    - every SweepRunner run above and every sharded CLI run below again
      through the chunked driver (each eval window one CUDA graph,
      captured and replayed once on throwaway copies before the drive;
-     fig3_cifar_fused sharded 2x5 on its first seed alone, against that
-     seed of its stepwise run):
+     the fig3_cifar runs on their first seed alone, against that seed
+     of their stepwise runs, and sharded 1x1 not at all, for the run's
+     time):
      bit for bit its stepwise run (final state and every metric; the
      CLI runs, which keep no state, by their metrics), with the
      stepwise run's launch counts in a `torch.profiler` trace of the
@@ -149,7 +149,8 @@ Phases, in order; any failure exits non-zero:
      registered on 1x1 with ``u_sharded``: per round and seed
      `fused_mac_partials` launches mc x mu times, `fused_partials_reduce`
      mu times and `fused_mac` once (u_sharded), or `fused_mac`
-     mc x mu + 1 times (gathered); each scale_u256 run's final model is
+     mc x mu + 1 times (gathered); each run's peak device memory through
+     both drivers (logged); each scale_u256 run's final model is
      held against the single engine's, bit for bit where it is, with
      the largest gap printed where it is not;
    - dense-LM serving (`repro_torch.launch.serve`) of qwen2-0.5b as
@@ -206,15 +207,15 @@ Phases, in order; any failure exits non-zero:
    W-HFL bounds;
 6. where the time goes: one seed of each SweepRunner run of phase 4
    (the reference run cut to 1 round), of ``fig2_iid`` with the
-   slab backend, of ``fig2_drop50`` fused and
-   ``fig2_byzantine1_median`` through both drivers, through
-   `SweepRunner.run_scenario`, warm, then again under `torch.profiler`;
-   wall ms per round from the runner's ``drive_seconds``, device time
-   per round from the device ops inside the runner's
-   ``SweepRunner.drive`` range; also one seed of ``scale_u65536``
-   (1x1, u_sharded, with its peak device memory, and its peak through
-   the chunked driver) and of ``scale_u256`` (2x4, u_sharded) on the
-   sharded engine (Fig. 3's profiles went with phase 11's arrival); rounds/s
+   slab backend, of ``fig2_drop50`` fused through both drivers,
+   through `SweepRunner.run_scenario`, warm, then again under
+   `torch.profiler`; wall ms per round from the runner's
+   ``drive_seconds``, device time per round from the device ops inside
+   the runner's ``SweepRunner.drive`` range; also one seed of
+   ``scale_u256`` (2x4, u_sharded, with its peak device memory) on the
+   sharded engine (Fig. 3's profiles went with phase 11's arrival,
+   fig2_byzantine1_median's and scale_u65536's with phase 12's; phase 4
+   logs the sharded CLI runs' peak memory); rounds/s
    of both drivers, each warmed, for fig2_iid fused, scale_u256 and
    sharded scale_u256 2x4; one warm qwen2-0.5b prefill
    (B 4, L 4096) at bf16 and at float32 compute, one warm decode step
@@ -341,18 +342,36 @@ Phases, in order; any failure exits non-zero:
    each rank's `user` and `(pod, cluster)` groups): NCCL at world size 1
    (qwen2-0.5b at full width, 4,096 positions, one row, AdamW, one step)
    against the one-card step at {"data": 1}, and four gloo ranks sharing
-   the card at (1, 2, 2, 1) against phase 9's structural run (two steps,
-   one row a user, outer "add"), each rank's parameters, moments, losses
+   the card at (1, 2, 2, 1) against phase 9's structural run (its first
+   step, one row a user, outer "add"), each rank's parameters, moments, losses
    and edge power bit for bit; each rank's peak memory, step seconds,
    seconds inside collectives, collective groups and flash launches;
-12. the run's seconds, one JSON line of kernel records, then the last
+12. the sharded W-HFL sweep with one process per shard
+   (`ShardedSweepRunner(ranks=...)`, `launch.ranks.sweep_worker`: each
+   rank trains its own users, launches the hop's kernels on its own
+   tile and meets the others in all_gathers over ``user`` and
+   ``cluster``): fig2_iid faithful/fused at the paper's sizes (5
+   rounds, 2 seeds) on 2x2 as four gloo ranks sharing the card,
+   gathered and u_sharded through both drivers in one launch (the
+   chunked driver replays the graphs between the collectives),
+   scale_u256 on 2x4 u_sharded as eight gloo ranks (both drivers, one
+   launch), and scale_u256 through the sweep CLI (``--ranks nccl``,
+   both drivers) on 1x1 under NCCL at world size 1;
+   every rank's final state and metrics bit for bit the one-process
+   sharded run on the card (phase 4's scale_u256 ones), every stepwise
+   rank's launches those of its tile (u_sharded: a partial combine and
+   a fold a hop; gathered: a `fused_mac` a hop; and the IS -> PS
+   `fused_mac` a round, each a round and seed); each rank's rounds/s,
+   seconds inside collectives and peak memory;
+13. the run's seconds, one JSON line of kernel records, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  ``python3 chip_smoke.py
 --training`` builds the flash kernels and runs phase 9 alone,
 ``--window`` phase 10 alone, ``--ranks`` phase 11 alone (with its own
-one-card reference for the gloo ranks).
+one-card reference for the gloo ranks), ``--sweep-ranks`` phase 12
+alone (with its own one-process references).
 """
 from __future__ import annotations
 
@@ -379,6 +398,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels.trace_probe import (  # noqa: E402
+    SPIN_KERNEL, TRACE_ATTEMPTS, count_drives, device_trace, drive_ops,
+    lead_in, raw_events)
 TOL = 1e-4
 THETA_RTOL = 1e-4
 
@@ -391,6 +414,8 @@ KERNELS = {"fused_mac": ("fused_mac", "fused_mac_kernel"),
            "fused_partials_reduce": ("fused_mac", "fused_reduce_kernel"),
            "flash_mha_wgmma": ("flash_attn_wgmma", "flash_wgmma_kernel"),
            "flash_mha_tf32": ("flash_attn_tf32", "flash_tf32_kernel")}
+# each kernel's record name -> its __global__ function, as traces name it
+KERNEL_FUNCTIONS = {name: fn for name, (_, fn) in KERNELS.items()}
 # the tensor-core flash kernels and their template instances (bf16 at hd
 # 16, 32, 64, 128 and hd 112 on the hd-128 one; float32 at hd 32, 64,
 # 128, hd 16 on the hd-32 one and hd 112 on the hd-128 one): wgmma
@@ -515,12 +540,23 @@ ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # eta_local, steps) against the one-card step on the same batch and keys,
 # bit for bit.  NCCL at world size 1: one user, one row, AdamW, one step.
 # Four gloo ranks sharing the card: phase 9's structural run (C 2 x M 2,
-# STRUCT_*), whose two steps are their reference
+# STRUCT_*), whose first step is their reference (two steps before phase
+# 12 was added: a gloo step took 27–37 s warm)
 RANKS_CASES = (
     ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1),
     ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), STRUCT_B_USER, STRUCT_OUTER,
-     STRUCT_ETA, 2),
+     STRUCT_ETA, 1),
 )
+# phase 12, the sharded W-HFL sweep with one process per shard
+# (`ShardedSweepRunner(ranks=...)`, `launch.ranks.sweep_worker`), each
+# case bit for bit the one-process sharded run on the card: fig2_iid
+# faithful/fused at the paper's sizes, 2 rounds, 2 seeds, on 2x2 (M 5
+# padded to 6), four gloo ranks sharing the card, both combines x both
+# drivers in one launch; scale_u256 on 2x4 u_sharded, eight gloo ranks,
+# both drivers in one launch; scale_u256 on 1x1 under NCCL at world size
+# 1 through the sweep CLI, both drivers
+SWEEP_RANKS_FIG2 = (("gathered", "stepwise"), ("gathered", "chunked"),
+                    ("u_sharded", "stepwise"), ("u_sharded", "chunked"))
 # phase 10, sliding-window attention.  (label, (B, L, H, KV, hd), W,
 # causal): each kernel with a window against its plain version, in both
 # dtypes: qwen2-0.5b's prefill shape both ways, the reduced model's (hd
@@ -787,53 +823,17 @@ def flash_inputs(B, L, H, KV, hd, dtype, seed, dev):
             for shape in ((B, L, H, hd), (B, L, KV, hd), (B, L, KV, hd))]
 
 
-# A `torch.profiler` trace on the H100 80GB HBM3 (700.00 W) now and then
-# loses the card's records of the first kernels it should hold (a
-# prefix of the call's kernels; the host-side launch records are all
-# kept), so a trace's kernel counts and device time would read short.
-# With the card idle for this long after the trace starts, no trace lost
-# any (`python -m repro_torch.kernels.trace_probe` counts both).
-TRACE_PAUSE_S = 0.1
-# A trace of a chunked drive (graph replays of up to ~110k kernels) now
-# and then loses device records of some of them in its middle, past the
-# pause (2 of 8 `fused_mac` records of a fig3 drive, on the H100 80GB
-# HBM3 at 700.00 W, once in about ten such traces).  Records are lost,
-# never made up, and a graph short of a kernel would read short on every
-# attempt (and break the bitwise match with the stepwise run), so such a
-# run is traced again, up to this many times in all: three attempts all
-# read short once (fig2_iid_slab vmap S=4, 8-9 of 10 `ota_combine`), and
-# fig2_drop50's sharded 2x4 drive passed at its third, in two smoke runs
-# on that card.
-TRACE_ATTEMPTS = 5
-
-
-@contextlib.contextmanager
-def device_trace():
-    """A `torch.profiler` trace of the host and the card that starts with
-    the card idle and waits TRACE_PAUSE_S before its body runs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_PAUSE_S)
-        yield prof
-
-
-# A trace taken late in this run lost the device records of the first
-# ~30 kernels of the call it held (seamless-m4t-medium's prefill, whose
-# first flash kernel is about its 25th, showed 23 of its 24 in each of 4
-# traces on the H100 80GB HBM3 at 700.00 W, after the pause above), so
-# the LM traces start with this many throwaway spin kernels
-# (`torch.cuda._sleep`, named SPIN_KERNEL), which `device_ops` leaves out.
-TRACE_LEAD_IN = 128
-SPIN_KERNEL = "spin_kernel"
-
-
-def lead_in() -> None:
-    """TRACE_LEAD_IN spin kernels of ~1,000 clocks each."""
-    for _ in range(TRACE_LEAD_IN):
-        torch.cuda._sleep(1000)
+# The trace helpers are the port's (`repro_torch.kernels.trace_probe`),
+# shared with the card tests: `device_trace` starts each trace with the
+# card idle for TRACE_PAUSE_S, `lead_in` runs TRACE_LEAD_IN spin kernels
+# (a trace can lose the device records of its first kernels: 23 of 24
+# flash records in each of 4 traces of seamless-m4t-medium's prefill on
+# the H100 80GB HBM3 at 700.00 W), which `device_ops` leaves out, and
+# `traced_drives` ends each drive's trace with `lead_out`'s spins; a
+# chunked drive's launches are counted from its graphs (`count_drives`:
+# each graph's kernel nodes at its capture times its replays), since a
+# trace can lose a long replay's device records (`trace_probe
+# --replays`), and its trace must see no more.
 
 
 def device_ops(prof) -> list:
@@ -1615,11 +1615,13 @@ def train_batch(cfg, B, L, seed, dev) -> dict:
             for i, name in enumerate(("tokens", "labels"))}
 
 
-def train_runs(step, state, batch, steps, trace=False) -> tuple:
+def train_runs(step, state, batch, steps, trace=False,
+               after_first=None) -> tuple:
     """`steps` train steps on one batch, each ended by a synchronize and
     timed on the host clock; with `trace`, one more step under
-    `torch.profiler`.  Returns (state, losses, edge powers, wall ms per
-    step, the trace or None)."""
+    `torch.profiler`; ``after_first(state, metrics)`` (untimed) after
+    the first.  Returns (state, losses, edge powers, wall ms per step,
+    the trace or None)."""
     from repro_torch import prng
 
     losses, powers, walls, prof = [], [], [], None
@@ -1637,6 +1639,8 @@ def train_runs(step, state, batch, steps, trace=False) -> tuple:
         walls.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
         powers.append(float(m["edge_power"]))
+        if i == 0 and after_first is not None:
+            after_first(state, m)
     return state, losses, powers, walls, prof
 
 
@@ -1793,9 +1797,23 @@ def train_phase(dev, card, expect, reference=None,
                          if tcfg.outer == "adamw" else {}),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
         batch = train_batch(cfg, B, L, 40, dev)
+        saved = {}
+
+        def save_reference(state, m):
+            """The structural run's state after its first step and that
+            step's metrics: phase 11's reference for the four gloo
+            ranks (one step since phase 12 was added)."""
+            from repro_torch.launch import ranks
+
+            t0 = time.perf_counter()
+            ranks.save_reference(reference, state, [m])
+            saved["seconds"] = time.perf_counter() - t0
+
         torch.cuda.reset_peak_memory_stats()
         (state, losses, powers, walls, prof), launches = counted(
-            lambda: train_runs(step, state, batch, steps, trace))
+            lambda: train_runs(step, state, batch, steps, trace,
+                               save_reference if label == "structural"
+                               and reference else None))
         ok = bool(np.all(np.isfinite(losses + powers)))
         if label == "structural":
             ok = ok and losses[-1] < losses[0]
@@ -1820,17 +1838,8 @@ def train_phase(dev, card, expect, reference=None,
             # jitter, 2 clusters' noise and global jitter, the PS's noise
             rec["profile"] = step_profile(prof, walls[-2], 9 * n_params,
                                           ms_per_normal)
-        if label == "structural" and reference:
-            # its state after both steps (the second traced) and their
-            # metrics: phase 11's reference for the four gloo ranks
-            from repro_torch.launch import ranks
-
-            t0 = time.perf_counter()
-            ranks.save_reference(reference, state, [
-                {"loss": torch.tensor(l, dtype=torch.float32),
-                 "edge_power": torch.tensor(p, dtype=torch.float32)}
-                for l, p in zip(losses, powers)])
-            rec["reference_save_seconds"] = time.perf_counter() - t0
+        if saved:
+            rec["reference_save_seconds"] = saved["seconds"]
         log(rec)
         del step, state, batch, prof
         gc.collect()
@@ -2106,6 +2115,156 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
             del batch
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sweep_rank_launches(res, combine: str) -> dict:
+    """The kernels one rank of a sharded sweep launches through the
+    stepwise driver: its own tile's `fused_mac` (gathered), or its own
+    tile's partial combine and its symbol slice's fold (u_sharded), I a
+    round and seed, and the IS -> PS `fused_mac` a round and seed on
+    every rank (replicated, as the fold is over ``cluster``); with
+    ``warmup`` the first window's rounds once more."""
+    warm = res.rounds[0] if res.exec_info["warmup"] else 0
+    hops = (res.rounds[-1] + warm) * len(res.seeds)
+    I = res.scenario.I
+    if combine == "gathered":
+        return {"fused_mac": hops * (I + 1)}
+    return {"fused_mac": hops, "fused_mac_partials": hops * I,
+            "fused_partials_reduce": hops * I}
+
+
+def log_rank(label, rep, res, card, same) -> None:
+    """One rank's record: its coordinate, rounds/s, seconds inside
+    collectives, collectives, peak memory and launches."""
+    log({"phase": "sweep_ranks", "run": f"{label} rank {rep['rank']}",
+         "backend": rep["backend"], "coordinate": rep["coordinate"],
+         "device": rep["device"], "driver": res.exec_info["driver"],
+         "rounds_per_sec": res.rounds[-1] / res.exec_info["drive_seconds"],
+         "drive_seconds": res.exec_info["drive_seconds"],
+         "collective_seconds": rep["collective_seconds"],
+         "collectives": rep["collectives"],
+         "peak_allocated_bytes": rep["peak_allocated_bytes"],
+         "peak_symbol_bytes": res.exec_info["peak_symbol_bytes"],
+         "launches": rep["launches"], **same, "card": card})
+
+
+def sweep_ranks_phase(card, expect, one_process=None) -> None:
+    """Phase 12: the sharded W-HFL sweep with one process per shard, on
+    the card.  `one_process`: the one-process sharded runs on the card
+    the cases are held to, by (scenario name, mesh, combine) (phase 4's
+    scale_u256 ones); the missing ones run here first.  Every rank's
+    final state and metrics must equal the one-process run's bit for
+    bit, and each stepwise rank must launch what its tile calls for
+    (`sweep_rank_launches`); the chunked ranks replay the graphs between
+    their collectives and are held bit for bit.  Each rank logs its
+    rounds/s, seconds inside collectives and peak memory."""
+    from repro_torch.exec import ShardedSweepRunner, parse_mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch import ranks
+    from repro_torch.sim import get_scenario, sweep
+    from repro_torch.tree import tree_map
+
+    one_process = dict(one_process or {})
+    fig2 = get_scenario("fig2_iid").replace(total_IT=2, ota_mode="faithful",
+                                            ota_backend="fused")
+    u256 = get_scenario("scale_u256")
+
+    def reference(sc, mesh, combine):
+        key = (sc.name, mesh, combine)
+        if key not in one_process:
+            one_process[key] = ShardedSweepRunner(
+                [sc], seeds=2, mesh=mesh, combine=combine, keep_state=True,
+                device="cuda").run()[0]
+        return one_process[key]
+
+    def check(label, rep, want, stepwise: bool) -> None:
+        """One rank's run against the one-process run `want`."""
+        res = rep["results"][0]
+        same = bitwise_runs(want, dataclasses.replace(
+            res, final_state=tree_map(lambda t: t.cuda(), res.final_state)))
+        ok = same["state_bitwise_equal"] and same["metrics_bitwise_equal"]
+        log_rank(label, rep, res, card, same)
+        if stepwise:
+            expect(f"{label} rank {rep['rank']}", rep["launches"],
+                   sweep_rank_launches(res, res.exec_info["combine"]), ok)
+        if not ok:
+            raise SystemExit(f"{label}: rank {rep['rank']} differs from "
+                             f"the one-process sharded run: {same}")
+
+    build.load_all(["fused_mac", "ota_combine"])
+    # (a) fig2_iid on 2x2, four gloo ranks, both combines and drivers; (b)
+    # scale_u256 on 2x4 u_sharded, eight gloo ranks, both drivers: one
+    # launch each
+    for sc, mesh, cases in (
+            (fig2, "2x2", SWEEP_RANKS_FIG2),
+            (u256, "2x4", (("u_sharded", "stepwise"),
+                           ("u_sharded", "chunked")))):
+        want = {c: reference(sc, mesh, c) for c, _ in cases}
+        shape = parse_mesh(mesh)
+        # warmed, so a rank's rounds/s holds no first-call costs
+        specs = [dict(scenarios=[sc], seeds=[0, 1], keep_state=True,
+                      mesh=shape, combine=c, driver=d, warmup=True,
+                      device="cuda") for c, d in cases]
+        t0 = time.perf_counter()
+        reps = ranks.launch(ranks.sweep_worker, shape[0] * shape[1],
+                            "gloo", specs)
+        wall = time.perf_counter() - t0
+        for i, (c, d) in enumerate(cases):
+            for rank_reps in reps:
+                check(f"{sc.name} {ota_label(sc)} {mesh} {c} {d} gloo",
+                      rank_reps[i], want[c], d == "stepwise")
+        log({"phase": "sweep_ranks", "run": f"{sc.name} {mesh} gloo",
+             "cases": [list(case) for case in cases],
+             "world": shape[0] * shape[1], "launch_seconds": wall,
+             "card": card})
+
+    # (c) scale_u256 on 1x1 under NCCL at world size 1, through the sweep
+    # CLI, both drivers (each in this process)
+    want = reference(u256, "1x1", "u_sharded")
+    label = "scale_u256 1x1 u_sharded nccl"
+    runs = []
+    run = ShardedSweepRunner.run
+
+    def keep(self):
+        out = run(self)
+        runs.append((self.driver, self.rank_reports))
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="smoke-sweep-ranks-")
+    try:
+        state_out = os.path.join(tmp, "state.json")
+        argv = ["--scenarios", "scale_u256", "--seeds", "2", "--exec",
+                "sharded", "--mesh", "1x1", "--combine", "u_sharded",
+                "--ranks", "nccl", "--driver", "stepwise,chunked",
+                "--state-out", state_out]
+        ShardedSweepRunner.run = keep
+        t0 = time.perf_counter()
+        try:
+            doc = sweep.main(argv)
+        finally:
+            ShardedSweepRunner.run = run
+        wall = time.perf_counter() - t0
+        states = json.load(open(state_out))["scenarios"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_state = sweep.state_doc([want])["scenarios"][0]["state"]
+    want_metrics = {"acc": want.acc, "loss": want.loss,
+                    "edge_power": want.edge_power, "is_power": want.is_power}
+    for rec, st, (driver, reps) in zip(doc["scenarios"], states, runs):
+        same = {"state_bitwise_equal": st["state"] == want_state,
+                "metrics_bitwise_equal": rec["metrics"] == want_metrics}
+        (rep,) = reps
+        log_rank(f"{label} {driver}", rep, rep["results"][0], card, same)
+        if driver == "stepwise":
+            expect(f"{label} {driver} rank 0", rep["launches"],
+                   sweep_rank_launches(rep["results"][0], "u_sharded"),
+                   all(same.values()))
+        if not all(same.values()):
+            raise SystemExit(f"{label} {driver}: differs from the "
+                             f"one-process sharded run: {same}")
+    log({"phase": "sweep_ranks", "run": label, "argv": argv, "world": 1,
+         "exec": doc["scenarios"][0]["exec"], "cli_seconds": wall,
+         "card": card})
 
 
 def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
@@ -2785,37 +2944,6 @@ def expected_slab_launches(doc: dict) -> int:
     return total
 
 
-def raw_events(prof):
-    """A trace's events as kineto recorded them (`_KinetoEvent`), which
-    read far faster than `prof.events()` for a trace of many rounds."""
-    return prof.profiler.kineto_results.events()
-
-
-def drive_ops(prof):
-    """(every device op of a trace, the device ops that start inside one
-    of the runner's ``SweepRunner.drive`` ranges, the ranges found)."""
-    from torch.autograd import DeviceType
-
-    events = raw_events(prof)
-    drives = [(e.start_ns(), e.end_ns()) for e in events
-              if e.name() == "SweepRunner.drive"
-              and e.device_type() == DeviceType.CPU]
-    ops = [e for e in events if e.device_type() == DeviceType.CUDA
-           and e.name() != "SweepRunner.drive"
-           and not e.is_user_annotation() and SPIN_KERNEL not in e.name()]
-    inside = [e for e in ops
-              if any(lo <= e.start_ns() <= hi for lo, hi in drives)]
-    return ops, inside, drives
-
-
-def drive_kernel_counts(prof) -> dict:
-    """{record: launches} of each kernel of ours that a trace saw on the
-    card inside the runners' drive ranges."""
-    _, inside, _ = drive_ops(prof)
-    return {name: sum(fn in e.name() for e in inside)
-            for name, (_, fn) in KERNELS.items()}
-
-
 # cuDNN's convolution kernels, by name: its own (``cudnn::``) and the
 # implicit-GEMM engines it runs a convolution's three passes on
 CONV_KERNEL_MARKS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
@@ -2860,33 +2988,6 @@ def device_profile(runner, sc) -> dict:
                kernels=rows((k, v) for k, v in by_name.items()
                             if any(fn in k for _, fn in KERNELS.values())))
     return out
-
-
-@contextlib.contextmanager
-def traced_drives(runner_cls, traces):
-    """Every drive of a `runner_cls` (either engine, also through the
-    CLI) inside the block under a `device_trace` of its own (not the
-    runs' set-up, warm-up or the chunked driver's captures), which
-    starts with the `lead_in` spins, as the LM traces do: traces of the
-    fig2_iid_slab vmap S=4 chunked drive lost one or two of its 10
-    ota_combine records in each of three attempts on the H100 80GB HBM3
-    at 700.00 W without them (and in two of three in an earlier run); the
-    traces appended to `traces` as the drives end."""
-    drive_range = runner_cls._drive_range
-
-    @contextlib.contextmanager
-    def traced(self):
-        with device_trace() as prof:
-            lead_in()
-            with drive_range(self):
-                yield
-        traces.append(prof)
-
-    runner_cls._drive_range = traced
-    try:
-        yield
-    finally:
-        runner_cls._drive_range = drive_range
 
 
 def without_blocks(res, drop=("telemetry", "guard_trips")):
@@ -3487,34 +3588,33 @@ def main() -> int:
         which must be `want`.  A replay runs no Python, so the wrappers'
         counters do not see it: they read the eager run before each
         capture and the capture's recording.  Where `want` has a launch,
-        a trace of the drives counts them (a trace that holds fewer of
-        our kernels than `want`, and none more, lost device records,
-        TRACE_ATTEMPTS, and the run is traced again); where it has none,
-        counters that read 0 show that no wrapper was called, so no
-        graph holds a kernel of ours.  Neither is added to the kernels
-        line, whose launches are the stepwise runs' counters."""
+        the drives' replays count them from the graphs (`count_drives`:
+        each graph's kernel nodes at its capture times its replays),
+        and a trace of the drives must see no more (it may see fewer:
+        a trace can lose a long replay's device records, `trace_probe
+        --replays`); where it has none, counters that read 0 show that no
+        wrapper was called, so no graph holds a kernel of ours.  Neither
+        is added to the kernels line, whose launches are the stepwise
+        runs' counters."""
         full = {n: want.get(n, 0) for n in KERNELS}
-        traced = any(full.values())
-        for attempt in range(1, TRACE_ATTEMPTS + 1):
-            traces = []
-            with traced_drives(SweepRunner, traces) if traced else \
-                    contextlib.nullcontext():
-                out, counts = counted(run)
-            seen = counts if not traced else {
-                n: sum(drive_kernel_counts(p)[n] for p in traces)
-                for n in KERNELS}
+        if not any(full.values()):
+            out, seen = counted(run)
             log({"phase": "chunked_launches", "run": label,
-                 "drives_traced": len(traces),
-                 "kernel_launches_traced": seen if traced else None,
                  "expected_launches": full,
-                 "counters_eager_and_capture": counts,
-                 "trace_attempt": attempt})
-            if seen == full or not all(seen[n] <= full[n] for n in KERNELS):
-                break
-        if seen != full:
+                 "counters_eager_and_capture": seen})
+            traced = seen
+        else:
+            (out, seen, traced), counts = counted(
+                lambda: count_drives(run, KERNEL_FUNCTIONS, SweepRunner))
+            log({"phase": "chunked_launches", "run": label,
+                 "kernel_launches_replayed": seen,
+                 "kernel_launches_traced": traced,
+                 "expected_launches": full,
+                 "counters_eager_and_capture": counts})
+        if seen != full or any(traced[n] > full[n] for n in traced):
             raise SystemExit(f"{label}: {seen} launches in the chunked "
-                             f"drive ({'traced' if traced else 'counters'}),"
-                             f" the stepwise run {full}")
+                             f"drive ({traced} traced), the stepwise run "
+                             f"{full}")
         return out
 
     def chunked_rerun(label, make_runner, step, want):
@@ -3561,9 +3661,10 @@ def main() -> int:
     # Fig. 3: the CIFAR CNN at the paper's sizes, as registered (the
     # equivalent channel, no kernel), faithful with the fused backend,
     # and on the sharded engine (1x1 and 2x5, u_sharded), each through
-    # both drivers but 1x1 (stepwise only, for the run's time); 2x5 through the
-    # chunked driver with its first seed alone, held to that seed of the
-    # stepwise run (capturing its tiles' graphs took 76 s for two seeds)
+    # both drivers but 1x1 (stepwise only, for the run's time); the
+    # chunked driver with the first seed alone, held to that seed of the
+    # stepwise run (capturing the 2x5 tiles' graphs took 76 s for two
+    # seeds)
     fig3_on_card = {}
     for label, sc, mesh in (
             ("fig3_cifar", fig3, None), ("fig3_cifar_fused", fig3_fused, None),
@@ -3601,15 +3702,13 @@ def main() -> int:
              "final_acc": [a[-1] for a in res.acc],
              "final_loss": [v[-1] for v in res.loss]})
         expect(label, launches, want, finite(res))
-        if mesh == "2x5":
-            one = first_seed(res)
-            chunked_rerun(label, lambda: make("chunked", True, 1), one,
-                          fig3_want(one))
-        elif mesh is None:
+        if mesh != "1x1":
             # (sharded 1x1's chunked rerun, ~33 s, went for phase 11: the
             # sharded engine's chunked driver is held by 2x5 here and by
             # scale_u256 3x5, fig2_drop50 2x4 and scale_u65536 1x1)
-            chunked_rerun(label, lambda: make("chunked", True), res, want)
+            one = first_seed(res)
+            chunked_rerun(label, lambda: make("chunked", True, 1), one,
+                          fig3_want(one))
         fig3_on_card[label] = res
     for label in ("fig3_cifar_fused sharded 1x1 u_sharded",
                   "fig3_cifar_fused sharded 2x5 u_sharded"):
@@ -3847,6 +3946,7 @@ def main() -> int:
     del part_on_card, res, deltas, want_est, got_est, map_res
 
     # the sharded engine through the sweep CLI
+    u256_one_process = {}       # phase 12's references
     sharded_runs = [("scale_u256", "1x1", "u_sharded", 2),
                     ("scale_u256", "2x4", "u_sharded", 2),
                     ("scale_u256", "3x5", "u_sharded", 2),    # 6x65 padded
@@ -3858,7 +3958,9 @@ def main() -> int:
         label = f"{name} {mesh} {combine}"
         argv = ["--scenarios", name, "--seeds", str(seeds), "--exec",
                 "sharded", "--mesh", mesh, "--combine", combine]
+        torch.cuda.reset_peak_memory_stats()
         doc, launches = counted(lambda: sweep.main(argv))
+        peak = torch.cuda.max_memory_allocated()
         rec = doc["scenarios"][0]
         rounds, I = rec["rounds"][-1], rec["scenario"]["I"]
         hops = rounds * len(rec["seeds"])          # rounds x seeds
@@ -3871,6 +3973,7 @@ def main() -> int:
              "argv": argv, "exec": rec["exec"], "seeds": rec["seeds"],
              "rounds": rounds,
              "rounds_per_sec": rounds / rec["exec"]["drive_seconds"],
+             "max_memory_allocated_bytes": peak,
              "final_acc": [a[-1] for a in rec["metrics"]["acc"]],
              "final_loss": [v[-1] for v in rec["metrics"]["loss"]]})
         expect(f"sharded {label}", launches, want, bool(all(
@@ -3878,12 +3981,17 @@ def main() -> int:
             for v in rec["metrics"].values())))
         # the same CLI run through the chunked driver: the same metrics
         # bit for bit and the same launches, in a trace of its drive
+        # (peak memory with the smoke's tensors held; the graphs' pool
+        # holds a round's buffers beside the carry)
         argv_c = argv + ["--driver", "chunked", "--warmup"]
+        torch.cuda.reset_peak_memory_stats()
         doc_c = chunked_launches(f"sharded {label} chunked",
                                  lambda: sweep.main(argv_c), want)
         rec_c = doc_c["scenarios"][0]
         same = rec_c["metrics"] == rec["metrics"]
         log({"phase": "chunked_vs_stepwise", "run": f"sharded {label}",
+             "max_memory_allocated_bytes_chunked":
+                 torch.cuda.max_memory_allocated(),
              "argv": argv_c, "metrics_bitwise_equal": same,
              "dispatches": rec_c["exec"]["dispatches"],
              "rounds_per_sec_chunked": rounds
@@ -3901,6 +4009,7 @@ def main() -> int:
                                  device="cuda").run()[0]
         if (mesh, combine) == ("2x4", "u_sharded"):
             u256_sharded_on_card = res
+        u256_one_process[name, mesh, combine] = res
         theta = u256_on_card.final_state["theta"]
         gap = max(float((res.final_state["theta"][k] - theta[k]).abs()
                         .max()) for k in theta)
@@ -4358,21 +4467,21 @@ def main() -> int:
                                           batch="map"), sc)
         log({"phase": "profile", "run": label, "card": card, **prof})
     # participation: the mask, precode and rescale on the fused round,
-    # and the median fold's per-user hops, through both drivers, over 2
-    # rounds (for the run's time; the rates are per round)
+    # through both drivers, over 2 rounds (for the run's time; the rates
+    # are per round; the median fold's profiles, 23 s, went for phase 12,
+    # PERF.md keeps the earlier ones)
     for label, sc in (("fig2_drop50 fused", drop50_fused.replace(
-            total_IT=2)), ("fig2_byzantine1_median", byz1_median.replace(
-                total_IT=2))):
+            total_IT=2)),):
         for d in ("stepwise", "chunked"):
             prof = device_profile(SweepRunner(
                 [sc], seeds=1, device="cuda", driver=d,
                 warmup=d == "chunked", batch="map"), sc)
             log({"phase": "profile", "run": f"{label} {d}", "card": card,
                  **prof})
-    for label, sc, mesh in (("sharded scale_u65536 1x1 u_sharded", u65536,
-                             "1x1"),
-                            ("sharded scale_u256 2x4 u_sharded", u256,
-                             "2x4")):
+    # (scale_u65536 1x1's profile, 29 s, went for phase 12; phase 4 logs
+    # its peak memory through both drivers)
+    for label, sc, mesh in (("sharded scale_u256 2x4 u_sharded", u256,
+                             "2x4"),):
         torch.cuda.reset_peak_memory_stats()
         prof = device_profile(ShardedSweepRunner(
             [sc], seeds=1, mesh=mesh, combine="u_sharded", device="cuda"),
@@ -4380,17 +4489,6 @@ def main() -> int:
         log({"phase": "profile", "run": label, "card": card,
              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
              **prof})
-    # the same scale_u65536 round as one CUDA graph: its peak memory
-    # (the graph's pool holds the round's buffers beside the carry)
-    torch.cuda.reset_peak_memory_stats()
-    res = ShardedSweepRunner([u65536], seeds=1, mesh="1x1",
-                             combine="u_sharded", driver="chunked",
-                             device="cuda").run()[0]
-    log({"phase": "profile", "run": "sharded scale_u65536 1x1 u_sharded "
-         "chunked", "card": card,
-         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-         "drive_seconds": res.exec_info["drive_seconds"]})
-    del res
     # Fig. 3's profiles (one round as registered and fused, stepwise, and
     # fused through the chunked driver's graph, 20 to 48 s each) went to
     # make way for phase 11; PERF.md keeps the earlier ones
@@ -4786,7 +4884,13 @@ def main() -> int:
     finally:
         shutil.rmtree(ranks_dir, ignore_errors=True)
 
-    # -- phase 12: the records ---------------------------------------------
+    # -- phase 12: the sharded sweep with one process per shard ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sweep_ranks_phase(card, expect, u256_one_process)
+    del u256_one_process
+
+    # -- phase 13: the records ---------------------------------------------
     records = [("fused_mac", "scale_u256", "src/repro/kernels/fused_mac.py:158",
                 None),
                ("ota_combine", "fig2_iid cluster",
@@ -4905,8 +5009,30 @@ def ranks_only() -> int:
     return 0
 
 
+def sweep_ranks_only() -> int:
+    """``python3 chip_smoke.py --sweep-ranks``: phases 1 and 2 for the
+    W-HFL kernels alone, then phase 12 (the sharded sweep on ranks, with
+    its own one-process references), with launch counts as `main` keeps
+    them; no kernel records."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs a CUDA "
+              "card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sweep_ranks_phase(card.splitlines()[0], check_launches)
+    log({"phase": "done", "seconds": time.perf_counter() - T_START})
+    return 0
+
+
 if __name__ == "__main__":
     MODES = {"--training": training_only, "--window": window_only,
-             "--ranks": ranks_only}
+             "--ranks": ranks_only, "--sweep-ranks": sweep_ranks_only}
     sys.exit(MODES[sys.argv[1]]() if len(sys.argv) == 2
              and sys.argv[1] in MODES else main())

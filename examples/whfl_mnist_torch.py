@@ -15,9 +15,10 @@ for all seeds).  It writes the same ``repro.sim.sweep/v1`` document.
 
 It runs on the CUDA card unless ``--device`` names another.  As in the
 JAX driver, ``--exec sharded --mesh CxU`` runs the schemes on the
-sharded engine and ``--driver chunked`` replays each eval window as one
-CUDA graph (`repro_torch.exec.make_runner`); both give the single
-engine's stepwise bits.
+sharded engine (``--ranks gloo|nccl``: one process per shard) and
+``--driver chunked`` replays each eval window as one CUDA graph
+(`repro_torch.exec.make_runner`); all give the single engine's stepwise
+bits.
 """
 import argparse
 import json
@@ -75,6 +76,10 @@ def main(argv=None):
                     help="CxU shard mesh for --exec sharded, e.g. 4x1; "
                          "axes need not divide --C/--M (inactive users "
                          "are padded in, bit for bit the unpadded run)")
+    ap.add_argument("--ranks", default=None, choices=["gloo", "nccl"],
+                    help="with --exec sharded: one process per shard, "
+                         "joined by this backend (gloo: the CPU or ranks "
+                         "sharing one card; nccl: one card a rank)")
     ap.add_argument("--driver", default="stepwise", choices=list(DRIVERS),
                     help="round driver: stepwise (the host issues every "
                          "round) or chunked (one CUDA graph replay per "
@@ -98,11 +103,14 @@ def main(argv=None):
             sc = sc.replace(ota_mode=args.ota, ota_backend=args.backend)
         named.append((name, sc))
 
+    if args.ranks and args.exec_name != "sharded":
+        ap.error("--ranks needs --exec sharded")
     seeds = list(range(args.seed, args.seed + args.seeds))
     try:
         runner = make_runner(args.exec_name, [sc for _, sc in named],
                              seeds=seeds, quick=args.quick, mesh=args.mesh,
-                             driver=args.driver, device=args.device)
+                             driver=args.driver, device=args.device,
+                             ranks=args.ranks)
     except (RuntimeError, ValueError) as e:   # e.g. no CUDA card and no
         ap.error(str(e))                      # --device cpu
     results = runner.run()

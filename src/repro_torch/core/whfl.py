@@ -36,6 +36,8 @@ graph per window length on the card.
 """
 from __future__ import annotations
 
+import warnings
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
@@ -538,19 +540,75 @@ def make_window_fn(round_fn: Callable,
     return window
 
 
+class _Segments:
+    """The recorder `_ChunkFn` captures a window with: the window as the
+    CUDA graphs of its collective-free segments, in order, one private
+    memory pool for all, each graph but the last followed by the
+    collective that ended it (`repro_torch.sharding.api.segmented`).  A
+    collective is not issued while the window is captured: it gets a
+    static output buffer, allocated on the `stream` the graphs replay
+    on, which the graphs after it read; at a replay it runs between its
+    two graphs and writes that buffer."""
+
+    def __init__(self, pool, stream):
+        self.pool = pool
+        self.stream = stream
+        self.segments = []           # [(graph, issue collective or None)]
+        self.graph = None
+
+    def begin(self) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        with warnings.catch_warnings():
+            # two collectives back to back leave a segment without a
+            # kernel, whose graph CUDA runs as a no-op
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            self.graph.capture_end()
+        self.pool = self.graph.pool()
+        self.segments.append((self.graph, None))
+
+    def cut(self, issue, shape, dtype, device) -> torch.Tensor:
+        self.end()
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(shape, dtype=dtype, device=device)
+        self.segments[-1] = (self.graph, lambda: out.copy_(issue()))
+        self.begin()
+        return out
+
+
+# The launches of each kernel of ours that the chunked driver's graph
+# replays made: every graph's kernel nodes, counted at its capture (the
+# wrappers' launch counts while it was recorded: a wrapper called on the
+# capturing stream records one kernel node where it would launch one),
+# times its replays.  A replay runs no Python, so the wrappers' own
+# counts cannot see it, and a device trace can lose a replay's records
+# (`repro_torch.kernels.trace_probe`).
+REPLAYED_LAUNCHES: Counter = Counter()
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import LAUNCH_COUNTERS
+
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in LAUNCH_COUNTERS.items()}
+
+
 class _ChunkFn:
     """The chunked driver's unit (`make_chunk_fn`): an eval window
     (`make_window_fn`) on the device of the power values.
 
     On the CPU each call runs the window eagerly.  On CUDA each distinct
-    window length is captured once as a `torch.cuda.CUDAGraph` (at most
-    three: 1, eval_every and the tail) and every later call replays it:
+    window length is captured once as CUDA graphs (at most three
+    lengths: 1, eval_every and the tail) and every later call replays
+    them:
 
     - the seed-stacked carry (states and keys) lives in static buffers
-      that every graph reads and, at its end, overwrites in place, so a
-      call returns them as the carried state (pass them back
+      that the graphs read and, at the window's end, overwrite in place,
+      so a call returns them as the carried state (pass them back
       unchanged);
-    - the window's powers are copied into the graph's float32 [w]
+    - the window's powers are copied into the graphs' float32 [w]
       buffers before each replay, so every round of every replay reads
       its own;
     - before the first capture of a length the window runs once eagerly
@@ -559,9 +617,17 @@ class _ChunkFn:
       and plans and takes every host-side decision, so no host-to-device
       copy or host read is left for the capture.
 
+    A window that makes no collective (one process, or ranks whose
+    groups all hold one rank) is one graph.  On ranks a collective of
+    the runner (`repro_torch.sharding`) cannot enter a capture (gloo's
+    never can), so the window is captured as the graphs of the segments
+    between its collectives (`_Segments`), and a replay runs each graph
+    and then the collective that follows it, on the captured buffers.
+
     A replay runs no Python, so the kernel wrappers' launch counts see
-    the eager run and the capture, not the replays: a replay's launches
-    are read from a device trace.
+    the eager run and the capture, not the replays: each replay adds its
+    graphs' kernel nodes, counted at their capture, to
+    `REPLAYED_LAUNCHES`.
 
     The graphs share one memory pool: they replay one after another on
     one stream, and each replay's metrics are copied out before the next.
@@ -572,7 +638,7 @@ class _ChunkFn:
         self.graphs: Dict[int, tuple] = {}
         self.carry = None
         self.pool = None
-        self.captures = 0          # graphs captured (the run journal's)
+        self.captures = 0          # windows captured (the run journal's)
 
     def __call__(self, states, keys, P_win, P_is_win):
         if P_win.device.type != "cuda":
@@ -581,10 +647,14 @@ class _ChunkFn:
         w = int(P_win.shape[0])
         if w not in self.graphs:
             self._capture(w, P_win, P_is_win)
-        graph, P, P_is, metrics = self.graphs[w]
+        segments, P, P_is, metrics, nodes = self.graphs[w]
         P.copy_(P_win)
         P_is.copy_(P_is_win)
-        graph.replay()
+        for graph, collective in segments:
+            graph.replay()
+            if collective is not None:
+                collective()
+        REPLAYED_LAUNCHES.update(nodes)
         states, keys = self.carry
         return states, keys, None if metrics is None else metrics.clone()
 
@@ -600,6 +670,8 @@ class _ChunkFn:
                 dst.copy_(src)
 
     def _capture(self, w: int, P_win, P_is_win) -> None:
+        from repro_torch.sharding.api import segmented
+
         states, keys = self.carry
         dev = P_win.device
         P = P_win.detach().clone()
@@ -609,8 +681,14 @@ class _ChunkFn:
         with torch.cuda.stream(side):
             self.window(states, keys, P, P_is)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        # as `torch.cuda.graph` does: the graphs' private pool cannot use
+        # blocks the allocator keeps cached for other streams
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        rec = _Segments(self.pool, torch.cuda.current_stream(dev))
+        before = _launch_counts()
+        with torch.cuda.stream(side), segmented(rec):
+            rec.begin()
             new_states, new_keys, metrics = self.window(states, keys, P,
                                                         P_is)
             for (_, dst), (_, src) in zip(tree_leaves(self.carry),
@@ -618,8 +696,12 @@ class _ChunkFn:
                                                        new_keys])):
                 if dst is not src:
                     dst.copy_(src)
-        self.pool = graph.pool()
-        self.graphs[w] = (graph, P, P_is, metrics)
+            rec.end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        nodes = {name: n - before[name]
+                 for name, n in _launch_counts().items() if n != before[name]}
+        self.pool = rec.pool
+        self.graphs[w] = (rec.segments, P, P_is, metrics, nodes)
         self.captures += 1
 
 
@@ -628,9 +710,10 @@ def make_chunk_fn(round_fn: Callable,
                   batch: str = "map") -> Callable:
     """The chunked driver's window executor: `make_window_fn`'s window,
     ``chunk_fn(states, keys, P_win, P_is_win) -> (states, keys,
-    metrics)``, as one CUDA graph per window length on the card
-    (`_ChunkFn`; under ``batch="vmap"`` one graph for all seeds) and
-    eagerly on the CPU.  It runs the stepwise driver's loop, so the two
+    metrics)``, as one CUDA graph per window length on the card (on
+    ranks, the graphs between the window's collectives; `_ChunkFn`;
+    under ``batch="vmap"`` one graph for all seeds) and eagerly on the
+    CPU.  It runs the stepwise driver's loop, so the two
     drivers agree bit for bit.
     """
     return _ChunkFn(make_window_fn(round_fn, eval_fn, batch))

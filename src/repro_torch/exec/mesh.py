@@ -8,14 +8,22 @@ stations over ``cluster``, transmit symbols over ``user`` -- so one
 mesh shape describes both phases of the round (see
 `repro_torch.exec.round`).
 
-On one card a mesh is a layout of shards, not of devices: the mc x mu
-shards run in one process, one after the other in row-major mesh
-order, on one torch device (`Mesh.device`).  This is the counterpart of
-the JAX package's ``host_device_recipe``, which forces host devices so
-that a CxU mesh runs on one CPU.  Each shard still does exactly its own
-work -- it trains its own users and launches the kernels on its own
-tile with its tile origin as the counter bases -- and each collective
-of the JAX engine becomes a concatenation or a slice in mesh order.
+A mesh is one of two things:
+
+- a `Mesh`, a layout of shards in one process: the mc x mu shards run
+  one after the other in row-major mesh order, on one torch device
+  (`Mesh.device`), the counterpart of the JAX package's
+  ``host_device_recipe``, which forces host devices so that a CxU mesh
+  runs on one CPU.  Each collective of the JAX engine becomes a
+  concatenation or a slice in mesh order;
+- a `DeviceMesh` of ranks (`make_rank_mesh`): one process per shard,
+  as the JAX engine runs one device per shard.  Each rank reads its
+  shard's (ci, ui) from `repro_torch.sharding.axis_index` inside
+  `sharding.shard_map`, and the collectives run between the ranks.
+
+Either way each shard does exactly its own work -- it trains its own
+users and launches the kernels on its own tile with its tile origin as
+the counter bases.
 
 A mesh does NOT have to divide the workload: `pad_plan_for` embeds any
 (C, M) into the mesh by padding inactive users/clusters
@@ -72,6 +80,16 @@ def parse_mesh(spec: MeshShape) -> Tuple[int, int]:
 def make_device_mesh(shape: MeshShape, device="cuda") -> Mesh:
     """The ``("cluster", "user")`` mesh of `shape` on one torch device."""
     return Mesh(parse_mesh(shape), torch.device(device))
+
+
+def make_rank_mesh(shape: MeshShape, device_type: str = "cuda"):
+    """The ``("cluster", "user")`` `DeviceMesh` of `shape` on the current
+    process group, whose world must be mc x mu: rank r holds shard
+    ``divmod(r, mu)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, parse_mesh(shape),
+                            mesh_dim_names=MESH_AXES)
 
 
 def validate_mesh_for(mesh: Mesh, C: int, M: int) -> Tuple[int, int]:

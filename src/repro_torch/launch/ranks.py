@@ -1,5 +1,6 @@
 """Processes as mesh ranks: the launcher of the W-HFL training step with
-one process per mobile user.
+one process per mobile user, and of the sharded W-HFL sweep with one
+process per shard.
 
 `launch(worker, world, backend, *args)` spawns `world` processes with
 `torch.multiprocessing`, joins them into one process group through a
@@ -22,6 +23,12 @@ It reports its metrics, seconds a step, seconds inside collectives
 kernels' launches and its peak device memory; with a `reference`
 (in memory, or a `save_reference` file), whether its final state and
 metrics equal it bit for bit.
+
+`sweep_worker` is the worker of a sweep on ranks
+(`repro_torch.exec.ShardedSweepRunner(ranks=...)`, which launches it):
+it builds the ``("cluster", "user")`` mesh on the world and runs the
+scenarios on it (`exec.RankSweepRunner`), and reports the rank's
+results, launches, collectives and peak memory.
 """
 from __future__ import annotations
 
@@ -239,3 +246,62 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
         out["raw_metrics"] = [{k: v.cpu() for k, v in m.items()}
                               for m in metrics]
     return out
+
+
+def sweep_worker(rank: int, world: int, spec: dict) -> dict:
+    """One rank of a sweep on ranks.  `spec`: "scenarios" (`Scenario`s),
+    "seeds", "mesh" ((mc, mu), their product the world), "combine",
+    "driver", "warmup", "device" ("cpu", or "cuda" for the rank's
+    card), "keep_state", "guard".  The scenarios run one by one, their
+    seeds one by one (``batch="map"``).  Returns the rank's
+    `SweepResult`s (final states on the CPU) and, over the whole run,
+    its kernel launches, the collectives it made (grouped by op, axes
+    and group size) and their seconds, its coordinate, and its peak
+    device memory.  A list of specs runs each in turn in the same
+    processes."""
+    if isinstance(spec, list):
+        return [sweep_worker(rank, world, s) for s in spec]
+    import torch.distributed as dist
+
+    from repro_torch.exec import RankSweepRunner, make_rank_mesh
+    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.sharding import record_collectives
+    from repro_torch.tree import tree_map
+
+    mesh = make_rank_mesh(spec["mesh"], "cpu" if spec["device"] == "cpu"
+                          else "cuda")
+    runner = RankSweepRunner(
+        spec["scenarios"], mesh, dist.get_backend(), seeds=spec["seeds"],
+        keep_state=spec.get("keep_state", False),
+        combine=spec.get("combine", "gathered"),
+        driver=spec.get("driver", "stepwise"),
+        warmup=spec.get("warmup", False), device=spec["device"],
+        guard=spec.get("guard", "off"))
+    dev = runner.device
+    for fn, attr in LAUNCH_COUNTERS.values():
+        setattr(fn, attr, 0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with record_collectives() as log:
+        results = runner.run()
+    seconds = time.perf_counter() - t0
+    for r in results:
+        if r.final_state is not None:
+            r.final_state = tree_map(lambda t: t.detach().cpu(),
+                                     r.final_state)
+    groups = Counter((r["op"], "/".join(r["axes"]), r["group_size"])
+                     for r in log)
+    return {"rank": rank, "world": world, "backend": dist.get_backend(),
+            "pid": os.getpid(), "device": str(dev),
+            "coordinate": {a: mesh.get_local_rank(a)
+                           for a in mesh.mesh_dim_names},
+            "results": results, "seconds": seconds,
+            "collective_seconds": sum(r["seconds"] for r in log),
+            "collectives": [{"op": op, "axes": axes, "group_size": n,
+                             "count": c}
+                            for (op, axes, n), c in sorted(groups.items())],
+            "launches": {name: getattr(fn, attr) for name, (fn, attr)
+                         in LAUNCH_COUNTERS.items()},
+            "peak_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None)}

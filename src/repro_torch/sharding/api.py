@@ -14,18 +14,23 @@ A mesh here is a `DeviceMesh` (ranks) or a mapping of axis names to
 sizes in mesh order (a shape alone, e.g. ``{"data": 16, "model": 16}``,
 for the tables of a mesh no process holds); `mesh_axes` reads either.
 
-`shard_map` is the per-rank runner of the W-HFL training step: every
-process runs `f` on its own slice of the inputs (cut by the in-specs
-over the manual axes) with the mesh's axis names bound, so that
-`axis_index(name)` is the rank's coordinate on that axis and
-`psum(x, names)` an all-reduce over the ranks that share every other
-manual coordinate (`core.dist`'s hops).  Collectives over a group of
-one rank return their input.  A 0-dim tensor is summed as the one-card
-code sums a list of scalars: gathered, then added left to right in the
-group's rank order; a larger tensor is all-reduced by the backend (for
-two members a + b in either order, so bit for bit the one-card sum).
-`record_collectives()` lists every collective with its group size and
-seconds.
+`shard_map` is the per-rank runner of the W-HFL training step and of
+the sharded sweep: every process runs `f` on its own slice of the
+inputs (cut by the in-specs over the manual axes) with the mesh's axis
+names bound, so that `axis_index(name)` is the rank's coordinate on
+that axis and the collectives run over the ranks that share every other
+manual coordinate: `psum(x, names)` an all-reduce (`core.dist`'s hops),
+`all_gather` the counterpart of `jax.lax`'s tiled one (the sweep
+engine's, `exec.round`).  Collectives over a group of one rank
+return their input and issue nothing.  A 0-dim tensor is summed as the
+one-card code sums a list of scalars: gathered, then added left to
+right in the group's rank order; a larger tensor is all-reduced by the
+backend (for two members a + b in either order, so bit for bit the
+one-card sum).  `record_collectives()` lists every collective with its
+group size and seconds.  Inside `segmented(recorder)` a collective does
+not run: it hands the recorder the call to make and an empty tensor of
+its output's shape (the chunked driver's CUDA graphs stop there and
+issue the collective between replays, `core.whfl._ChunkFn`).
 
 Tensor parallelism over "model" is not executed yet (ROADMAP queue A
 item 11): `logical` checks ranks and is a no-op while the active mesh's
@@ -267,7 +272,7 @@ _log = threading.local()
 
 
 def forget_groups() -> None:
-    """Drop the process groups `psum` and `pmean` made (call it with the
+    """Drop the process groups the collectives made (call it with the
     process group that holds them destroyed)."""
     _groups.clear()
 
@@ -357,6 +362,37 @@ def _gather(x: torch.Tensor, group, size: int) -> List[torch.Tensor]:
     return parts
 
 
+@contextlib.contextmanager
+def segmented(recorder) -> Iterator[None]:
+    """Hand every collective the block makes to `recorder` instead of
+    running it: ``recorder.cut(issue, shape, dtype, device)`` gets the
+    call that runs the collective (``issue()`` returns its output) and
+    returns the tensor that stands for the output from then on."""
+    prev = getattr(_state, "segments", None)
+    _state.segments = recorder
+    try:
+        yield
+    finally:
+        _state.segments = prev
+
+
+def _collective(op: str, names, size: int, x: torch.Tensor, run,
+                shape) -> torch.Tensor:
+    """``run(x)`` as collective `op` over `size` ranks, timed where
+    `record_collectives` records; handed to the `segmented` recorder
+    where one is active (`shape`: the output's)."""
+    recorder = getattr(_state, "segments", None)
+    issue = lambda: _timed(op, names, size, x, lambda: run(x))
+    if recorder is None:
+        return issue()
+    return recorder.cut(issue, tuple(shape), x.dtype, x.device)
+
+
+def _group_size(names: Tuple[str, ...]) -> int:
+    sizes = mesh_axes(_ctx().mesh)
+    return math.prod(sizes[n] for n in names)
+
+
 def psum(x: torch.Tensor, names) -> torch.Tensor:
     """Sum of `x` over the ranks of the manual axes `names`: a 0-dim
     tensor gathered and added left to right in the group's rank order
@@ -367,20 +403,20 @@ def psum(x: torch.Tensor, names) -> torch.Tensor:
     if len(members) == 1:
         return x
     if x.ndim == 0:
-        def run():
+        def run(x):
             out = 0
             for part in _gather(x, group, len(members)):
                 out = out + part
             return out
-        return _timed("psum_scalar", names, len(members), x, run)
+        return _collective("psum_scalar", names, len(members), x, run, ())
 
-    def run():
+    def run(x):
         import torch.distributed as dist
 
         y = x.contiguous().clone()
         dist.all_reduce(y, group=group)
         return y
-    return _timed("all_reduce", names, len(members), x, run)
+    return _collective("all_reduce", names, len(members), x, run, x.shape)
 
 
 def pmean(x: torch.Tensor, names) -> torch.Tensor:
@@ -391,8 +427,25 @@ def pmean(x: torch.Tensor, names) -> torch.Tensor:
     group, members = _group(names)
     if len(members) == 1:
         return torch.stack([x]).mean()
-    return _timed("pmean", names, len(members), x, lambda: torch.stack(
-        _gather(x, group, len(members))).mean())
+    return _collective("pmean", names, len(members), x, lambda x: torch.stack(
+        _gather(x, group, len(members))).mean(), ())
+
+
+def all_gather(x: torch.Tensor, names, axis: int = 0) -> torch.Tensor:
+    """`jax.lax.all_gather(..., tiled=True)`: every member's `x` of the
+    group over `names`, in the group's mesh order, concatenated along
+    `axis`."""
+    names = _as_names(names)
+    n = _group_size(names)
+    if n == 1:
+        return x
+    group, _ = _group(names)
+    x = x.contiguous()
+    axis %= x.ndim
+    shape = list(x.shape)
+    shape[axis] *= n
+    return _collective("all_gather", names, n, x, lambda x: torch.cat(
+        _gather(x, group, n), dim=axis), shape)
 
 
 def _coordinate(names: Tuple[str, ...]) -> Tuple[int, int]:
@@ -447,7 +500,7 @@ def shard_map(f, mesh, in_specs, out_specs, axis_names=None):
     """The per-rank runner: ``shard_map(f, mesh, in_specs, out_specs)
     (*args)`` runs `f` on this rank's slice of each argument (its
     in-spec applies to every tensor leaf of it) with the mesh's axis
-    names bound for `axis_index`, `psum` and `pmean`; `axis_names` are
+    names bound for `axis_index` and the collectives; `axis_names` are
     the manual axes (default: all of the mesh's).  The outputs are this
     rank's, replicated by construction: an out-spec may name no manual
     axis."""

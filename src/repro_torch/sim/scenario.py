@@ -304,9 +304,8 @@ register_scenario(Scenario(
     eval_every=8))
 
 # Sharded-engine tiers of the reference (the port's sharded engine runs
-# them on one card, its shards one after the other; spreading the shards
-# over ranks, with `launch.ranks`' process groups, is the next part of
-# ROADMAP queue A, item 11: the LM train step already runs on ranks).
+# them on one card, its shards one after the other, or one process per
+# shard with ``ranks``).
 register_scenario(Scenario(
     name="scale_u16384", dataset="mnist", partition="iid",
     tau=1, I=1, batch=8, mode="whfl", ota_mode="faithful",

@@ -22,7 +22,8 @@ order does not follow the host's load.
 
 ``--exec sharded --mesh CxU [--combine u_sharded]`` drives the same
 sweep through the sharded engine (`repro_torch.exec.ShardedSweepRunner`),
-which overrides the runner's engine hooks.  ``--driver chunked`` replays
+which overrides the runner's engine hooks; ``--ranks gloo|nccl`` runs
+its shards as one process each.  ``--driver chunked`` replays
 each eval window's rounds and eval as one CUDA graph
 (`repro_torch.core.whfl.make_chunk_fn`) instead of issuing every round
 from the host; ``--driver stepwise,chunked`` runs and records both.
@@ -772,6 +773,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                          "keeps each cluster-shard's own user tile, runs "
                          "the partial-combine kernel and folds the "
                          "per-tile sums in pinned global u-block order")
+    ap.add_argument("--ranks", default=None, choices=["gloo", "nccl"],
+                    help="with --exec sharded: run the mesh's shards as "
+                         "one process each, joined in a process group of "
+                         "this backend (gloo: CPU ranks, or ranks sharing "
+                         "one card; nccl: one card a rank); without it "
+                         "the shards run in this process")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
     ap.add_argument("--telemetry", action="store_true",
@@ -855,6 +862,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.ckpt_every != 1 and not args.checkpoint:
         ap.error("--ckpt-every needs --checkpoint DIR (no checkpoints are "
                  "being cut)")
+    if args.ranks and args.exec_name != "sharded":
+        ap.error("--ranks needs --exec sharded (the single engine runs in "
+                 "one process)")
+    if args.ranks and args.profile:
+        ap.error("--profile traces this process only, not the --ranks "
+                 "processes")
     tracer = None
     if args.trace:
         from repro_torch.obs.trace import TraceWriter
@@ -872,6 +885,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                         args.exec_name, args.scenarios.split(","),
                         seeds=seeds, quick=args.quick, batch=args.batch,
                         mesh=args.mesh, combine=args.combine,
+                        ranks=args.ranks,
                         driver=driver.strip(), warmup=args.warmup,
                         device=args.device, telemetry=args.telemetry,
                         trace=tracer, keep_state=bool(args.state_out),

@@ -33,9 +33,7 @@ and use no atomics.  For the same reason the partial combine and its
 fold give `fused_mac`'s output bit for bit: the three kernels share the
 per-block sum, the noise draw and the finalize.
 """
-import contextlib
 import ctypes
-import time
 
 import numpy as np
 import pytest
@@ -132,17 +130,20 @@ def test_fused_mac_at_fig3_shapes_on_card(B, U, K, N, bu):
 def test_captured_windows_equal_eager_rounds_on_card(engine):
     """The chunked driver's CUDA graphs (windows of 1 and 2 rounds) give
     the stepwise driver's bits, final state and metrics, and launch what
-    it launches: the stepwise run's launch counters against the kernels
-    a device trace sees in the chunked drive (a replay runs no Python,
-    so the counters cannot see it).  fig3 faithful/fused cut to C 2,
-    M 2, warmed, so the drive holds replays only."""
+    it launches: the stepwise run's launch counters against the chunked
+    drive's replays, counted from its graphs (a replay runs no Python,
+    so the counters cannot see it: each graph's kernel nodes at its
+    capture, times its replays), and a device trace of the drive must
+    see no more (it can lose a long replay's records, never make one
+    up).  fig3 faithful/fused cut to C 2, M 2, warmed, so the drive
+    holds replays only.  The drive is counted as the smoke counts it
+    (`kernels.trace_probe.count_drives`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the chunked driver's graphs")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.exec import make_runner
     from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels.trace_probe import count_drives
+    from repro_torch.sim import SweepRunner
     from repro_torch.sim.scenario import get_scenario
     from repro_torch.tree import tree_leaves
 
@@ -165,33 +166,57 @@ def test_captured_windows_equal_eager_rounds_on_card(engine):
         setattr(fn, attr, 0)
     a = runner("stepwise").run()[0]
     counted = {k: getattr(*LAUNCH_COUNTERS[k]) for k in kernels}
-    chunked = runner("chunked")
-    drive_range = chunked._drive_range
-    traces = []
-
-    @contextlib.contextmanager
-    def traced():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.1)        # a trace's first kernels can go unseen
-            with drive_range():
-                yield
-        traces.append(prof)
-
-    chunked._drive_range = traced
-    b = chunked.run()[0]
-    ops = [e.name() for e in traces[0].profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA]
-    seen = {k: sum(sym in op for op in ops) for k, sym in kernels.items()}
+    b, seen, traced = count_drives(lambda: runner("chunked").run()[0],
+                                   kernels, SweepRunner)
     assert b.exec_info["dispatches"] == 2          # windows of 1 and 2
     assert seen == counted
+    assert all(traced[k] <= counted[k] for k in kernels), traced
     assert counted["fused_mac"] == 2 * 3 * (2 if name == "single" else 1)
     for k in ("acc", "loss", "edge_power", "is_power"):
         assert getattr(a, k) == getattr(b, k), k
     for (p, x), (_, y) in zip(tree_leaves(a.final_state),
                               tree_leaves(b.final_state)):
         assert torch.equal(x, y), p
+
+
+@pytest.mark.cuda
+def test_sweep_on_gloo_ranks_sharing_the_card_equals_one_process():
+    """scale_u256 cut to C 2, M 8, K 4, 2 rounds (Adam) on 2x2 u_sharded
+    as four gloo ranks sharing the card, through both drivers (the
+    chunked one replays the graphs between the ranks' collectives),
+    equals the one-process sharded run on the card bit for bit: final
+    state and every metric.  Each rank launches one partial combine and
+    one fold a hop, and the IS -> PS `fused_mac` a round, each a round
+    and seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    from repro_torch.exec import ShardedSweepRunner
+    from repro_torch.sim.scenario import get_scenario
+    from repro_torch.tree import tree_leaves
+
+    sc = get_scenario("scale_u256").replace(
+        C=2, M=8, K=4, K_ps=4, total_IT=2, n_train=4 * 16 * 4, opt="adam")
+    kw = dict(seeds=2, keep_state=True, device="cuda", mesh="2x2",
+              combine="u_sharded")
+    want = ShardedSweepRunner([sc], **kw).run()[0]
+    for driver in ("stepwise", "chunked"):
+        runner = ShardedSweepRunner([sc], ranks="gloo", driver=driver,
+                                    warmup=driver == "chunked", **kw)
+        got = runner.run()[0]
+        for k in ("rounds", "acc", "loss", "edge_power", "is_power"):
+            assert getattr(got, k) == getattr(want, k), (driver, k)
+        for (p, x), (_, y) in zip(tree_leaves(want.final_state),
+                                  tree_leaves(got.final_state)):
+            assert torch.equal(x, y), (driver, p)
+        assert got.exec_info["device_count"] == 4
+        if driver == "stepwise":
+            hops = got.rounds[-1] * 2                # rounds x seeds
+            for rep in runner.rank_reports:
+                assert {k: rep["launches"][k] for k in (
+                    "fused_mac", "fused_mac_partials",
+                    "fused_partials_reduce")} == {
+                    "fused_mac": hops, "fused_mac_partials": hops,
+                    "fused_partials_reduce": hops}, rep["rank"]
 
 
 @pytest.mark.cuda
