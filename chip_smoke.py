@@ -250,8 +250,9 @@ Phases, in order; any failure exits non-zero:
    hop (emulated draw of the slab and the combine) against the fused hop
    at the scale_u256 shape, and the u-sharded cluster hop against the
    gathered one at the scale_u16384 shape; the tensor-core flash kernel
-   at qwen2-0.5b's prefill shape and at prefill_32k's length (B 1,
-   L 32,768, one layer), the float32 tensor-core one at the prefill
+   at qwen2-0.5b's prefill shape, at prefill_32k's length (B 1,
+   L 32,768, one layer) and at a rank's 7 heads over 1 KV head under
+   phase 11's "model" 2 (B 1, L 4,096), the float32 tensor-core one at the prefill
    shape in float32 and at qwen2-1.5b's float32 prefill shape (B 1,
    L 4096, hd 128), and both at the reduced prefill's shape (B 4,
    L 4096, hd 32) and at hd 16 on it (with their times queued behind a
@@ -296,8 +297,8 @@ Phases, in order; any failure exits non-zero:
    sequence of 4,096, bf16 compute and float32 parameters, its global
    batch of 256 cut to C 2 x M 2 users of 2 rows, weights from seed 0:
    the structural step (tau = I = 1, the equivalent channel under a
-   quiet radio; one row a user and the outer "add", so that
-   its state is phase 11's reference) for 2 steps on one batch (with
+   quiet radio; one row a user and AdamW, its first step phase 11's
+   ZeRO-1 and FSDP reference) for 2 steps on one batch (with
    ``--training`` the second under `torch.profiler`: device ms, busy
    share, device ops, flash ms and launches, the threefry emulation's
    share), the loss falling; local SGD (tau = I = 2, outer "add", batch
@@ -339,13 +340,19 @@ Phases, in order; any failure exits non-zero:
    processes spawned by `torch.multiprocessing`, joined through a
    `FileStore`; the mesh (pod, data, model) built on their world and
    refined to (pod, cluster, user, model); the hops as collectives over
-   each rank's `user` and `(pod, cluster)` groups): NCCL at world size 1
+   each rank's `user` and `(pod, cluster)` groups; each rank drawing
+   and holding its shards of the state): NCCL at world size 1
    (qwen2-0.5b at full width, 4,096 positions, one row, AdamW, one step)
-   against the one-card step at {"data": 1}, and four gloo ranks sharing
-   the card at (1, 2, 2, 1) against phase 9's structural run (its first
-   step, one row a user, outer "add"), each rank's parameters, moments, losses
-   and edge power bit for bit; each rank's peak memory, step seconds,
-   seconds inside collectives, collective groups and flash launches;
+   against the one-card step at {"data": 1}; four gloo ranks sharing
+   the card at (1, 2, 2, 1): the replicated state with the outer "add"
+   (depth cut to 2 layers) against its own one-card step, and ZeRO-1
+   and FSDP with AdamW against phase 9's structural run (its first
+   step), each rank's parameters, moments, losses and edge power bit
+   for bit; tensor parallelism at (1, 1, 2, 2) (2 users, "model" 2,
+   AdamW, float32 compute) against the one-card step of 2 users within
+   TP_BOUNDS (the gloo cases in one launch); each rank's peak memory,
+   step seconds, seconds inside collectives, collective groups and
+   flash launches;
 12. the sharded W-HFL sweep with one process per shard
    (`ShardedSweepRunner(ranks=...)`, `launch.ranks.sweep_worker`: each
    rank trains its own users, launches the hop's kernels on its own
@@ -509,13 +516,14 @@ JAX_FLASH_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 8, 64), (2, 96, 6, 2, 32),
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_C, TRAIN_M, TRAIN_B_USER = 2, 2, 2
 # the structural run's rows a user, outer update and eta_local: one row
-# and the outer "add" since phase 11, whose four gloo ranks hold this
-# run's final state as their one-card reference (AdamW's state and update
-# take ~25 GB a rank at this width, the params, m, v, the estimate, its
-# negation, the new moments, the update, its decayed copy and the new
-# params at 2.5 GB each, and 4 x 25 GB is past 80 GB: one row a user,
-# then "add", the cuts in that order)
-STRUCT_B_USER, STRUCT_OUTER, STRUCT_ETA = 1, "add", 5e-3
+# a user since phase 11 (its four gloo ranks hold this run's first step
+# as their one-card reference); AdamW again since its ZeRO-1 and FSDP
+# case: AdamW's replicated state and update take ~25 GB a rank at this
+# width (the params, m, v, the estimate, its negation, the new moments,
+# the update, its decayed copy and the new params at 2.5 GB each), and 4
+# x 25 GB is past 80 GB, so from phase 11's arrival until then the run
+# used the outer "add"
+STRUCT_B_USER, STRUCT_OUTER, STRUCT_ETA = 1, "adamw", 1.0
 # the structural run's second step under `torch.profiler`: off since PR
 # 25 for the run's time (the traced step and its reading took ~30 s in
 # the run that measured the breakdown PERF.md keeps); on
@@ -537,16 +545,47 @@ ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # phase 11, W-HFL training with one process per mobile user
 # (`launch.ranks`): qwen2-0.5b as registered at train_4k's sequence, each
 # case (backend, world, (pod, cluster, user, model), rows a user, outer,
-# eta_local, steps) against the one-card step on the same batch and keys,
-# bit for bit.  NCCL at world size 1: one user, one row, AdamW, one step.
-# Four gloo ranks sharing the card: phase 9's structural run (C 2 x M 2,
-# STRUCT_*), whose first step is their reference (two steps before phase
-# 12 was added: a gloo step took 27–37 s warm)
+# eta_local, steps, layers run (None: all), placements, compute dtype,
+# reference) against the one-card step on the same batch and keys.  NCCL
+# at world size 1: one user, one row, AdamW, one step.  Four gloo ranks
+# sharing the card, the three cases in one launch (on the H100 80GB
+# HBM3 at 700 W the ranks' start took ~45 s a launch): the replicated
+# state with the outer "add", its depth cut to 2 layers for the run's
+# time when the ZeRO-1 case came (its 24 layers' step took 27–45 s
+# there), against its own one-card run;
+# ZeRO-1 and FSDP with AdamW at (1, 2, 2, 1) against phase 9's
+# structural run (C 2 x M 2, STRUCT_*), whose first step is its
+# reference, bit for bit; tensor parallelism at (1, 1, 2, 2) (2 users,
+# "model" 2) with AdamW at float32 compute (the tf32 flash kernel on a
+# rank's 7 heads) against the one-card step of 2 users, within
+# TP_BOUNDS.  At bf16 compute (its card run is in PERF.md) it met the
+# bound written for it (5e-2 of the largest of each kind) on the
+# parameters (4.0e-3), m (4.4e-2) and the metrics (2.0e-3) but not on
+# v (6.7e-2), on an H100 80GB HBM3 at 700 W: bf16's own rounding spread
+# at this width (on the CPU, at reduced width, a bf16 step's gradient
+# lies 2.1e-2 of max |g| from the float32 one's on one device and on
+# "model" 2 alike), so a bf16 run cannot tell a fault in the split from
+# bf16's noise
 RANKS_CASES = (
-    ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1),
+    ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1, None, {}, "bfloat16",
+     "own"),
+    ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), 1, "add", 5e-3, 1, 2, {},
+     "bfloat16", "own"),
     ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), STRUCT_B_USER, STRUCT_OUTER,
-     STRUCT_ETA, 1),
+     STRUCT_ETA, 1, None, {"zero1": True, "fsdp": True}, "bfloat16",
+     "phase 9"),
+    ("gloo", 4, (1, 1, 2, 2), 1, "adamw", 1.0, 1, None, {}, "float32",
+     "own"),
 )
+# the tensor-parallel ranks against the one-card step at float32 compute
+# (written before its first card run): each kind's largest gap (the
+# parameters, AdamW's m and v) over the largest value of that kind, and
+# the loss's and edge power's relative gaps.  The split products add
+# their partial sums in another order, ~1e-6 relative at float32 (on the
+# CPU, tests/test_torch_tp.py: layers within 1e-5 of the largest); an
+# entry whose gradient is that rounding's size may step the other way
+# under AdamW, by twice its rate (4e-3 of max |theta| = 1)
+TP_BOUNDS = {"params": 1e-2, "m": 1e-2, "v": 1e-2, "metrics": 1e-4}
 # phase 12, the sharded W-HFL sweep with one process per shard
 # (`ShardedSweepRunner(ranks=...)`, `launch.ranks.sweep_worker`), each
 # case bit for bit the one-process sharded run on the card: fig2_iid
@@ -1992,44 +2031,78 @@ def train_vs_cpu(dev) -> None:
                              f"gradient {g_gap}")
 
 
+def tp_gaps(vs) -> dict:
+    """The tensor-parallel ranks' distance to the one-card step from
+    `compare_to_reference`'s gaps: each kind's (parameters, AdamW's m
+    and v) largest gap over the largest reference value among its
+    unequal leaves, and the metrics' relative gaps."""
+    out = {}
+    for kind, prefix in (("params", "state/params/"), ("m", "state/opt/m/"),
+                         ("v", "state/opt/v/"), ("metrics", "metrics/")):
+        gaps = [g for name, g in vs["gaps"].items()
+                if name.startswith(prefix)]
+        if kind == "metrics":
+            out[kind] = max((gap / max(ref, 1e-30) for gap, ref in gaps),
+                            default=0.0)
+        else:
+            out[kind] = (max((gap for gap, _ in gaps), default=0.0)
+                         / max(max((ref for _, ref in gaps), default=1.0),
+                               1e-30))
+    return out
+
+
 def ranks_phase(card, expect, gloo_reference=None) -> None:
     """Phase 11: the structural W-HFL step with one process per mobile
     user (`launch.ranks.launch`, `train_worker`) at qwen2-0.5b's full
     width, for each of RANKS_CASES: the one-card step (`{"data": C x
     M}`) first, its final state and metrics written to a file
-    (`ranks.save_reference`) and its memory freed; then the ranks, each
-    building the mesh on its world, refining it, cutting its own rows of
-    the same global batch and running the same keys.  Each rank reports
-    its peak device memory, step seconds, seconds inside collectives,
-    collective groups and flash launches (layers x 2 per step: one user,
-    one micro-forward), and whether its final state and metrics equal
-    the one-card run's bit for bit; the phase fails unless every rank's
-    do.  `gloo_reference`: phase 9's structural run, written by
-    `train_phase` (the gloo case's one-card run, not run again here)."""
+    (`ranks.save_reference`) and its memory freed; then the ranks (the
+    gloo cases in one launch, each case in turn), each building the mesh
+    on its world, refining it, drawing its shards of the state
+    (`init_fn`), cutting its own rows of the same global batch and
+    running the same keys.  Each rank reports its peak device memory,
+    step seconds, seconds inside collectives, collective groups and
+    flash launches (layers x 2 per step: one user, one micro-forward;
+    under "model" 2 on 7 of 14 heads and 1 of 2 KV heads), and how its
+    shards compare with the same blocks of the one-card run's state and
+    its metrics: bit for bit, or within TP_BOUNDS under tensor
+    parallelism; the phase fails unless every rank's do.
+    `gloo_reference`: phase 9's structural run, written by `train_phase`
+    (the ZeRO-1 case's one-card run, not run again here)."""
     from repro_torch import prng
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.core.dist import OTADistConfig, uniform_geom
     from repro_torch.launch import ranks, train
 
-    cfg = get_config(TRAIN_ARCH)
     L = INPUT_SHAPES["train_4k"].seq_len
-    per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
     tmp = tempfile.mkdtemp(prefix="smoke-ranks-")
+    cases = []
     try:
-        for backend, world, mesh, b_user, outer, eta, steps in RANKS_CASES:
+        for i, (backend, world, mesh, b_user, outer, eta, steps, layers,
+                place, cdt, source) in enumerate(RANKS_CASES):
+            cfg = get_config(TRAIN_ARCH).with_(compute_dtype=cdt)
+            cfg = cfg if layers is None else cfg.with_(n_layers=layers)
+            per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
+            flash = ("flash_mha_wgmma" if cdt == "bfloat16"
+                     else "flash_mha_tf32")
             C, M = mesh[0] * mesh[1], mesh[2]
             tcfg = train.TrainConfig(
                 tau=1, I=1, users_per_cluster=M, eta_local=eta, outer=outer,
                 outer_lr=2e-3, ota=OTADistConfig(),
-                geom=uniform_geom(C=C, M=M, **TRAIN_GEOM))
+                geom=uniform_geom(C=C, M=M, **TRAIN_GEOM), **place)
             B = C * M * b_user
             shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
                                         global_batch=B)
             keys = [100 + i for i in range(steps)]
-            label = f"{TRAIN_ARCH} ranks {backend} world {world}"
+            label = (f"{TRAIN_ARCH} ranks {backend} world {world} "
+                     f"{'/'.join(map(str, mesh))}"
+                     + "".join(f" {k}" for k in place)
+                     + ("" if cdt == "bfloat16" else f" {cdt}"))
             cut = (f"train_4k: global batch 256 -> {B} (C {C} x M {M} x "
                    f"{b_user} rows)" + ("" if outer == "adamw" else
-                                        "; outer add (no moments)"))
+                                        "; outer add (no moments)")
+                   + ("" if layers is None else
+                      f"; depth 24 -> {layers} layers"))
 
             def one_card():
                 step, init_fn = train.build_train_step(
@@ -2046,8 +2119,8 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
                 return state, ms, walls
 
             batch = train_batch(cfg, B, L, 40, torch.device("cuda"))
-            ref = os.path.join(tmp, "reference.pt")
-            if backend == "gloo" and gloo_reference:
+            ref = os.path.join(tmp, f"reference{i}.pt")
+            if source == "phase 9" and gloo_reference:
                 ref = gloo_reference
                 log({"phase": "ranks", "run": f"{label} one-card reference",
                      "from": "phase 9's structural run", "cut": cut})
@@ -2057,7 +2130,7 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
                 torch.cuda.reset_peak_memory_stats()
                 (state, ms, walls), launches = counted(one_card)
                 expect(f"{label} one-card", launches,
-                       {"flash_mha_wgmma": steps * C * M * per_fwd},
+                       {flash: steps * C * M * per_fwd},
                        all(bool(torch.isfinite(v)) for m in ms
                            for v in m.values()))
                 t0 = time.perf_counter()
@@ -2077,44 +2150,79 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
                 del state, ms
                 gc.collect()
                 torch.cuda.empty_cache()
-            spec = dict(cfg=cfg, shape=shape, tcfg=tcfg, mesh=mesh,
-                        batches=[{k: v.cpu() for k, v in batch.items()}],
-                        keys=keys, reference=ref)
-            t0 = time.perf_counter()
-            res = ranks.launch(ranks.train_worker, world, backend, spec)
-            wall = time.perf_counter() - t0
-            if isinstance(ref, str):
-                os.remove(ref)
-            del ref, spec
-            gc.collect()
-            torch.cuda.empty_cache()
-            ok = True
-            for r in res:
-                same = not r["vs_reference"]["unequal"]
-                finite = all(np.isfinite(v) for m in r["metrics"]
-                             for v in m.values())
-                ok = ok and same and finite
-                log({"phase": "ranks", "run": f"{label} rank {r['rank']}",
-                     "backend": r["backend"], "coordinate": r["coordinate"],
-                     "device": r["device"], "metrics": r["metrics"],
-                     "step_seconds": r["step_seconds"],
-                     "collective_seconds": r["collective_seconds"],
-                     "collectives": r["collectives"],
-                     "peak_allocated_bytes": r["peak_allocated_bytes"],
-                     "flash_launches": r["launches"]["flash_mha_wgmma"],
-                     "bitwise_equal_to_one_card": same,
-                     "vs_one_card": r["vs_reference"], "card": card})
-                expect(f"{label} rank {r['rank']}", r["launches"],
-                       {"flash_mha_wgmma": steps * per_fwd}, same and finite)
-            log({"phase": "ranks", "run": label, "cut": cut,
-                 "mesh_pod_cluster_user_model": list(mesh),
-                 "launch_seconds": wall, "ok": ok, "card": card})
-            if not ok:
-                raise SystemExit(f"{label}: a rank differs from the one-card "
-                                 "step or is not finite")
+            cases.append(dict(
+                label=label, cut=cut, mesh=mesh, place=place, flash=flash,
+                launches=steps * per_fwd, split=mesh[3] > 1,
+                spec=dict(cfg=cfg, shape=shape, tcfg=tcfg, mesh=mesh,
+                          batches=[{k: v.cpu() for k, v in batch.items()}],
+                          keys=keys, reference=ref)))
             del batch
+            if world == 1:
+                ranks_launch(card, expect, backend, world, cases)
+                cases = []
+        ranks_launch(card, expect, "gloo", 4, cases)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ranks_launch(card, expect, backend, world, cases) -> None:
+    """One launch of `world` ranks running `cases` in turn (their
+    `train_worker` specs), each rank's results checked and logged per
+    case; fails unless every rank of every case matches its
+    reference."""
+    from repro_torch.launch import ranks
+
+    t0 = time.perf_counter()
+    res = ranks.launch(ranks.train_worker, world, backend,
+                       [c["spec"] for c in cases])
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    for i, c in enumerate(cases):
+        ok = True
+        for r in (rank[i] for rank in res):
+            vs = r["vs_reference"]
+            finite = all(np.isfinite(v) for m in r["metrics"]
+                         for v in m.values())
+            if c["split"]:
+                gaps = tp_gaps(vs)
+                same = all(gaps[k] <= b for k, b in TP_BOUNDS.items())
+            else:
+                gaps, same = None, not vs["unequal"]
+            ok = ok and same and finite
+            log({"phase": "ranks", "run": f"{c['label']} rank {r['rank']}",
+                 "backend": r["backend"], "coordinate": r["coordinate"],
+                 "device": r["device"], "metrics": r["metrics"],
+                 "step_seconds": r["step_seconds"],
+                 "collective_seconds": r["collective_seconds"],
+                 "collectives": r["collectives"],
+                 "peak_allocated_bytes": r["peak_allocated_bytes"],
+                 "flash_launches": r["launches"][c["flash"]],
+                 **({"within_tp_bounds": same, "tp_gaps": gaps,
+                     "tp_bounds": TP_BOUNDS,
+                     "unequal_leaves": len(vs["unequal"])} if c["split"]
+                    else {"bitwise_equal_to_one_card": same}),
+                 "vs_one_card": {"leaves": vs["leaves"],
+                                 "unequal": vs["unequal"][:8],
+                                 "max_abs_diff": vs["max_abs_diff"]},
+                 "card": card})
+            expect(f"{c['label']} rank {r['rank']}", r["launches"],
+                   {c["flash"]: c["launches"]}, same and finite)
+        log({"phase": "ranks", "run": c["label"], "cut": c["cut"],
+             "mesh_pod_cluster_user_model": list(c["mesh"]),
+             "placements": c["place"], "ok": ok, "card": card})
+        if not ok:
+            bad.append(c["label"])
+    log({"phase": "ranks", "run": f"launch of {world} {backend} ranks",
+         "cases": [c["label"] for c in cases], "launch_seconds": wall,
+         "card": card})
+    for c in cases:
+        if isinstance(c["spec"]["reference"], str):
+            os.remove(c["spec"]["reference"])
+    if bad:
+        raise SystemExit(f"{', '.join(bad)}: a rank differs from the "
+                         "one-card step or is not finite")
 
 
 def sweep_rank_launches(res, combine: str) -> dict:
@@ -4830,6 +4938,11 @@ def main() -> int:
              (20, 3)),
             (f"{LM_ARCH} prefill_32k B1 L32768", (1, 32768, 14, 2, 64), bf16,
              (10, 1)),
+            # a rank's heads under "model" 2 in phase 11's training
+            (f"{LM_ARCH} 'model' 2 shard B1 L4096", (1, 4096, 7, 1, 64),
+             bf16, (20, 3)),
+            (f"{LM_ARCH} 'model' 2 shard f32 B1 L4096",
+             (1, 4096, 7, 1, 64), f32, (10, 3)),
             (f"{LM_ARCH} prefill f32 B4 L4096", (4, 4096, 14, 2, 64), f32,
              (10, 3)),
             (f"{F32_HD128_ARCH} prefill f32 B1 L4096",

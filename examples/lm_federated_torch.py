@@ -7,15 +7,21 @@ synthetic Markov corpus with `repro_torch.launch.train.build_train_step`
 `build_fused_train_step`.  The JAX example gives its host 8 fake
 devices for 2 clusters x 2 users x 2-way model parallel; the port runs
 every user on one device, or, with ``--ranks N`` (N = clusters x
-users), one process per user (`repro_torch.launch.ranks`): the hops as
-collectives over each rank's user and cluster groups, through NCCL
-(one rank a card) or gloo (ranks on the CPU, or sharing one card).
+users x ``--model``), one process per user (`repro_torch.launch.ranks`):
+the hops as collectives over each rank's user and cluster groups,
+through NCCL (one rank a card) or gloo (ranks on the CPU, or sharing one
+card).  On ranks, ``--model 2`` splits each user's model over 2 of them
+(tensor parallelism), ``--fsdp`` the parameters over the users' ranks
+and ``--zero1`` AdamW's moments over them.
 
     PYTHONPATH=src python examples/lm_federated_torch.py --steps 50
     PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
         --steps 3 --seq 64 --layers 2 --d-model 64
     PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
         --steps 3 --seq 64 --layers 2 --d-model 64 --ranks 4 --backend gloo
+    PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \
+        --steps 3 --seq 64 --layers 2 --d-model 64 --ranks 8 --backend gloo \
+        --model 2 --fsdp --zero1
 """
 import argparse
 import os
@@ -72,6 +78,13 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=0,
                     help="one process per user (clusters x users of "
                     "them); 0: every user on one device")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks a user's model is split over (tensor "
+                    "parallelism; with --ranks)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="the parameters split over the users' ranks")
+    ap.add_argument("--zero1", action="store_true",
+                    help="AdamW's moments split over the users' ranks")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="the ranks' process group: nccl, one rank a "
                     "card; gloo, ranks on the CPU or sharing one card")
@@ -96,8 +109,8 @@ def main(argv=None):
     tcfg = TrainConfig(tau=args.tau, I=args.I, users_per_cluster=M,
                        eta_local=1.0 if local else 5e-3,
                        outer="adamw" if local else "add",
-                       outer_lr=3e-4, geom=geom,
-                       ota=OTADistConfig(mode=args.ota))
+                       outer_lr=3e-4, geom=geom, fsdp=args.fsdp,
+                       zero1=args.zero1, ota=OTADistConfig(mode=args.ota))
     if args.ranks:
         return on_ranks(args, cfg, shape, tcfg)
     build = build_fused_train_step if args.fused else build_train_step
@@ -121,18 +134,20 @@ def main(argv=None):
 
 
 def on_ranks(args, cfg, shape, tcfg):
-    """The run with one process per user: `ranks.train_worker` on
-    (pod, cluster, user, model) = (1, clusters, users, 1), each rank
-    cutting its own rows of every step's global batch."""
-    if args.ranks != args.clusters * args.users:
-        raise SystemExit(f"--ranks {args.ranks}: need clusters x users = "
-                         f"{args.clusters * args.users}")
+    """The run with one process per user and model shard:
+    `ranks.train_worker` on (pod, cluster, user, model) = (1, clusters,
+    users, model), each rank cutting its own rows of every step's
+    global batch."""
+    world = args.clusters * args.users * args.model
+    if args.ranks != world:
+        raise SystemExit(f"--ranks {args.ranks}: need clusters x users x "
+                         f"model = {world}")
     if args.ckpt_dir:
         raise SystemExit("--ckpt-dir saves from one device; drop --ranks")
     toks = lm_corpus(0, n_tokens=500_000, vocab=args.vocab)
     it = batches(toks, args.batch, args.seq, "cpu")
     spec = dict(cfg=cfg, shape=shape, tcfg=tcfg, fused=args.fused,
-                mesh=(1, args.clusters, args.users, 1),
+                mesh=(1, args.clusters, args.users, args.model),
                 batches=[next(it) for _ in range(args.steps)],
                 keys=list(range(args.steps)), log_every=10,
                 device="cpu" if args.device == "cpu" else None)

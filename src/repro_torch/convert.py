@@ -37,17 +37,37 @@ def params_from_jax(tree, device=None):
     return _tensor(tree, device)
 
 
-def state_from_jax(state, device=None):
+def state_from_jax(state, device=None, *, specs=None, mesh=None):
     """The reference's round state (`repro.core.whfl.init_round_state`
-    layout, as numpy) -> the port's.  SGD's empty optimizer state (an
-    empty tuple there) becomes an empty dict."""
+    layout, or a train state, as numpy) -> the port's.  SGD's empty
+    optimizer state (an empty tuple there) becomes an empty dict.  With
+    `specs` (the state's spec tree, e.g. `launch.train.state_specs`) and
+    the rank's `DeviceMesh`, this rank's shards of it."""
     out = {}
     for k, v in state.items():
         if k == "opt" and isinstance(v, (tuple, list)) and not v:
             out[k] = {}
-        else:
+        elif specs is None:
             out[k] = params_from_jax(v, device)
+        else:
+            out[k] = _shards(v, specs[k], mesh, device)
     return out
+
+
+def _shards(tree, specs, mesh, device):
+    from repro_torch.sharding import axes_bound, shard_tree
+
+    with axes_bound(mesh):
+        cut = shard_tree(params_from_jax(tree), specs)
+    return _map(lambda t: t.contiguous().to(device), cut)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def to_numpy(tree):

@@ -39,6 +39,17 @@ Noise that JAX draws identically on every member of a receiver group
 (a cluster's, the PS's) is drawn by every member's rank too, and once
 by the one-card form.
 
+Placements: inside the runner a tree may hold shards (tensor
+parallelism over "model", FSDP over the data axes); the ranked hops
+then take its spec tree (``specs``, `sharding.param_sharding_tree`'s
+layout).  Each leaf's draws are its shard's elements of the whole
+leaf's draw (`draw_normal` with a spec: `prng.normal_at` at the
+shard's flat indices), and every whole-tree reduction is global: a
+split leaf's sum of squares is summed over the axes that split it,
+a replicated leaf's counted once, and the element count is the whole
+leaves' (`tree_sqsum`, `tree_size`).  Without specs (or with nothing
+split) the hops are those of a replicated tree, bit for bit.
+
 Real/complex bookkeeping as in the reference: a CN(0, V) perturbation
 per complex entry is V/2 per real component of the (real) delta trees.
 The hops work leaf by leaf, so their working memory is the deltas and
@@ -135,12 +146,17 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def draw_normal(key: torch.Tensor, shape) -> torch.Tensor:
+def draw_normal(key: torch.Tensor, shape, spec=None) -> torch.Tensor:
     """float32 `jax.random.normal(key, shape)`, sliced past
-    `nn.core.DRAW_SLICE` elements (the same bits).  A trace names the
-    call's host ops by the range ``dist.draw_normal``, so the device time
-    of the kernels they launch can be read from it."""
+    `nn.core.DRAW_SLICE` elements (the same bits); with a `spec` (inside
+    the runner), `shape` is this rank's shard's and the draw its
+    elements of the whole leaf's.  A trace names the call's host ops by
+    the range ``dist.draw_normal``, so the device time of the kernels
+    they launch can be read from it."""
     with torch.profiler.record_function("dist.draw_normal"):
+        if spec is not None and sh.sharded(spec):
+            return _normal(key, sh.global_shape(shape, spec), 1.0,
+                           torch.float32, spec)
         return _normal(key, tuple(shape), 1.0, torch.float32)
 
 
@@ -151,6 +167,43 @@ def _sqsum(x: torch.Tensor) -> torch.Tensor:
 def _size(leaves: List[Tuple[tuple, torch.Tensor]], lead: int) -> int:
     """Elements of one member's tree (the leaves less `lead` axes)."""
     return sum(math.prod(t.shape[lead:]) for _, t in leaves)
+
+
+def spec_list(specs, n: int) -> list:
+    """A spec tree's leaves, or n Nones (a replicated tree)."""
+    return [None] * n if specs is None else sh.spec_leaves(specs)
+
+
+def _split(specs) -> bool:
+    return specs is not None and any(sh.sharded(s)
+                                     for s in sh.spec_leaves(specs))
+
+
+def tree_size(leaves, specs=None) -> int:
+    """Elements of the whole tree whose shards are `leaves` ((path,
+    tensor) pairs) under `specs` (inside the runner; None: replicated)."""
+    if not _split(specs):
+        return _size(leaves, 0)
+    return sum(math.prod(sh.global_shape(t.shape, s)) for (_, t), s in
+               zip(leaves, sh.spec_leaves(specs)))
+
+
+def tree_sqsum(leaves, specs=None) -> torch.Tensor:
+    """The whole tree's float32 sum of squares from this rank's shards:
+    the leaves summed in groups by the axes that split them (in leaf
+    order), each group's sum summed over its axes, the groups added in
+    order of first appearance; a replicated tree's leaf by leaf."""
+    if not _split(specs):
+        return sum(_sqsum(t) for _, t in leaves)
+    groups = {}
+    for (_, t), spec in zip(leaves, sh.spec_leaves(specs)):
+        groups.setdefault(sh.split_axes(spec), []).append(_sqsum(t))
+    total = None
+    for axes, parts in groups.items():
+        part = _add_all(parts)
+        part = sh.psum(part, axes) if axes else part
+        total = part if total is None else total + part
+    return total
 
 
 def _add_all(xs):
@@ -204,7 +257,7 @@ _ALL = ("pod", "cluster", "user")
 # ---------------------------------------------------------------------------
 
 def cluster_hop(deltas, geom: DistGeom, key: torch.Tensor, P_t,
-                cfg: OTADistConfig):
+                cfg: OTADistConfig, *, specs=None):
     """MU -> IS OTA aggregation (eq. 8-13, equivalent channel).
 
     `deltas`: every user's model delta, leaves [C, M, ...] (float32).
@@ -212,7 +265,7 @@ def cluster_hop(deltas, geom: DistGeom, key: torch.Tensor, P_t,
     `cluster_hop` output on cluster c's members.  Inside `shard_map`:
     this user's delta to its cluster's estimate (`_rank_cluster_hop`)."""
     if _ranked():
-        return _rank_cluster_hop(deltas, geom, key, P_t, cfg)
+        return _rank_cluster_hop(deltas, geom, key, P_t, cfg, specs)
     leaves = list(tree_leaves(deltas))
     paths = [p for p, _ in leaves]
     C, M = geom.C, geom.M
@@ -272,14 +325,14 @@ def cluster_hop(deltas, geom: DistGeom, key: torch.Tensor, P_t,
 
 
 def global_hop(is_deltas, geom: DistGeom, key: torch.Tensor, P_is_t,
-               cfg: OTADistConfig):
+               cfg: OTADistConfig, *, specs=None):
     """IS -> PS OTA aggregation (eq. 15-18, equivalent channel).
 
     `is_deltas`: each cluster's accumulated delta, leaves [C, ...].
     Returns the PS's estimate, leaves [...].  Inside `shard_map`: this
     rank's cluster's delta to the PS's estimate (`_rank_global_hop`)."""
     if _ranked():
-        return _rank_global_hop(is_deltas, geom, key, P_is_t, cfg)
+        return _rank_global_hop(is_deltas, geom, key, P_is_t, cfg, specs)
     leaves = list(tree_leaves(is_deltas))
     paths = [p for p, _ in leaves]
     C = geom.C
@@ -328,7 +381,7 @@ def global_hop(is_deltas, geom: DistGeom, key: torch.Tensor, P_is_t,
 
 
 def fused_whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t,
-                         P_is_t, cfg: OTADistConfig):
+                         P_is_t, cfg: OTADistConfig, *, specs=None):
     """Beyond-paper fused path: both hops as one weighted sum.
 
         est = sum_c wg_c (1+eps_c) [ sum_m wc_m (1+eps_m) D_m + n_c ] + n_g
@@ -339,7 +392,7 @@ def fused_whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t,
     `shard_map`: this user's delta, one flat sum over all ranks
     (`_rank_fused`)."""
     if _ranked():
-        return _rank_fused(deltas, geom, key, P_t, P_is_t, cfg)
+        return _rank_fused(deltas, geom, key, P_t, P_is_t, cfg, specs)
     leaves = list(tree_leaves(deltas))
     paths = [p for p, _ in leaves]
     C, M = geom.C, geom.M
@@ -393,34 +446,31 @@ def fused_whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t,
 
 
 def whfl_aggregate(deltas, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
-                   cfg: OTADistConfig):
+                   cfg: OTADistConfig, *, specs=None):
     """One W-HFL aggregation round (tau = I = 1) of every user's delta
-    (leaves [C, M, ...]; inside `shard_map` this user's) to the PS's
-    estimate (leaves [...]): the two hops, or the fused one with
-    ``cfg.fused``."""
+    (leaves [C, M, ...]; inside `shard_map` this user's, whose shards'
+    spec tree is `specs`) to the PS's estimate (leaves [...]): the two
+    hops, or the fused one with ``cfg.fused``."""
     if cfg.fused:
-        return fused_whfl_aggregate(deltas, geom, key, P_t, P_is_t, cfg)
+        return fused_whfl_aggregate(deltas, geom, key, P_t, P_is_t, cfg,
+                                    specs=specs)
     k1, k2 = prng.split(key)
-    est_c = cluster_hop(deltas, geom, k1, P_t, cfg)
-    return global_hop(est_c, geom, k2, P_is_t, cfg)
+    est_c = cluster_hop(deltas, geom, k1, P_t, cfg, specs=specs)
+    return global_hop(est_c, geom, k2, P_is_t, cfg, specs=specs)
 
 
 # ---------------------------------------------------------------------------
 # one coordinate's hops (inside `sharding.shard_map`)
 # ---------------------------------------------------------------------------
 
-def _tree_sqsum(leaves) -> torch.Tensor:
-    return sum(_sqsum(t) for _, t in leaves)
-
-
-def _rank_hop(leaves, eps_keys, no_keys, inv_root_k, w, wi, v_base,
+def _rank_hop(leaves, specs, eps_keys, no_keys, inv_root_k, w, wi, v_base,
               std_scalar, names, per_element: bool) -> list:
     """A hop's leaves on this rank: each leaf weighted and jittered and,
     per element, its interference power, both summed over `names`, then
     the sum plus noise of the resulting std."""
     out = []
-    for li, (_, x) in enumerate(leaves):
-        e = draw_normal(eps_keys[li], x.shape) * inv_root_k
+    for li, ((_, x), spec) in enumerate(zip(leaves, specs)):
+        e = draw_normal(eps_keys[li], x.shape, spec) * inv_root_k
         y = (x.float() * (1.0 + e) * w).to(x.dtype)
         del e
         est = sh.psum(y, names)
@@ -431,14 +481,14 @@ def _rank_hop(leaves, eps_keys, no_keys, inv_root_k, w, wi, v_base,
             del p2
         else:
             std = std_scalar
-        noise = draw_normal(no_keys[li], est.shape).to(est.dtype) * std.to(
-            est.dtype)
+        noise = draw_normal(no_keys[li], est.shape, spec).to(
+            est.dtype) * std.to(est.dtype)
         out.append(est + noise)
     return out
 
 
 def _rank_cluster_hop(delta, geom: DistGeom, key: torch.Tensor, P_t,
-                      cfg: OTADistConfig):
+                      cfg: OTADistConfig, specs=None):
     """This user's delta -> its cluster's estimate, identical on every
     member of the cluster.  Collectives over the `user` group: one
     delta-sized all-reduce (+ one more with per-element interference)
@@ -454,22 +504,24 @@ def _rank_cluster_hop(delta, geom: DistGeom, key: torch.Tensor, P_t,
     b_m = _f32(geom.beta_own, dev)[ci, ui]
     bb_c = _f32(geom.beta_bar_c, dev)[ci]
     w = b_m / bb_c
-    n_el = float(max(_size(leaves, 0), 1))
+    n_el = float(max(tree_size(leaves, specs), 1))
     v_base = (geom.sigma_z2 / (geom.K * (P_t ** 2) * geom.sigma_h2 * bb_c)
               / 2.0)
     wi = std_scalar = None
     if cfg.interference:
-        pw_own = sh.psum(_tree_sqsum(leaves) / M, _USER)
+        sq = tree_sqsum(leaves, specs)
+        pw_own = sh.psum(sq / M, _USER)
         v_base = v_base + (_f32(geom.beta_cross, dev)[ci] * pw_own / n_el
                            / (geom.K * bb_c ** 2)) / 2.0
         wi = b_m * (bb_c - b_m) / (geom.K * bb_c ** 2)
         if not cfg.per_element_interference:
-            pw = sh.psum(wi * _tree_sqsum(leaves), _USER)
+            pw = sh.psum(wi * sq, _USER)
             std_scalar = torch.sqrt(pw / n_el / 2.0 + v_base)
     else:
         std_scalar = torch.sqrt(v_base)
     out = _rank_hop(
-        leaves, prng.split(prng.fold_in(key, user_id()), len(leaves)),
+        leaves, spec_list(specs, len(leaves)),
+        prng.split(prng.fold_in(key, user_id()), len(leaves)),
         prng.split(prng.fold_in(key, 1_000_003 + ci), len(leaves)),
         _f32(1.0 / np.sqrt(geom.K), dev), w, wi, v_base, std_scalar, _USER,
         cfg.interference and cfg.per_element_interference)
@@ -477,7 +529,7 @@ def _rank_cluster_hop(delta, geom: DistGeom, key: torch.Tensor, P_t,
 
 
 def _rank_global_hop(is_delta, geom: DistGeom, key: torch.Tensor, P_is_t,
-                     cfg: OTADistConfig):
+                     cfg: OTADistConfig, specs=None):
     """This rank's cluster's delta -> the PS's estimate.  The sum over
     the `(pod, cluster)` group at a fixed user coordinate adds each
     cluster once."""
@@ -492,7 +544,7 @@ def _rank_global_hop(is_delta, geom: DistGeom, key: torch.Tensor, P_is_t,
     ci = cluster_id()
     b_is = _f32(geom.beta_is, dev)[ci]
     bb = _f32(geom.beta_bar, dev)
-    n_el = float(max(_size(leaves, 0), 1))
+    n_el = float(max(tree_size(leaves, specs), 1))
     w = b_is / bb
     v_th = geom.sigma_z2 / (geom.K_ps * (P_is_t ** 2) * geom.sigma_h2
                             * bb) / 2.0
@@ -500,12 +552,13 @@ def _rank_global_hop(is_delta, geom: DistGeom, key: torch.Tensor, P_is_t,
     wi = b_is * (bb - b_is) / (geom.K_ps * bb ** 2)
     std_scalar = None
     if interf and not cfg.per_element_interference:
-        pw = sh.psum(wi * _tree_sqsum(leaves), _CLUSTERS)
+        pw = sh.psum(wi * tree_sqsum(leaves, specs), _CLUSTERS)
         std_scalar = torch.sqrt(pw / n_el / 2.0 + v_th)
     elif not interf:
         std_scalar = torch.sqrt(v_th)
     out = _rank_hop(
-        leaves, prng.split(prng.fold_in(key, 2_000_003 + ci), len(leaves)),
+        leaves, spec_list(specs, len(leaves)),
+        prng.split(prng.fold_in(key, 2_000_003 + ci), len(leaves)),
         prng.split(prng.fold_in(key, 3_000_017), len(leaves)),
         _f32(1.0 / np.sqrt(geom.K_ps), dev), w, wi, v_th, std_scalar,
         _CLUSTERS, interf and cfg.per_element_interference)
@@ -513,7 +566,7 @@ def _rank_global_hop(is_delta, geom: DistGeom, key: torch.Tensor, P_is_t,
 
 
 def _rank_fused(delta, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
-                cfg: OTADistConfig):
+                cfg: OTADistConfig, specs=None):
     """This user's delta -> the PS's estimate in one flat sum over all
     of (pod, cluster, user), its scalar weight both hops' gains."""
     leaves = list(tree_leaves(delta))
@@ -534,8 +587,8 @@ def _rank_fused(delta, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
     eps_m = prng.normal(prng.fold_in(key, user_id()), ()) / np.sqrt(geom.K)
     w = ((bo[ci, ui] / bbc[ci]) * (1.0 + eps_m) * (b_is[ci] / bb)
          * (1.0 + eps_c))
-    pw = sh.psum(_tree_sqsum(leaves) / (C * M), _ALL)
-    n_el = float(max(_size(leaves, 0), 1))
+    pw = sh.psum(tree_sqsum(leaves, specs) / (C * M), _ALL)
+    n_el = float(max(tree_size(leaves, specs), 1))
     v_c = (torch.sum(bo * (bbc[:, None] - bo), dim=1) * (pw / n_el)
            / (geom.K * bbc ** 2)
            + _f32(geom.beta_cross, dev) * geom.M * (pw / n_el)
@@ -550,9 +603,10 @@ def _rank_fused(delta, geom: DistGeom, key: torch.Tensor, P_t, P_is_t,
     std = torch.sqrt((v_cluster_tot + v_glob) / 2.0)
     no_keys = prng.split(prng.fold_in(key, 3_000_017), len(leaves))
     out = []
-    for li, (_, t) in enumerate(leaves):
+    for li, ((_, t), spec) in enumerate(zip(leaves, spec_list(
+            specs, len(leaves)))):
         est = sh.psum((t.float() * w).to(t.dtype), _ALL)
-        noise = draw_normal(no_keys[li], est.shape).to(est.dtype) * std.to(
-            est.dtype)
+        noise = draw_normal(no_keys[li], est.shape, spec).to(
+            est.dtype) * std.to(est.dtype)
         out.append(est + noise)
     return _rebuild(paths, out)

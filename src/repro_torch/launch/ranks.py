@@ -122,26 +122,44 @@ def save_reference(path: str, state, metrics) -> None:
                path)
 
 
-def compare_to_reference(ref, state, metrics) -> dict:
-    """{"leaves", "unequal": [names whose bits differ], "max_abs_diff"}
-    of a run's final state and metrics against a `reference` dict or a
-    `save_reference` file."""
+def _spec_names(specs, prefix=()):
+    """(name, spec) of a spec tree's leaves, named as `_flat` names a
+    tree's (a spec is a tuple: a leaf here)."""
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            yield from _spec_names(specs[k], prefix + (k,))
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from _spec_names(v, prefix + (i,))
+    else:
+        yield "/".join(map(str, prefix)), specs
+
+
+def compare_to_reference(ref, state, metrics, cut=None) -> dict:
+    """{"leaves", "unequal": [names whose bits differ], "max_abs_diff",
+    "gaps": {unequal float name: [max |got - ref|, max |ref|]}} of a
+    run's final state and metrics against a `reference` dict or a
+    `save_reference` file; ``cut(name, tensor)`` gives a reference
+    leaf's block that this rank holds (a sharded state)."""
     if isinstance(ref, str):
         ref = torch.load(ref, mmap=True, weights_only=True)
     got = reference(state, metrics)
-    unequal, worst = [], 0.0
+    unequal, worst, gaps = [], 0.0, {}
     for name in sorted(set(ref) | set(got)):
         if name not in ref or name not in got:
             unequal.append(name)
             continue
-        a, b = got[name].detach(), ref[name].to(got[name].device)
+        b = ref[name] if cut is None else cut(name, ref[name])
+        a, b = got[name].detach(), b.to(got[name].device)
         if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
                 _bits(a), _bits(b)):
             unequal.append(name)
             if a.shape == b.shape and a.is_floating_point():
-                worst = max(worst, float((a.float() - b.float()).abs()
-                                         .max()))
-    return {"leaves": len(ref), "unequal": unequal, "max_abs_diff": worst}
+                gap = float((a.float() - b.float()).abs().max())
+                worst = max(worst, gap)
+                gaps[name] = [gap, float(b.float().abs().max())]
+    return {"leaves": len(ref), "unequal": unequal, "max_abs_diff": worst,
+            "gaps": gaps}
 
 
 def train_worker(rank: int, world: int, spec: dict) -> dict:
@@ -156,8 +174,14 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
       start from these parameters, else `init_fn` at seed 0);
     - "reference": a `reference` dict (a world of one, in this
       process) or a `save_reference` file to hold the final state and
-      the metrics to, bit for bit; "return_state": send the final state
-      back (small runs); "log_every": rank 0 prints a step's metrics.
+      the metrics to, bit for bit (each of the rank's shards against the
+      same block of the reference's leaf; `vs_reference`'s gaps give
+      the distance where they differ); "return_state": send the final
+      state back, its shards gathered (small runs); "log_every": rank 0
+      prints a step's metrics.
+
+    The rank's state is its shards (`train.state_specs`): "params0" is
+    cut to them.
 
     A list of specs runs each in turn in the same processes.
     """
@@ -167,7 +191,8 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
     from repro_torch.kernels import LAUNCH_COUNTERS
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.sharding import record_collectives
+    from repro_torch.sharding import (axes_bound, gather_tree,
+                                      record_collectives, shard_tree)
     from repro_torch.sharding.api import local_shard
     from repro_torch.tree import tree_map
 
@@ -181,9 +206,13 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
                                     spec["tcfg"], device=spec.get("device"))
     state, _ = init_fn(prng.PRNGKey(0))
     dev = state["step"].device
+    specs = train.state_specs(spec["cfg"], spec["shape"], rmesh,
+                              spec["tcfg"], fused=spec.get("fused", False))
     if spec.get("params0") is not None:
-        state["params"] = tree_map(lambda t: t.to(dev).clone(),
-                                   spec["params0"])
+        with axes_bound(rmesh):
+            state["params"] = tree_map(
+                lambda t: t.to(dev).clone(),
+                shard_tree(spec["params0"], specs["params"]))
     batches = spec["batches"]
     data = ("pod", "cluster", "user")
     # the mesh the step was built on: refined, or the production one
@@ -225,8 +254,11 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
     dist.barrier()
     out = {"rank": rank, "world": world, "backend": dist.get_backend(),
            "pid": os.getpid(),
-           "coordinate": {a: rmesh.get_local_rank(a) for a in data
-                          if a in rmesh.mesh_dim_names},
+           "coordinate": {a: rmesh.get_local_rank(a)
+                          for a in data + ("model",)
+                          if a in rmesh.mesh_dim_names and (
+                              a != "model" or rmesh.size(
+                                  rmesh.mesh_dim_names.index(a)) > 1)},
            "device": str(dev),
            "metrics": [{k: float(v) for k, v in m.items()}
                        for m in metrics],
@@ -239,12 +271,26 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
            "peak_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
                                     if dev.type == "cuda" else None)}
     if spec.get("reference"):
+        names = {f"state/{k}": s for k, s in _spec_names(specs)}
+
+        def cut(name, t):
+            if name not in names:
+                return t
+            with axes_bound(rmesh):
+                return shard_tree(t, names[name])
         out["vs_reference"] = compare_to_reference(spec["reference"],
-                                                   state, metrics)
+                                                   state, metrics, cut)
     if spec.get("return_state"):
+        with axes_bound(rmesh):
+            state = gather_tree(state, specs)
         out["state"] = tree_map(lambda t: t.detach().cpu(), state)
         out["raw_metrics"] = [{k: v.cpu() for k, v in m.items()}
                               for m in metrics]
+    if dev.type == "cuda":
+        # the next spec's ranks share the card: hand back this one's
+        # cached blocks
+        del state, metrics
+        torch.cuda.empty_cache()
     return out
 
 

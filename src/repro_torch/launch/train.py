@@ -31,19 +31,34 @@ meshes:
   hops' sums are collectives over its `user` and `(pod, cluster)`
   groups and the fused step's gradient one flat all-reduce over
   `(pod, cluster, user)`.  The losses and `edge_power` are means over
-  all ranks.  The parameters and the optimizer state are replicated on
-  every rank; a rank's device is ``cuda:{rank % device_count}`` unless
-  ``device="cpu"``.  The backend (``"nccl"`` across cards, ``"gloo"``
-  for CPU ranks or ranks sharing one card) is the caller's
-  (`launch.ranks`).  ``fsdp``, ``zero1`` and a "model" axis past 1
-  are placements the port does not execute yet: `shardings` returns
-  their specs in full, and `train_step` and `init_fn` raise
-  `NotImplementedError` (ROADMAP queue A item 11).
+  all ranks.  A rank holds its shards of the state, as `shardings`
+  places it (`state_specs`; `init_fn` draws only them): with ``fsdp``
+  the weights' "p_embed" dims split over the data axes, with ``zero1``
+  (AdamW, the structural step) the moments' too, and under a "model"
+  axis past 1 the heads, FFN and vocabulary over "model" (tensor
+  parallelism, the dense family: `nn`, `models.lm`).  The structural
+  step gathers FSDP's shards at entry, as the reference's `shard_map`
+  with ``in_specs=P()``, and runs the outer update on each leaf's
+  moments' slice, then gathers the new parameters back over the data
+  axes where they are not split; the fused step gathers a layer's
+  shards inside its body and takes their gradient from the gather's
+  backward (`sharding.psum_scatter`).  Every update is elementwise, so
+  a split update equals the replicated one bit for bit; the hops draw
+  and reduce over the shards (`core.dist`).  Still refused under a
+  "model" axis past 1, with `NotImplementedError` naming ROADMAP queue
+  A item 11: heads that do not divide (the sequence-parallel "q_seq"
+  route), KV heads that do not divide while the heads do, and every
+  family but the dense one (the MoE's experts, SSM heads, the hybrid,
+  encdec and vlm stacks).  A rank's device is ``cuda:{rank %
+  device_count}`` unless ``device="cpu"``.  The backend (``"nccl"``
+  across cards, ``"gloo"`` for CPU ranks or ranks sharing one card) is
+  the caller's (`launch.ranks`).
 - a mapping of axis names to sizes, e.g. ``{"data": 4, "model": 2}``
   (`launch.mesh.mesh_counts` reads it): every user in turn on one
   device, each leaf of the users' deltas stacked [C, M, ...].  The
-  step comes as ``(train_step, init_fn)``.  With at most two members
-  per group the two meshes give the same bits.
+  step comes as ``(train_step, init_fn)``; ``fsdp``, ``zero1`` and
+  "model" place nothing on one device.  With at most two members per
+  group, and "model" of 1, the two meshes give the same bits.
 
 `init_fn(key)` returns ``(state, axes)``, the parameters' logical axes
 beside the state, as the reference's does; `abstract_state` gives both
@@ -63,7 +78,8 @@ import torch
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.dist import (DistGeom, OTADistConfig, cluster_hop,
-                                   draw_normal, global_hop, uniform_geom,
+                                   draw_normal, global_hop, spec_list,
+                                   tree_size, tree_sqsum, uniform_geom,
                                    user_id, whfl_aggregate)
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import mesh_counts, refine_mesh
@@ -186,13 +202,13 @@ def abstract_state(cfg: ArchConfig, tcfg: TrainConfig):
             "step": torch.zeros((), dtype=torch.int32, device="meta")}, axes
 
 
-def _symbol_power(delta_tree, P_t) -> torch.Tensor:
+def _symbol_power(delta_tree, P_t, specs=None) -> torch.Tensor:
     """Paper §V per-complex-symbol transmit power: P^2 * ||flat||^2 / N
-    with N = n_real_params / 2, i.e. 2 P^2 mean(x^2)."""
-    leaves = [t for _, t in tree_leaves(delta_tree)]
-    sq = sum(torch.sum(torch.square(t.float())) for t in leaves)
-    n = sum(t.numel() for t in leaves)
-    return 2.0 * (P_t ** 2) * sq / float(max(n, 1))
+    with N = n_real_params / 2, i.e. 2 P^2 mean(x^2); of the whole tree
+    whose shards `delta_tree` holds under `specs` (inside the runner)."""
+    leaves = list(tree_leaves(delta_tree))
+    return 2.0 * (P_t ** 2) * tree_sqsum(leaves, specs) / float(
+        max(tree_size(leaves, specs), 1))
 
 
 def _tree_add(a, b):
@@ -266,12 +282,10 @@ def _user_delta(cfg: ArchConfig, tcfg: TrainConfig, params, cdelta, rows,
     return ud, loss_acc
 
 
-def _init(cfg: ArchConfig, outer_opt, dev: torch.device, refuse=None):
+def _init(cfg: ArchConfig, outer_opt, dev: torch.device):
     def init_fn(key: torch.Tensor):
         """(train state, logical axes) from a `prng.PRNGKey` (moved to
         the step's device): the JAX package's `init_fn(key)` values."""
-        if refuse:
-            raise NotImplementedError(refuse)
         params, axes = split_params(lm.init_px(key.to(dev), cfg))
         return {"params": params, "opt": outer_opt.init(params),
                 "step": torch.zeros((), dtype=torch.int32,
@@ -297,18 +311,116 @@ def _geometry(cfg, shape: InputShape, mesh, tcfg: TrainConfig,
     return n_clusters, M, geom, b_user
 
 
-def _not_executed(tcfg: TrainConfig, mesh) -> Optional[str]:
-    """Why the port cannot run this configuration yet, or None."""
-    what = [name for name, on in (
-        ("fsdp=True", tcfg.fsdp), ("zero1=True", tcfg.zero1),
-        ("a 'model' axis of " + str(sh.mesh_axes(mesh).get("model", 1)),
-         sh.is_device_mesh(mesh) and sh.mesh_axes(mesh).get("model", 1) > 1))
-        if on]
-    if not what:
+_FAMILY_TODO = {"moe": "the MoE's experts and tokens over 'model'",
+                "ssm": "SSM heads over 'model'",
+                "hybrid": "the hybrid family under a 'model' axis past 1",
+                "encdec": "the encdec family under a 'model' axis past 1",
+                "vlm": "the vlm family under a 'model' axis past 1"}
+
+
+def _not_executed(cfg: ArchConfig, mesh) -> Optional[str]:
+    """Why the port cannot run this configuration on ranks yet, or None:
+    under a "model" axis past 1, every family but the dense one, heads
+    that do not divide over it (the sequence-parallel "q_seq" route),
+    and KV heads that do not while the heads do."""
+    n = sh.mesh_axes(mesh).get("model", 1)
+    if not sh.is_device_mesh(mesh) or n == 1:
         return None
-    return (f"{', '.join(what)}: the port replicates the parameters and "
-            f"optimizer state on every rank; sharding them (FSDP, ZeRO-1, "
-            f"tensor parallelism) is {ITEM_11}")
+    if cfg.family in _FAMILY_TODO:
+        what = _FAMILY_TODO[cfg.family]
+    elif cfg.n_heads % n:
+        what = (f"sequence-parallel attention ('q_seq': {cfg.n_heads} "
+                f"heads over 'model' {n})")
+    elif cfg.n_kv_heads % n:
+        what = (f"{cfg.n_kv_heads} KV heads replicated beside {cfg.n_heads} "
+                f"heads split over 'model' {n}")
+    else:
+        return None
+    return f"{what} is {ITEM_11}"
+
+
+@dataclass(frozen=True)
+class _Layout:
+    """A ranked step's spec trees (over the refined mesh) of the
+    parameters as stored (`params`), as the step's body computes on
+    them (`inner`: "model" alone, the structural step; the stored ones,
+    the fused step) and of AdamW's moments (`moments`)."""
+    params: dict
+    inner: dict
+    moments: dict
+
+
+def _layout(cfg: ArchConfig, tcfg: TrainConfig, rmesh, fused: bool
+            ) -> _Layout:
+    axes = lm.param_axes(cfg)
+    p = param_sharding_tree(axes, make_rules(rmesh, fsdp=tcfg.fsdp,
+                                             cfg=cfg))
+    if fused:
+        return _Layout(p, p, p)
+    z = (param_sharding_tree(axes, make_rules(rmesh, fsdp=True, cfg=cfg))
+         if tcfg.zero1 and tcfg.outer == "adamw" else p)
+    return _Layout(p, param_sharding_tree(axes, _inner_rules(rmesh, cfg)), z)
+
+
+def _reshard(tree, src, dst):
+    """Each leaf of `tree` (laid out by spec tree `src`) laid out by
+    `dst` over the data axes: cut to this rank's block where `dst`
+    splits it and `src` does not, gathered where `src` does and `dst`
+    does not, itself where both agree (inside the runner)."""
+    def move(x, a, b):
+        a_ax, b_ax = sh.split_axes(a, _DATA), sh.split_axes(b, _DATA)
+        if a_ax == b_ax:
+            return x
+        if not a_ax:
+            return sh.shard_tree(x, b, _DATA)
+        if not b_ax:
+            return sh.gather_tree(x, a, _DATA)
+        raise ValueError(f"no move from {a} to {b}")
+    return tree_from_paths(
+        (path, move(x, a, b)) for (path, x), a, b in zip(
+            tree_leaves(tree), sh.spec_leaves(src), sh.spec_leaves(dst)))
+
+
+def _apply_ranked(tcfg: TrainConfig, outer_opt, params, opt_state, est,
+                  step, lay: _Layout):
+    """`_apply` on this rank's shards: the estimate (laid out as
+    `lay.inner`) cut to the stored parameters' blocks; AdamW on the
+    moments' blocks (ZeRO-1), its new parameters gathered back to the
+    stored layout.  Elementwise throughout: the replicated update's
+    bits."""
+    est = _reshard(est, lay.inner, lay.params)
+    if tcfg.outer == "add":
+        return _apply(tcfg, outer_opt, params, opt_state, est, step)
+    new, new_opt = _apply(tcfg, outer_opt,
+                          _reshard(params, lay.params, lay.moments),
+                          opt_state, _reshard(est, lay.params, lay.moments),
+                          step)
+    return _reshard(new, lay.moments, lay.params), new_opt
+
+
+def _ranked_init(cfg: ArchConfig, outer_opt, dev, rmesh, tcfg, lay, refuse):
+    def init_fn(key: torch.Tensor):
+        """(this rank's shards of the train state, logical axes) from a
+        `prng.PRNGKey`: each leaf's block of the JAX package's
+        `init_fn(key)` values, drawn alone."""
+        if refuse:
+            raise NotImplementedError(refuse)
+        rules = make_rules(rmesh, fsdp=tcfg.fsdp, cfg=cfg)
+        with set_rules(rules), sh.axes_bound(rmesh):
+            params, axes = split_params(lm.init_px(key.to(dev), cfg))
+            opt = outer_opt.init(_reshard(params, lay.params, lay.moments))
+        return {"params": params, "opt": opt,
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=dev)}, axes
+    return init_fn
+
+
+def state_specs(cfg: ArchConfig, shape: InputShape, rmesh,
+                tcfg: TrainConfig, *, fused: bool = False):
+    """The spec tree over the refined mesh of the state a ranked step
+    keeps on each rank ({"params", "opt", "step"})."""
+    return make_shardings(cfg, shape, rmesh, tcfg, fused=fused)(
+        lm.param_axes(cfg))["state"]
 
 
 def _rank_device(device) -> torch.device:
@@ -339,7 +451,6 @@ def build_train_step(cfg: ArchConfig, shape: InputShape, mesh,
     if sh.is_device_mesh(mesh):
         return _ranked_train_step(cfg, shape, mesh, tcfg, device)
     C, M, geom, b_user = _geometry(cfg, shape, mesh, tcfg, True)
-    refuse = _not_executed(tcfg, mesh)
     dev = resolve_device(device)
     n_users = C * M
     n_micro = tcfg.I * tcfg.tau
@@ -347,8 +458,6 @@ def build_train_step(cfg: ArchConfig, shape: InputShape, mesh,
     outer_opt = _outer(tcfg)
 
     def train_step(state, batch, key):
-        if refuse:
-            raise NotImplementedError(refuse)
         params, step = state["params"], state["step"]
         key = key.to(dev)
         if tcfg.tau == 1 and tcfg.I == 1:
@@ -401,33 +510,41 @@ def build_train_step(cfg: ArchConfig, shape: InputShape, mesh,
         return ({"params": new_params, "opt": new_opt, "step": step + 1},
                 {"loss": loss, "edge_power": pw_edge})
 
-    return train_step, _init(cfg, outer_opt, dev, refuse)
+    return train_step, _init(cfg, outer_opt, dev)
 
 
 def _ranked_train_step(cfg: ArchConfig, shape: InputShape, mesh,
                        tcfg: TrainConfig, device):
-    """`build_train_step` on a `DeviceMesh`: this rank is one user."""
+    """`build_train_step` on a `DeviceMesh`: this rank is one user (and,
+    under a "model" axis past 1, one block of its model)."""
     M = tcfg.users_per_cluster
     rmesh = (mesh if "cluster" in sh.mesh_axes(mesh)
              else refine_mesh(mesh, users_per_cluster=M))
     _, _, geom, b_user = _geometry(cfg, shape, rmesh, tcfg, True)
-    refuse = _not_executed(tcfg, rmesh)
+    refuse = _not_executed(cfg, rmesh)
     dev = _rank_device(device)
     n_micro = tcfg.I * tcfg.tau
     b_micro = b_user // n_micro
     outer_opt = _outer(tcfg)
     irules = _inner_rules(rmesh, cfg)
+    lay = _layout(cfg, tcfg, rmesh, fused=False)
+    specs = lay.inner
 
-    def per_user_step(params, opt_state, batch, key, step):
+    def per_user_step(stored, opt_state, batch, key, step):
         with set_rules(irules):
+            # FSDP's shards gathered at entry (the reference's in_specs
+            # P() over the manual axes)
+            params = _reshard(stored, lay.params, lay.inner)
             if tcfg.tau == 1 and tcfg.I == 1:
                 # degenerate round: hierarchical OTA gradient aggregation
                 delta, ce = _sgd_delta(cfg, tcfg.eta_local, params, batch)
                 est = whfl_aggregate(delta, geom,
                                      prng.fold_in(key, _WHFL_KEY),
-                                     tcfg.P_t, tcfg.P_is_t, tcfg.ota)
+                                     tcfg.P_t, tcfg.P_is_t, tcfg.ota,
+                                     specs=specs)
                 loss = sh.pmean(ce, _DATA)
-                pw_edge = sh.pmean(_symbol_power(delta, tcfg.P_t), _DATA)
+                pw_edge = sh.pmean(_symbol_power(delta, tcfg.P_t, specs),
+                                   _DATA)
                 del delta
             else:
                 cdelta = _stacked_zeros(params, ())  # cluster delta vs theta
@@ -439,21 +556,22 @@ def _ranked_train_step(cfg: ArchConfig, shape: InputShape, mesh,
                         lambda j: _rows(batch, (i * tcfg.tau + j) * b_micro,
                                         b_micro),
                         loss_acc)
-                    pw_acc = pw_acc + _symbol_power(ud, tcfg.P_t)
+                    pw_acc = pw_acc + _symbol_power(ud, tcfg.P_t, specs)
                     # OTA cluster hop of the user deltas
                     est = cluster_hop(ud, geom, prng.fold_in(key, i),
-                                      tcfg.P_t, tcfg.ota)
+                                      tcfg.P_t, tcfg.ota, specs=specs)
                     del ud
                     cdelta = tree_map(lambda a, b: a + b, cdelta, est)
                     del est
                 est = global_hop(cdelta, geom,
                                  prng.fold_in(key, _GLOBAL_KEY),
-                                 tcfg.P_is_t, tcfg.ota)
+                                 tcfg.P_is_t, tcfg.ota, specs=specs)
                 del cdelta
                 loss = sh.pmean(loss_acc / n_micro, _DATA)
                 pw_edge = sh.pmean(pw_acc / tcfg.I, _DATA)
-            new_params, new_opt = _apply(tcfg, outer_opt, params, opt_state,
-                                         est, step)
+            del params
+            new_params, new_opt = _apply_ranked(tcfg, outer_opt, stored,
+                                                opt_state, est, step, lay)
             return new_params, new_opt, {"loss": loss, "edge_power": pw_edge}
 
     sharded_step = shard_map(per_user_step, rmesh, in_specs=P(),
@@ -469,7 +587,8 @@ def _ranked_train_step(cfg: ArchConfig, shape: InputShape, mesh,
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
-    return (train_step, _init(cfg, outer_opt, dev, refuse),
+    return (train_step,
+            _ranked_init(cfg, outer_opt, dev, rmesh, tcfg, lay, refuse),
             make_shardings(cfg, shape, rmesh, tcfg), rmesh)
 
 
@@ -489,10 +608,11 @@ def _fused_weights(geom: DistGeom, key, n_clusters: int, M: int,
     return torch.repeat_interleave(W.reshape(-1), b_user) / b_user, k_n
 
 
-def _fused_noise(geom: DistGeom, tcfg: TrainConfig, delta, k_n, dev):
+def _fused_noise(geom: DistGeom, tcfg: TrainConfig, delta, k_n, dev,
+                 specs=None):
     """The estimate: `delta` plus one draw of the clusters' and the PS's
     noise (thermal exact, interference from the configured proxy
-    power)."""
+    power); of this rank's shards under `specs` inside the runner."""
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     bo, bbc, bis = f32(geom.beta_own), f32(geom.beta_bar_c), f32(geom.beta_is)
     bb = float(geom.beta_bar)
@@ -508,8 +628,9 @@ def _fused_noise(geom: DistGeom, tcfg: TrainConfig, delta, k_n, dev):
     leaves = list(tree_leaves(delta))
     keys = prng.split(k_n, len(leaves))
     return tree_from_paths(
-        (p, l + std * draw_normal(kk, l.shape))
-        for kk, (p, l) in zip(keys, leaves))
+        (p, l + std * draw_normal(kk, l.shape, spec))
+        for kk, (p, l), spec in zip(keys, leaves,
+                                    spec_list(specs, len(leaves))))
 
 
 def _weighted_grad(cfg: ArchConfig, params, batch, w_ex, na: int, dev):
@@ -546,7 +667,6 @@ def build_fused_train_step(cfg: ArchConfig, shape: InputShape, mesh,
     if sh.is_device_mesh(mesh):
         return _ranked_fused_step(cfg, shape, mesh, tcfg, device)
     n_clusters, M, geom, b_user = _geometry(cfg, shape, mesh, tcfg, False)
-    refuse = _not_executed(tcfg, mesh)
     dev = resolve_device(device)
     B = shape.global_batch
     na = tcfg.grad_accum
@@ -556,8 +676,6 @@ def build_fused_train_step(cfg: ArchConfig, shape: InputShape, mesh,
     outer_opt = _outer(tcfg)
 
     def train_step(state, batch, key):
-        if refuse:
-            raise NotImplementedError(refuse)
         params, step = state["params"], state["step"]
         w_ex, k_n = _fused_weights(geom, key.to(dev), n_clusters, M, b_user,
                                    dev)
@@ -570,40 +688,53 @@ def build_fused_train_step(cfg: ArchConfig, shape: InputShape, mesh,
         return ({"params": new_params, "opt": new_opt, "step": step + 1},
                 {"loss": ce, "edge_power": _symbol_power(delta, tcfg.P_t)})
 
-    return train_step, _init(cfg, outer_opt, dev, refuse)
+    return train_step, _init(cfg, outer_opt, dev)
 
 
 def _ranked_fused_step(cfg: ArchConfig, shape: InputShape, mesh,
                        tcfg: TrainConfig, device):
     """`build_fused_train_step` on a `DeviceMesh`: this rank holds one
     user's rows; the gradient's one flat all-reduce goes over (pod,
-    cluster, user).  Returns the mesh it was given, as the reference."""
+    cluster, user), FSDP's split leaves' as the gathers' backward
+    (`sharding.psum_scatter`).  The moments mirror the parameters, as
+    the reference's shardings (``zero1`` places nothing more here).
+    Returns the mesh it was given, as the reference."""
     M = tcfg.users_per_cluster
     rmesh = (mesh if "cluster" in sh.mesh_axes(mesh)
              else refine_mesh(mesh, users_per_cluster=M))
     n_clusters, M, geom, b_user = _geometry(cfg, shape, rmesh, tcfg, False)
-    refuse = _not_executed(tcfg, rmesh)
+    refuse = _not_executed(cfg, rmesh)
     dev = _rank_device(device)
     na = tcfg.grad_accum
     if b_user % na:
         raise ValueError(f"per-user batch {b_user} not divisible by "
                          f"grad_accum {na}")
     outer_opt = _outer(tcfg)
+    rules = make_rules(rmesh, fsdp=tcfg.fsdp, cfg=cfg)
+    lay = _layout(cfg, tcfg, rmesh, fused=True)
+    specs = lay.params
 
     def per_user_step(params, opt_state, batch, key, step):
-        w_ex, k_n = _fused_weights(geom, key, n_clusters, M, b_user, dev)
-        u = user_id()
-        g, ce = _weighted_grad(cfg, params, batch,
-                               w_ex[u * b_user:(u + 1) * b_user], na, dev)
-        g = tree_map(lambda x: sh.psum(x, _DATA), g)
-        delta = tree_map(lambda x: -tcfg.eta_local * x, g)
-        del g
-        est = _fused_noise(geom, tcfg, delta, k_n, dev)
-        new_params, new_opt = _apply(tcfg, outer_opt, params, opt_state, est,
-                                     step)
-        return new_params, new_opt, {
-            "loss": sh.pmean(ce, _DATA),
-            "edge_power": _symbol_power(delta, tcfg.P_t)}
+        with set_rules(rules):
+            w_ex, k_n = _fused_weights(geom, key, n_clusters, M, b_user, dev)
+            u = user_id()
+            g, ce = _weighted_grad(cfg, params, batch,
+                                   w_ex[u * b_user:(u + 1) * b_user], na,
+                                   dev)
+            # a leaf FSDP splits comes back summed and cut by its gathers'
+            # backward; the others are summed here
+            g = tree_from_paths(
+                (p, x if sh.split_axes(spec, _DATA) else sh.psum(x, _DATA))
+                for (p, x), spec in zip(tree_leaves(g),
+                                        sh.spec_leaves(specs)))
+            delta = tree_map(lambda x: -tcfg.eta_local * x, g)
+            del g
+            est = _fused_noise(geom, tcfg, delta, k_n, dev, specs)
+            new_params, new_opt = _apply(tcfg, outer_opt, params, opt_state,
+                                         est, step)
+            return new_params, new_opt, {
+                "loss": sh.pmean(ce, _DATA),
+                "edge_power": _symbol_power(delta, tcfg.P_t, specs)}
 
     sharded_step = shard_map(per_user_step, rmesh, in_specs=P(),
                              out_specs=(P(), P(), P()), axis_names=_DATA)
@@ -618,5 +749,6 @@ def _ranked_fused_step(cfg: ArchConfig, shape: InputShape, mesh,
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
-    return (train_step, _init(cfg, outer_opt, dev, refuse),
+    return (train_step,
+            _ranked_init(cfg, outer_opt, dev, rmesh, tcfg, lay, refuse),
             make_shardings(cfg, shape, mesh, tcfg, fused=True), mesh)

@@ -43,6 +43,19 @@ forward and backward.  Attention takes its gradient from
 `nn.attention.prefill`'s autograd route; the MoE, the SSD scan and the
 cross-attention are plain torch, which autograd differentiates as it
 stands.
+
+Placements (`repro_torch.sharding`, inside the per-rank runner of
+`launch.train`): with the rules' "p_embed" on the data axes (FSDP) the
+parameters come in as this rank's shards and are gathered where they
+are used, under autograd (`sharding.gather_shards`, whose backward
+leaves each rank its block of the gradient summed over the data
+ranks): a layer's leaves inside its (rematerialized) body, so the
+backward gathers them again, and the other leaves at the top.  Under a
+"model" axis past 1 the dense stack runs tensor-parallel (`nn.core`,
+`nn.attention`, `nn.mlp`), and the head is vocab-parallel: `lm_loss`
+takes each block's maximum and sum of exponentials over the group and
+the gold logit from the rank that holds it; `prefill_logits` gathers
+the vocabulary.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention, core, mlp, ssm
+from repro_torch.sharding import api as sh
 from repro_torch.tree import tree_from_paths, tree_leaves, tree_map
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -305,7 +319,31 @@ def _maybe_remat(fn, cfg: ArchConfig, train: bool):
     wraps its layer bodies in `jax.checkpoint`; otherwise `fn` itself."""
     if not (cfg.remat and train):
         return fn
+    fn = sh.carry_context(fn)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _fsdp_axes():
+    """The data axes the active rules split the weights' "p_embed" dims
+    over inside the runner (FSDP), or ()."""
+    rules = sh.current_rules()
+    if rules is None or sh.current_axes() is None:
+        return ()
+    return sh.split_axes((rules.physical("p_embed"),))
+
+
+def _gathered(tree, axes_tree, names):
+    """`tree`'s FSDP shards over the data axes `names` gathered under
+    autograd (`tree` itself with no names)."""
+    if not names:
+        return tree
+    specs = sh.param_sharding_tree(axes_tree, sh.current_rules())
+    return sh.gather_tree(tree, specs, names, differentiable=True)
+
+
+def _layer_axes(axes_tree):
+    """A stack's logical axes less the leading "layers"."""
+    return sh.map_axes_tree(lambda a: a[1:], axes_tree)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
@@ -319,7 +357,7 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     B, L, _ = x.shape
     positions = torch.arange(L, dtype=torch.int32,
                              device=x.device)[None].expand(B, L)
-    return x, positions
+    return sh.logical(x, "batch", "seq", "embed"), positions
 
 
 def _encode(params, batch, cfg: ArchConfig):
@@ -351,22 +389,33 @@ def backbone(params, batch, cfg: ArchConfig):
     the float32 sum of the MoE layers' load-balance losses (zero for the
     other families)."""
     fam = _check_family(cfg)
+    train = _records(params, batch)
+    fsdp = _fsdp_axes()
+    layer = lambda i: layers[i]
+    if fsdp:
+        # the stack's leaves gathered inside a layer's body, the head's
+        # by `_head`, the others here
+        axes = param_axes(cfg)
+        params = {k: v if k in ("layers", "lm_head") else
+                  _gathered(v, axes[k], fsdp) for k, v in params.items()}
+        if "layers" in params:
+            lax = _layer_axes(axes["layers"])
+            layer = lambda i: _gathered(layers[i], lax, fsdp)
     x, positions = _embed_inputs(params, batch, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     acfg = _attn_cfg(cfg)
-    train = _records(params, batch)
     if fam in ("dense", "vlm", "moe", "encdec"):
         enc_out = _encode(params, batch, cfg) if fam == "encdec" else None
         layers = _unstack(params["layers"], cfg.n_layers)
         body = _maybe_remat(
-            lambda h, i: _tblock_fwd(layers[i], h, positions, cfg, acfg,
+            lambda h, i: _tblock_fwd(layer(i), h, positions, cfg, acfg,
                                      enc_out=enc_out), cfg, train)
         for i in range(cfg.n_layers):
             x, aux = body(x, i)
             aux_total = aux_total + aux
     elif fam == "ssm":
         layers = _unstack(params["layers"], cfg.n_layers)
-        body = _maybe_remat(lambda h, i: _sblock_fwd(layers[i], h, cfg),
+        body = _maybe_remat(lambda h, i: _sblock_fwd(layer(i), h, cfg),
                             cfg, train)
         for i in range(cfg.n_layers):
             x = body(x, i)
@@ -414,18 +463,23 @@ def lm_loss(params, batch, cfg: ArchConfig, *, loss_block: int = 256,
     if cfg.family == "vlm":                 # image positions carry no loss
         hidden = hidden[:, batch["patch_embeds"].shape[1]:, :]
     B, L, _ = hidden.shape
-    w = params["lm_head"]["w"].to(hidden.dtype)
+    w = _head(params, cfg).to(hidden.dtype)
     LB = min(loss_block, L)
     nb = L // LB
+    vocab_split = sh.model_shards("vocab") > 1
+    hidden = core.column_input(hidden, "vocab")
 
     def block(h, y):
-        logits = (h @ w).float()
+        logits = sh.logical((h @ w).float(), "batch", "seq", "vocab")
+        if vocab_split:
+            return _split_ce(logits, y)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
         return (lse - gold).sum(-1)                      # per example [B]
 
     if torch.is_grad_enabled() and hidden.requires_grad:
-        block = functools.partial(checkpoint, block, use_reentrant=False)
+        block = functools.partial(checkpoint, sh.carry_context(block),
+                                  use_reentrant=False)
     per_ex = torch.zeros((B,), dtype=torch.float32, device=hidden.device)
     for b in range(nb):
         s = slice(b * LB, (b + 1) * LB)
@@ -437,14 +491,44 @@ def lm_loss(params, batch, cfg: ArchConfig, *, loss_block: int = 256,
     return loss + 0.01 * aux, {"ce": ce_mean.detach(), "aux": aux.detach()}
 
 
+def _head(params, cfg: ArchConfig) -> torch.Tensor:
+    """The LM head's weight [D, vocab] (this rank's vocabulary columns
+    under a vocab-parallel head), its FSDP shards gathered."""
+    fsdp = _fsdp_axes()
+    if not fsdp:
+        return params["lm_head"]["w"]
+    return _gathered(params["lm_head"], param_axes(cfg)["lm_head"],
+                     fsdp)["w"]
+
+
+def _split_ce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-example sums of lse - gold over a block's positions, the
+    vocabulary split over "model" (logits [B, LB, V / n], this rank's
+    columns): the maximum over the group (held constant: the softmax's
+    gradient does not depend on it), the exponentials' sum over it, and
+    the gold logit from the rank that holds the label."""
+    n_loc = logits.shape[-1]
+    m = sh.pmax(logits.detach().amax(-1), "model")
+    se = sh.reduce_from(torch.exp(logits - m[..., None]).sum(-1), "model")
+    local = y.long() - sh.axis_index("model") * n_loc
+    hit = (local >= 0) & (local < n_loc)
+    gold = torch.gather(logits, -1, local.clamp(0, n_loc - 1)[..., None])
+    gold = sh.reduce_from(torch.where(hit, gold[..., 0], 0.0), "model")
+    return (m + torch.log(se) - gold).sum(-1)
+
+
 def prefill_logits(params, batch, cfg: ArchConfig) -> torch.Tensor:
     """Prefill forward; returns last-position logits [B, vocab] float32.
     batch: {"tokens": [B, L]}, with "patch_embeds" [B, n_patches, D]
-    (vlm) or "src_frames" [B, Ls, D] (encdec)."""
+    (vlm) or "src_frames" [B, Ls, D] (encdec).  A vocab-parallel head's
+    columns are gathered over "model"."""
     hidden, _ = backbone(params, batch, cfg)
     last = hidden[:, -1, :]
-    logits = last @ params["lm_head"]["w"].to(last.dtype)
-    return logits.float()
+    logits = sh.logical((last @ _head(params, cfg).to(last.dtype)).float(),
+                        "batch", "vocab")
+    if sh.model_shards("vocab") > 1:
+        logits = sh.all_gather(logits, "model", -1)
+    return logits
 
 
 # ---------------------------------------------------------------------------

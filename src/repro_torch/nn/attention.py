@@ -32,9 +32,13 @@ counterpart of the JAX package's gradient through its
 `jax.checkpoint`ed, window-masked `_sdpa` per query block; causal and
 bidirectional, with a window or without.
 
-The JAX package tags activations with logical sharding axes
-(`repro.sharding.logical`); the port runs on one card with no sharding
-rules, so it has no counterpart.
+Tensor parallelism over "model" (the rules' heads and kv_heads on it,
+inside the per-rank runner): q, k, v and the qkv bias are split by
+heads (column-parallel), so each rank attends over its own heads
+(`_qkv` reads the local counts) and the flash kernel runs on them;
+`wo` is split by its input rows (row-parallel), its partial products
+summed over the group.  `prefill` checks the placements with
+`sharding.logical` at the JAX package's sites.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch import prng
 from repro_torch.kernels import flash_attention_autograd
 from repro_torch.nn import core
 from repro_torch.nn.rope import apply_rope
+from repro_torch.sharding import api as sh
 
 NEG_INF = -1e30
 
@@ -91,8 +96,12 @@ def init(key: torch.Tensor, cfg: AttnConfig, dtype=torch.float32):
 
 
 def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
+    """q [B, L, H, hd], k and v [B, L, KV, hd], H and KV this rank's
+    heads (all of them unless the rules split them over "model")."""
     B, L, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H = cfg.n_heads // sh.model_shards("heads")
+    KV = cfg.n_kv_heads // sh.model_shards("kv_heads")
+    hd = cfg.head_dim
     q = core.dense(p["wq"], x).reshape(B, L, H, hd)
     k = core.dense(p["wk"], x).reshape(B, L, KV, hd)
     v = core.dense(p["wv"], x).reshape(B, L, KV, hd)
@@ -144,11 +153,15 @@ def prefill(p, x: torch.Tensor, positions: torch.Tensor,
     goes through `flash_attention_autograd` (the kernel's launch, and a
     gradient where autograd records), whatever ``cfg.scores_f32`` says.
     Returns [B, L, D]."""
-    q, k, v = _qkv(p, x, positions, cfg)
+    q, k, v = _qkv(p, core.column_input(x, "heads"), positions, cfg)
+    q = sh.logical(q, "batch", "seq", "heads", "head_dim")
+    k = sh.logical(k, "batch", "seq", "kv_heads", "head_dim")
+    v = sh.logical(v, "batch", "seq", "kv_heads", "head_dim")
     out = flash_attention_autograd(q, k, v, causal=cfg.causal,
                                    q_block=cfg.q_block,
                                    kv_block=cfg.kv_block, window=cfg.window)
-    return core.dense(p["wo"], out)
+    out = sh.logical(out, "batch", "seq", None)
+    return core.row_output(core.dense(p["wo"], out), "heads")
 
 
 def decode(p, x: torch.Tensor, cache, cfg: AttnConfig):

@@ -1,9 +1,12 @@
 """Feed-forward blocks: the SwiGLU MLP and the capacity-based top-k MoE
 (the port of `repro.nn.mlp`).
 
-The JAX package tags the MoE's activations with logical sharding axes
-and can shard its tokens around the dispatch; on one card those are
-no-ops, so the port has no counterpart of the reference's token sharding.
+`swiglu` runs tensor-parallel where the rules put "ffn" on "model"
+(inside the per-rank runner).  The JAX package also tags the MoE's
+activations with logical sharding axes and can shard its experts and
+tokens over "model"; the port has no counterpart of that sharding yet
+(ROADMAP queue A item 11: `launch.train` refuses a MoE under a "model"
+axis past 1).
 
 The MoE routes as the reference does, integer for integer: the top K of
 the router's float32 softmax (`torch.topk`, sorted), each (token,
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.nn import core
+from repro_torch.sharding import api as sh
 
 
 def swiglu_init(key: torch.Tensor, d_model: int, d_ff: int,
@@ -43,9 +47,14 @@ def swiglu_init(key: torch.Tensor, d_model: int, d_ff: int,
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    """SiLU(x w_gate) * (x w_up), times w_down.  With the rules' "ffn"
+    on "model": w_gate and w_up split by columns, w_down by rows, its
+    partial products summed over the group."""
+    x = core.column_input(x, "ffn")
     g = F.silu(core.dense(p["w_gate"], x))
     u = core.dense(p["w_up"], x)
-    return core.dense(p["w_down"], g * u)
+    h = sh.logical(g * u, "batch", "seq", "ffn")
+    return core.row_output(core.dense(p["w_down"], h), "ffn")
 
 
 # ---------------------------------------------------------------------------
@@ -74,15 +83,18 @@ def moe_init(key: torch.Tensor, cfg: MoEConfig,
     E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
     scale = 1.0 / math.sqrt(D)
     ein = ("p_experts", "p_embed", "p_expert_ffn")
+    eout = ("p_experts", "p_expert_ffn", "p_embed")
     p = {
         "router": core.dense_init(kr, D, E, axes=("p_embed", None),
                                   dtype=torch.float32),
         # the expert-internal ffn dim stays unsharded: the experts are the
         # unit of model ('expert') parallelism
-        "w_gate": core.Px(core._normal(k1, (E, D, Fe), scale, dtype), ein),
-        "w_up": core.Px(core._normal(k2, (E, D, Fe), scale, dtype), ein),
-        "w_down": core.Px(core._normal(k3, (E, Fe, D), scale, dtype),
-                          ("p_experts", "p_expert_ffn", "p_embed")),
+        "w_gate": core.Px(core._normal(k1, (E, D, Fe), scale, dtype,
+                                       core._init_spec(ein)), ein),
+        "w_up": core.Px(core._normal(k2, (E, D, Fe), scale, dtype,
+                                     core._init_spec(ein)), ein),
+        "w_down": core.Px(core._normal(k3, (E, Fe, D), scale, dtype,
+                                       core._init_spec(eout)), eout),
     }
     if cfg.dense_residual_ff is not None:
         p["dense"] = swiglu_init(kd, D, cfg.dense_residual_ff, dtype=dtype)

@@ -300,6 +300,17 @@ def normal_slice(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     return _SQRT2 * _erf_inv(_uniform_of_bits(b0 ^ b1, _NORMAL_LO, 1.0))
 
 
+def normal_at(key: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
+    """The elements at `flat_idx` (an int64 tensor of any shape, each a
+    flat index into the draw) of ``normal(key, shape).reshape(-1)``, for
+    one key [2] and any shape past the largest index, in the shape of
+    `flat_idx`: a strided shard of a draw (one rank's slice of a leaf
+    split over a mesh axis) drawn alone with the full draw's bits."""
+    b0, b1 = _threefry2x32(key[0], key[1], flat_idx >> 32,
+                           flat_idx & MASK32)
+    return _SQRT2 * _erf_inv(_uniform_of_bits(b0 ^ b1, _NORMAL_LO, 1.0))
+
+
 def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
     """bool `jax.random.bernoulli` in its default mode ("low"):
     ``uniform(key, shape) < p`` with p rounded to float32, as a Python

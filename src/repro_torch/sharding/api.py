@@ -32,9 +32,24 @@ not run: it hands the recorder the call to make and an empty tensor of
 its output's shape (the chunked driver's CUDA graphs stop there and
 issue the collective between replays, `core.whfl._ChunkFn`).
 
-Tensor parallelism over "model" is not executed yet (ROADMAP queue A
-item 11): `logical` checks ranks and is a no-op while the active mesh's
-"model" axis has size 1, and raises past it.
+Placements are executed as one process per mesh coordinate, every axis
+manual: a rank holds plain tensors that are its shards, each leaf's
+spec over the mesh saying which (`param_sharding_tree`; `shard_tree`
+cuts a tree, `gather_tree` puts it back together, `shard_index` gives
+a shard's flat indices in the whole leaf, for `prng.normal_at`).  Under
+a "model" axis past 1 the models run tensor-parallel (`model_shards`
+says how many ways the active rules split a logical axis), and the
+collectives that autograd passes through are functions of their own:
+`copy_to` (the identity; its backward sums over the group), `reduce_from`
+(a sum; its backward the identity) and `gather_shards` (an all-gather;
+its backward `psum_scatter`).  Each keeps the axis context, the rules
+and the collective log it ran under for its backward, which autograd
+may run on a thread of its own (`carry_context` does the same for a
+function that `torch.utils.checkpoint` runs again there).  `logical`
+checks a tensor's placement: its rank, and the local size of every
+dimension the rules put on "model"; the sequence-parallel route
+("q_seq", the heads not dividing) raises `NotImplementedError` (ROADMAP
+queue A item 11).
 """
 from __future__ import annotations
 
@@ -47,8 +62,8 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-TP_TODO = ("tensor parallelism over 'model' is ROADMAP queue A item 11 "
-           "(tensor parallelism)")
+Q_SEQ_TODO = ("sequence-parallel attention ('q_seq': the heads do not divide "
+              "over 'model') is ROADMAP queue A item 11")
 
 
 class PartitionSpec(tuple):
@@ -89,11 +104,14 @@ class Rules:
 
     `bare` marks the rules of the manual (pod, cluster, user) context,
     where the data axes are mapped by the runner and only "model"
-    remains."""
+    remains.  `dims`: the global sizes of the logical axes the
+    architecture fixes (heads, kv_heads, ffn, vocab, experts), for
+    `logical`'s placement check."""
 
     mesh: object
     table: Mapping[str, Optional[object]] = field(default_factory=dict)
     bare: bool = False
+    dims: Mapping[str, int] = field(default_factory=dict)
 
     def physical(self, name: Optional[str]):
         if name is None:
@@ -127,9 +145,13 @@ def spec_for(logical_axes: Sequence[Optional[str]],
 
 
 def logical(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
-    """Annotate `x` with logical axes: no-op when no rules are active or
-    the rules' "model" axis has size 1; raises `NotImplementedError`
-    past it (tensor parallelism waits for ROADMAP queue A item 11)."""
+    """Check `x`'s placement against its logical axes and return it: a
+    no-op when no rules are active; its rank must match; under a
+    "model" axis past 1, every dimension the rules put on "model" must
+    hold its shard, global size / model (`ValueError` naming the
+    logical axis otherwise), and "q_seq" on "model" (sequence-parallel
+    attention) raises `NotImplementedError` (ROADMAP queue A item
+    11)."""
     rules = current_rules()
     if rules is None:
         return x
@@ -137,9 +159,32 @@ def logical(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         raise ValueError(
             f"logical(): rank mismatch, array rank {x.ndim} vs axes "
             f"{logical_axes}")
-    if mesh_axes(rules.mesh).get("model", 1) > 1:
-        raise NotImplementedError(TP_TODO)
+    n = mesh_axes(rules.mesh).get("model", 1)
+    if n == 1:
+        return x
+    for d, name in enumerate(logical_axes):
+        if "model" not in _names(rules.physical(name)):
+            continue
+        if name == "q_seq":
+            raise NotImplementedError(Q_SEQ_TODO)
+        want = rules.dims.get(name)
+        if want is not None and x.shape[d] * n != want:
+            raise ValueError(
+                f"logical(): axis {name!r} (dimension {d}) holds "
+                f"{x.shape[d]}; its shard over 'model' ({n}) is "
+                f"{want // n} of {want}")
     return x
+
+
+def model_shards(name: str) -> int:
+    """How many ways the active rules split logical axis `name` over
+    "model" on this rank: the "model" axis's size where the rules put
+    `name` on it and an axis context is bound, else 1."""
+    rules, ctx = current_rules(), current_axes()
+    if rules is None or ctx is None or "model" not in _names(
+            rules.physical(name)):
+        return 1
+    return mesh_axes(ctx.mesh).get("model", 1)
 
 
 # ---------------------------------------------------------------------------
@@ -175,12 +220,17 @@ def make_rules(mesh, *, fsdp: bool = True, cfg=None,
 
     heads_ax = kv_ax = experts_ax = model_ax
     vocab_ax = ffn_ax = model_ax
+    dims = {}
     if cfg is not None:
         heads_ax = fits(getattr(cfg, "n_heads", None) or None)
         kv_ax = fits(getattr(cfg, "n_kv_heads", None) or None)
         experts_ax = fits(getattr(cfg, "n_experts", None) or None)
         ffn_ax = fits(getattr(cfg, "d_ff", None) or None)
         vocab_ax = fits(getattr(cfg, "vocab", None) or None)
+        dims = {a: getattr(cfg, f, 0) for a, f in (
+            ("heads", "n_heads"), ("kv_heads", "n_kv_heads"),
+            ("ffn", "d_ff"), ("vocab", "vocab"), ("experts", "n_experts"))
+            if getattr(cfg, f, 0)}
         if getattr(cfg, "family", "") in ("ssm", "hybrid"):
             # mamba head-packed dims shard iff the SSM head count divides;
             # hybrids share the logical name with attention heads, so both
@@ -221,7 +271,7 @@ def make_rules(mesh, *, fsdp: bool = True, cfg=None,
         "p_vocab": vocab_ax,
         "layers": None,
     }
-    return Rules(mesh=mesh, table=table, bare=inside_shardmap)
+    return Rules(mesh=mesh, table=table, bare=inside_shardmap, dims=dims)
 
 
 def map_axes_tree(fn, tree):
@@ -448,6 +498,271 @@ def all_gather(x: torch.Tensor, names, axis: int = 0) -> torch.Tensor:
         _gather(x, group, n), dim=axis), shape)
 
 
+def psum_scatter(x: torch.Tensor, names, axis: int = 0) -> torch.Tensor:
+    """`jax.lax.psum_scatter(..., tiled=True)`: the sum of `x` over the
+    group of `names`, of which this rank keeps its block along `axis`
+    (the blocks in the group's mesh order).  The sum is `psum`'s, so
+    the block has the bits of the same block of ``psum(x, names)``."""
+    names = _as_names(names)
+    n = _group_size(names)
+    if n == 1:
+        return x
+    group, _ = _group(names)
+    axis %= x.ndim
+    if x.shape[axis] % n:
+        raise ValueError(f"dimension {axis} of size {x.shape[axis]} does "
+                         f"not divide over {names} ({n})")
+    b = x.shape[axis] // n
+    i, _ = _coordinate(names)
+    shape = list(x.shape)
+    shape[axis] = b
+
+    def run(x):
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y.narrow(axis, i * b, b).clone()
+    return _collective("psum_scatter", names, n, x, run, shape)
+
+
+def pmax(x: torch.Tensor, names) -> torch.Tensor:
+    """Elementwise maximum of `x` over the ranks of `names` (exact in any
+    order)."""
+    names = _as_names(names)
+    group, members = _group(names)
+    if len(members) == 1:
+        return x
+
+    def run(x):
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+        return y
+    return _collective("pmax", names, len(members), x, run, x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd
+# ---------------------------------------------------------------------------
+
+def _saved() -> tuple:
+    return current_axes(), current_rules(), getattr(_log, "records", None)
+
+
+@contextlib.contextmanager
+def _restored(saved: tuple):
+    prev = _saved()
+    _state.axes, _state.rules, _log.records = saved
+    try:
+        yield
+    finally:
+        _state.axes, _state.rules, _log.records = prev
+
+
+def carry_context(fn):
+    """`fn` bound to the axis context, rules and collective log active
+    now, wherever it runs later (`torch.utils.checkpoint` recomputes a
+    forward inside the backward, which autograd runs on a thread of its
+    own for CUDA tensors)."""
+    saved = _saved()
+
+    def run(*args):
+        with _restored(saved):
+            return fn(*args)
+    return run
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names):
+        ctx.names, ctx.saved = names, _saved()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _restored(ctx.saved):
+            return psum(g, ctx.names), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names):
+        return psum(x, names)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names, axis):
+        ctx.names, ctx.axis, ctx.saved = names, axis, _saved()
+        return all_gather(x, names, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _restored(ctx.saved):
+            return psum_scatter(g, ctx.names, ctx.axis), None, None
+
+
+def copy_to(x: torch.Tensor, names) -> torch.Tensor:
+    """A replicated input entering a split computation over `names` (a
+    column-parallel product): the identity, whose backward sums the
+    gradient over the group."""
+    names = _as_names(names)
+    return x if _group_size(names) == 1 else _CopyTo.apply(x, names)
+
+
+def reduce_from(x: torch.Tensor, names) -> torch.Tensor:
+    """The partial results of a split computation over `names` (a
+    row-parallel product, a vocab-parallel lookup) summed: `psum`, whose
+    backward is the identity (every member's loss is the same)."""
+    names = _as_names(names)
+    return x if _group_size(names) == 1 else _ReduceFrom.apply(x, names)
+
+
+def gather_shards(x: torch.Tensor, names, axis: int) -> torch.Tensor:
+    """A parameter's shards over `names` put together along `axis`
+    (FSDP): `all_gather`, whose backward is `psum_scatter` (each member
+    keeps its block of the gradient summed over the group)."""
+    names = _as_names(names)
+    if _group_size(names) == 1:
+        return x
+    return _GatherShards.apply(x, names, axis % x.ndim)
+
+
+# ---------------------------------------------------------------------------
+# Shards
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def axes_bound(mesh, manual: Optional[Sequence[str]] = None):
+    """Bind `mesh`'s axis names (all of them, or `manual`) as `shard_map`
+    does while it runs its function, for code that cuts, gathers or
+    draws shards outside it."""
+    prev = current_axes()
+    _state.axes = _AxisContext(mesh, tuple(manual) if manual is not None
+                               else tuple(mesh.mesh_dim_names))
+    try:
+        yield
+    finally:
+        _state.axes = prev
+
+
+def _split(entry, names) -> Tuple[str, ...]:
+    """The axes of spec entry `entry` among `names` (None: every axis of
+    the bound mesh) whose size is past 1, in the entry's order."""
+    sizes = mesh_axes(_ctx().mesh)
+    return tuple(a for a in _names(entry) if a in sizes and sizes[a] > 1
+                 and (names is None or a in names))
+
+
+def _cut(x: torch.Tensor, spec: Sequence, names=None) -> torch.Tensor:
+    for d, entry in enumerate(spec):
+        axes = _split(entry, names)
+        if not axes:
+            continue
+        i, n = _coordinate(axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of size {x.shape[d]} "
+                             f"does not divide over {axes} ({n})")
+        b = x.shape[d] // n
+        x = x.narrow(d, i * b, b)
+    return x
+
+
+def _spec_tree_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (dicts and lists) and its spec tree
+    (the same structure, a `PartitionSpec` at each leaf)."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_spec_tree_map(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, names=None):
+    """This rank's shard (views) of every leaf of `tree` under its spec
+    in `specs` (a tree of the same structure), cut over the spec's axes
+    among `names` (default: all of the bound mesh's)."""
+    return _spec_tree_map(lambda x, spec: _cut(x, spec, names), tree, specs)
+
+
+def gather_tree(tree, specs, names=None, *, differentiable=False):
+    """Every leaf's shards over its spec's axes among `names` (default:
+    all) gathered back together along each split dimension: by
+    `all_gather`, or with ``differentiable`` by `gather_shards` (FSDP's
+    gather under autograd)."""
+    op = gather_shards if differentiable else all_gather
+
+    def gather(x, spec):
+        for d, entry in enumerate(spec):
+            axes = _split(entry, names)
+            if axes:
+                x = op(x, axes, d)
+        return x
+    return _spec_tree_map(gather, tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (dicts and lists, a tuple at each leaf)
+    in `repro_torch.tree`'s leaf order."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
+
+
+def split_axes(spec: Sequence, names=None) -> Tuple[str, ...]:
+    """The bound mesh's axes (among `names`, default all) that `spec`
+    splits a leaf over, in mesh order."""
+    order = list(_ctx().mesh.mesh_dim_names)
+    return tuple(sorted({a for e in spec for a in _split(e, names)},
+                        key=order.index))
+
+
+def shard_shape(shape: Sequence[int], spec: Sequence) -> Tuple[int, ...]:
+    """The shape of this rank's shard of a leaf of global `shape`."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] //= _group_size(_split(entry, None))
+    return tuple(out)
+
+
+def global_shape(shape: Sequence[int], spec: Sequence) -> Tuple[int, ...]:
+    """The global shape of a leaf whose shard on this rank has `shape`."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] *= _group_size(_split(entry, None))
+    return tuple(out)
+
+
+def sharded(spec: Optional[Sequence]) -> bool:
+    """Whether `spec` splits a leaf on the bound mesh."""
+    return spec is not None and bool(split_axes(spec))
+
+
+def shard_index(shape: Sequence[int], spec: Sequence,
+                device=None) -> torch.Tensor:
+    """The flat indices in a leaf of global `shape` (row-major) of this
+    rank's shard under `spec`, an int64 tensor of the shard's shape."""
+    local = shard_shape(shape, spec)
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        axes = _split(spec[d], None) if d < len(spec) else ()
+        off = _coordinate(axes)[0] * local[d] if axes else 0
+        pos = torch.arange(off, off + local[d], dtype=torch.int64,
+                           device=device) * stride
+        idx = idx + pos.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= shape[d]
+    return idx
+
+
 def _coordinate(names: Tuple[str, ...]) -> Tuple[int, int]:
     """(this rank's linear coordinate over `names`, their product)."""
     mesh = _ctx().mesh
@@ -463,28 +778,13 @@ def local_shard(tree, spec: Sequence, mesh, manual: Sequence[str]):
     """This rank's slice of every tensor leaf of `tree` under `spec`:
     each dimension whose entry names manual axes cut into their product
     of equal blocks, the rank's block by its coordinate over them."""
-    manual = set(manual)
-    tok = _AxisContext(mesh, tuple(manual))
+    manual = tuple(manual)
 
     def cut(x):
         if not isinstance(x, torch.Tensor):
             return x
-        prev = current_axes()
-        _state.axes = tok
-        try:
-            for d, entry in enumerate(spec):
-                names = tuple(a for a in _names(entry) if a in manual)
-                if not names:
-                    continue
-                i, n = _coordinate(names)
-                if x.shape[d] % n:
-                    raise ValueError(f"dimension {d} of size {x.shape[d]} "
-                                     f"does not divide over {names} ({n})")
-                b = x.shape[d] // n
-                x = x.narrow(d, i * b, b)
-        finally:
-            _state.axes = prev
-        return x
+        with axes_bound(mesh, manual):
+            return _cut(x, spec, manual)
     return _map_tensors(cut, tree)
 
 

@@ -49,8 +49,12 @@ What is held, and to what:
   and the loss and edge power within rtol 1e-6 of the one-card step's
   (measured on the CPU: 2.7e-8 of max |theta|, 12 of the 15 leaves
   apart in their bits; the loss and edge power equal).
-- `fsdp=True` and a "model" axis of 2 raise `NotImplementedError`
-  naming ROADMAP queue A item 11, while `shardings` returns their specs.
+- what stays refused on ranks: the sequence-parallel "q_seq" route
+  (qwen2-0.5b's 14 heads over a "model" axis of 4) and a MoE under a
+  "model" axis of 2 raise `NotImplementedError` naming ROADMAP queue A
+  item 11, while `shardings` returns their specs (``fsdp``, ``zero1``
+  and a dense model's "model" axis run: ``tests/test_torch_fsdp.py``,
+  ``tests/test_torch_tp.py``).
 
 The 4 ranks' runs take ~40 s of wall time, side by side with the
 one-card runs and one JAX subprocess per reference run; the file ~75 s
@@ -298,16 +302,18 @@ def _hop_worker(rank, world, tree):
             return res
         out["hops"][name] = shard_map(f, rmesh, in_specs=(P(U), P()),
                                       out_specs=P())(tree, prng.PRNGKey(5))
-    # the refusals: fsdp on (2, 2, 2, 1), a model axis of 2 on (1, 2, 2, 2)
-    cfg = _cfg()
+    # what stays refused: the "q_seq" route (qwen2-0.5b's 14 heads over
+    # a model axis of 4) on (1, 1, 2, 4), a MoE under a model axis of 2
+    # on (1, 2, 2, 2)
     out["refusals"] = {}
-    for label, sizes, fields in (
-            ("fsdp", (2, 2, 2, 1), dict(fsdp=True, outer="adamw")),
-            ("model", (1, 2, 2, 2), dict(outer="adamw"))):
+    for label, cfg, sizes in (
+            ("q_seq", get_config("qwen2-0.5b"), (1, 1, 2, 4)),
+            ("moe", get_config("qwen3-moe-235b-a22b").reduced(),
+             (1, 2, 2, 2))):
         mesh = make_mesh(sizes, device_type="cpu")
         step, init_fn, shardings, rmesh2 = train.build_train_step(
             cfg, SHAPES["b8"], mesh, train.TrainConfig(
-                users_per_cluster=2, **fields), device="cpu")
+                users_per_cluster=2, outer="adamw"), device="cpu")
         errors = []
         for call in (lambda: init_fn(prng.PRNGKey(0)),
                      lambda: step({}, {}, prng.PRNGKey(0))):
@@ -391,17 +397,22 @@ def test_ideal_aggregation_is_exact_mean(hops):
 
 
 def test_fsdp_and_tensor_parallelism_refuse(hops):
+    """What tensor parallelism does not execute yet refuses, naming the
+    ROADMAP item (fsdp, zero1 and a dense model's "model" axis run:
+    tests/test_torch_fsdp.py, tests/test_torch_tp.py), while
+    `shardings` returns the specs in full."""
     _, res = hops
     for r in res:
-        for label, (errors, embed_spec, rshape) in r["refusals"].items():
+        for label, (errors, head_spec, rshape) in r["refusals"].items():
             assert all(e is not None and "ROADMAP queue A item 11" in e
                        for e in errors), (label, errors)
-        # the specs are still returned in full
-        assert r["refusals"]["fsdp"][1] == (("pod", "cluster", "user"),
-                                            "model")
-        assert r["refusals"]["model"][1] == (None, "model")
-        assert r["refusals"]["model"][2] == {"pod": 1, "cluster": 2,
-                                             "user": 2, "model": 2}
+        assert "q_seq" in r["refusals"]["q_seq"][0][0]
+        assert "MoE" in r["refusals"]["moe"][0][0]
+        assert r["refusals"]["q_seq"][1] == (None, "model")
+        assert r["refusals"]["q_seq"][2] == {"pod": 1, "cluster": 1,
+                                             "user": 2, "model": 4}
+        assert r["refusals"]["moe"][2] == {"pod": 1, "cluster": 2,
+                                           "user": 2, "model": 2}
 
 
 @pytest.mark.parametrize("tag", ["struct_equivalent", "struct_ideal",

@@ -323,16 +323,35 @@ def test_refine_mesh_shapes_and_counts_match_reference():
 
 
 def test_logical_checks_rank_and_refuses_tensor_parallelism():
+    """`logical` checks ranks; under a "model" axis past 1, the local
+    size of every dimension the rules put on "model" (a `ValueError`
+    naming the logical axis), and the sequence-parallel route ("q_seq",
+    where the heads do not divide) still refuses."""
+    from repro_torch.configs import get_config
+
     x = torch.zeros(2, 3)
     assert logical(x, "batch", "embed") is x          # no rules: no-op
     with set_rules(make_rules({"data": 4, "model": 1})):
         assert logical(x, "batch", "embed") is x
         with pytest.raises(ValueError, match="rank mismatch"):
             logical(x, "batch")
-    with set_rules(make_rules({"data": 2, "model": 2})):
+    cfg = get_config("qwen2-0.5b")                    # 14 heads over 2 KV
+    with set_rules(make_rules({"data": 2, "model": 2}, cfg=cfg)):
+        assert logical(x, "batch", "embed") is x
+        q = torch.zeros(1, 4, 7, 64)
+        assert logical(q, "batch", "seq", "heads", "head_dim") is q
+        with pytest.raises(ValueError, match="'heads'"):
+            logical(torch.zeros(1, 4, 14, 64), "batch", "seq", "heads",
+                    "head_dim")
+        with pytest.raises(ValueError, match="'vocab'"):
+            logical(torch.zeros(1, 4, cfg.vocab), "batch", "seq", "vocab")
+        h = torch.zeros(1, 4, cfg.d_ff // 2)
+        assert logical(h, "batch", "seq", "ffn") is h
+    with set_rules(make_rules({"data": 2, "model": 4}, cfg=cfg)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue A item 11"):
-            logical(x, "batch", "embed")
+            logical(torch.zeros(1, 4, 14, 64), "batch", "q_seq", "heads",
+                    "head_dim")
 
 
 def test_split_params_and_placements():
