@@ -265,6 +265,19 @@ Phases, in order; any failure exits non-zero:
    peak, float32 at the 3xTF32 rate, and also at the TF32 peak) and
    ``exp_floor_ms`` (one exp2 per kept pair on the MUFU pipe), and both
    at zamba2-7b's prefill shape (B 4, L 4096, 32 heads of hd 112);
+   both kernels with a query offset (``q_offset``: a "q_seq" rank's
+   1,024 rows of qwen2-0.5b's 4,096 against all 4,096 keys, 14 heads
+   over 2 KV heads, at offsets 0 and 3,072, and at 3,072 with a window
+   of 1,024; ``OFFSET_CASES``), in both dtypes, against the plain
+   version with the offset (phase 3's gates; the launches counted on
+   `flash_mha.offset_launches` past offset 0) and against the same rows
+   of the whole call (its gap logged, held to the same gates), each
+   timed beside the plain version, the library's SDPA with the
+   equivalent boolean mask and the bound of the pairs the rows keep;
+   and each phase-11 rank's flash call at float32 timed alone
+   (``RANK_FLASH``: the four "q_seq" ranks' rows, whose causal work
+   grows 1 : 3 : 5 : 7, the replicated attention's, qwen2-1.5b's 3
+   heads over 1 KV head);
 8. the LM families at full width through `repro_torch.launch.serve`,
    weights from `lm.init_params` at seed 0, one arch at a time
    (``FAMILY_RUNS``): mamba2-780m (24 of its 48 layers), zamba2-7b (15
@@ -342,17 +355,24 @@ Phases, in order; any failure exits non-zero:
    refined to (pod, cluster, user, model); the hops as collectives over
    each rank's `user` and `(pod, cluster)` groups; each rank drawing
    and holding its shards of the state): NCCL at world size 1
-   (qwen2-0.5b at full width, 4,096 positions, one row, AdamW, one step)
-   against the one-card step at {"data": 1}; four gloo ranks sharing
+   (qwen2-0.5b at full width, 8 of its 24 layers, 4,096 positions, one
+   row, AdamW, one step) against the one-card step at {"data": 1}; four gloo ranks sharing
    the card at (1, 2, 2, 1): the replicated state with the outer "add"
    (depth cut to 2 layers) against its own one-card step, and ZeRO-1
    and FSDP with AdamW against phase 9's structural run (its first
    step), each rank's parameters, moments, losses and edge power bit
    for bit; tensor parallelism at (1, 1, 2, 2) (2 users, "model" 2,
-   AdamW, float32 compute) against the one-card step of 2 users within
-   TP_BOUNDS (the gloo cases in one launch); each rank's peak memory,
+   AdamW, float32 compute, 8 layers) against the one-card step of 2
+   users within TP_BOUNDS; and at "model" 4 on (1, 1, 1, 4) (one user,
+   AdamW, float32) against the one-card step of one user within
+   TP_BOUNDS: qwen2-0.5b's 14 heads (12 of its 24 layers), which do not
+   divide, through the "q_seq" route (``seq_shard_attn``: each rank
+   1,024 rows, the flash kernels with a query offset past the first)
+   and through the replicated attention (the same one-card reference),
+   and qwen2-1.5b's 12 heads split beside its 2 KV heads replicated (8
+   of its 28 layers) (the gloo cases in one launch); each rank's peak memory,
    step seconds, seconds inside collectives, collective groups and
-   flash launches;
+   flash launches (with a query offset, under "q_seq");
 12. the sharded W-HFL sweep with one process per shard
    (`ShardedSweepRunner(ranks=...)`, `launch.ranks.sweep_worker`: each
    rank trains its own users, launches the hop's kernels on its own
@@ -376,8 +396,9 @@ Phases, in order; any failure exits non-zero:
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  ``python3 chip_smoke.py
 --training`` builds the flash kernels and runs phase 9 alone,
-``--window`` phase 10 alone, ``--ranks`` phase 11 alone (with its own
-one-card reference for the gloo ranks), ``--sweep-ranks`` phase 12
+``--window`` phase 10 alone, ``--ranks`` phase 7's query-offset checks
+and phase 11 alone (with its own one-card reference for the gloo
+ranks), ``--sweep-ranks`` phase 12
 alone (with its own one-process references).
 """
 from __future__ import annotations
@@ -565,17 +586,39 @@ ATTN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # at this width (on the CPU, at reduced width, a bf16 step's gradient
 # lies 2.1e-2 of max |g| from the float32 one's on one device and on
 # "model" 2 alike), so a bf16 run cannot tell a fault in the split from
-# bf16's noise
+# bf16's noise.  Tensor parallelism at "model" 4 on (1, 1, 1, 4) (one
+# user), AdamW at float32 compute, within TP_BOUNDS of the one-card step
+# of one user: qwen2-0.5b's 14 heads do not divide, so with
+# ``seq_shard_attn`` the "q_seq" route (each rank 1,024 of the 4,096
+# rows, the flash kernels with a query offset past the first rank) and
+# without it the replicated attention, whose one-card reference is the
+# "q_seq" case's (the knob changes nothing on one card); qwen2-1.5b's 12
+# heads split (3 a rank) beside its 2 KV heads replicated, at Q15_LAYERS
+# of its 28 layers for the run's time.  For the run's time too since
+# those came (phase 11 took 245 s alone with them, on the H100 80GB HBM3
+# at 700 W), the NCCL case and the "model" 2 one run TP_LAYERS of
+# qwen2-0.5b's 24 layers, the "model" 4 ones Q_SEQ_LAYERS.  Each case:
+# (backend, world, (pod, cluster, user, model), rows a user, outer,
+# eta_local, steps, layers run (None: all), placements, compute dtype,
+# reference ("own", "phase 9", or the index of the earlier case whose
+# one-card run it shares), arch, config overrides, route)
+Q15_LAYERS, TP_LAYERS, Q_SEQ_LAYERS = 8, 8, 12
 RANKS_CASES = (
-    ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1, None, {}, "bfloat16",
-     "own"),
+    ("nccl", 1, (1, 1, 1, 1), 1, "adamw", 1.0, 1, TP_LAYERS, {}, "bfloat16",
+     "own", TRAIN_ARCH, {}, None),
     ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), 1, "add", 5e-3, 1, 2, {},
-     "bfloat16", "own"),
+     "bfloat16", "own", TRAIN_ARCH, {}, None),
     ("gloo", 4, (1, TRAIN_C, TRAIN_M, 1), STRUCT_B_USER, STRUCT_OUTER,
      STRUCT_ETA, 1, None, {"zero1": True, "fsdp": True}, "bfloat16",
-     "phase 9"),
-    ("gloo", 4, (1, 1, 2, 2), 1, "adamw", 1.0, 1, None, {}, "float32",
-     "own"),
+     "phase 9", TRAIN_ARCH, {}, None),
+    ("gloo", 4, (1, 1, 2, 2), 1, "adamw", 1.0, 1, TP_LAYERS, {}, "float32",
+     "own", TRAIN_ARCH, {}, "heads split"),
+    ("gloo", 4, (1, 1, 1, 4), 1, "adamw", 1.0, 1, Q_SEQ_LAYERS, {},
+     "float32", "own", TRAIN_ARCH, {"seq_shard_attn": True}, "q_seq"),
+    ("gloo", 4, (1, 1, 1, 4), 1, "adamw", 1.0, 1, Q_SEQ_LAYERS, {},
+     "float32", 4, TRAIN_ARCH, {}, "replicated attention"),
+    ("gloo", 4, (1, 1, 1, 4), 1, "adamw", 1.0, 1, Q15_LAYERS, {},
+     "float32", "own", "qwen2-1.5b", {}, "KV heads replicated"),
 )
 # the tensor-parallel ranks against the one-card step at float32 compute
 # (written before its first card run): each kind's largest gap (the
@@ -629,6 +672,23 @@ WINDOW_WIDE = (((4, 4096, 14, 2, 64), True), ((4, 4096, 14, 2, 64), False),
 # the reduced configs' window card vs CPU: below their 64 positions and
 # the encoder's 16 frames
 WINDOW_REDUCED = 12
+# the flash kernels' query offset: a rank's block of rows under
+# sequence-parallel attention ("q_seq"), qwen2-0.5b's train_4k sequence
+# of 4,096 positions over "model" 4: 1,024 rows (14 heads over 2 KV
+# heads, hd 64) against all 4,096 keys, causal.  (q_offset, window): the
+# first and the last rank's rows, and the last's with a window of
+# 1,024; each in both dtypes against the plain version and the same
+# rows of the whole call, and timed
+OFFSET_SHAPE, OFFSET_KEYS = (1, 1024, 14, 2, 64), 4096
+OFFSET_CASES = ((0, None), (3072, None), (3072, 1024))
+# each phase-11 rank's flash call at float32, timed alone (kernel
+# only): (label, (B, L, H, KV, hd), keys, q_offset); under "q_seq" the
+# four ranks' rows, whose causal work grows 1 : 3 : 5 : 7
+RANK_FLASH = tuple(
+    (f"q_seq rank {r}", OFFSET_SHAPE, OFFSET_KEYS, 1024 * r)
+    for r in range(4)) + (
+    ("replicated attention", (1, 4096, 14, 2, 64), 4096, 0),
+    ("qwen2-1.5b KV heads replicated", (1, 4096, 3, 1, 128), 4096, 0))
 # long_500k decode steps a run (the first writes the ring's last slot)
 LONG_STEPS = 4
 # the training steps card vs CPU (reduced qwen2-0.5b, float32 compute,
@@ -787,17 +847,18 @@ def ota_combine_bound_ms(B: int, U: int, K: int, N: int):
 
 def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
                    causal: bool, itemsize: int, rate: float | None = None,
-                   window: int | None = None):
+                   window: int | None = None, q_offset: int = 0):
     """Least time for one flash attention call on this card: the larger
     of its operations at `rate` FLOP/s and its bytes over HBM's rate.
     Operations: 4 * hd per kept (query, key) pair (q.k and p.v, a
     multiply-add counted as 2) for each of B * H query rows of a
-    position; kept pairs: `kept_pairs`, with the sliding `window`.
+    position; kept pairs: `kept_pairs`, with the sliding `window` and
+    the rows' first position `q_offset`.
     `rate` None takes the fastest rate that keeps the inputs' accuracy:
     the dense bf16 tensor-core peak for bf16 (itemsize 2), the 3xTF32
     rate for float32 (TF32 alone breaks the float32 gate).  Bytes: q
     and o (B*L*H*hd each) and k and v (B*S*KV*hd each), once."""
-    pairs = kept_pairs(L, S, causal, window)
+    pairs = kept_pairs(L, S, causal, window, q_offset)
     rate = rate or (BF16_FLOP_PER_S if itemsize == 2
                     else F32_SPLIT_FLOP_PER_S)
     t_ops = 4 * hd * B * H * pairs / rate
@@ -807,12 +868,13 @@ def flash_bound_ms(B: int, L: int, S: int, H: int, KV: int, hd: int,
                                         else "bytes")
 
 
-def kept_pairs(L: int, S: int, causal: bool,
-               window: int | None = None) -> int:
+def kept_pairs(L: int, S: int, causal: bool, window: int | None = None,
+               q_offset: int = 0) -> int:
     """The (query, key) pairs one head of a flash call keeps: at position
-    l the keys j < S with j <= l when causal and |l - j| < window with a
-    sliding window (causal at S = L: W (W + 1) / 2 + (L - W) W)."""
-    pos = np.arange(L, dtype=np.int64)
+    l (q_offset .. q_offset + L - 1) the keys j < S with j <= l when
+    causal and |l - j| < window with a sliding window (causal at S = L:
+    W (W + 1) / 2 + (L - W) W)."""
+    pos = q_offset + np.arange(L, dtype=np.int64)
     lo = np.zeros_like(pos) if window is None else np.maximum(
         0, pos - window + 1)
     hi = np.full_like(pos, S - 1)
@@ -824,14 +886,14 @@ def kept_pairs(L: int, S: int, causal: bool,
 
 
 def exp_floor_ms(B: int, L: int, S: int, H: int, causal: bool,
-                 window: int | None = None) -> float:
+                 window: int | None = None, q_offset: int = 0) -> float:
     """The exponentials' floor of one flash call on this card: one exp2
     per kept pair on the MUFU pipe, at its rate per clock per SM in
     `sass.RATES`.  For bf16 at hd 16 and 32 it lies above
     `flash_bound_ms`, which counts only the products and the bytes."""
     from repro_torch.kernels import sass
 
-    return 1e3 * B * H * kept_pairs(L, S, causal, window) / (
+    return 1e3 * B * H * kept_pairs(L, S, causal, window, q_offset) / (
         sass.RATES["xu"] * SMS * CLOCK_HZ)
 
 
@@ -2053,22 +2115,25 @@ def tp_gaps(vs) -> dict:
 
 def ranks_phase(card, expect, gloo_reference=None) -> None:
     """Phase 11: the structural W-HFL step with one process per mobile
-    user (`launch.ranks.launch`, `train_worker`) at qwen2-0.5b's full
-    width, for each of RANKS_CASES: the one-card step (`{"data": C x
-    M}`) first, its final state and metrics written to a file
-    (`ranks.save_reference`) and its memory freed; then the ranks (the
-    gloo cases in one launch, each case in turn), each building the mesh
-    on its world, refining it, drawing its shards of the state
-    (`init_fn`), cutting its own rows of the same global batch and
-    running the same keys.  Each rank reports its peak device memory,
-    step seconds, seconds inside collectives, collective groups and
-    flash launches (layers x 2 per step: one user, one micro-forward;
-    under "model" 2 on 7 of 14 heads and 1 of 2 KV heads), and how its
-    shards compare with the same blocks of the one-card run's state and
-    its metrics: bit for bit, or within TP_BOUNDS under tensor
-    parallelism; the phase fails unless every rank's do.
-    `gloo_reference`: phase 9's structural run, written by `train_phase`
-    (the ZeRO-1 case's one-card run, not run again here)."""
+    user (`launch.ranks.launch`, `train_worker`) at qwen2-0.5b's (or
+    qwen2-1.5b's) full width, for each of RANKS_CASES: the one-card step
+    (`{"data": C x M}`) first, its final state and metrics written to a
+    file (`ranks.save_reference`) and its memory freed (a case that
+    shares an earlier case's one-card run reads that one's file); then
+    the ranks (the gloo cases in one launch, each case in turn), each
+    building the mesh on its world, refining it, drawing its shards of
+    the state (`init_fn`), cutting its own rows of the same global batch
+    and running the same keys.  Each rank reports its peak device
+    memory, step seconds, seconds inside collectives, collective groups
+    and flash launches (layers x 2 per step: one user, one
+    micro-forward; under "model" 2 on 7 of 14 heads and 1 of 2 KV heads;
+    under "q_seq" on 1,024 of 4,096 rows, with a query offset past the
+    first rank, counted apart), and how its shards compare with the same
+    blocks of the one-card run's state and its metrics: bit for bit, or
+    within TP_BOUNDS under tensor parallelism; the phase fails unless
+    every rank's do.  `gloo_reference`: phase 9's structural run,
+    written by `train_phase` (the ZeRO-1 case's one-card run, not run
+    again here)."""
     from repro_torch import prng
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.core.dist import OTADistConfig, uniform_geom
@@ -2079,8 +2144,10 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
     cases = []
     try:
         for i, (backend, world, mesh, b_user, outer, eta, steps, layers,
-                place, cdt, source) in enumerate(RANKS_CASES):
-            cfg = get_config(TRAIN_ARCH).with_(compute_dtype=cdt)
+                place, cdt, source, arch, over, route) in enumerate(
+                    RANKS_CASES):
+            cfg = get_config(arch).with_(compute_dtype=cdt, **over)
+            depth = cfg.n_layers
             cfg = cfg if layers is None else cfg.with_(n_layers=layers)
             per_fwd = cfg.n_layers * (2 if cfg.remat else 1)
             flash = ("flash_mha_wgmma" if cdt == "bfloat16"
@@ -2094,15 +2161,17 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
             shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
                                         global_batch=B)
             keys = [100 + i for i in range(steps)]
-            label = (f"{TRAIN_ARCH} ranks {backend} world {world} "
+            label = (f"{arch} ranks {backend} world {world} "
                      f"{'/'.join(map(str, mesh))}"
                      + "".join(f" {k}" for k in place)
-                     + ("" if cdt == "bfloat16" else f" {cdt}"))
+                     + ("" if cdt == "bfloat16" else f" {cdt}")
+                     + ("" if route in (None, "heads split")
+                        else f" {route}"))
             cut = (f"train_4k: global batch 256 -> {B} (C {C} x M {M} x "
                    f"{b_user} rows)" + ("" if outer == "adamw" else
                                         "; outer add (no moments)")
                    + ("" if layers is None else
-                      f"; depth 24 -> {layers} layers"))
+                      f"; depth {depth} -> {layers} layers"))
 
             def one_card():
                 step, init_fn = train.build_train_step(
@@ -2124,6 +2193,11 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
                 ref = gloo_reference
                 log({"phase": "ranks", "run": f"{label} one-card reference",
                      "from": "phase 9's structural run", "cut": cut})
+            elif isinstance(source, int):
+                ref = os.path.join(tmp, f"reference{source}.pt")
+                log({"phase": "ranks", "run": f"{label} one-card reference",
+                     "from": f"case {source}'s one-card run (the same "
+                     "function on one card)", "cut": cut})
             else:
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2152,7 +2226,7 @@ def ranks_phase(card, expect, gloo_reference=None) -> None:
                 torch.cuda.empty_cache()
             cases.append(dict(
                 label=label, cut=cut, mesh=mesh, place=place, flash=flash,
-                launches=steps * per_fwd, split=mesh[3] > 1,
+                launches=steps * per_fwd, split=mesh[3] > 1, route=route,
                 spec=dict(cfg=cfg, shape=shape, tcfg=tcfg, mesh=mesh,
                           batches=[{k: v.cpu() for k, v in batch.items()}],
                           keys=keys, reference=ref)))
@@ -2190,6 +2264,11 @@ def ranks_launch(card, expect, backend, world, cases) -> None:
                 same = all(gaps[k] <= b for k, b in TP_BOUNDS.items())
             else:
                 gaps, same = None, not vs["unequal"]
+            # under "q_seq" every launch past the first rank's rows has a
+            # query offset
+            offsets = (c["launches"] * bool(r["coordinate"].get("model"))
+                       if c["route"] == "q_seq" else 0)
+            same = same and r["offset_launches"] == offsets
             ok = ok and same and finite
             log({"phase": "ranks", "run": f"{c['label']} rank {r['rank']}",
                  "backend": r["backend"], "coordinate": r["coordinate"],
@@ -2199,6 +2278,8 @@ def ranks_launch(card, expect, backend, world, cases) -> None:
                  "collectives": r["collectives"],
                  "peak_allocated_bytes": r["peak_allocated_bytes"],
                  "flash_launches": r["launches"][c["flash"]],
+                 "flash_offset_launches": r["offset_launches"],
+                 "route": c["route"],
                  **({"within_tp_bounds": same, "tp_gaps": gaps,
                      "tp_bounds": TP_BOUNDS,
                      "unequal_leaves": len(vs["unequal"])} if c["split"]
@@ -2217,9 +2298,9 @@ def ranks_launch(card, expect, backend, world, cases) -> None:
     log({"phase": "ranks", "run": f"launch of {world} {backend} ranks",
          "cases": [c["label"] for c in cases], "launch_seconds": wall,
          "card": card})
-    for c in cases:
-        if isinstance(c["spec"]["reference"], str):
-            os.remove(c["spec"]["reference"])
+    for path in {c["spec"]["reference"] for c in cases
+                 if isinstance(c["spec"]["reference"], str)}:
+        os.remove(path)
     if bad:
         raise SystemExit(f"{', '.join(bad)}: a rank differs from the "
                          "one-card step or is not finite")
@@ -2457,11 +2538,14 @@ def flash_times(label, shape, dtype, reps, dev, card, in_turns, time_ms,
                       dtype=str(dtype).split(".")[-1], shape=list(shape))
 
 
-def window_sdpa(q, k, v, causal: bool, window: int):
-    """The library's yardstick for a windowed flash call: `sdpa()`,
-    `scaled_dot_product_attention` with an explicit boolean window mask
-    [L, S] on the [B, H, L, hd] layout, k and v expanded to H heads (no
-    GQA mode with a mask), and the backend it chose for these inputs."""
+def window_sdpa(q, k, v, causal: bool, window: int | None,
+                q_offset: int = 0):
+    """The library's yardstick for a windowed flash call, or one on a
+    block of rows at positions q_offset + l: `sdpa()`,
+    `scaled_dot_product_attention` with an explicit boolean mask [L, S]
+    (the window's and the causal one at those positions) on the [B, H,
+    L, hd] layout, k and v expanded to H heads (no GQA mode with a
+    mask), and the backend it chose for these inputs."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
@@ -2470,9 +2554,10 @@ def window_sdpa(q, k, v, causal: bool, window: int):
     qs = q.transpose(1, 2).contiguous()
     kt, vt = (x.transpose(1, 2).repeat_interleave(H // KV, dim=1)
               .contiguous() for x in (k, v))
-    d = (torch.arange(L, device=q.device)[:, None]
+    d = (q_offset + torch.arange(L, device=q.device)[:, None]
          - torch.arange(S, device=q.device)[None, :])
-    keep = d.abs() < window
+    keep = (d.abs() < window) if window is not None else torch.ones_like(
+        d, dtype=torch.bool)
     if causal:
         keep &= d >= 0
     backend = SDPBackend(torch._fused_sdp_choice(qs, kt, vt, keep, 0.0,
@@ -2567,23 +2652,30 @@ def window_kernels(dev, card, record_err, timings) -> None:
             del q, k, v, o1
 
 
-def window_times(name, label, q, k, v, causal, window, want, card) -> dict:
-    """One windowed flash case timed: the kernel (CUDA events, 2 x 10
-    calls) and its plain version (2 x 2) in turns, the library's masked
-    SDPA (`window_sdpa`, held to the kernel's output within 1e-2 of max
-    |o|: it rounds p to the inputs' dtype), `flash_bound_ms` and
-    `exp_floor_ms` with the window."""
+def window_times(name, label, q, k, v, causal, window, want, card,
+                 q_offset: int = 0) -> dict:
+    """One windowed flash case (or one on a block of rows from position
+    `q_offset`) timed: the kernel (CUDA events, 2 x 10 calls, back to
+    back and, with an offset, queued behind a spin) and its plain
+    version (2 x 2) in turns, the library's masked SDPA (`window_sdpa`,
+    held to the kernel's output within 1e-2 of max |o|: it rounds p to
+    the inputs' dtype), `flash_bound_ms` and `exp_floor_ms` with the
+    window and the offset."""
     from torch.nn.attention import sdpa_kernel
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
 
     B, L, H, hd = q.shape
-    KV = k.shape[2]
-    ks, ps = in_turns(
-        lambda: flash_attention(q, k, v, causal=causal, window=window),
-        lambda: flash_attention_plain(q, k, v, causal=causal,
-                                      window=window), 10, 2)
-    sdpa, backend = window_sdpa(q, k, v, causal, window)
+    S, KV = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ks, ps = in_turns(lambda: flash_attention(q, k, v, **kw),
+                      lambda: flash_attention_plain(q, k, v, **kw), 10, 2)
+    # a block of a "q_seq" rank's rows: a call short enough that the
+    # wrapper's host time may bound back-to-back launches
+    queued = ({"kernel_queued_ms": [
+        queued_ms(lambda: flash_attention(q, k, v, **kw), 10)
+        for _ in range(2)]} if S != L else {})
+    sdpa, backend = window_sdpa(q, k, v, causal, window, q_offset)
     with sdpa_kernel(backend):
         lib = [time_ms(sdpa, 10), time_ms(sdpa, 10)]
         o_lib = sdpa().transpose(1, 2).reshape(want.shape)
@@ -2592,28 +2684,34 @@ def window_times(name, label, q, k, v, causal, window, want, card) -> dict:
     if not lib_gap <= 1e-2:
         raise SystemExit(f"the masked SDPA yardstick is {lib_gap} from the "
                          f"plain version at {label}")
-    bound, bound_by = flash_bound_ms(B, L, L, H, KV, hd, causal,
-                                     q.element_size(), window=window)
-    pairs = kept_pairs(L, L, causal, window)
+    bound, bound_by = flash_bound_ms(B, L, S, H, KV, hd, causal,
+                                     q.element_size(), window=window,
+                                     q_offset=q_offset)
+    pairs = kept_pairs(L, S, causal, window, q_offset)
     ms = sum(ks) / 2
     dtype = str(q.dtype).split(".")[-1]
-    log({"phase": "window_times", "kernel": name, "shape": label,
-         "shape_BLHKVhd": [B, L, H, KV, hd], "window": window,
-         "causal": causal, "dtype": dtype, "kernel_ms": ks, "plain_ms": ps,
+    log({"phase": "window_times" if not q_offset and S == L
+         else "offset_times", "kernel": name, "shape": label,
+         "shape_BLHKVhd": [B, L, H, KV, hd], "keys": S, "window": window,
+         "q_offset": q_offset, "causal": causal, "dtype": dtype,
+         "kernel_ms": ks, **queued, "plain_ms": ps,
          "library_ms": lib, "library_call": "scaled_dot_product_attention("
-         "attn_mask=the boolean window mask) on [B, H, L, hd], k and v "
-         "expanded to H heads", "library_backend": backend.name,
+         "attn_mask=the boolean mask of the window and the rows' "
+         "positions) on [B, H, L, hd], k and v expanded to H heads",
+         "library_backend": backend.name,
          "library_vs_plain_rel_gap": lib_gap,
          "kept_pairs_per_head": pairs,
          "kernel_tflops": 4 * hd * B * H * pairs / ms / 1e9,
          "bound_ms": bound, "bound_by": bound_by,
-         "unwindowed_bound_ms": flash_bound_ms(B, L, L, H, KV, hd, causal,
-                                               q.element_size())[0],
-         "exp_floor_ms": exp_floor_ms(B, L, L, H, causal, window),
+         "unwindowed_bound_ms": flash_bound_ms(
+             B, L, S, H, KV, hd, causal, q.element_size(),
+             q_offset=q_offset)[0],
+         "exp_floor_ms": exp_floor_ms(B, L, S, H, causal, window, q_offset),
          "card": card})
     return dict(ms=ms, plain_ms=sum(ps) / len(ps), bound_ms=bound,
-                bound_by=bound_by, library_ms=sum(lib) / 2, dtype=dtype,
-                shape=[B, L, H, KV, hd], window=window, causal=causal)
+                bound_by=bound_by, library_ms=sum(lib) / 2, **queued,
+                dtype=dtype, shape=[B, L, H, KV, hd], keys=S, window=window,
+                q_offset=q_offset, causal=causal)
 
 
 def window_prefill(dev, card, counted, expect) -> None:
@@ -2856,6 +2954,97 @@ def window_phase(dev, card, counted, expect, record_err, timings) -> None:
     window_prefill(dev, card, counted, expect)
     long_decode(dev, card, counted, expect)
     window_vs_cpu(dev, card)
+
+
+def offset_kernels(dev, card, record_err, timings) -> None:
+    """Each flash kernel with a query offset (``q_offset``, a rank's
+    rows under "q_seq") at OFFSET_CASES, in both dtypes: two launches
+    give the same bits, counted on the kernel `flash_route` names, on
+    `flash_mha.offset_launches` (past offset 0) and on
+    `window_launches`; against the plain version with the offset
+    (float32 within FLASH_F32_RTOL of max |o|, bf16 within that plus one
+    bf16 ULP); against the same rows of the whole call (its largest gap
+    and whether it is bit for bit, logged; held to the same gate); each
+    case timed (`window_times`: the kernel and its plain version in
+    turns, the library's SDPA with the equivalent boolean mask, the
+    kept pairs' bound with the offset).  Then RANK_FLASH's shapes timed,
+    kernel alone.  `record_err(name, err, rel)` takes each check's gap;
+    `timings[name, label]` each timed case."""
+    from repro_torch.kernels import (LAUNCH_COUNTERS, flash_attention,
+                                     flash_attention_plain, flash_mha,
+                                     flash_route)
+
+    def counts():
+        return ({name: getattr(fn, attr) for name, (fn, attr)
+                 in LAUNCH_COUNTERS.items() if name in FLASH_RECORDS.values()},
+                flash_mha.offset_launches, flash_mha.window_launches)
+
+    B, Lq, H, KV, hd = OFFSET_SHAPE
+    for i, (q0, window) in enumerate(OFFSET_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q_all, k, v = flash_inputs(B, OFFSET_KEYS, H, KV, hd, dtype,
+                                       160 + i, dev)
+            q = q_all[:, q0:q0 + Lq].contiguous()
+            name = FLASH_RECORDS[flash_route(q)]
+            kw = dict(causal=True, window=window, q_offset=q0)
+            before = counts()
+            o1 = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            o2 = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            after = counts()
+            want = ({**before[0], name: before[0][name] + 2},
+                    before[1] + (2 if q0 else 0),
+                    before[2] + (2 if window else 0))
+            if after != want:
+                raise SystemExit(f"flash_attention(q_offset={q0}, window="
+                                 f"{window}) launched {after} from {before}")
+            plain = flash_attention_plain(q, k, v, **kw)
+            whole = flash_attention(q_all, k, v, causal=True, window=window)[
+                :, q0:q0 + Lq]
+            torch.cuda.synchronize()
+            gaps = {}
+            for ref, w in (("plain", plain), ("whole call's rows", whole)):
+                err = float((o1.float() - w.float()).abs().max())
+                rel = err / float(w.float().abs().max())
+                bf16 = dtype == torch.bfloat16
+                gaps[ref] = dict(
+                    max_abs_err=err, max_rel_err=rel,
+                    max_bf16_ulps=bf16_ulps(o1, w) if bf16 else None,
+                    bitwise=torch.equal(o1, w),
+                    ok=(bf16_close(o1, w, FLASH_F32_RTOL) if bf16
+                        else rel <= FLASH_F32_RTOL) and math.isfinite(rel))
+            record_err(name, gaps["plain"]["max_abs_err"],
+                       gaps["plain"]["max_rel_err"])
+            label = (f"{LM_ARCH} q_seq rank rows B{B} L{Lq} of {OFFSET_KEYS} "
+                     f"offset {q0}" + (f" W{window}" if window else ""))
+            same = torch.equal(o1, o2)
+            log({"phase": "offset", "kernel": name, "case": label,
+                 "shape_BLHKVhd": list(OFFSET_SHAPE), "keys": OFFSET_KEYS,
+                 "q_offset": q0, "window": window, "causal": True,
+                 "dtype": str(dtype).split(".")[-1], "bitwise_repeat": same,
+                 "vs": gaps, "card": card})
+            if not (same and all(g["ok"] for g in gaps.values())):
+                raise SystemExit(f"{name} with q_offset {q0} disagrees at "
+                                 f"{label}: {gaps}, repeat {same}")
+            timings[name, label] = window_times(
+                name, label, q, k, v, True, window, plain, card,
+                q_offset=q0)
+            del q_all, q, k, v, o1, o2, plain, whole
+    per_rank, queued = {}, {}
+    for label, (B, L, H, KV, hd), S, q0 in RANK_FLASH:
+        q, _, _ = flash_inputs(B, L, H, KV, hd, torch.float32, 170, dev)
+        _, k, v = flash_inputs(B, S, H, KV, hd, torch.float32, 171, dev)
+        call = lambda: flash_attention(q, k, v, q_offset=q0)
+        per_rank[label] = [time_ms(call, 10) for _ in range(2)]
+        queued[label] = [queued_ms(call, 10) for _ in range(2)]
+        del q, k, v
+    log({"phase": "offset_times", "what": "each phase-11 rank's flash call "
+         "at float32, alone", "kernel_ms": per_rank,
+         "kernel_queued_ms": queued,
+         "shapes": {label: dict(shape_BLHKVhd=list(shape), keys=S,
+                                q_offset=q0)
+                    for label, shape, S, q0 in RANK_FLASH}, "card": card})
 
 
 def kernel_inputs(B, U, K, N, seed, dev):
@@ -4962,6 +5151,13 @@ def main() -> int:
                                   queued=shape[-1] <= 32)
         timings[name, label] = times
 
+    def record_err(name, err, rel):
+        errors[name] = max(errors[name], err)
+        rel_errors[name] = max(rel_errors[name], rel)
+
+    # the query offset: a rank's rows under "q_seq" (phase 11)
+    offset_kernels(dev, card, record_err, timings)
+
     # -- phase 8: the LM families ------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4983,10 +5179,6 @@ def main() -> int:
     train_phase(dev, card, expect, reference=gloo_reference)
 
     # -- phase 10: sliding-window attention ---------------------------------
-    def record_err(name, err, rel):
-        errors[name] = max(errors[name], err)
-        rel_errors[name] = max(rel_errors[name], rel)
-
     window_phase(dev, card, counted, expect, record_err, timings)
 
     # -- phase 11: W-HFL training with one process per mobile user --------
@@ -5101,8 +5293,10 @@ def window_only() -> int:
 
 def ranks_only() -> int:
     """``python3 chip_smoke.py --ranks``: phases 1 and 2 for the flash
-    kernels alone, then phase 11 (training on ranks), with launch counts
-    as `main` keeps them; no kernel records."""
+    kernels alone, phase 7's query-offset checks (`offset_kernels`, the
+    flash calls of phase 11's "q_seq" ranks), then phase 11 (training on
+    ranks), with launch counts as `main` keeps them; no kernel
+    records."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a CUDA "
               "card", file=sys.stderr)
@@ -5117,6 +5311,10 @@ def ranks_only() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.load_all([src for src in SOURCES if src.startswith("flash")])
+    offset_kernels(torch.device("cuda"), card.splitlines()[0],
+                   lambda *_: None, {})
+    gc.collect()
+    torch.cuda.empty_cache()
     ranks_phase(card.splitlines()[0], check_launches)
     log({"phase": "done", "seconds": time.perf_counter() - T_START})
     return 0

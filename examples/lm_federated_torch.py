@@ -12,7 +12,10 @@ the hops as collectives over each rank's user and cluster groups,
 through NCCL (one rank a card) or gloo (ranks on the CPU, or sharing one
 card).  On ranks, ``--model 2`` splits each user's model over 2 of them
 (tensor parallelism), ``--fsdp`` the parameters over the users' ranks
-and ``--zero1`` AdamW's moments over them.
+and ``--zero1`` AdamW's moments over them.  At ``--model 4`` the
+model's 4 heads split beside its 2 KV heads replicated; ``--heads 6``
+(which do not divide) replicates the attention, and ``--seq-shard``
+splits its query rows over the model's ranks instead ("q_seq").
 
     PYTHONPATH=src python examples/lm_federated_torch.py --steps 50
     PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \\
@@ -22,6 +25,9 @@ and ``--zero1`` AdamW's moments over them.
     PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \
         --steps 3 --seq 64 --layers 2 --d-model 64 --ranks 8 --backend gloo \
         --model 2 --fsdp --zero1
+    PYTHONPATH=src python examples/lm_federated_torch.py --device cpu \
+        --steps 3 --seq 64 --layers 2 --d-model 64 --clusters 1 --users 2 \
+        --ranks 8 --backend gloo --model 4 --heads 6 --seq-shard
 """
 import argparse
 import os
@@ -81,6 +87,13 @@ def main(argv=None):
     ap.add_argument("--model", type=int, default=1,
                     help="ranks a user's model is split over (tensor "
                     "parallelism; with --ranks)")
+    ap.add_argument("--heads", type=int, default=4,
+                    help="query heads (over 2 KV heads, of d_model / 4 "
+                    "each)")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="where the heads do not divide over --model, "
+                    "split the attention's query rows over its ranks "
+                    "(seq_shard_attn)")
     ap.add_argument("--fsdp", action="store_true",
                     help="the parameters split over the users' ranks")
     ap.add_argument("--zero1", action="store_true",
@@ -98,9 +111,10 @@ def main(argv=None):
 
     cfg = ArchConfig(
         name="lm-small", family="dense", source="example",
-        n_layers=args.layers, d_model=args.d_model, n_heads=4, n_kv_heads=2,
-        head_dim=args.d_model // 4, d_ff=4 * args.d_model,
-        vocab=args.vocab, q_block=128, remat=False)
+        n_layers=args.layers, d_model=args.d_model, n_heads=args.heads,
+        n_kv_heads=2, head_dim=args.d_model // 4, d_ff=4 * args.d_model,
+        vocab=args.vocab, q_block=128, remat=False,
+        seq_shard_attn=args.seq_shard)
     shape = InputShape("example", args.seq, args.batch, "train")
     # quiet radio for the demo: 1024 rx antennas, low noise floor (the
     # channel-noise/gradient SNR trade is explored in tests/benchmarks)

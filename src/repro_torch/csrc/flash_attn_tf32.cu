@@ -9,11 +9,13 @@
 // JAX package's test shapes); csrc/flash_attn_wgmma.cu takes bfloat16.
 // For every (batch b, KV head kv) pair n and every query row r of the
 // folded row axis (r = g * L + l: the G = H / KV query heads of kv folded
-// over the L positions), with position l = r mod L:
+// over the L positions), at position p = q_offset + r mod L (q_offset 0
+// but for a rank's rows of a longer sequence under sequence-parallel
+// attention):
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
-//   s[j]  = NEG_INF (-1e30) where causal and j > l, or where a sliding
-//           window of W > 0 keys is set and |l - j| >= W
+//   s[j]  = NEG_INF (-1e30) where causal and j > p, or where a sliding
+//           window of W > 0 keys is set and |p - j| >= W
 //   o[r]  = sum_j softmax(s)[j] v[j]
 //
 // through the online-softmax recurrence over key tiles in ascending
@@ -308,7 +310,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
                   const __grid_constant__ CUtensorMap tmap_v,
                   const float* __restrict__ q, float* __restrict__ o,
                   int NB, int KV, int G, int L, int S, Layout lq, Layout lout,
-                  float scale, int causal, int window) {
+                  float scale, int causal, int window,
+                  int q_offset) {
   static_assert(COLS == HD || (HD == kMinHD && COLS == 16) ||
                     (HD == 128 && COLS == 112),
                 "columns");
@@ -357,7 +360,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
       const TileRange tr = key_tiles<kQB, KB>(r0, rows, L, S, causal,
-                                              window);
+                                              window, q_offset);
       const int n = blockIdx.y;
       // K tile t, then V^T tile t, each once its stage has been freed;
       // visit i (tile first + i) uses stages i % KS and i % VS
@@ -389,7 +392,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_r0 = r0 + w * kWgRows;
     if (wg_r0 >= rows) return;           // the block's last rows are fewer
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const TileRange tr = key_tiles<kQB, KB>(r0, rows, L, S, causal, window);
+    const TileRange tr = key_tiles<kQB, KB>(r0, rows, L, S, causal, window,
+                                            q_offset);
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
     const uint32_t q_hi = base + w * C::WG_Q_BYTES;
@@ -402,9 +406,9 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (r < rows && (COLS == HD || ch < OUT_CPR)) {
-        const int pos = r % L, h = kv * G + r / L;
+        const int l_r = r % L, h = kv * G + r / L;
         x = *reinterpret_cast<const float4*>(
-            q + b * lq.b + pos * lq.row + h * lq.head + ch * 4);
+            q + b * lq.b + l_r * lq.row + h * lq.head + ch * 4);
       }
       float4 hi, lo;
       split(x.x, hi.x, lo.x);
@@ -428,9 +432,10 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = min(wg_r0 + warp * 16 + lane / 4 + 8 * h, rows - 1);
-      pos[h] = r % L;
+      pos[h] = q_offset + r % L;
     }
-    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L);
+    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L,
+                                                       q_offset);
 
     float acc[HD / 2];
 #pragma unroll
@@ -569,8 +574,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tmap_k,
     for (int i = tid; i < kWgRows * OUT_CPR; i += 128) {
       const int row = i / OUT_CPR, ch = i % OUT_CPR, r = wg_r0 + row;
       if (r >= rows) break;
-      const int pos_r = r % L, h = kv * G + r / L;
-      *reinterpret_cast<float4*>(o + b * lout.b + pos_r * lout.row +
+      const int l_r = r % L, h = kv * G + r / L;
+      *reinterpret_cast<float4*>(o + b * lout.b + l_r * lout.row +
                                  h * lout.head + ch * 4) =
           *reinterpret_cast<const float4*>(
               q_smem + (ch / 8) * kQBlockBytes + swizzled<kSW>(row, ch % 8));
@@ -605,8 +610,8 @@ int make_map(CUtensorMap* map, const float* base, long long d0, long long d1,
 // split at vts, both HD wide).
 template <int HD, int COLS>
 int launch(const float* ks, const float* vts, const void* q, void* o,
-           int causal, int window, int NB, int KV, int G, int L, int S,
-           long long S_pad,
+           int causal, int window, int q_offset, int NB, int KV, int G,
+           int L, int S, long long S_pad,
            long long tiles, const Layout& lq, const Layout& lout,
            float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
@@ -621,7 +626,7 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
   flash_tf32_kernel<HD, COLS><<<dim3(static_cast<unsigned>(tiles), NB),
                                 kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const float*>(q), static_cast<float*>(o),
-      NB, KV, G, L, S, lq, lout, scale, causal, window);
+      NB, KV, G, L, S, lq, lout, scale, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -630,8 +635,10 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 // q, o: NB * G * L query rows; k, v: NB * S keys; float32 (dtype 0, the
 // wrapper's code; any other dtype is refused), head_dim `hd` 16, 32, 64,
 // 112 or 128 (any other is refused); `window` > 0 a sliding window of
-// that many keys (key j kept for position l when |l - j| < window), 0
-// none; a window needs L < S + window, so that every row keeps a key.
+// that many keys (key j kept for position p when |p - j| < window), 0
+// none.  Query row l of the L sits at position p = q_offset + l
+// (q_offset >= 0; 0 when the rows are the whole sequence); a window
+// needs q_offset + L < S + window, so that every row keeps a key.
 // Pair n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
@@ -647,15 +654,17 @@ int launch(const float* ks, const float* vts, const void* q, void* o,
 extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int hd, int causal, int window,
-                                      int NB, int KV, int G, int L, int S,
-                                      const long long* strides, float scale,
-                                      void* scratch, void* stream) {
+                                      int q_offset, int NB, int KV, int G,
+                                      int L, int S, const long long* strides,
+                                      float scale, void* scratch,
+                                      void* stream) {
   if (dtype != 0 ||
       (hd != 16 && hd != 32 && hd != 64 && hd != 112 && hd != 128))
     return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
   if (S <= 0 || KV <= 0 || NB % KV || NB > 65535 || window < 0 ||
-      (window > 0 && static_cast<long long>(L) >=
+      q_offset < 0 || static_cast<long long>(q_offset) + L > 0x7FFFFFFFLL ||
+      (window > 0 && static_cast<long long>(q_offset) + L >=
                          static_cast<long long>(S) + window))
     return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(G) * L;
@@ -691,20 +700,25 @@ extern "C" int flash_attn_tf32_launch(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (hd) {
     case 16:
-      return launch<32, 16>(ks, vts, q, o, causal, window, NB, KV, G, L,
-                            S, S_pad, tiles, lq, lout, scale, st);
+      return launch<32, 16>(ks, vts, q, o, causal, window, q_offset, NB,
+                            KV, G, L, S, S_pad, tiles, lq, lout, scale,
+                            st);
     case 32:
-      return launch<32, 32>(ks, vts, q, o, causal, window, NB, KV, G, L,
-                            S, S_pad, tiles, lq, lout, scale, st);
+      return launch<32, 32>(ks, vts, q, o, causal, window, q_offset, NB,
+                            KV, G, L, S, S_pad, tiles, lq, lout, scale,
+                            st);
     case 64:
-      return launch<64, 64>(ks, vts, q, o, causal, window, NB, KV, G, L,
-                            S, S_pad, tiles, lq, lout, scale, st);
+      return launch<64, 64>(ks, vts, q, o, causal, window, q_offset, NB,
+                            KV, G, L, S, S_pad, tiles, lq, lout, scale,
+                            st);
     case 112:
-      return launch<128, 112>(ks, vts, q, o, causal, window, NB, KV, G, L,
-                              S, S_pad, tiles, lq, lout, scale, st);
+      return launch<128, 112>(ks, vts, q, o, causal, window, q_offset, NB,
+                              KV, G, L, S, S_pad, tiles, lq, lout, scale,
+                              st);
     case 128:
-      return launch<128, 128>(ks, vts, q, o, causal, window, NB, KV, G, L,
-                              S, S_pad, tiles, lq, lout, scale, st);
+      return launch<128, 128>(ks, vts, q, o, causal, window, q_offset, NB,
+                              KV, G, L, S, S_pad, tiles, lq, lout, scale,
+                              st);
   }
   return cudaErrorInvalidValue;
 }

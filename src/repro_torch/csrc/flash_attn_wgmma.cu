@@ -7,11 +7,12 @@
 // for bfloat16 inputs; csrc/flash_attn_tf32.cu takes float32.  For every
 // (batch b, KV head kv) pair n and every query row r of the folded row
 // axis (r = g * L + l: the G = H / KV query heads of kv folded over the
-// L positions), with position l = r mod L:
+// L positions), at position p = q_offset + r mod L (q_offset 0 but for
+// a rank's rows of a longer sequence under sequence-parallel attention):
 //
 //   s[j]  = (q[r] . k[j]) * scale,        scale = 1 / sqrt(head_dim)
-//   s[j]  = NEG_INF (-1e30) where causal and j > l, or where a sliding
-//           window of W > 0 keys is set and |l - j| >= W
+//   s[j]  = NEG_INF (-1e30) where causal and j > p, or where a sliding
+//           window of W > 0 keys is set and |p - j| >= W
 //   o[r]  = sum_j softmax(s)[j] v[j]
 //
 // through the online-softmax recurrence over key tiles in ascending
@@ -65,7 +66,7 @@
 //   arrive as zeros and are masked to NEG_INF;
 // - Q is loaded once by the consumers, 16 bytes a thread, into the
 //   swizzled layout wgmma reads: not by TMA, since a 128-row tile can
-//   straddle two fold groups (two heads, at positions that wrap to 0)
+//   straddle two fold groups (two heads, at positions that wrap back)
 //   when L is not a multiple of 128;
 // - S = Q K^T is hd / 16 wgmma m64n128k16 with both operands in shared
 //   memory (K-major; a k16 step is 32 bytes of a swizzled row).  bf16
@@ -222,7 +223,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
                    const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ o, int KV, int G, int L,
                    int S, Layout lq, Layout lo, float scale, int causal,
-                   int window) {
+                   int window, int q_offset) {
   static_assert(COLS == HD || (HD == 128 && COLS == 112), "columns");
   using C = Cfg<HD>;
   constexpr int STAGES = C::STAGES;
@@ -264,7 +265,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
       const TileRange tr = key_tiles<kQB, kKB>(r0, rows, L, S, causal,
-                                               window);
+                                               window, q_offset);
       const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
       // visit i (tile first + i) uses stage i % STAGES
       for (int t = tr.first, i = 0; t < tr.end; ++t, ++i) {
@@ -288,7 +289,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const int wg_r0 = r0 + w * kWgRows;
     if (wg_r0 >= rows) return;           // the block's last rows are fewer
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const TileRange tr = key_tiles<kQB, kKB>(r0, rows, L, S, causal, window);
+    const TileRange tr = key_tiles<kQB, kKB>(r0, rows, L, S, causal, window,
+                                             q_offset);
     const int b = blockIdx.y / KV, kv = blockIdx.y % KV;
     const int tid = threadIdx.x % 128;
     const uint32_t q_slot = base + w * C::WG_Q_BYTES;
@@ -300,9 +302,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int row = i / CPR, ch = i % CPR, r = wg_r0 + row;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (r < rows && (COLS == HD || ch < OUT_CPR)) {
-        const int pos = r % L, h = kv * G + r / L;
+        const int l_r = r % L, h = kv * G + r / L;
         val = *reinterpret_cast<const uint4*>(
-            q + b * lq.b + pos * lq.row + h * lq.head + ch * 8);
+            q + b * lq.b + l_r * lq.row + h * lq.head + ch * 8);
       }
       *reinterpret_cast<uint4*>(q_smem + (ch / CPB) * kWgRows * SW +
                                 swizzled<SW>(row, ch % CPB)) = val;
@@ -318,9 +320,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = min(wg_r0 + warp * 16 + lane / 4 + 8 * h, rows - 1);
-      pos[h] = r % L;
+      pos[h] = q_offset + r % L;
     }
-    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L);
+    const PosRange wp = block_positions<kWgRows>(wg_r0, rows, L,
+                                                       q_offset);
 
     float acc[HD / 2];
 #pragma unroll
@@ -445,8 +448,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_k,
     for (int i = tid; i < kWgRows * OUT_CPR; i += 128) {
       const int row = i / OUT_CPR, ch = i % OUT_CPR, r = wg_r0 + row;
       if (r >= rows) break;
-      const int pos_r = r % L, h = kv * G + r / L;
-      *reinterpret_cast<uint4*>(o + b * lo.b + pos_r * lo.row + h * lo.head +
+      const int l_r = r % L, h = kv * G + r / L;
+      *reinterpret_cast<uint4*>(o + b * lo.b + l_r * lo.row + h * lo.head +
                                 ch * 8) =
           *reinterpret_cast<const uint4*>(
               q_smem + (ch / CPB) * kWgRows * SW +
@@ -489,7 +492,7 @@ int make_map(CUtensorMap* map, const void* base, int hd, int KV, int S,
 
 template <int HD, int COLS = HD>
 int launch(const void* q, const void* k, const void* v, void* o, int causal,
-           int window, int NB, int KV, int G, int L, int S,
+           int window, int q_offset, int NB, int KV, int G, int L, int S,
            const long long* st, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   const long long rows = static_cast<long long>(G) * L;
@@ -512,7 +515,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
                                  kThreads, C::SMEM, stream>>>(
       tmap_k, tmap_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), KV, G, L, S, lq, lo, scale, causal,
-      window);
+      window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -522,8 +525,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 // wrapper's code; csrc/flash_attn_tf32.cu's entry point, which shares
 // this signature but for its scratch, takes float32, 0), head_dim `hd`
 // of 16, 32, 64, 112 or 128; `window` > 0 a sliding window of that many
-// keys (key j kept for position l when |l - j| < window), 0 none; a
-// window needs L < S + window, so that every row keeps a key.  Pair
+// keys (key j kept for position p when |p - j| < window), 0 none.
+// Query row l of the L sits at position p = q_offset + l (q_offset >= 0;
+// 0 when the rows are the whole sequence, the first of the rank's rows
+// under sequence-parallel attention); a window needs q_offset + L < S +
+// window, so that every row keeps a key.  Pair
 // n = b * KV + kv reads query row r = g * L + l at
 //   q + b * st[0] + l * st[1] + (kv * G + g) * st[2]
 // and key j at k + b * st[3] + j * st[4] + kv * st[5] (v: st[6..8]),
@@ -535,30 +541,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int causal,
 extern "C" int flash_attn_wgmma_launch(const void* q, const void* k,
                                        const void* v, void* o, int dtype,
                                        int hd, int causal, int window,
-                                       int NB, int KV, int G, int L, int S,
-                                       const long long* strides, float scale,
-                                       void* stream) {
+                                       int q_offset, int NB, int KV, int G,
+                                       int L, int S, const long long* strides,
+                                       float scale, void* stream) {
   if (dtype != 1) return cudaErrorInvalidValue;
   if (NB <= 0 || G <= 0 || L <= 0) return 0;
-  if (S <= 0 || KV <= 0 || window < 0 ||
-      (window > 0 && static_cast<long long>(L) >=
+  if (S <= 0 || KV <= 0 || window < 0 || q_offset < 0 ||
+      static_cast<long long>(q_offset) + L > 0x7FFFFFFFLL ||
+      (window > 0 && static_cast<long long>(q_offset) + L >=
                          static_cast<long long>(S) + window))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 16)
-    return launch<16>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
-                      scale, st);
+    return launch<16>(q, k, v, o, causal, window, q_offset, NB, KV, G, L, S,
+                      strides, scale, st);
   if (hd == 32)
-    return launch<32>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
-                      scale, st);
+    return launch<32>(q, k, v, o, causal, window, q_offset, NB, KV, G, L, S,
+                      strides, scale, st);
   if (hd == 64)
-    return launch<64>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
-                      scale, st);
+    return launch<64>(q, k, v, o, causal, window, q_offset, NB, KV, G, L, S,
+                      strides, scale, st);
   if (hd == 112)
-    return launch<128, 112>(q, k, v, o, causal, window, NB, KV, G, L, S,
-                            strides, scale, st);
+    return launch<128, 112>(q, k, v, o, causal, window, q_offset, NB, KV, G,
+                            L, S, strides, scale, st);
   if (hd == 128)
-    return launch<128>(q, k, v, o, causal, window, NB, KV, G, L, S, strides,
-                       scale, st);
+    return launch<128>(q, k, v, o, causal, window, q_offset, NB, KV, G, L, S,
+                       strides, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -188,26 +188,30 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // -- the exact tile skip -------------------------------------------------
 
 // The positions of the block of folded rows [r0, r0 + QB): the smallest
-// and the largest, or 0 and L - 1 when the block straddles two fold
-// groups (its positions wrap to 0 there).
+// and the largest, or q_offset and q_offset + L - 1 when the block
+// straddles two fold groups (its positions wrap to q_offset there).  Row
+// r sits at position q_offset + r % L: a rank that holds query rows
+// [q_offset, q_offset + L) of a longer sequence (sequence-parallel
+// attention) against all S keys.
 struct PosRange {
   int min_pos, max_pos;
 };
 
 template <int QB>
-__device__ __forceinline__ PosRange block_positions(int r0, int rows,
-                                                    int L) {
+__device__ __forceinline__ PosRange block_positions(int r0, int rows, int L,
+                                                    int q_offset) {
   const int r_last = min(r0 + QB, rows) - 1;
-  if (r0 / L != r_last / L) return {0, L - 1};
-  return {r0 % L, r_last % L};
+  if (r0 / L != r_last / L) return {q_offset, q_offset + L - 1};
+  return {q_offset + r0 % L, q_offset + r_last % L};
 }
 
 // Key tiles [first, end) of KB keys that the block of folded rows
-// [r0, r0 + QB) needs: all of them; when causal none past the block's
-// largest position; with a sliding window of `window` > 0 keys (key j
-// kept for position l when |l - j| < window) none that ends before the
-// smallest position's window starts and, when bidirectional, none that
-// starts after the largest position's window ends.  The exact test on
+// [r0, r0 + QB) (at positions q_offset + r % L) needs: all of them;
+// when causal none past the block's largest position; with a sliding
+// window of `window` > 0 keys (key j kept for position p when |p - j| <
+// window) none that ends before the smallest position's window starts
+// and, when bidirectional, none that starts after the largest
+// position's window ends.  The exact test on
 // the block's own positions (the Pallas kernel's first_q_pos + QB - 1
 // is conservative when a block straddles two fold groups).  The
 // producer and the consumers call it alike, so both walk one range.
@@ -218,9 +222,9 @@ struct TileRange {
 template <int QB, int KB>
 __device__ __forceinline__ TileRange key_tiles(int r0, int rows, int L,
                                                int S, int causal,
-                                               int window) {
+                                               int window, int q_offset) {
   const int all_tiles = (S + KB - 1) / KB;
-  const PosRange p = block_positions<QB>(r0, rows, L);
+  const PosRange p = block_positions<QB>(r0, rows, L, q_offset);
   TileRange t{0, all_tiles};
   if (causal) t.end = min(all_tiles, p.max_pos / KB + 1);
   if (window > 0) {
@@ -235,9 +239,10 @@ __device__ __forceinline__ TileRange key_tiles(int r0, int rows, int L,
 }
 
 // Whether the tile of keys [j0, j0 + KB) needs the per-element mask for
-// a warpgroup whose rows hold positions min_pos .. max_pos (0 and L - 1
-// when they straddle two fold groups): it reaches past S, past the
-// smallest position when causal, or across an edge of some row's window.
+// a warpgroup whose rows hold positions min_pos .. max_pos (q_offset and
+// q_offset + L - 1 when they straddle two fold groups): it reaches past
+// S, past the smallest position when causal, or across an edge of some
+// row's window.
 template <int KB>
 __device__ __forceinline__ bool tile_masked(int j0, int S, int causal,
                                             int window, int min_pos,

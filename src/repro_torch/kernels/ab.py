@@ -18,13 +18,16 @@ length, and zamba2-7b's (hd 112).  A flash source is timed at a dtype
 through the first of FLASH_ENTRIES[dtype] it has: the bf16 tensor-core
 kernel's (`flash_attn.ARGTYPES`), the tf32 kernel's
 (`flash_attn.TF32_ARGTYPES`, with its scratch) or an older source's
-CUDA-core ``flash_attn_launch`` (`flash_attn.ARGTYPES`, dtype code 0 or
-1), so an older ``flash_attn.cu`` can be timed against the tensor-core
-sources; an entry point that takes a sliding window (``int window``)
-runs at window 0, none, and one from before the window through its own
-signature (`flash_attn.NO_WINDOW_ARGTYPES`), so a source's window
-argument is timed against the unwindowed kernel it replaced; a source
-with none of them, or whose entry point refuses a shape, is left out
+CUDA-core ``flash_attn_launch`` (dtype code 0 or 1), so an older
+``flash_attn.cu`` can be timed against the tensor-core sources; each
+entry point through the signature its source's text declares
+(`flash_argtypes`): one that takes a sliding window (``int window``)
+runs at window 0, none, and one that takes a query offset (``int
+q_offset``) at offset 0, while one from before the window
+(`flash_attn.NO_WINDOW_ARGTYPES`) or from before the offset
+(`flash_attn.NO_OFFSET_ARGTYPES`) goes without, so a source's new
+argument is timed against the kernel it replaced; a source with none of
+them, or whose entry point refuses a shape, is left out
 there (and listed as refusing it).  Prints one JSON line per shape
 (times, and whether each version's output equals the first's bit for
 bit, with the largest gap where it does not), one per kernel with its
@@ -95,11 +98,39 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 
 
+def flash_argtypes(entry: str, params: str):
+    """The ctypes prototype of flash entry point `entry` from its C
+    parameter list `params` (the source's text between the parentheses):
+    the tf32 kernel's (with its scratch) or the others', with the window
+    and the query offset where the list declares them.  Returns
+    (argtypes, takes a window, takes q_offset)."""
+    windowed = "int window" in params
+    offset = "int q_offset" in params
+    fa = flash_attn
+    table = ({(True, True): fa.TF32_ARGTYPES,
+              (True, False): fa.NO_OFFSET_TF32_ARGTYPES,
+              (False, False): fa.NO_WINDOW_TF32_ARGTYPES}
+             if entry == "flash_attn_tf32_launch" else
+             {(True, True): fa.ARGTYPES,
+              (True, False): fa.NO_OFFSET_ARGTYPES,
+              (False, False): fa.NO_WINDOW_ARGTYPES})
+    if (windowed, offset) not in table:
+        raise ValueError(f"{entry}: a query offset without a window")
+    return table[windowed, offset], windowed, offset
+
+
+def entry_params(text: str, entry: str) -> str:
+    """The C parameter list of `entry` in source `text` ("" where the
+    source has no such entry point)."""
+    at = text.find(f'"C" int {entry}(')
+    return text[at:text.index(")", at)] if at >= 0 else ""
+
+
 def build_source(src: Path, out_dir: Path):
     """(library, nvcc log, (whether `fused_mac_launch`, where the source
     has it, takes block_u, which launch entry points take a leading seed
-    count S and seed strides, and which flash entry points take a
-    sliding window))."""
+    count S and seed strides, and each flash entry point's
+    `flash_argtypes`))."""
     lib = out_dir / f"lib{src.stem}_{len(list(out_dir.iterdir()))}.so"
     # -I: an older source from elsewhere finds the package's csrc/ headers
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
@@ -108,17 +139,14 @@ def build_source(src: Path, out_dir: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     text = src.read_text()
-
-    def params(entry):
-        at = text.find(f'"C" int {entry}(')
-        return text[at:text.index(")", at)] if at >= 0 else ""
-
+    params = lambda entry: entry_params(text, entry)
     takes_block_u = "block_u" in params("fused_mac_launch")
     seeded = {e for e in ("fused_mac_launch", "ota_combine_launch")
               if "int S," in params(e)}
-    windowed = {e for entries in FLASH_ENTRIES.values() for e in entries
-                if "int window" in params(e)}
-    return lib, proc.stdout + proc.stderr, (takes_block_u, seeded, windowed)
+    flash = {e: flash_argtypes(e, params(e))
+             for entries in FLASH_ENTRIES.values() for e in entries
+             if params(e)}
+    return lib, proc.stdout + proc.stderr, (takes_block_u, seeded, flash)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -299,19 +327,15 @@ def flash_case(built, shape, dtype, causal, compare, dev, reps=0,
 
     def flaunch(name):
         tf32 = entry[name] == "flash_attn_tf32_launch"
-        windowed = entry[name] in built[name][1][2]
-        argtypes = {(True, True): flash_attn.TF32_ARGTYPES,
-                    (True, False): flash_attn.NO_WINDOW_TF32_ARGTYPES,
-                    (False, True): flash_attn.ARGTYPES,
-                    (False, False): flash_attn.NO_WINDOW_ARGTYPES}
+        argtypes, windowed, offset = built[name][1][2][entry[name]]
         o = torch.empty_like(q)
         err = flash_attn.call(
-            flash_attn.typed(getattr(built[name][0], entry[name]),
-                             argtypes[tf32, windowed]),
+            flash_attn.typed(getattr(built[name][0], entry[name]), argtypes),
             q, k, v, o, causal=causal, NB=B * KV, KV=KV, G=H // KV, L=L,
             S=L, strides=flash_attn.model_strides(q, k),
             scratch=flash_attn.tf32_scratch(B * KV, L, hd, dev)
-            if tf32 else None, window=0 if windowed else None)
+            if tf32 else None, window=0 if windowed else None,
+            q_offset=0 if offset else None)
         return err, o
 
     def fcall(name):

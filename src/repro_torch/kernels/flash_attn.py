@@ -4,11 +4,14 @@ with the G = H / KV query heads of each KV head folded into the row axis.
     flash_mha:       q [N, Lq, hd]; k, v [N, S, hd] -> [N, Lq, hd]
     flash_attention: q [B, L, H, hd]; k, v [B, S, KV, hd] -> [B, L, H*hd]
 
-Row r of the folded axis sits at position l = r % seq_len; with
-``causal`` a key j is kept for it when j <= l, and with a sliding
+Row r of the folded axis sits at position l = q_offset + r % seq_len;
+with ``causal`` a key j is kept for it when j <= l, and with a sliding
 ``window`` of W keys when |l - j| < W (the JAX package's `_causal_mask`;
-None is no window).  Every row must keep a key: a window needs
-seq_len < S + W.  Scores are
+None is no window).  ``q_offset`` is 0 unless the rows are a block of a
+longer sequence: a rank's query rows [q_offset, q_offset + seq_len)
+against all S keys under sequence-parallel attention ("q_seq"), the
+same rows of the whole call.  Every row must keep a key: a window needs
+q_offset + seq_len < S + W.  Scores are
 (q . k) * (1 / sqrt(hd)), float32; masked scores are NEG_INF = -1e30
 (not -inf) and the final divide floors the denominator at 1e-30, the
 JAX package's constants.  Inputs are float32 or bfloat16, upcast to
@@ -107,18 +110,23 @@ def _scale(hd: int) -> float:
     return 1.0 / math.sqrt(hd)
 
 
-def _check_window(window, L: int, S: int) -> int:
+def _check_window(window, L: int, S: int, q_offset: int = 0) -> int:
     """The kernels' window code for `window` (None: 0, no window), after
-    checking that it is a positive count and that every one of the L
-    positions keeps a key of the S."""
+    checking that it is a positive count, that `q_offset` is a count,
+    and that every one of the L positions q_offset .. q_offset + L - 1
+    keeps a key of the S."""
+    if (isinstance(q_offset, bool) or not isinstance(q_offset, int)
+            or q_offset < 0):
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
     if window is None:
         return 0
     if isinstance(window, bool) or not isinstance(window, int) or window < 1:
         raise ValueError(f"window must be None or a positive int, got "
                          f"{window!r}")
-    if L >= S + window:
-        raise ValueError(f"window={window}: position {L - 1} keeps none of "
-                         f"the S={S} keys (want L < S + window)")
+    if q_offset + L >= S + window:
+        raise ValueError(f"window={window}: position {q_offset + L - 1} "
+                         f"keeps none of the S={S} keys (want q_offset + L "
+                         f"< S + window)")
     return window
 
 
@@ -172,16 +180,19 @@ def route(q: torch.Tensor) -> str:
 
 
 # the flash kernels' C entry point: q, k, v, o, dtype code, hd, causal,
-# window (0: none), NB, KV, G, L, S, the 12 strides, scale, stream; the
-# tf32 kernel's takes its scratch before the stream
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+# window (0: none), q_offset, NB, KV, G, L, S, the 12 strides, scale,
+# stream; the tf32 kernel's takes its scratch before the stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                ctypes.c_void_p])
 TF32_ARGTYPES = ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
-# an entry point from before the window (an older source `kernels/ab.py`
-# times): the same but for the window argument
-NO_WINDOW_ARGTYPES = ARGTYPES[:7] + ARGTYPES[8:]
-NO_WINDOW_TF32_ARGTYPES = TF32_ARGTYPES[:7] + TF32_ARGTYPES[8:]
+# an entry point from before the query offset (an older source
+# `kernels/ab.py` times): the same but for the q_offset argument
+NO_OFFSET_ARGTYPES = ARGTYPES[:8] + ARGTYPES[9:]
+NO_OFFSET_TF32_ARGTYPES = TF32_ARGTYPES[:8] + TF32_ARGTYPES[9:]
+# one from before the window: neither the window nor q_offset
+NO_WINDOW_ARGTYPES = ARGTYPES[:7] + ARGTYPES[9:]
+NO_WINDOW_TF32_ARGTYPES = TF32_ARGTYPES[:7] + TF32_ARGTYPES[9:]
 
 
 def typed(fn, argtypes=ARGTYPES):
@@ -220,20 +231,20 @@ def model_strides(q: torch.Tensor, k: torch.Tensor) -> tuple:
 
 def call(fn, q, k, v, o, *, causal: bool, NB: int, KV: int, G: int, L: int,
          S: int, strides, scratch: torch.Tensor | None = None,
-         window: int | None = 0) -> int:
+         window: int | None = 0, q_offset: int | None = 0) -> int:
     """`fn` (a `typed` entry point) on q, k, v and o on the current
     stream; `strides` are the element strides (batch, row, head) of q,
     k, v and o; `scratch` (`tf32_scratch`) only for the tf32 kernel;
-    `window` the window code (0: none), or None for an entry point from
-    before the window, which takes no such argument.  Returns the entry
-    point's error code."""
+    `window` the window code (0: none) and `q_offset` the first row's
+    position, each None for an entry point from before it, which takes
+    no such argument.  Returns the entry point's error code."""
     arr = (ctypes.c_longlong * 12)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     extra = () if scratch is None else (scratch.data_ptr(),)
-    win = () if window is None else (window,)
+    opt = tuple(a for a in (window, q_offset) if a is not None)
     with torch.cuda.device(q.device):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _DTYPES[q.dtype], q.shape[-1], int(causal), *win, NB, KV,
+                  _DTYPES[q.dtype], q.shape[-1], int(causal), *opt, NB, KV,
                   G, L, S, arr, _scale(q.shape[-1]), *extra, stream)
 
 
@@ -263,42 +274,48 @@ def _launch(q, k, v, o, **shape) -> None:
     setattr(flash_mha, attr, getattr(flash_mha, attr) + 1)
     if shape["window"]:
         flash_mha.window_launches += 1
+    if shape["q_offset"]:
+        flash_mha.offset_launches += 1
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_block: int = 256, kv_block: int = 256,
-              seq_len: int = 0, window: int | None = None) -> torch.Tensor:
+              seq_len: int = 0, window: int | None = None,
+              q_offset: int = 0) -> torch.Tensor:
     """q: [N, Lq, hd]; k, v: [N, S, hd] (heads folded into N) ->
     [N, Lq, hd] in q's dtype.
 
     `seq_len` is the true sequence length when the row axis folds
-    several query heads (row r sits at position r % seq_len, and Lq must
-    be a multiple of it); 0 means rows == positions.  `window`: a
-    sliding window of that many keys, None for none.  The kernel `route`
-    picks for CUDA tensors, the plain version for CPU tensors."""
+    several query heads (row r sits at position q_offset + r % seq_len,
+    and Lq must be a multiple of it); 0 means rows == positions.
+    `window`: a sliding window of that many keys, None for none.
+    `q_offset`: the first row's position (0 unless the rows are a block
+    of a longer sequence).  The kernel `route` picks for CUDA tensors,
+    the plain version for CPU tensors."""
     _check(q, k, v, "folded")
     N, Lq, hd = q.shape
     S = k.shape[1]
     L = seq_len or Lq
     if Lq % L:
         raise ValueError(f"Lq={Lq} is not a multiple of seq_len={L}")
-    code = _check_window(window, L, S)
+    code = _check_window(window, L, S, q_offset)
     if route(q) == "plain":
         return flash_mha_plain(q, k, v, causal=causal, q_block=q_block,
                                kv_block=kv_block, seq_len=seq_len,
-                               window=window)
+                               window=window, q_offset=q_offset)
     o = torch.empty_like(q)
     # folded row r = g * L + l of pair n lies at n*Lq*hd + g*L*hd + l*hd
     rows = (Lq * hd, hd, L * hd)
     keys = (S * hd, hd, 0)
-    _launch(q, k, v, o, causal=causal, window=code, NB=N, KV=1, G=Lq // L,
-            L=L, S=S, strides=rows + keys + keys + rows)
+    _launch(q, k, v, o, causal=causal, window=code, q_offset=q_offset, NB=N,
+            KV=1, G=Lq // L, L=L, S=S, strides=rows + keys + keys + rows)
     return o
 
 
 flash_mha.wgmma_launches = 0    # csrc/flash_attn_wgmma.cu (tensor cores)
 flash_mha.tf32_launches = 0     # csrc/flash_attn_tf32.cu (tensor cores)
 flash_mha.window_launches = 0   # either kernel's launches with a window
+flash_mha.offset_launches = 0   # either kernel's launches with q_offset > 0
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -342,7 +359,8 @@ def tf32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> tuple:
 def _tile_skipped(k0: int, k1: int, min_pos: int, max_pos: int,
                   causal: bool, window: int | None) -> bool:
     """Whether the key tile [k0, k1) is masked for every position
-    min_pos .. max_pos of a q tile: the kernels' `key_tiles` test."""
+    min_pos .. max_pos of a q tile (q_offset included): the kernels'
+    `key_tiles` test."""
     if causal and k0 > max_pos:
         return True
     if window is None:
@@ -354,17 +372,19 @@ def _tile_skipped(k0: int, k1: int, min_pos: int, max_pos: int,
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 256,
                     kv_block: int = 256, seq_len: int = 0,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """The kernel's function in torch ops on any device: the Pallas
     kernel's loop nest (q tiles of ``q_block`` rows, key tiles of
     ``kv_block`` keys in ascending order, the online-softmax recurrence
     in float32), vectorized over N, skipping the key tiles that are
     masked for every row of a q tile at both ends (`_tile_skipped`).
-    Ragged Lq and S end in short tiles."""
+    Ragged Lq and S end in short tiles.  Row r sits at position
+    q_offset + r % seq_len."""
     N, Lq, hd = q.shape
     S = k.shape[1]
     L = seq_len or Lq
-    _check_window(window, L, S)
+    _check_window(window, L, S, q_offset)
     QB, KB = min(q_block, Lq), min(kv_block, S)
     scale = _scale(hd)
     dev = q.device
@@ -373,10 +393,10 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for q0 in range(0, Lq, QB):
         q1 = min(q0 + QB, Lq)
         qt = qf[:, q0:q1]
-        q_pos = torch.arange(q0, q1, device=dev) % L
+        q_pos = q_offset + torch.arange(q0, q1, device=dev) % L
         one_group = q0 // L == (q1 - 1) // L
-        min_pos = q0 % L if one_group else 0
-        max_pos = (q1 - 1) % L if one_group else L - 1
+        min_pos = q_offset + (q0 % L if one_group else 0)
+        max_pos = q_offset + ((q1 - 1) % L if one_group else L - 1)
         acc = torch.zeros((N, q1 - q0, hd), dtype=torch.float32, device=dev)
         m = torch.full((N, q1 - q0, 1), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -432,31 +452,34 @@ def _check_gqa(q, k) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 256,
-                    kv_block: int = 256,
-                    window: int | None = None) -> torch.Tensor:
+                    kv_block: int = 256, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """GQA wrapper. q: [B, L, H, hd]; k, v: [B, S, KV, hd] ->
     [B, L, H*hd] in q's dtype.  Query head h = kv * G + g attends to KV
     head kv, G = H / KV; `window` a sliding window of that many keys
-    (None: none).  The kernel `route` picks (reading this layout in
-    place) for CUDA tensors, the plain version for CPU tensors."""
+    (None: none); query row l sits at position q_offset + l.  The kernel
+    `route` picks (reading this layout in place) for CUDA tensors, the
+    plain version for CPU tensors."""
     _check(q, k, v, "model")
     _check_gqa(q, k)
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    code = _check_window(window, L, S)
+    code = _check_window(window, L, S, q_offset)
     if route(q) == "plain":
         return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
-                                     kv_block=kv_block, window=window)
+                                     kv_block=kv_block, window=window,
+                                     q_offset=q_offset)
     o = torch.empty_like(q)
-    _launch(q, k, v, o, causal=causal, window=code, NB=B * KV, KV=KV,
-            G=H // KV, L=L, S=S, strides=model_strides(q, k))
+    _launch(q, k, v, o, causal=causal, window=code, q_offset=q_offset,
+            NB=B * KV, KV=KV, G=H // KV, L=L, S=S,
+            strides=model_strides(q, k))
     return o.reshape(B, L, H * hd)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_block: int = 256,
-                          kv_block: int = 256,
-                          window: int | None = None) -> torch.Tensor:
+                          kv_block: int = 256, window: int | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
     """`flash_attention` through the fold, `flash_mha_plain` and the
     unfold, as the JAX wrapper composes them."""
     _check_gqa(q, k)
@@ -464,17 +487,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     G = H // KV
     of = flash_mha_plain(*_fold(q, k, v), causal=causal, q_block=q_block,
-                         kv_block=kv_block, seq_len=L, window=window)
+                         kv_block=kv_block, seq_len=L, window=window,
+                         q_offset=q_offset)
     return (of.reshape(B, KV, G, L, hd).permute(0, 3, 1, 2, 4)
             .reshape(B, L, H * hd))
 
 
 def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, *, causal: bool = True,
-                  q_block: int = 512, window: int | None = None) -> tuple:
+                  q_block: int = 512, window: int | None = None,
+                  q_offset: int = 0) -> tuple:
     """(dq, dk, dv) of `flash_attention`'s output at q [B, L, H, hd], k,
-    v [B, S, KV, hd] against the output's cotangent do [B, L, H*hd], each
-    in its input's dtype.
+    v [B, S, KV, hd] (query row l at position q_offset + l) against the
+    output's cotangent do [B, L, H*hd], each in its input's dtype.
 
     The attention is recomputed in float32, ``q_block`` queries at a
     time (their G = H / KV heads of each KV head together): scores
@@ -482,12 +507,12 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query's position (causal) or |q - k| >= window (a sliding window),
     softmax p, and then the softmax attention's gradient, dv += p^T do,
     ds = p * (do v^T - rowsum(do v^T * p)), dq = ds k / sqrt(hd), dk +=
-    ds^T q / sqrt(hd).  A block of queries [q0, q1) reads only the keys
-    that some of its rows keep: up to its last position when causal, and
-    with a window from q0 - window + 1 and, bidirectional, up to q1 +
-    window - 2 (the others are masked for all its rows, p exactly 0
-    there), so a windowed backward's work scales with the window, not
-    with L."""
+    ds^T q / sqrt(hd).  A block of queries at positions [p0, p1) reads
+    only the keys that some of its rows keep: up to its last position
+    when causal, and with a window from p0 - window + 1 and,
+    bidirectional, up to p1 + window - 2 (the others are masked for all
+    its rows, p exactly 0 there), so a windowed backward's work scales
+    with the window, not with L."""
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -504,18 +529,19 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def rows(x, n):       # [B, n, KV, G, hd] -> [B, KV, G * n, hd]
         return x.float().permute(0, 2, 3, 1, 4).reshape(B, KV, G * n, hd)
 
-    _check_window(window, L, S)
+    _check_window(window, L, S, q_offset)
     for q0 in range(0, L, q_block):
         q1 = min(q0 + q_block, L)
         n = q1 - q0
-        start = 0 if window is None else max(0, q0 - window + 1)
-        end = (min(q1, S) if causal else S if window is None
-               else min(S, q1 + window - 1))
+        p0, p1 = q_offset + q0, q_offset + q1
+        start = 0 if window is None else max(0, p0 - window + 1)
+        end = (min(p1, S) if causal else S if window is None
+               else min(S, p1 + window - 1))
         qb, dob = rows(q5[:, q0:q1], n), rows(do5[:, q0:q1], n)
         kt, vt = kf[:, :, start:end], vf[:, :, start:end]
         s = (qb @ kt.transpose(-1, -2)) * scale    # [B, KV, G*n, end-start]
         if causal or window is not None:
-            q_pos = torch.arange(q0, q1, device=dev).repeat(G)
+            q_pos = torch.arange(p0, p1, device=dev).repeat(G)
             k_pos = torch.arange(start, end, device=dev)
             s = s.masked_fill(_masked(q_pos, k_pos, causal, window),
                               NEG_INF)
@@ -535,25 +561,30 @@ class _FlashAttention(torch.autograd.Function):
     `attention_vjp` as its backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_block, kv_block, window):
+    def forward(ctx, q, k, v, causal, q_block, kv_block, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.q_block, ctx.window = causal, q_block, window
+        ctx.q_offset = q_offset
         return flash_attention(q, k, v, causal=causal, q_block=q_block,
-                               kv_block=kv_block, window=window)
+                               kv_block=kv_block, window=window,
+                               q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = attention_vjp(q, k, v, do, causal=ctx.causal,
-                                   q_block=ctx.q_block, window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+                                   q_block=ctx.q_block, window=ctx.window,
+                                   q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              q_block: int = 256, kv_block: int = 256,
-                             window: int | None = None) -> torch.Tensor:
+                             window: int | None = None,
+                             q_offset: int = 0) -> torch.Tensor:
     """`flash_attention` (same arguments, same launches, same output
     bits) that autograd differentiates through `attention_vjp`, its
     float32 recompute one ``q_block`` of queries at a time."""
-    return _FlashAttention.apply(q, k, v, causal, q_block, kv_block, window)
+    return _FlashAttention.apply(q, k, v, causal, q_block, kv_block, window,
+                                 q_offset)

@@ -20,7 +20,8 @@ tests): it builds the mesh (pod, data, model) on the world, refines it
 cuts its own user's rows from each global batch and runs the steps.
 It reports its metrics, seconds a step, seconds inside collectives
 (`sharding.record_collectives`), the collectives' groups, the flash
-kernels' launches and its peak device memory; with a `reference`
+kernels' launches (and those with a query offset, "q_seq"'s rows past
+the first block) and its peak device memory; with a `reference`
 (in memory, or a `save_reference` file), whether its final state and
 metrics equal it bit for bit.
 
@@ -188,7 +189,7 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
     if isinstance(spec, list):
         return [train_worker(rank, world, s) for s in spec]
     from repro_torch import prng
-    from repro_torch.kernels import LAUNCH_COUNTERS
+    from repro_torch.kernels import LAUNCH_COUNTERS, flash_mha
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding import (axes_bound, gather_tree,
@@ -227,6 +228,7 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
         else (lambda: None)
     for fn, attr in LAUNCH_COUNTERS.values():
         setattr(fn, attr, 0)
+    flash_mha.offset_launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     metrics, step_s, coll_s, groups = [], [], [], Counter()
@@ -268,6 +270,7 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
                            for (op, axes, n), c in sorted(groups.items())],
            "launches": {name: getattr(fn, attr) for name, (fn, attr)
                         in LAUNCH_COUNTERS.items()},
+           "offset_launches": flash_mha.offset_launches,
            "peak_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
                                     if dev.type == "cuda" else None)}
     if spec.get("reference"):

@@ -35,8 +35,12 @@ meshes:
   places it (`state_specs`; `init_fn` draws only them): with ``fsdp``
   the weights' "p_embed" dims split over the data axes, with ``zero1``
   (AdamW, the structural step) the moments' too, and under a "model"
-  axis past 1 the heads, FFN and vocabulary over "model" (tensor
-  parallelism, the dense family: `nn`, `models.lm`).  The structural
+  axis past 1 the heads, FFN and vocabulary over "model" where they
+  divide (tensor parallelism, the dense family at any width: `nn`,
+  `models.lm`; the attention by the heads' placement, `nn.attention`:
+  split heads, their KV heads taken from the replicated ones, the
+  "q_seq" rows with ``seq_shard_attn``, or the whole attention
+  replicated).  The structural
   step gathers FSDP's shards at entry, as the reference's `shard_map`
   with ``in_specs=P()``, and runs the outer update on each leaf's
   moments' slice, then gathers the new parameters back over the data
@@ -44,12 +48,11 @@ meshes:
   shards inside its body and takes their gradient from the gather's
   backward (`sharding.psum_scatter`).  Every update is elementwise, so
   a split update equals the replicated one bit for bit; the hops draw
-  and reduce over the shards (`core.dist`).  Still refused under a
-  "model" axis past 1, with `NotImplementedError` naming ROADMAP queue
-  A item 11: heads that do not divide (the sequence-parallel "q_seq"
-  route), KV heads that do not divide while the heads do, and every
-  family but the dense one (the MoE's experts, SSM heads, the hybrid,
-  encdec and vlm stacks).  A rank's device is ``cuda:{rank %
+  and reduce over the shards (`core.dist`; a replicated leaf's draws
+  are the same on every "model" rank).  Still refused under a "model"
+  axis past 1, with `NotImplementedError` naming ROADMAP queue A item
+  11: every family but the dense one (the MoE's experts, SSM heads,
+  the hybrid, encdec and vlm stacks).  A rank's device is ``cuda:{rank %
   device_count}`` unless ``device="cpu"``.  The backend (``"nccl"``
   across cards, ``"gloo"`` for CPU ranks or ranks sharing one card) is
   the caller's (`launch.ranks`).
@@ -320,23 +323,13 @@ _FAMILY_TODO = {"moe": "the MoE's experts and tokens over 'model'",
 
 def _not_executed(cfg: ArchConfig, mesh) -> Optional[str]:
     """Why the port cannot run this configuration on ranks yet, or None:
-    under a "model" axis past 1, every family but the dense one, heads
-    that do not divide over it (the sequence-parallel "q_seq" route),
-    and KV heads that do not while the heads do."""
+    under a "model" axis past 1, every family but the dense one (which
+    runs at any width: `nn.attention` by how the heads divide)."""
     n = sh.mesh_axes(mesh).get("model", 1)
-    if not sh.is_device_mesh(mesh) or n == 1:
+    if not sh.is_device_mesh(mesh) or n == 1 or cfg.family not in (
+            _FAMILY_TODO):
         return None
-    if cfg.family in _FAMILY_TODO:
-        what = _FAMILY_TODO[cfg.family]
-    elif cfg.n_heads % n:
-        what = (f"sequence-parallel attention ('q_seq': {cfg.n_heads} "
-                f"heads over 'model' {n})")
-    elif cfg.n_kv_heads % n:
-        what = (f"{cfg.n_kv_heads} KV heads replicated beside {cfg.n_heads} "
-                f"heads split over 'model' {n}")
-    else:
-        return None
-    return f"{what} is {ITEM_11}"
+    return f"{_FAMILY_TODO[cfg.family]} is {ITEM_11}"
 
 
 @dataclass(frozen=True)

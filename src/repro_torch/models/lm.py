@@ -122,7 +122,7 @@ def _attn_cfg(cfg: ArchConfig,
         rope_style=cfg.rope_style, rope_theta=cfg.rope_theta,
         window=window if window is not None else cfg.sliding_window,
         q_block=cfg.q_block, scores_f32=cfg.scores_f32,
-        kv_block=cfg.kv_block)
+        kv_block=cfg.kv_block, seq_shard=cfg.seq_shard_attn)
 
 
 def _moe_cfg(cfg: ArchConfig) -> mlp.MoEConfig:

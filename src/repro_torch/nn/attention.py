@@ -8,8 +8,10 @@ Prefill computes the attention with
 `repro_torch.kernels.flash_attention` (the hand-written CUDA kernel on
 the card, its plain version on the CPU), for the JAX package's
 ``attn_impl`` "blocked" and "online" alike: both compute the same
-softmax attention there, so the port's `AttnConfig` has no ``impl``
-(nor the sharding knob ``seq_shard``).  A sliding window
+softmax attention there, so the port's `AttnConfig` has no ``impl``.
+It has the sharding knob ``seq_shard`` (the architecture's
+``seq_shard_attn``), which changes nothing on one device.  A sliding
+window
 (``cfg.window``: key j kept for position l when |l - j| < window, in a
 causal and a bidirectional prefill alike) goes into the kernels, which
 skip the key tiles outside it.
@@ -32,13 +34,36 @@ counterpart of the JAX package's gradient through its
 `jax.checkpoint`ed, window-masked `_sdpa` per query block; causal and
 bidirectional, with a window or without.
 
-Tensor parallelism over "model" (the rules' heads and kv_heads on it,
-inside the per-rank runner): q, k, v and the qkv bias are split by
-heads (column-parallel), so each rank attends over its own heads
-(`_qkv` reads the local counts) and the flash kernel runs on them;
-`wo` is split by its input rows (row-parallel), its partial products
-summed over the group.  `prefill` checks the placements with
-`sharding.logical` at the JAX package's sites.
+Tensor parallelism over "model" (inside the per-rank runner), by how
+the rules place the heads, at any "model" width:
+
+- the heads and the KV heads split: q, k, v and the qkv bias are split
+  by heads (column-parallel), so each rank attends over its own heads
+  (`_qkv` reads the local counts) and the flash kernel runs on them;
+  `wo` is split by its input rows (row-parallel), its partial products
+  summed over the group;
+- the heads split and the KV heads replicated (they do not divide):
+  each rank takes the KV heads of its own q heads (h // G) from the
+  replicated `wk`, `wv` and their bias, with G / rank q heads on each
+  (K and V expanded to one per q head where a rank's heads spread
+  unevenly over them: the same function through the same kernel);
+- the heads replicated (they do not divide) with ``seq_shard``: the
+  "q_seq" route, sequence-parallel.  Each rank computes q for its block
+  of L / model rows (`sharding.seq_block`; RoPE at their positions), k
+  and v for all L keys, the flash kernel with ``q_offset`` at the
+  block's first position, and `wo` on its rows; `sharding.gather_from`
+  puts the rows back together, its backward keeping the rank's rows of
+  the (replicated) gradient;
+- the heads replicated without ``seq_shard``: every rank computes the
+  whole attention on the replicated weights, no collective.
+
+Where a rank computes a share of a function of replicated weights (q
+and k norms under split heads; `wk`, `wv` and their bias beside split
+heads; every weight under "q_seq"), the weights enter through
+`sharding.copy_to`, so their gradient is the sum of the shares over
+"model"; x enters through it wherever the rank's share of its gradient
+is partial.  `prefill` checks the placements with `sharding.logical` at
+the JAX package's sites.
 """
 from __future__ import annotations
 
@@ -72,6 +97,7 @@ class AttnConfig:
     q_block: int = 512  # the plain flash version's query tile
     scores_f32: bool = True
     kv_block: int = 1024  # the plain flash version's key tile
+    seq_shard: bool = False  # the q rows over 'model' where heads cannot
 
 
 def init(key: torch.Tensor, cfg: AttnConfig, dtype=torch.float32):
@@ -95,22 +121,64 @@ def init(key: torch.Tensor, cfg: AttnConfig, dtype=torch.float32):
     return p
 
 
-def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
-    """q [B, L, H, hd], k and v [B, L, KV, hd], H and KV this rank's
-    heads (all of them unless the rules split them over "model")."""
-    B, L, _ = x.shape
-    H = cfg.n_heads // sh.model_shards("heads")
-    KV = cfg.n_kv_heads // sh.model_shards("kv_heads")
+def _shared(tree):
+    """A replicated parameter (a dict of tensors) of which this rank
+    computes a share: each leaf through `sharding.copy_to` over "model",
+    so that its gradient is the group's sum."""
+    return {name: sh.copy_to(t, "model") for name, t in tree.items()}
+
+
+def _kv_columns(p, h0: int, H: int, cfg: AttnConfig):
+    """(the columns of replicated `wk` and `wv` (and their bias) that
+    hold the KV heads of q heads h0 .. h0 + H - 1, the index of each q
+    head's KV head among them, or None where every one of those KV
+    heads serves the same number of them: GQA's own grouping)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    kv0, kv1 = h0 // G, (h0 + H - 1) // G + 1
     hd = cfg.head_dim
-    q = core.dense(p["wq"], x).reshape(B, L, H, hd)
-    k = core.dense(p["wk"], x).reshape(B, L, KV, hd)
-    v = core.dense(p["wv"], x).reshape(B, L, KV, hd)
+    cut = lambda w: {name: (t[..., kv0 * hd:kv1 * hd])
+                     for name, t in _shared(w).items()}
+    which = [(h0 + j) // G - kv0 for j in range(H)]
+    even = all(which.count(i) == H // (kv1 - kv0) for i in range(kv1 - kv0))
+    return cut(p["wk"]), cut(p["wv"]), None if even else which
+
+
+def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig,
+         rows: Optional[tuple] = None):
+    """q [B, Lq, H, hd], k and v [B, L, KV, hd], H and KV this rank's
+    heads (all of them unless the rules split them over "model"; the KV
+    heads of its q heads where those split and the KV heads do not, one
+    per q head where they spread unevenly).  `rows` (first, count): the
+    block of query rows q covers (all L by default), RoPE at their
+    positions."""
+    B, L, _ = x.shape
+    r0, Lq = rows or (0, L)
+    n = sh.model_shards("heads")
+    H = cfg.n_heads // n
+    hd = cfg.head_dim
+    wq, wk, wv, expand = p["wq"], p["wk"], p["wv"], None
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if n > 1 and sh.model_shards("kv_heads") == 1:
+        wk, wv, expand = _kv_columns(p, sh.axis_index("model") * H, H, cfg)
+    if n > 1 or Lq < L:
+        # this rank's heads, or its rows: a share of the norms' gradient
+        q_norm, k_norm = (None if t is None else _shared(t)
+                          for t in (q_norm, k_norm))
+    if Lq < L:
+        wq, wk, wv = _shared(wq), _shared(wk), _shared(wv)
+    q = core.dense(wq, x[:, r0:r0 + Lq]).reshape(B, Lq, H, hd)
+    k = core.dense(wk, x).reshape(B, L, -1, hd)
+    v = core.dense(wv, x).reshape(B, L, -1, hd)
     if cfg.qk_norm:
-        q = core.rmsnorm(p["q_norm"], q)
-        k = core.rmsnorm(p["k_norm"], k)
+        q = core.rmsnorm(q_norm, q)
+        k = core.rmsnorm(k_norm, k)
     if cfg.rope_style != "none":
-        q = apply_rope(q, positions, theta=cfg.rope_theta, style=cfg.rope_style)
+        q = apply_rope(q, positions[:, r0:r0 + Lq], theta=cfg.rope_theta,
+                       style=cfg.rope_style)
         k = apply_rope(k, positions, theta=cfg.rope_theta, style=cfg.rope_style)
+    if expand is not None:
+        idx = torch.tensor(expand, device=k.device)
+        k, v = k[:, :, idx], v[:, :, idx]
     return q, k, v
 
 
@@ -149,18 +217,28 @@ def prefill(p, x: torch.Tensor, positions: torch.Tensor,
     x: [B, L, D]; positions: [B, L], which must be arange(L) in every
     row, as the model's prefill gives them: RoPE reads `positions`, and
     the kernel masks by row index (key j kept for query i when j <= i
-    if causal, and |i - j| < cfg.window with a window).  The attention
-    goes through `flash_attention_autograd` (the kernel's launch, and a
-    gradient where autograd records), whatever ``cfg.scores_f32`` says.
-    Returns [B, L, D]."""
-    q, k, v = _qkv(p, core.column_input(x, "heads"), positions, cfg)
-    q = sh.logical(q, "batch", "seq", "heads", "head_dim")
+    if causal, and |i - j| < cfg.window with a window; under "q_seq"
+    the rank's rows from its first position on, ``q_offset``).  The
+    attention goes through `flash_attention_autograd` (the kernel's
+    launch, and a gradient where autograd records), whatever
+    ``cfg.scores_f32`` says.  Returns [B, L, D]."""
+    L = x.shape[1]
+    q_seq = "q_seq" if cfg.seq_shard else "seq"
+    r0, Lq = sh.seq_block(L) if cfg.seq_shard else (0, L)
+    split = Lq < L or sh.model_shards("heads") > 1
+    q, k, v = _qkv(p, sh.copy_to(x, "model") if split else x, positions,
+                   cfg, (r0, Lq))
+    q = sh.logical(q, "batch", q_seq, "heads", "head_dim",
+                   sizes={"q_seq": L})
     k = sh.logical(k, "batch", "seq", "kv_heads", "head_dim")
     v = sh.logical(v, "batch", "seq", "kv_heads", "head_dim")
     out = flash_attention_autograd(q, k, v, causal=cfg.causal,
                                    q_block=cfg.q_block,
-                                   kv_block=cfg.kv_block, window=cfg.window)
-    out = sh.logical(out, "batch", "seq", None)
+                                   kv_block=cfg.kv_block, window=cfg.window,
+                                   q_offset=r0)
+    out = sh.logical(out, "batch", q_seq, None, sizes={"q_seq": L})
+    if Lq < L:
+        return sh.gather_from(core.dense(_shared(p["wo"]), out), "model", 1)
     return core.row_output(core.dense(p["wo"], out), "heads")
 
 

@@ -41,15 +41,17 @@ a "model" axis past 1 the models run tensor-parallel (`model_shards`
 says how many ways the active rules split a logical axis), and the
 collectives that autograd passes through are functions of their own:
 `copy_to` (the identity; its backward sums over the group), `reduce_from`
-(a sum; its backward the identity) and `gather_shards` (an all-gather;
-its backward `psum_scatter`).  Each keeps the axis context, the rules
-and the collective log it ran under for its backward, which autograd
-may run on a thread of its own (`carry_context` does the same for a
-function that `torch.utils.checkpoint` runs again there).  `logical`
-checks a tensor's placement: its rank, and the local size of every
-dimension the rules put on "model"; the sequence-parallel route
-("q_seq", the heads not dividing) raises `NotImplementedError` (ROADMAP
-queue A item 11).
+(a sum; its backward the identity), `gather_shards` (an all-gather;
+its backward `psum_scatter`) and `gather_from` (an all-gather of the
+blocks of a replicated activation; its backward keeps the rank's own
+block).  Each keeps the axis context, the rules and the collective log
+it ran under for its backward, which autograd may run on a thread of
+its own (`carry_context` does the same for a function that
+`torch.utils.checkpoint` runs again there).  `logical` checks a
+tensor's placement: its rank, and the local size of every dimension the
+rules put on "model", the sequence-parallel attention's query rows
+("q_seq", where the heads do not divide; `seq_block` gives a rank's
+rows) among them.
 """
 from __future__ import annotations
 
@@ -61,10 +63,6 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
-
-Q_SEQ_TODO = ("sequence-parallel attention ('q_seq': the heads do not divide "
-              "over 'model') is ROADMAP queue A item 11")
-
 
 class PartitionSpec(tuple):
     """A spec: one entry per tensor dimension.  A tuple (it equals the
@@ -144,14 +142,16 @@ def spec_for(logical_axes: Sequence[Optional[str]],
     return P(*[rules.physical(a) for a in logical_axes])
 
 
-def logical(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+def logical(x: torch.Tensor, *logical_axes: Optional[str],
+            sizes: Optional[Mapping[str, int]] = None) -> torch.Tensor:
     """Check `x`'s placement against its logical axes and return it: a
     no-op when no rules are active; its rank must match; under a
     "model" axis past 1, every dimension the rules put on "model" must
     hold its shard, global size / model (`ValueError` naming the
-    logical axis otherwise), and "q_seq" on "model" (sequence-parallel
-    attention) raises `NotImplementedError` (ROADMAP queue A item
-    11)."""
+    logical axis otherwise).  The global sizes are the architecture's
+    (`Rules.dims`) and `sizes`' for the axes it does not fix: "q_seq"
+    (sequence-parallel attention's query rows) takes its length there,
+    which must divide by "model"."""
     rules = current_rules()
     if rules is None:
         return x
@@ -165,15 +165,36 @@ def logical(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     for d, name in enumerate(logical_axes):
         if "model" not in _names(rules.physical(name)):
             continue
-        if name == "q_seq":
-            raise NotImplementedError(Q_SEQ_TODO)
-        want = rules.dims.get(name)
+        want = (sizes or {}).get(name, rules.dims.get(name))
+        if name == "q_seq" and want is None:
+            raise ValueError("logical(): 'q_seq' on 'model' needs the "
+                             "sequence's length (sizes={'q_seq': L})")
+        if want is not None and want % n:
+            raise ValueError(
+                f"logical(): axis {name!r} of {want} does not divide over "
+                f"'model' ({n})")
         if want is not None and x.shape[d] * n != want:
             raise ValueError(
                 f"logical(): axis {name!r} (dimension {d}) holds "
                 f"{x.shape[d]}; its shard over 'model' ({n}) is "
                 f"{want // n} of {want}")
     return x
+
+
+def seq_block(L: int) -> Tuple[int, int]:
+    """(first row, rows) of this rank's block of L query rows under
+    sequence-parallel attention ("q_seq" on "model"): the contiguous
+    L / model rows at its "model" coordinate, as the reference's
+    sharding of the row axis cuts them; (0, L) where the rules do not
+    put "q_seq" on "model".  `ValueError` where L does not divide."""
+    n = model_shards("q_seq")
+    if n == 1:
+        return 0, L
+    if L % n:
+        raise ValueError(f"sequence-parallel attention: the sequence of {L} "
+                         f"positions does not divide over 'model' ({n})")
+    b = L // n
+    return axis_index("model") * b, b
 
 
 def model_shards(name: str) -> int:
@@ -608,6 +629,18 @@ class _GatherShards(torch.autograd.Function):
             return psum_scatter(g, ctx.names, ctx.axis), None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, names, axis):
+        ctx.axis, ctx.block = axis, x.shape[axis]
+        ctx.start = _coordinate(names)[0] * ctx.block
+        return all_gather(x, names, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.axis, ctx.start, ctx.block), None, None
+
+
 def copy_to(x: torch.Tensor, names) -> torch.Tensor:
     """A replicated input entering a split computation over `names` (a
     column-parallel product): the identity, whose backward sums the
@@ -632,6 +665,19 @@ def gather_shards(x: torch.Tensor, names, axis: int) -> torch.Tensor:
     if _group_size(names) == 1:
         return x
     return _GatherShards.apply(x, names, axis % x.ndim)
+
+
+def gather_from(x: torch.Tensor, names, axis: int) -> torch.Tensor:
+    """The blocks of an activation that a split computation over `names`
+    made along `axis` (sequence-parallel attention's rows) put together
+    into the replicated whole: `all_gather`, whose backward keeps this
+    rank's block of the gradient.  That gradient is the same on every
+    member (what follows runs replicated), so it is cut, not summed, as
+    `gather_shards`' `psum_scatter` would sum it n times."""
+    names = _as_names(names)
+    if _group_size(names) == 1:
+        return x
+    return _GatherFrom.apply(x, names, axis % x.ndim)
 
 
 # ---------------------------------------------------------------------------

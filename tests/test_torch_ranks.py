@@ -49,12 +49,15 @@ What is held, and to what:
   and the loss and edge power within rtol 1e-6 of the one-card step's
   (measured on the CPU: 2.7e-8 of max |theta|, 12 of the 15 leaves
   apart in their bits; the loss and edge power equal).
-- what stays refused on ranks: the sequence-parallel "q_seq" route
-  (qwen2-0.5b's 14 heads over a "model" axis of 4) and a MoE under a
-  "model" axis of 2 raise `NotImplementedError` naming ROADMAP queue A
-  item 11, while `shardings` returns their specs (``fsdp``, ``zero1``
-  and a dense model's "model" axis run: ``tests/test_torch_fsdp.py``,
-  ``tests/test_torch_tp.py``).
+- what runs and what stays refused on ranks: the sequence-parallel
+  "q_seq" route (qwen2-0.5b ``.reduced()`` with 6 heads and
+  ``seq_shard_attn`` over a "model" axis of 4) draws its state and
+  takes a step, finite (held to JAX and the one-card step by
+  ``tests/test_torch_qseq.py``), while a MoE under a "model" axis of 2
+  raises `NotImplementedError` naming ROADMAP queue A item 11; for both
+  `shardings` returns the specs (``fsdp``, ``zero1`` and a dense
+  model's "model" axis run: ``tests/test_torch_fsdp.py``,
+  ``tests/test_torch_tp.py``, ``tests/test_torch_qseq.py``).
 
 The 4 ranks' runs take ~40 s of wall time, side by side with the
 one-card runs and one JAX subprocess per reference run; the file ~75 s
@@ -302,32 +305,41 @@ def _hop_worker(rank, world, tree):
             return res
         out["hops"][name] = shard_map(f, rmesh, in_specs=(P(U), P()),
                                       out_specs=P())(tree, prng.PRNGKey(5))
-    # what stays refused: the "q_seq" route (qwen2-0.5b's 14 heads over
-    # a model axis of 4) on (1, 1, 2, 4), a MoE under a model axis of 2
-    # on (1, 2, 2, 2)
+    # what runs: the "q_seq" route (6 heads over a model axis of 4) on
+    # (1, 1, 2, 4), its init and a step on 4 rows a user; what stays
+    # refused: a MoE under a model axis of 2 on (1, 2, 2, 2)
     out["refusals"] = {}
+    g = torch.Generator().manual_seed(rank)
     for label, cfg, sizes in (
-            ("q_seq", get_config("qwen2-0.5b"), (1, 1, 2, 4)),
+            ("q_seq", _cfg().with_(n_heads=6, seq_shard_attn=True),
+             (1, 1, 2, 4)),
             ("moe", get_config("qwen3-moe-235b-a22b").reduced(),
              (1, 2, 2, 2))):
         mesh = make_mesh(sizes, device_type="cpu")
         step, init_fn, shardings, rmesh2 = train.build_train_step(
             cfg, SHAPES["b8"], mesh, train.TrainConfig(
                 users_per_cluster=2, outer="adamw"), device="cpu")
-        errors = []
+        rows = {k: torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")}
+        errors, metrics = [], None
         for call in (lambda: init_fn(prng.PRNGKey(0)),
-                     lambda: step({}, {}, prng.PRNGKey(0))):
+                     lambda: step(init_fn(prng.PRNGKey(0))[0], rows,
+                                  prng.PRNGKey(0))):
             try:
-                call()
+                res = call()
                 errors.append(None)
             except NotImplementedError as e:
                 errors.append(str(e))
+        if errors[-1] is None:
+            metrics = {k: float(v) for k, v in res[1].items()}
         from repro_torch.models import lm
-        specs = shardings(lm.param_axes(cfg))
-        out["refusals"][label] = (errors,
-                                  specs["state"]["params"]["lm_head"]["w"],
+        specs = shardings(lm.param_axes(cfg))["state"]["params"]
+        out["refusals"][label] = (errors, specs["lm_head"]["w"],
                                   dict(zip(rmesh2.mesh_dim_names,
-                                           rmesh2.shape)))
+                                           rmesh2.shape)),
+                                  specs["layers"]["attn"]["wq"]["w"],
+                                  metrics)
     return out
 
 
@@ -398,21 +410,24 @@ def test_ideal_aggregation_is_exact_mean(hops):
 
 def test_fsdp_and_tensor_parallelism_refuse(hops):
     """What tensor parallelism does not execute yet refuses, naming the
-    ROADMAP item (fsdp, zero1 and a dense model's "model" axis run:
-    tests/test_torch_fsdp.py, tests/test_torch_tp.py), while
-    `shardings` returns the specs in full."""
+    ROADMAP item: a MoE under "model" 2 (fsdp, zero1 and a dense model's
+    "model" axis at any width run: tests/test_torch_fsdp.py,
+    tests/test_torch_tp.py, tests/test_torch_qseq.py); the "q_seq"
+    route, refused before, draws its state and takes a finite step.
+    `shardings` returns the specs in full: under "q_seq" the attention
+    replicated, the vocabulary split."""
     _, res = hops
     for r in res:
-        for label, (errors, head_spec, rshape) in r["refusals"].items():
-            assert all(e is not None and "ROADMAP queue A item 11" in e
-                       for e in errors), (label, errors)
-        assert "q_seq" in r["refusals"]["q_seq"][0][0]
-        assert "MoE" in r["refusals"]["moe"][0][0]
-        assert r["refusals"]["q_seq"][1] == (None, "model")
-        assert r["refusals"]["q_seq"][2] == {"pod": 1, "cluster": 1,
-                                             "user": 2, "model": 4}
-        assert r["refusals"]["moe"][2] == {"pod": 1, "cluster": 2,
-                                           "user": 2, "model": 2}
+        q_errors, q_head, q_shape, q_wq, q_metrics = r["refusals"]["q_seq"]
+        assert q_errors == [None, None]
+        assert all(np.isfinite(v) for v in q_metrics.values()), q_metrics
+        assert q_head == (None, "model") and q_wq == (None, None, None)
+        assert q_shape == {"pod": 1, "cluster": 1, "user": 2, "model": 4}
+        m_errors, _, m_shape, _, _ = r["refusals"]["moe"]
+        assert all(e is not None and "ROADMAP queue A item 11" in e
+                   for e in m_errors), m_errors
+        assert "MoE" in m_errors[0]
+        assert m_shape == {"pod": 1, "cluster": 2, "user": 2, "model": 2}
 
 
 @pytest.mark.parametrize("tag", ["struct_equivalent", "struct_ideal",

@@ -325,8 +325,9 @@ def test_refine_mesh_shapes_and_counts_match_reference():
 def test_logical_checks_rank_and_refuses_tensor_parallelism():
     """`logical` checks ranks; under a "model" axis past 1, the local
     size of every dimension the rules put on "model" (a `ValueError`
-    naming the logical axis), and the sequence-parallel route ("q_seq",
-    where the heads do not divide) still refuses."""
+    naming the logical axis), the sequence-parallel route's rows
+    ("q_seq", where the heads do not divide) among them: L / model of
+    the length `sizes` gives, which must divide."""
     from repro_torch.configs import get_config
 
     x = torch.zeros(2, 3)
@@ -348,10 +349,16 @@ def test_logical_checks_rank_and_refuses_tensor_parallelism():
         h = torch.zeros(1, 4, cfg.d_ff // 2)
         assert logical(h, "batch", "seq", "ffn") is h
     with set_rules(make_rules({"data": 2, "model": 4}, cfg=cfg)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 11"):
-            logical(torch.zeros(1, 4, 14, 64), "batch", "q_seq", "heads",
-                    "head_dim")
+        q = torch.zeros(1, 4, 14, 64)
+        axes = ("batch", "q_seq", "heads", "head_dim")
+        assert logical(q, *axes, sizes={"q_seq": 16}) is q
+        with pytest.raises(ValueError, match="'q_seq'"):
+            logical(q, *axes, sizes={"q_seq": 32})
+        with pytest.raises(ValueError, match="does not divide"):
+            logical(q, *axes, sizes={"q_seq": 18})
+        with pytest.raises(ValueError, match="sequence's length"):
+            logical(q, *axes)
+        assert logical(q, "batch", "seq", "heads", "head_dim") is q
 
 
 def test_split_params_and_placements():
